@@ -1,0 +1,102 @@
+"""The port's CUDA kernels against their plain versions on the card, at
+ragged shapes the main path does not give them (partial tiles, K not a
+multiple of the k-tile, T up to 77, one-token sequences).
+
+Marked ``cuda``: each test skips without a GPU. On the card:
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
+"""
+
+import math
+
+import numpy as np
+import pytest
+import torch
+
+from tvc_torch.core.kernels import (
+    attention_layer_reference,
+    consistency_scores_reference,
+    fused_attention_layer,
+    fused_consistency_scores,
+    fused_mlp_layer,
+    mlp_layer_reference,
+)
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda", 0)
+
+
+def _layer(rng, B, T, W, Wh, dev):
+    t = lambda a, dt: torch.as_tensor(np.asarray(a, np.float32)).to(dev, dt).contiguous()
+    bf, f32 = torch.bfloat16, torch.float32
+    return dict(
+        x=t(rng.standard_normal((B, T, W)), bf),
+        ln=(t(1 + 0.1 * rng.standard_normal(W), f32), t(0.1 * rng.standard_normal(W), f32)),
+        attn=(t(rng.standard_normal((W, 3 * W)) / math.sqrt(W), bf), t(0.02 * rng.standard_normal(3 * W), f32),
+              t(rng.standard_normal((W, W)) / math.sqrt(W), bf), t(0.02 * rng.standard_normal(W), f32)),
+        mlp=(t(rng.standard_normal((W, Wh)) / math.sqrt(W), bf), t(0.02 * rng.standard_normal(Wh), f32),
+             t(rng.standard_normal((Wh, W)) / math.sqrt(Wh), bf), t(0.02 * rng.standard_normal(W), f32)),
+    )
+
+
+def _scaled_err(got, want):
+    """|kernel - plain| / max(1, |plain|): one bf16 ulp is 2^-7 of |y|."""
+    d = (got.float() - want.float()).abs() / want.float().abs().clamp(min=1.0)
+    return float(d.max())
+
+
+@pytest.mark.parametrize("B,T,H,causal", [(3, 77, 2, True), (5, 50, 2, False), (7, 1, 2, True), (130, 3, 2, False)])
+def test_attention_layer_ragged(dev, B, T, H, causal):
+    p = _layer(np.random.default_rng(B * T), B, T, 64 * H, 4 * 64 * H, dev)
+    args = (p["x"], *p["ln"], *p["attn"])
+    before = fused_attention_layer.launches
+    got = fused_attention_layer(*args, heads=H, causal=causal)
+    want = attention_layer_reference(*args, heads=H, causal=causal)
+    torch.cuda.synchronize()
+    assert fused_attention_layer.launches == before + 1
+    assert _scaled_err(got, want) <= 3e-2
+
+
+@pytest.mark.parametrize("B,T,W,Wh", [(3, 7, 64, 200), (130, 1, 72, 136), (2, 77, 128, 512)])
+def test_mlp_layer_ragged(dev, B, T, W, Wh):
+    p = _layer(np.random.default_rng(W + Wh), B, T, W, Wh, dev)
+    args = (p["x"], *p["ln"], *p["mlp"])
+    got = fused_mlp_layer(*args)
+    want = mlp_layer_reference(*args)
+    torch.cuda.synchronize()
+    assert _scaled_err(got, want) <= 3e-2
+
+
+@pytest.mark.parametrize("B,V,R,D", [(1, 1, 1, 4), (37, 6, 0, 516), (300, 2, 10, 512)])
+def test_consistency_ragged(dev, B, V, R, D):
+    rng = np.random.default_rng(D)
+    f = lambda *s: torch.as_tensor(rng.standard_normal(s).astype(np.float32), device=dev)
+    img, txt, var, refs = f(B, D), f(B, D), f(B, V, D), f(B, R, D)
+    vmask = torch.as_tensor(rng.random((B, V)) > 0.3, device=dev)
+    rmask = torch.as_tensor(rng.random((B, R)) > 0.3, device=dev)
+    got = fused_consistency_scores(img, txt, var, refs, vmask, rmask, (0.4, 0.4, 0.2), 0.3)
+    want = consistency_scores_reference(img, txt, var, refs, vmask, rmask, (0.4, 0.4, 0.2), 0.3)
+    torch.cuda.synchronize()
+    for k in ("orig_similarity", "variant_mean", "sd_score", "consistency_score"):
+        assert float((got[k] - want[k]).abs().max()) <= 1e-5, k
+    # random variants: sims near 0, so the std is well conditioned here
+    assert float((got["variant_std"] - want["variant_std"]).abs().max()) <= 1e-5
+
+
+def test_kernels_refuse_what_they_do_not_take(dev):
+    p = _layer(np.random.default_rng(0), 2, 4, 64, 256, dev)
+    with pytest.raises(ValueError):  # f32 activations
+        fused_attention_layer(p["x"].float(), *p["ln"], *p["attn"], heads=1)
+    with pytest.raises(ValueError):  # head width 32
+        fused_attention_layer(p["x"], *p["ln"], *p["attn"], heads=2)
+    with pytest.raises(ValueError):  # non-contiguous weight
+        fused_mlp_layer(p["x"], *p["ln"], p["mlp"][0].t().contiguous().t(), *p["mlp"][1:])
+    x = torch.zeros((2, 8), device=dev)
+    with pytest.raises(ValueError):  # bf16 embeddings
+        fused_consistency_scores(x.bfloat16(), x.bfloat16(), x[:, None].bfloat16(), x[:, None].bfloat16())

@@ -1,0 +1,28 @@
+"""Hand-written Hopper kernels of the port and their plain PyTorch versions.
+
+Each wrapper launches its CUDA kernel for CUDA tensors (or raises) and
+computes the plain version for CPU tensors; ``<wrapper>.launches`` counts
+the calls that launched the kernel.
+"""
+
+from tvc_torch.core.kernels.attention_layer_kernel import (
+    attention_layer_reference,
+    fused_attention_layer,
+    fused_mlp_layer,
+    mlp_layer_reference,
+)
+from tvc_torch.core.kernels.consistency_kernel import (
+    consistency_scores_reference,
+    fused_consistency_scores,
+)
+
+KERNELS = (fused_consistency_scores, fused_attention_layer, fused_mlp_layer)
+
+
+def reset_launch_counts() -> None:
+    for k in KERNELS:
+        k.launches = 0
+
+
+def launch_counts() -> dict:
+    return {k.__name__: k.launches for k in KERNELS}

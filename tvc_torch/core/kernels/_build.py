@@ -1,0 +1,122 @@
+"""Build and load the port's CUDA kernels (``tvc_torch/csrc/*.cu``).
+
+Each source compiles on its own with ``nvcc`` into a shared library with a
+plain C interface, loaded with ``ctypes`` (no PyTorch headers, so a build
+takes seconds). Libraries land in ``build/tvc_torch_kernels/`` at the repo
+root, named by the hash of their source: an edited source rebuilds, an
+unchanged one loads the library already there. ``build_all`` starts one
+``nvcc`` per source, all at once.
+
+Every C entry point launches on the stream it is given and returns
+``cudaGetLastError()``; :func:`check` raises on a non-zero code.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+from typing import Dict, List
+
+CSRC_DIR = Path(__file__).resolve().parents[2] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "tvc_torch_kernels"
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+]
+
+#: C entry points of each source: name -> ctypes argtypes
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+SIGNATURES: Dict[str, Dict[str, list]] = {
+    "consistency": {
+        # params, img, txt, var, vmask, ref, rmask, out, B, V, R, D, stream
+        "tvc_consistency_scores": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    },
+    "attention_layer": {
+        # a, ln_scale, ln_bias, w, bias, residual, out, M, N, K, eps,
+        # has_ln, epilogue, stream
+        "tvc_ln_gemm": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _P],
+        # qkv, out, seqs, T, W, heads, causal, stream
+        "tvc_head_attention": [_P, _P, _I, _I, _I, _I, _I, _P],
+    },
+}
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+_LOCK = threading.Lock()
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError(
+            "nvcc not found (PATH or /usr/local/cuda/bin): the tvc_torch "
+            "CUDA kernels build from source at first use"
+        )
+    return path
+
+
+def library_path(name: str) -> Path:
+    src = CSRC_DIR / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"{name}-{digest}.so"
+
+
+def _start_build(name: str):
+    """Start nvcc for ``name`` unless its library is current; returns
+    (process, temp path, final path) or None."""
+    out = library_path(name)
+    if out.exists():
+        return None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return proc, tmp, out
+
+
+def _finish_build(name: str, job) -> None:
+    proc, tmp, out = job
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {name}.cu (rc {proc.returncode}):\n{log}")
+    os.replace(tmp, out)  # atomic: a concurrent loader never sees a partial file
+
+
+def build_all(names: List[str] = None) -> float:
+    """Build every source (one nvcc each, all started together); returns
+    the wall seconds spent."""
+    names = list(SIGNATURES) if names is None else names
+    t0 = time.perf_counter()
+    with _LOCK:
+        jobs = {n: _start_build(n) for n in names}
+        for n, job in jobs.items():
+            if job is not None:
+                _finish_build(n, job)
+    return time.perf_counter() - t0
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+    lib = _LIBS.get(name)
+    if lib is not None:
+        return lib
+    build_all([name])
+    with _LOCK:
+        if name not in _LIBS:
+            lib = ctypes.CDLL(str(library_path(name)))
+            for fn, argtypes in SIGNATURES[name].items():
+                f = getattr(lib, fn)
+                f.argtypes = argtypes
+                f.restype = ctypes.c_int
+            _LIBS[name] = lib
+    return _LIBS[name]
+
+
+def check(code: int, what: str) -> None:
+    if code != 0:
+        raise RuntimeError(f"{what}: CUDA launch failed with cudaError {code}")

@@ -1,0 +1,418 @@
+"""Adversarial detector (port of ``tvc/detector.py``: the primary-stack
+``AdversarialDetector`` with its fused serving path, the staged path, the
+hub probe and two-sided calibration; the threshold managers).
+
+``detect_batch`` routes through one serving step (``make_serving_step``:
+encode + bank top-k + consistency kernel) whenever the inputs allow it;
+host stages remain only for tokenizing the variant texts.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
+
+import numpy as np
+import torch
+
+from tvc_torch._device import resolve_device
+from tvc_torch.core import consistency as C
+from tvc_torch.core.kernels.consistency_kernel import fused_consistency_scores
+from tvc_torch.models.clip import CLIPModel, preprocess_images
+
+
+@dataclasses.dataclass
+class DetectorConfig:
+    detection_threshold: float = C.DEFAULT_THRESHOLD
+    score_aggregation: str = "weighted_mean"  # mean | max | min | weighted_mean
+    weights: Tuple[float, float, float] = (0.4, 0.4, 0.2)  # tv, sd, consistency
+    num_text_variants: int = 5
+    num_reference_images: int = 3
+    #: bank indices retrieved in the fused step (>= num_reference_images);
+    #: None = num_reference_images
+    retrieval_top_k: Optional[int] = None
+    methods: Tuple[str, ...] = ("text_variants", "sd_reference", "consistency")
+    #: route detect_batch through the fused serving step when inputs allow
+    use_fused_step: bool = True
+    #: fixed text-sequence bucket for the fused step (rounded up to a
+    #: multiple of 8; None = per-batch adaptive). Overlong texts truncate
+    #: with EOT pinned in-window.
+    text_bucket: Optional[int] = None
+    #: two-sided detection: also flag abnormally HIGH consistency
+    two_sided: bool = False
+    lower_threshold: float = -1.0
+
+
+@dataclasses.dataclass
+class DetectionResult:
+    is_adversarial: np.ndarray  # [B] bool
+    aggregated_score: np.ndarray  # [B]
+    method_scores: Dict[str, np.ndarray]  # each [B]
+    details: Dict[str, Any] = dataclasses.field(default_factory=dict)
+
+
+class ThresholdManager:
+    """Fixed threshold with history."""
+
+    def __init__(self, threshold: float = 0.5):
+        self.threshold = threshold
+        self.history: List[float] = []
+
+    def get_threshold(self) -> float:
+        return self.threshold
+
+    def update(self, threshold: float) -> None:
+        self.history.append(self.threshold)
+        self.threshold = threshold
+
+
+class AdaptiveThresholdManager(ThresholdManager):
+    """EMA-adaptive threshold from recent clean-score statistics."""
+
+    def __init__(self, threshold: float = 0.5, momentum: float = 0.9, margin: float = 2.0):
+        super().__init__(threshold)
+        self.momentum = momentum
+        self.margin = margin
+        self._mean = None
+        self._var = None
+
+    def observe_clean_scores(self, scores: np.ndarray) -> None:
+        m, v = float(np.mean(scores)), float(np.var(scores))
+        if self._mean is None:
+            self._mean, self._var = m, v
+        else:
+            self._mean = self.momentum * self._mean + (1 - self.momentum) * m
+            self._var = self.momentum * self._var + (1 - self.momentum) * v
+        self.update(self._mean + self.margin * np.sqrt(max(self._var, 1e-12)))
+
+
+def _np(t) -> np.ndarray:
+    return t.detach().cpu().numpy() if torch.is_tensor(t) else np.asarray(t)
+
+
+class AdversarialDetector:
+    """Primary-stack detector (batched); runs on the card unless
+    ``device="cpu"`` (the model must be on the same device)."""
+
+    def __init__(
+        self,
+        model: CLIPModel,
+        config: Optional[DetectorConfig] = None,
+        text_augmenter=None,
+        reference_generator=None,
+        retriever=None,
+        device: Optional[Union[str, torch.device]] = None,
+    ):
+        """reference_generator: ``(texts, n) -> [B, n, D]`` embeddings;
+        retriever: a MultiModalRetriever whose image bank gives the
+        retrieval references inside the fused step."""
+        self.device = resolve_device(device)
+        if model.device != self.device:
+            raise ValueError(f"model is on {model.device}, detector on {self.device}")
+        self.model = model
+        self.config = config or DetectorConfig()
+        self.text_augmenter = text_augmenter
+        self.reference_generator = reference_generator
+        self.retriever = retriever
+        self.threshold_manager = ThresholdManager(self.config.detection_threshold)
+        self._serving = None  # (key, step) lazy cache
+        self._probe: Optional[torch.Tensor] = None  # [P, D] hub-probe caption embeddings
+        self._probe_top_m = 8
+        self._probe_threshold = None
+        self.stats = {"detections": 0, "adversarial_detected": 0}
+
+    # -- hub probe --------------------------------------------------------------
+    def set_hub_probe(self, texts=None, embeddings=None, top_m: int = 8):
+        """Arm the hub-probe branch: score each query image by the mean of
+        its top-``top_m`` cosines to a held-out caption pool; an
+        adversarial hub aligns with the caption cone, so the score is
+        anomalously high."""
+        if embeddings is None:
+            if not texts:
+                raise ValueError("set_hub_probe needs texts or embeddings")
+            embeddings = self.model.encode_text(list(texts))
+        emb = np.array(_np(embeddings), np.float32)
+        emb /= np.maximum(np.linalg.norm(emb, axis=-1, keepdims=True), 1e-12)
+        self._probe = torch.as_tensor(emb, device=self.device)
+        self._probe_top_m = int(min(top_m, emb.shape[0]))
+        return self
+
+    @torch.no_grad()
+    def hub_probe_scores(self, img_feats) -> np.ndarray:
+        """Mean of each image feature's top-m cosines to the probe pool."""
+        if self._probe is None:
+            raise ValueError("hub probe not armed: call set_hub_probe first")
+        img = torch.as_tensor(img_feats, dtype=torch.float32, device=self.device)
+        top = torch.topk(img @ self._probe.T, self._probe_top_m, dim=-1).values
+        return _np(top.mean(dim=-1))
+
+    def calibrate_hub_probe(self, clean_images, quantile: float = 0.995) -> float:
+        feats = self.model.encode_image(self._raw_pixels(clean_images))
+        self._probe_threshold = float(np.quantile(self.hub_probe_scores(feats), quantile))
+        return self._probe_threshold
+
+    # -- embedding assembly (staged path) -----------------------------------------
+    def _variant_lists(self, texts, variants) -> List[List[str]]:
+        V = self.config.num_text_variants
+        if variants is not None:
+            return [list(v)[:V] for v in variants]
+        return self.text_augmenter.batch_generate_variants(texts, V)
+
+    def _embed_variants(
+        self, texts: Sequence[str], variants: Optional[Sequence[Sequence[str]]] = None
+    ) -> Tuple[np.ndarray, np.ndarray]:
+        """All queries' variants in one text encode: ([B, V, D], [B, V] mask)."""
+        V = self.config.num_text_variants
+        B = len(texts)
+        D = self.model.config.embed_dim
+        emb = np.zeros((B, V, D), np.float32)
+        mask = np.zeros((B, V), bool)
+        if variants is None and self.text_augmenter is None:
+            return emb, mask
+        variant_lists = self._variant_lists(texts, variants)
+        flat = [v for vl in variant_lists for v in vl]
+        if flat:
+            flat_emb = _np(self.model.encode_text(flat))
+            pos = 0
+            for b, vl in enumerate(variant_lists):
+                n = len(vl)
+                emb[b, :n] = flat_emb[pos : pos + n]
+                mask[b, :n] = True
+                pos += n
+        return emb, mask
+
+    def _embed_references(self, texts: Sequence[str]) -> Tuple[np.ndarray, np.ndarray]:
+        """Retrieval-bank refs + generated refs, merged and trimmed to R."""
+        R = self.config.num_reference_images
+        B = len(texts)
+        D = self.model.config.embed_dim
+        parts = []
+        if self.retriever is not None and self.retriever.image_bank is not None:
+            parts.append(self.retriever.retrieve_reference_embeddings(texts, top_k=R))
+        if self.reference_generator is not None:
+            parts.append(_np(self.reference_generator(list(texts), R)))
+        if not parts:
+            return np.zeros((B, R, D), np.float32), np.zeros((B, R), bool)
+        refs = np.concatenate(parts, axis=1)[:, :R]
+        return refs.astype(np.float32), np.any(refs != 0, axis=-1)
+
+    # -- fused serving path --------------------------------------------------------
+    def _can_fuse(self) -> bool:
+        cfg = self.config
+        if not cfg.use_fused_step or cfg.score_aggregation != "weighted_mean":
+            return False
+        if self.reference_generator is not None:
+            return False  # host generators stay on the staged path
+        if "sd_reference" in cfg.methods and self.retriever is not None:
+            bank = self.retriever.image_bank
+            if bank is None:
+                return False
+            if bank.size < max(cfg.num_reference_images, cfg.retrieval_top_k or 0):
+                return False
+        return True
+
+    def _raw_pixels(self, images) -> np.ndarray:
+        """PIL list / raw array -> [B,H,W,3] float32 in [0, 1] (the step
+        CLIP-normalizes on the device)."""
+        if isinstance(images, (list, tuple)):
+            return preprocess_images(images, self.model.config.image_size, normalize=False)
+        arr = np.asarray(images, np.float32)
+        return arr[None] if arr.ndim == 3 else arr
+
+    def _variant_tokens(
+        self, texts: Sequence[str], variants: Optional[Sequence[Sequence[str]]] = None
+    ) -> Tuple[np.ndarray, np.ndarray]:
+        """Host stage: tokenize the variants: ([B, V, T] int32, [B, V] bool)."""
+        cfg = self.config
+        B = len(texts)
+        V = cfg.num_text_variants
+        T = self.model.config.context_length
+        tokens = np.zeros((B, V, T), np.int32)
+        mask = np.zeros((B, V), bool)
+        no_source = variants is None and self.text_augmenter is None
+        if no_source or "text_variants" not in cfg.methods:
+            return tokens[:, :1], mask[:, :1]
+        variant_lists = self._variant_lists(texts, variants)
+        flat = [v for vl in variant_lists for v in vl]
+        if flat:
+            flat_tok = np.asarray(self.model.tokenize(flat))
+            pos = 0
+            for b, vl in enumerate(variant_lists):
+                n = len(vl)
+                tokens[b, :n, : flat_tok.shape[1]] = flat_tok[pos : pos + n]
+                mask[b, :n] = True
+                pos += n
+        return tokens, mask
+
+    def _serving_step(self, with_bank: bool):
+        """The cached serving step for (with_bank, R, K) and the current
+        parameter tree (compared with ``is``)."""
+        from tvc_torch.parallel.steps import make_serving_step
+
+        cfg = self.config
+        R = cfg.num_reference_images
+        K = max(R, cfg.retrieval_top_k or 0)
+        key = ((with_bank, R, K) if with_bank else (False, 0, 0), self.model.params)
+        if self._serving is None or not (
+            self._serving[0][0] == key[0] and self._serving[0][1] is key[1]
+        ):
+            step = make_serving_step(
+                self.model, top_k=K, num_refs=R, with_bank=with_bank, device=self.device
+            )
+            self._serving = (key, step)
+        return self._serving[1]
+
+    def _detect_batch_fused(
+        self, images, texts: Sequence[str], variants: Optional[Sequence[Sequence[str]]] = None
+    ) -> DetectionResult:
+        """One serving step: encode + bank top-k + consistency kernel."""
+        cfg = self.config
+        with_bank = (
+            "sd_reference" in cfg.methods
+            and self.retriever is not None
+            and self.retriever.image_bank is not None
+        )
+        step = self._serving_step(with_bank)
+        pixels = self._raw_pixels(images)
+        tokens = np.asarray(self.model.tokenize(list(texts)))
+        var_tokens, var_mask = self._variant_tokens(texts, variants)
+        # real length = EOT position + 1 (EOT is the highest id)
+        real = max(int(tokens.argmax(-1).max()) + 1, int(var_tokens.argmax(-1).max()) + 1)
+        if cfg.text_bucket is not None:
+            # fixed serving bucket; pin EOT in-window for rows truncation cuts
+            T_b = min(-(-cfg.text_bucket // 8) * 8, tokens.shape[-1])
+            eot = getattr(self.model.tokenizer, "eot_id", None)
+            if eot is not None and real > T_b:
+                tokens = tokens.copy()
+                var_tokens = var_tokens.copy()
+                tokens[tokens.argmax(-1) >= T_b, T_b - 1] = eot
+                vflat = var_tokens.reshape(-1, var_tokens.shape[-1])
+                vflat[vflat.argmax(-1) >= T_b, T_b - 1] = eot
+        else:
+            T_b = min(-(-real // 8) * 8, tokens.shape[-1])
+        tokens = np.ascontiguousarray(tokens[:, :T_b])
+        var_tokens = np.ascontiguousarray(var_tokens[:, :, :T_b])
+
+        if with_bank:
+            bank_obj = self.retriever.image_bank
+            bank, valid = bank_obj._bank, bank_obj.valid
+        else:
+            D = self.model.config.embed_dim
+            bank, valid = np.zeros((1, D), np.float32), np.zeros((1,), bool)
+        upper = np.float32(self.threshold_manager.get_threshold())
+        lower = np.float32(cfg.lower_threshold) if cfg.two_sided else np.float32(-np.inf)
+        out = step(
+            self.model.params, pixels, tokens, var_tokens, var_mask, bank, valid,
+            np.asarray(cfg.weights, np.float32), lower, upper,
+        )
+        flags = _np(out["is_adversarial"])
+        agg = _np(out["aggregated"])
+        probe_scores = None
+        if self._probe is not None:
+            probe_scores = self.hub_probe_scores(out["img"])
+            if self._probe_threshold is not None:
+                flags = flags | (probe_scores > self._probe_threshold)
+        self.stats["detections"] += len(texts)
+        self.stats["adversarial_detected"] += int(flags.sum())
+        details = {
+            "orig_similarity": _np(out["orig_similarity"]),
+            "variant_mean": _np(out["variant_mean"]),
+            "variant_std": _np(out["variant_std"]),
+            "threshold": float(upper),
+            "ref_idx": _np(out["ref_idx"]) if with_bank else None,
+            "fused": True,
+        }
+        if probe_scores is not None:
+            details.update(hub_probe_score=probe_scores, hub_probe_threshold=self._probe_threshold)
+        return DetectionResult(
+            is_adversarial=flags,
+            aggregated_score=agg,
+            method_scores={
+                "text_variants": _np(out["tv_score"]),
+                "sd_reference": _np(out["sd_score"]),
+                "consistency": _np(out["consistency_score"]),
+            },
+            details=details,
+        )
+
+    # -- detection ------------------------------------------------------------------
+    def detect_batch(
+        self, images, texts: Sequence[str], variants: Optional[Sequence[Sequence[str]]] = None
+    ) -> DetectionResult:
+        """images: PIL list or [B,H,W,3] raw pixels; texts: list[str];
+        variants: optional precomputed per-query variant lists."""
+        cfg = self.config
+        if self._can_fuse():
+            return self._detect_batch_fused(images, texts, variants)
+        dev = self.device
+        img_emb = self.model.encode_image(images)
+        txt_emb = self.model.encode_text(list(texts))
+        B, D = img_emb.shape
+        empty = (np.zeros((B, 1, D), np.float32), np.zeros((B, 1), bool))
+        var_emb, var_mask = (
+            self._embed_variants(texts, variants) if "text_variants" in cfg.methods else empty
+        )
+        ref_emb, ref_mask = (
+            self._embed_references(texts) if "sd_reference" in cfg.methods else empty
+        )
+        threshold = self.threshold_manager.get_threshold()
+        var_mask_t = torch.as_tensor(var_mask, device=dev)
+        ref_mask_t = torch.as_tensor(ref_mask, device=dev)
+        out = fused_consistency_scores(
+            img_emb.contiguous(), txt_emb.contiguous(),
+            torch.as_tensor(var_emb, device=dev), torch.as_tensor(ref_emb, device=dev),
+            variant_mask=var_mask_t, ref_mask=ref_mask_t,
+            weights=cfg.weights, threshold=threshold,
+        )
+        method_scores = {
+            "text_variants": _np(out["tv_score"]),
+            "sd_reference": _np(out["sd_score"]),
+            "consistency": _np(out["consistency_score"]),
+        }
+        if cfg.score_aggregation == "weighted_mean":
+            agg = _np(out["aggregated"])
+            flags = _np(out["is_adversarial"])
+        else:
+            # other aggregations recombine the per-method scores ([B, 3])
+            stacked = torch.stack([out["tv_score"], out["sd_score"], out["consistency_score"]], dim=-1)
+            present = torch.stack(
+                [var_mask_t.any(-1), ref_mask_t.any(-1), torch.ones(B, dtype=torch.bool, device=dev)],
+                dim=-1,
+            )
+            agg = _np(C.aggregate_scores(stacked, present, method=cfg.score_aggregation))
+            flags = agg > threshold
+        if cfg.two_sided:
+            flags = flags | (agg < cfg.lower_threshold)
+        probe_scores = None
+        if self._probe is not None:
+            probe_scores = self.hub_probe_scores(img_emb)
+            if self._probe_threshold is not None:
+                flags = flags | (probe_scores > self._probe_threshold)
+        self.stats["detections"] += B
+        self.stats["adversarial_detected"] += int(flags.sum())
+        details = {
+            "orig_similarity": _np(out["orig_similarity"]),
+            "variant_mean": _np(out["variant_mean"]),
+            "variant_std": _np(out["variant_std"]),
+            "threshold": threshold,
+        }
+        if probe_scores is not None:
+            details.update(hub_probe_score=probe_scores, hub_probe_threshold=self._probe_threshold)
+        return DetectionResult(
+            is_adversarial=flags, aggregated_score=agg, method_scores=method_scores, details=details
+        )
+
+    # -- calibration ----------------------------------------------------------------
+    def calibrate_two_sided(
+        self, clean_scores: np.ndarray, quantile: float = 0.995
+    ) -> Tuple[float, float]:
+        """Set (lower, upper) from clean-score quantiles and enable two-sided
+        detection: anything outside the clean band flags adversarial."""
+        lo = float(np.quantile(clean_scores, 1.0 - quantile))
+        hi = float(np.quantile(clean_scores, quantile))
+        self.config = dataclasses.replace(self.config, two_sided=True, lower_threshold=lo)
+        self.threshold_manager.update(hi)
+        return lo, hi
+
+    def get_stats(self) -> Dict[str, Any]:
+        return dict(self.stats)

@@ -1,0 +1,722 @@
+"""CLIP dual encoder in PyTorch (port of ``tvc/models/clip.py``).
+
+* ``CLIPModule`` and its towers are ``nn.Module``s named like the flax
+  tree, with the flax layouts: Dense kernels ``[in, out]``, the patch-embed
+  kernel HWIO ``[P, P, 3, W]``. ``named_parameters()`` therefore yields the
+  flax paths joined by dots, and :func:`params_from_jax` only moves arrays.
+  The module path is the differentiable one.
+* ``vision_features_fused`` / ``text_features_fused`` are the serving
+  towers: every attention and MLP sub-block goes through the hand-written
+  layer kernels (``tvc_torch.core.kernels``).
+* ``CLIPModel`` holds the parameters, the tokenizer and the inference
+  entry points; it runs on the card unless given ``device="cpu"``.
+
+Models start from deterministic random weights (numpy ``default_rng(seed)``
+at the flax initializers' scales): the repository ships no pretrained
+CLIP checkpoint.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from collections.abc import Mapping
+from typing import Any, Callable, Dict, Optional, Sequence, Union
+
+import numpy as np
+import torch
+from torch import Tensor, nn
+
+from tvc_torch._device import resolve_device
+from tvc_torch.core.kernels.attention_layer_kernel import (
+    fused_attention_layer,
+    fused_mlp_layer,
+    layernorm_f32,
+)
+from tvc_torch.core.similarity import l2_normalize
+
+CLIP_IMAGE_MEAN = (0.48145466, 0.4578275, 0.40821073)
+CLIP_IMAGE_STD = (0.26862954, 0.26130258, 0.27577711)
+
+
+@dataclasses.dataclass(frozen=True)
+class CLIPConfig:
+    """Architecture + runtime config; defaults are ViT-B/32."""
+
+    # vision tower
+    image_size: int = 224
+    patch_size: int = 32
+    vision_width: int = 768
+    vision_layers: int = 12
+    vision_heads: int = 12
+    # text tower
+    vocab_size: int = 49408
+    context_length: int = 77
+    text_width: int = 512
+    text_layers: int = 12
+    text_heads: int = 8
+    # joint
+    embed_dim: int = 512
+    # runtime
+    dtype: Any = torch.bfloat16  # activation / GEMM dtype
+    model_name: str = "ViT-B/32"
+    #: serve through the hand-written attention / MLP layer kernels
+    fused_attention: bool = False
+    #: int8 W8A8 serving towers (not ported yet: CLIPModel raises)
+    int8_serving: bool = False
+
+    @classmethod
+    def tiny(cls) -> "CLIPConfig":
+        return cls(
+            image_size=32, patch_size=16, vision_width=64, vision_layers=2,
+            vision_heads=2, vocab_size=512, context_length=16, text_width=64,
+            text_layers=2, text_heads=2, embed_dim=32, dtype=torch.float32,
+            model_name="tiny",
+        )
+
+    @classmethod
+    def vit_b32(cls, **kw) -> "CLIPConfig":
+        return cls(model_name="ViT-B/32", **kw)
+
+    @classmethod
+    def vit_b16(cls, **kw) -> "CLIPConfig":
+        return cls(patch_size=16, model_name="ViT-B/16", **kw)
+
+    @classmethod
+    def vit_l14(cls, **kw) -> "CLIPConfig":
+        return cls(
+            patch_size=14, vision_width=1024, vision_layers=24, vision_heads=16,
+            text_width=768, text_layers=12, text_heads=12, embed_dim=768,
+            model_name="ViT-L/14", **kw,
+        )
+
+    @classmethod
+    def tiny_coco(cls) -> "CLIPConfig":
+        """Tiny config with the full CLIP BPE vocab and a 32-token context."""
+        return cls(
+            image_size=32, patch_size=8, vision_width=64, vision_layers=2,
+            vision_heads=2, vocab_size=49408, context_length=32, text_width=64,
+            text_layers=2, text_heads=2, embed_dim=32, dtype=torch.float32,
+            model_name="tiny_coco",
+        )
+
+    @classmethod
+    def from_name(cls, name: str, **kw) -> "CLIPConfig":
+        canon = {
+            "vit-b/32": cls.vit_b32,
+            "openai/clip-vit-base-patch32": cls.vit_b32,
+            "vit-b/16": cls.vit_b16,
+            "openai/clip-vit-base-patch16": cls.vit_b16,
+            "vit-l/14": cls.vit_l14,
+            "openai/clip-vit-large-patch14": cls.vit_l14,
+            "tiny": lambda **k: dataclasses.replace(cls.tiny(), **k),
+            "tiny_coco": lambda **k: dataclasses.replace(cls.tiny_coco(), **k),
+        }
+        key = name.strip().lower()
+        if key not in canon:
+            raise ValueError(
+                f"unsupported CLIP model {name!r}; supported: "
+                "ViT-B/32, ViT-B/16, ViT-L/14 (and HF spellings), tiny"
+            )
+        return canon[key](**kw)
+
+
+def quick_gelu(x: Tensor) -> Tensor:
+    return x * torch.sigmoid(1.702 * x)
+
+
+# ---------------------------------------------------------------------------
+# module towers (differentiable path), named and laid out like the flax tree
+# ---------------------------------------------------------------------------
+
+
+def _param(*shape, device=None) -> nn.Parameter:
+    return nn.Parameter(torch.zeros(*shape, dtype=torch.float32, device=device))
+
+
+class Dense(nn.Module):
+    """``x @ kernel + bias`` with ``kernel [in, out]``, computed in ``dtype``."""
+
+    def __init__(self, din: int, dout: int, dtype, device=None):
+        super().__init__()
+        self.kernel = _param(din, dout, device=device)
+        self.bias = _param(dout, device=device)
+        self.dtype = dtype
+
+    def forward(self, x: Tensor) -> Tensor:
+        return x.to(self.dtype) @ self.kernel.to(self.dtype) + self.bias.to(self.dtype)
+
+
+class LayerNorm(nn.Module):
+    """LayerNorm in f32 (eps 1e-5); returns f32."""
+
+    def __init__(self, width: int, device=None):
+        super().__init__()
+        self.scale = nn.Parameter(torch.ones(width, device=device))
+        self.bias = _param(width, device=device)
+
+    def forward(self, x: Tensor) -> Tensor:
+        return layernorm_f32(x, self.scale, self.bias)
+
+
+class MLP(nn.Module):
+    def __init__(self, width: int, dtype, device=None):
+        super().__init__()
+        self.fc = Dense(width, 4 * width, dtype, device)
+        self.proj = Dense(4 * width, width, dtype, device)
+
+    def forward(self, x: Tensor) -> Tensor:
+        return self.proj(quick_gelu(self.fc(x)))
+
+
+class Attention(nn.Module):
+    def __init__(self, width: int, heads: int, dtype, device=None):
+        super().__init__()
+        self.width, self.heads, self.dtype = width, heads, dtype
+        self.qkv = Dense(width, 3 * width, dtype, device)
+        self.out = Dense(width, width, dtype, device)
+
+    def forward(self, x: Tensor, mask: Optional[Tensor] = None) -> Tensor:
+        B, T, _ = x.shape
+        D = self.width // self.heads
+        q, k, v = (
+            t.reshape(B, T, self.heads, D).transpose(1, 2)
+            for t in self.qkv(x).split(self.width, dim=-1)
+        )
+        # f32 logits of the dtype operands, f32 softmax
+        logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * (1.0 / math.sqrt(D))
+        if mask is not None:
+            logits = logits + mask
+        w = torch.softmax(logits, dim=-1).to(self.dtype)
+        out = torch.matmul(w, v).transpose(1, 2).reshape(B, T, self.width)
+        return self.out(out)
+
+
+class ResidualBlock(nn.Module):
+    def __init__(self, width: int, heads: int, dtype, device=None):
+        super().__init__()
+        self.ln_1 = LayerNorm(width, device)
+        self.attn = Attention(width, heads, dtype, device)
+        self.ln_2 = LayerNorm(width, device)
+        self.mlp = MLP(width, dtype, device)
+
+    def forward(self, x: Tensor, mask: Optional[Tensor] = None) -> Tensor:
+        x = x + self.attn(self.ln_1(x), mask)
+        return x + self.mlp(self.ln_2(x))
+
+
+class Transformer(nn.Module):
+    def __init__(self, width: int, layers: int, heads: int, dtype, device=None):
+        super().__init__()
+        self.layers = layers
+        for i in range(layers):
+            self.add_module(f"block_{i}", ResidualBlock(width, heads, dtype, device))
+
+    def forward(self, x: Tensor, mask: Optional[Tensor] = None) -> Tensor:
+        for i in range(self.layers):
+            x = getattr(self, f"block_{i}")(x, mask)
+        return x
+
+
+class PatchEmbed(nn.Module):
+    """Stride-P convolution without bias, kernel HWIO ``[P, P, 3, W]``,
+    computed as one patch-matrix product."""
+
+    def __init__(self, patch: int, width: int, dtype, device=None):
+        super().__init__()
+        self.patch, self.dtype = patch, dtype
+        self.kernel = _param(patch, patch, 3, width, device=device)
+
+    def forward(self, images: Tensor) -> Tensor:
+        return patch_embed(images, self.kernel, self.patch, self.dtype)
+
+
+def patch_embed(images: Tensor, kernel: Tensor, patch: int, dtype) -> Tensor:
+    """``[B, H, W, 3]`` -> ``[B, (H/P)(W/P), width]``: the VALID stride-P
+    convolution as patches ``[.., P*P*3]`` (h, w, c order, as HWIO
+    flattens) times ``kernel.reshape(P*P*3, width)``."""
+    B, H, Wd, C = images.shape
+    gh, gw = H // patch, Wd // patch
+    x = images.to(dtype)[:, : gh * patch, : gw * patch]
+    x = x.reshape(B, gh, patch, gw, patch, C).permute(0, 1, 3, 2, 4, 5)
+    x = x.reshape(B, gh * gw, patch * patch * C)
+    return x @ kernel.to(dtype).reshape(patch * patch * C, -1)
+
+
+class VisionTower(nn.Module):
+    def __init__(self, cfg: CLIPConfig, device=None):
+        super().__init__()
+        self.cfg = cfg
+        W = cfg.vision_width
+        n_patches = (cfg.image_size // cfg.patch_size) ** 2
+        self.patch_embed = PatchEmbed(cfg.patch_size, W, cfg.dtype, device)
+        self.class_embedding = _param(W, device=device)
+        self.positional_embedding = _param(n_patches + 1, W, device=device)
+        self.ln_pre = LayerNorm(W, device)
+        self.transformer = Transformer(W, cfg.vision_layers, cfg.vision_heads, cfg.dtype, device)
+        self.ln_post = LayerNorm(W, device)
+        self.proj = _param(W, cfg.embed_dim, device=device)
+
+    def forward(self, images: Tensor) -> Tensor:
+        """CLIP-normalized images ``[B, H, W, 3]`` (NHWC) -> ``[B, embed_dim]`` f32."""
+        c = self.cfg
+        x = self.patch_embed(images)
+        B = x.shape[0]
+        cls = self.class_embedding.to(c.dtype).expand(B, 1, c.vision_width)
+        x = torch.cat([cls, x], dim=1) + self.positional_embedding.to(c.dtype)
+        x = self.ln_pre(x).to(c.dtype)
+        x = self.transformer(x)
+        return self.ln_post(x[:, 0, :]) @ self.proj.float()
+
+
+def causal_mask(T: int, device) -> Tensor:
+    keep = torch.ones((T, T), dtype=torch.bool, device=device).tril()
+    return torch.zeros((T, T), device=device).masked_fill(~keep, float("-inf"))
+
+
+class TextTower(nn.Module):
+    def __init__(self, cfg: CLIPConfig, device=None):
+        super().__init__()
+        self.cfg = cfg
+        W = cfg.text_width
+        self.token_embedding = nn.Module()
+        self.token_embedding.embedding = _param(cfg.vocab_size, W, device=device)
+        self.positional_embedding = _param(cfg.context_length, W, device=device)
+        self.transformer = Transformer(W, cfg.text_layers, cfg.text_heads, cfg.dtype, device)
+        self.ln_final = LayerNorm(W, device)
+        self.text_projection = _param(W, cfg.embed_dim, device=device)
+
+    def forward(self, tokens: Tensor) -> Tensor:
+        """tokens ``[B, T]`` -> ``[B, embed_dim]`` f32, pooled at EOT (argmax id)."""
+        c = self.cfg
+        T = tokens.shape[1]
+        x = self.token_embedding.embedding.to(c.dtype)[tokens]
+        x = x + self.positional_embedding[:T].to(c.dtype)
+        x = self.transformer(x, causal_mask(T, tokens.device))
+        x = self.ln_final(x)
+        x = x[torch.arange(x.shape[0], device=x.device), tokens.argmax(dim=-1)]
+        return x @ self.text_projection.float()
+
+
+class CLIPModule(nn.Module):
+    """Both towers + logit scale."""
+
+    def __init__(self, cfg: CLIPConfig, device=None):
+        super().__init__()
+        self.visual = VisionTower(cfg, device)
+        self.text = TextTower(cfg, device)
+        self.logit_scale = nn.Parameter(
+            torch.tensor(math.log(1 / 0.07), dtype=torch.float32, device=device)
+        )
+
+    def forward(self, images: Tensor, tokens: Tensor):
+        img = l2_normalize(self.visual(images))
+        txt = l2_normalize(self.text(tokens))
+        return img, txt, torch.exp(self.logit_scale) * img @ txt.T
+
+
+# ---------------------------------------------------------------------------
+# parameters: flax tree <-> port
+# ---------------------------------------------------------------------------
+
+
+def _flatten(tree: Dict, prefix: str = "") -> Dict[str, Any]:
+    out = {}
+    for k, v in tree.items():
+        name = f"{prefix}{k}"
+        if isinstance(v, Mapping):
+            out.update(_flatten(v, name + "."))
+        else:
+            out[name] = v
+    return out
+
+
+def _unflatten(flat: Dict[str, Any]) -> Dict:
+    tree: Dict = {}
+    for name, v in flat.items():
+        node = tree
+        *path, leaf = name.split(".")
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = v
+    return tree
+
+
+def params_from_jax(tree, cfg: CLIPConfig) -> Dict:
+    """The flax parameter tree (leaves as numpy arrays) as the port's
+    parameter tree (f32 CPU tensors). The port keeps the flax layouts
+    (Dense ``[in, out]``, patch embed HWIO), so this checks every name and
+    shape against the port's module and converts the leaves."""
+    flat = _flatten(tree)
+    want = {n: tuple(p.shape) for n, p in CLIPModule(cfg, device="meta").named_parameters()}
+    missing, extra = set(want) - set(flat), set(flat) - set(want)
+    if missing or extra:
+        raise ValueError(f"parameter tree mismatch: missing {sorted(missing)}, unexpected {sorted(extra)}")
+    out = {}
+    for name, shape in want.items():
+        arr = np.asarray(flat[name], dtype=np.float32)
+        if arr.shape != shape:
+            raise ValueError(f"{name}: shape {arr.shape}, expected {shape}")
+        out[name] = torch.from_numpy(arr.copy())
+    return _unflatten(out)
+
+
+def init_params(cfg: CLIPConfig, seed: int = 0) -> Dict:
+    """Seeded random parameters at the flax initializers' scales: Dense and
+    conv kernels lecun-normal (std sqrt(1/fan_in)), biases 0, LayerNorm
+    scale 1, token embedding std 1/sqrt(width), vision embeddings and
+    projections std width^-0.5, text positional std 0.01, logit scale
+    log(1/0.07)."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    for name, p in CLIPModule(cfg, device="meta").named_parameters():
+        shape = tuple(p.shape)
+        leaf = name.rsplit(".", 1)[-1]
+        if name == "logit_scale":
+            arr = np.asarray(math.log(1 / 0.07), np.float32)
+        elif leaf == "bias":
+            arr = np.zeros(shape, np.float32)
+        elif leaf == "scale":
+            arr = np.ones(shape, np.float32)
+        else:
+            if leaf == "kernel":
+                std = math.sqrt(1.0 / int(np.prod(shape[:-1])))
+            elif name == "text.positional_embedding":
+                std = 0.01
+            elif name.startswith("text."):  # token embedding, text projection
+                std = cfg.text_width ** -0.5
+            else:  # class/positional embedding, vision projection
+                std = cfg.vision_width ** -0.5
+            arr = rng.standard_normal(shape, dtype=np.float32) * np.float32(std)
+        out[name] = torch.from_numpy(arr)
+    return _unflatten(out)
+
+
+# ---------------------------------------------------------------------------
+# serving towers through the layer kernels
+# ---------------------------------------------------------------------------
+
+
+def _blocks(tower: Dict, layers: int):
+    for i in range(layers):
+        yield tower["transformer"][f"block_{i}"]
+
+
+def _attn_args(blk: Dict, dtype):
+    return (
+        blk["ln_1"]["scale"].float(), blk["ln_1"]["bias"].float(),
+        blk["attn"]["qkv"]["kernel"].to(dtype), blk["attn"]["qkv"]["bias"].float(),
+        blk["attn"]["out"]["kernel"].to(dtype), blk["attn"]["out"]["bias"].float(),
+    )
+
+
+def _mlp_args(blk: Dict, dtype):
+    return (
+        blk["ln_2"]["scale"].float(), blk["ln_2"]["bias"].float(),
+        blk["mlp"]["fc"]["kernel"].to(dtype), blk["mlp"]["fc"]["bias"].float(),
+        blk["mlp"]["proj"]["kernel"].to(dtype), blk["mlp"]["proj"]["bias"].float(),
+    )
+
+
+def vision_features_fused(params: Dict, cfg: CLIPConfig, pixels: Tensor) -> Tensor:
+    """Inference ViT forward with every sub-block through the layer
+    kernels; same math as ``VisionTower`` on the same parameters.
+    pixels: CLIP-normalized ``[B, H, W, 3]``. Returns ``[B, embed_dim]`` f32."""
+    v = params["visual"]
+    dtype = cfg.dtype
+    x = patch_embed(pixels, v["patch_embed"]["kernel"], cfg.patch_size, dtype)
+    B = x.shape[0]
+    cls = v["class_embedding"].to(dtype).expand(B, 1, cfg.vision_width)
+    x = torch.cat([cls, x], dim=1) + v["positional_embedding"].to(dtype)
+    x = layernorm_f32(x, v["ln_pre"]["scale"], v["ln_pre"]["bias"]).to(dtype)
+    for blk in _blocks(v, cfg.vision_layers):
+        x = fused_attention_layer(x, *_attn_args(blk, dtype), heads=cfg.vision_heads)
+        x = fused_mlp_layer(x, *_mlp_args(blk, dtype))
+    x = layernorm_f32(x[:, 0, :], v["ln_post"]["scale"], v["ln_post"]["bias"])
+    return x @ v["proj"].float()
+
+
+def text_features_fused(params: Dict, cfg: CLIPConfig, tokens: Tensor) -> Tensor:
+    """Inference text forward with every sub-block (causal) through the
+    layer kernels; same math as ``TextTower``. Returns ``[B, embed_dim]`` f32."""
+    t = params["text"]
+    dtype = cfg.dtype
+    T = tokens.shape[1]
+    x = t["token_embedding"]["embedding"].to(dtype)[tokens]
+    x = (x + t["positional_embedding"][:T].to(dtype)).contiguous()
+    for blk in _blocks(t, cfg.text_layers):
+        x = fused_attention_layer(x, *_attn_args(blk, dtype), heads=cfg.text_heads, causal=True)
+        x = fused_mlp_layer(x, *_mlp_args(blk, dtype))
+    x = layernorm_f32(x, t["ln_final"]["scale"], t["ln_final"]["bias"])
+    x = x[torch.arange(x.shape[0], device=x.device), tokens.argmax(dim=-1)]
+    return x @ t["text_projection"].float()
+
+
+# ---------------------------------------------------------------------------
+# host-side preprocessing
+# ---------------------------------------------------------------------------
+
+
+def preprocess_images(
+    images: Sequence, image_size: int = 224, normalize: bool = True
+) -> np.ndarray:
+    """PIL images / arrays already at ``image_size`` -> ``[B, H, W, 3]``
+    float32 (in CLIP stats when ``normalize``). Resizing is not ported yet
+    and raises."""
+    out = []
+    for im in images:
+        if hasattr(im, "convert"):  # PIL
+            arr = np.asarray(im.convert("RGB"), dtype=np.float32) / 255.0
+        else:
+            arr = np.asarray(im, dtype=np.float32)
+            if arr.max() > 1.5:
+                arr = arr / 255.0
+        if arr.shape[:2] != (image_size, image_size):
+            raise NotImplementedError(
+                f"image of shape {arr.shape} needs a resize to {image_size}; "
+                "the port takes images already at image_size"
+            )
+        out.append(arr)
+    batch = np.stack(out)
+    if normalize:
+        batch = (batch - np.asarray(CLIP_IMAGE_MEAN)) / np.asarray(CLIP_IMAGE_STD)
+    return batch.astype(np.float32)
+
+
+def normalize_pixels(pixels: Tensor) -> Tensor:
+    """[0, 1] pixels -> CLIP-normalized."""
+    mean = torch.tensor(CLIP_IMAGE_MEAN, dtype=torch.float32, device=pixels.device)
+    std = torch.tensor(CLIP_IMAGE_STD, dtype=torch.float32, device=pixels.device)
+    return (pixels - mean) / std
+
+
+def bucket_text_tokens(
+    tokens: np.ndarray,
+    short_len: int = 16,
+    capacity_quantum: int = 256,
+    dedup: bool = False,
+) -> Optional[Dict[str, np.ndarray]]:
+    """Host-side two-bucket partition of a padded token batch ``[S, T]``
+    for :meth:`CLIPModel.infer_text_features_bucketed` (numpy, identical to
+    the JAX package's).
+
+    Rows sort stably by real length (EOT position + 1, or the last nonzero
+    id if later); the C shortest go to a ``short_len``-wide bucket and the
+    rest to a full-T bucket, C being the largest multiple of
+    ``capacity_quantum`` not above the rows that fit ``short_len``. Returns
+    None when T <= short_len or fewer than one quantum of short rows.
+    ``dedup=True`` also costs encoding each distinct row once (the long
+    bucket then zero-pads up to a quantum multiple) and keeps the cheaper
+    plan. Output: ``short`` [C, short_len], ``long`` [L, T], ``inv`` [S]
+    int32 with ``concat(feats_short, feats_long)[inv]`` in input order.
+    """
+    S, T = tokens.shape
+    if T <= short_len or S < 2 * capacity_quantum:
+        return None
+
+    def _plan(rows, pad_long_to_quantum):
+        U = rows.shape[0]
+        lens = rows.argmax(-1) + 1
+        nonzero = rows != 0
+        content = np.where(nonzero.any(axis=-1), T - nonzero[:, ::-1].argmax(-1), 0)
+        lens = np.maximum(lens, content)
+        n_short = int((lens <= short_len).sum())
+        C = (n_short // capacity_quantum) * capacity_quantum
+        if C < capacity_quantum or C >= U:
+            return None
+        order = np.argsort(lens, kind="stable")
+        pos = np.empty(U, dtype=np.int32)
+        pos[order] = np.arange(U, dtype=np.int32)
+        long_rows = rows[order[C:], :]
+        if pad_long_to_quantum:
+            L = -(-(U - C) // capacity_quantum) * capacity_quantum
+            if L > U - C:
+                long_rows = np.concatenate(
+                    [long_rows, np.zeros((L - (U - C), T), dtype=rows.dtype)]
+                )
+        return {
+            "short": np.ascontiguousarray(rows[order[:C], :short_len]),
+            "long": np.ascontiguousarray(long_rows),
+            "pos": pos,
+        }
+
+    def _cost(plan):
+        return plan["short"].size + plan["long"].shape[0] * T
+
+    raw = _plan(tokens, pad_long_to_quantum=False)
+    best, inv_u = raw, None
+    if dedup:
+        uniq, iu = np.unique(tokens, axis=0, return_inverse=True)
+        if uniq.shape[0] < S:
+            dp = _plan(uniq, pad_long_to_quantum=True)
+            if dp is not None and (raw is None or _cost(dp) < _cost(raw)):
+                best, inv_u = dp, iu.reshape(-1).astype(np.int32)
+    if best is None:
+        return None
+    inv = best["pos"] if inv_u is None else best["pos"][inv_u]
+    return {
+        "short": best["short"],
+        "long": best["long"],
+        "inv": np.ascontiguousarray(inv.astype(np.int32)),
+    }
+
+
+# ---------------------------------------------------------------------------
+# user-facing wrapper
+# ---------------------------------------------------------------------------
+
+
+class CLIPModel:
+    """Parameters + tokenizer + encode entry points.
+
+    ``params`` is the port's parameter tree (the flax tree's structure,
+    torch tensors); assigning a new tree loads it into the module and
+    yields a new tree object. Runs on the card unless ``device="cpu"``.
+    """
+
+    def __init__(
+        self,
+        config: Optional[CLIPConfig] = None,
+        params: Optional[Dict] = None,
+        seed: int = 0,
+        tokenizer: Optional[Callable] = None,
+        device: Optional[Union[str, torch.device]] = None,
+    ):
+        self.config = config or CLIPConfig()
+        if self.config.int8_serving:
+            raise NotImplementedError(
+                "int8_serving (the W8A8 layer kernels) is not ported yet; "
+                "serve the bf16 configuration"
+            )
+        self.device = resolve_device(device)
+        if self.device.type == "cuda":
+            # the f32 plain paths are references: full f32, no TF32
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+        self.module = CLIPModule(self.config, device=self.device)
+        self.module.requires_grad_(False)
+        self._params: Dict = {}
+        self._compute = (None, None)  # (params tree, dtype-cast tree) cache
+        self.params = params if params is not None else init_params(self.config, seed)
+        if tokenizer is None:
+            from tvc_torch.models.tokenizer import get_tokenizer
+
+            tokenizer = get_tokenizer(
+                vocab_size=self.config.vocab_size,
+                context_length=self.config.context_length,
+            )
+        self.tokenizer = tokenizer
+
+    # -- parameters ------------------------------------------------------------
+    @property
+    def params(self) -> Dict:
+        return self._params
+
+    @params.setter
+    def params(self, tree: Dict) -> None:
+        flat = _flatten(tree)
+        named = dict(self.module.named_parameters())
+        if set(flat) != set(named):
+            raise ValueError("parameter tree does not match the model's structure")
+        with torch.no_grad():
+            for name, p in named.items():
+                src = flat[name] if torch.is_tensor(flat[name]) else torch.as_tensor(np.asarray(flat[name]))
+                if tuple(src.shape) != tuple(p.shape):
+                    raise ValueError(f"{name}: shape {tuple(src.shape)}, expected {tuple(p.shape)}")
+                p.copy_(src)
+        self._params = _unflatten({n: p.detach() for n, p in named.items()})
+        self._compute = (None, None)
+
+    def _compute_params(self, params: Dict) -> Dict:
+        """``params`` with the GEMM weights and embeddings cast to the compute
+        dtype once (cached for the current tree), biases and norms f32."""
+        if self._compute[0] is not params:
+            dtype = self.config.dtype
+
+            def cast(name, t):
+                leaf = name.rsplit(".", 1)[-1]
+                big = leaf in ("kernel", "embedding") and t.ndim >= 2
+                return (t.to(dtype) if big else t.float()).contiguous()
+
+            flat = {n: cast(n, t) for n, t in _flatten(params).items()}
+            self._compute = (params, _unflatten(flat))
+        return self._compute[1]
+
+    # -- functional core ---------------------------------------------------------
+    def _module_call(self, params: Dict, tower: str, x: Tensor) -> Tensor:
+        flat = {
+            n[len(tower) + 1:]: t for n, t in _flatten(params).items() if n.startswith(tower + ".")
+        }
+        return torch.func.functional_call(getattr(self.module, tower), flat, (x,))
+
+    def image_features(self, params: Dict, pixels: Tensor) -> Tensor:
+        """Differentiable: CLIP-normalized pixels [B,H,W,3] -> [B,E]."""
+        return self._module_call(params, "visual", pixels)
+
+    def text_features(self, params: Dict, tokens: Tensor) -> Tensor:
+        return self._module_call(params, "text", tokens)
+
+    @torch.no_grad()
+    def infer_image_features(self, params: Dict, pixels: Tensor) -> Tensor:
+        """Inference image features: the layer kernels when
+        ``config.fused_attention``, else the module."""
+        if self.config.fused_attention:
+            return vision_features_fused(self._compute_params(params), self.config, pixels)
+        return self.image_features(params, pixels)
+
+    @torch.no_grad()
+    def infer_text_features(self, params: Dict, tokens: Tensor) -> Tensor:
+        if self.config.fused_attention:
+            return text_features_fused(self._compute_params(params), self.config, tokens)
+        return self.text_features(params, tokens)
+
+    @torch.no_grad()
+    def infer_text_features_bucketed(
+        self, params: Dict, short_tokens: Tensor, long_tokens: Tensor, inv_perm: Tensor
+    ) -> Tensor:
+        """Encode the short bucket at its own length and the long bucket at
+        full length, then gather rows back to input order (exact: the tower
+        is length-polymorphic)."""
+        fs = self.infer_text_features(params, short_tokens)
+        fl = self.infer_text_features(params, long_tokens)
+        return torch.cat([fs, fl], dim=0)[inv_perm]
+
+    # -- convenience API -----------------------------------------------------------
+    def preprocess(self, images: Sequence) -> np.ndarray:
+        return preprocess_images(images, self.config.image_size)
+
+    def tokenize(self, texts: Union[str, Sequence[str]]) -> np.ndarray:
+        if isinstance(texts, str):
+            texts = [texts]
+        return self.tokenizer(texts)
+
+    def encode_image(self, images, normalize: bool = True) -> Tensor:
+        """PIL list or raw [0, 1] NHWC pixel array -> embeddings [B, E]."""
+        if isinstance(images, (list, tuple)):
+            pixels = torch.as_tensor(self.preprocess(images), device=self.device)
+        else:
+            arr = torch.as_tensor(np.asarray(images, np.float32), device=self.device)
+            pixels = normalize_pixels(arr[None] if arr.ndim == 3 else arr)
+        feats = self.infer_image_features(self.params, pixels)
+        return l2_normalize(feats) if normalize else feats
+
+    def encode_text(self, texts, normalize: bool = True) -> Tensor:
+        """Strings (tokenized here and cut to the smallest 8-multiple that
+        keeps every row's real tokens) or a token array -> [B, E]."""
+        if isinstance(texts, str) or (
+            isinstance(texts, (list, tuple)) and texts and isinstance(texts[0], str)
+        ):
+            tokens = self.tokenize(texts)
+            real = int(tokens.argmax(-1).max()) + 1
+            nonzero = tokens != 0
+            content = int(
+                np.where(nonzero.any(axis=-1), tokens.shape[-1] - nonzero[:, ::-1].argmax(-1), 0).max()
+            )
+            t_b = min(-(-max(real, content, 8) // 8) * 8, tokens.shape[-1])
+            tokens = tokens[:, :t_b]
+        else:
+            tokens = np.asarray(texts)
+        feats = self.infer_text_features(
+            self.params, torch.as_tensor(tokens, dtype=torch.long, device=self.device)
+        )
+        return l2_normalize(feats) if normalize else feats
