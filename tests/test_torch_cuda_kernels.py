@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain versions on the card, at
 ragged shapes the main path does not give them (partial tiles, K not a
-multiple of the k-tile, T up to 77, one-token sequences).
+multiple of the k-tile, T from 1 to 257, one-token sequences), and the
+operands they refuse.
 
 Marked ``cuda``: each test skips without a GPU. On the card:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
@@ -13,12 +14,17 @@ import pytest
 import torch
 
 from tvc_torch.core.kernels import (
+    attention_layer_i8_reference,
     attention_layer_reference,
     consistency_scores_reference,
     fused_attention_layer,
+    fused_attention_layer_i8,
     fused_consistency_scores,
     fused_mlp_layer,
+    fused_mlp_layer_i8,
+    mlp_layer_i8_reference,
     mlp_layer_reference,
+    quantize_linear,
 )
 
 pytestmark = pytest.mark.cuda
@@ -51,7 +57,8 @@ def _scaled_err(got, want):
     return float(d.max())
 
 
-@pytest.mark.parametrize("B,T,H,causal", [(3, 77, 2, True), (5, 50, 2, False), (7, 1, 2, True), (130, 3, 2, False)])
+@pytest.mark.parametrize("B,T,H,causal", [(3, 77, 2, True), (5, 50, 2, False), (7, 1, 2, True), (130, 3, 2, False),
+                                         (2, 197, 12, False), (3, 257, 2, False), (2, 257, 2, True)])
 def test_attention_layer_ragged(dev, B, T, H, causal):
     p = _layer(np.random.default_rng(B * T), B, T, 64 * H, 4 * 64 * H, dev)
     args = (p["x"], *p["ln"], *p["attn"])
@@ -70,6 +77,44 @@ def test_mlp_layer_ragged(dev, B, T, W, Wh):
     got = fused_mlp_layer(*args)
     want = mlp_layer_reference(*args)
     torch.cuda.synchronize()
+    assert _scaled_err(got, want) <= 3e-2
+
+
+def _i8(weights):
+    """(w, b, w, b) bf16 weights -> the int8 layer's (w_q, scale, b, w_q, scale, b)."""
+    w1, b1, w2, b2 = weights
+    return (*quantize_linear(w1), b1, *quantize_linear(w2), b2)
+
+
+# Tolerance of the int8 layers: as the bf16 layers', 3e-2 of max(1, |y|).
+# Kernel and plain quantize the same f32 values wherever both compute them
+# identically; a LayerNorm or softmax sum taken in another order can flip
+# one int8 activation by one quantum, which moves an output by row_scale *
+# col_scale * |w_q| (~1e-2 of max|y| at unit-scale inputs), and the bf16
+# output adds one ulp (2^-7 |y|). A wrong index or a missed term is O(1).
+@pytest.mark.parametrize("B,T,H,causal", [(3, 77, 2, True), (5, 50, 2, False), (7, 1, 2, True), (130, 3, 2, False),
+                                         (2, 197, 12, False), (3, 257, 2, False), (2, 257, 2, True)])
+def test_attention_layer_i8_ragged(dev, B, T, H, causal):
+    p = _layer(np.random.default_rng(B * T + 1), B, T, 64 * H, 4 * 64 * H, dev)
+    args = (p["x"], *p["ln"], *_i8(p["attn"]))
+    before = fused_attention_layer_i8.launches
+    got = fused_attention_layer_i8(*args, heads=H, causal=causal)
+    want = attention_layer_i8_reference(*args, heads=H, causal=causal)
+    torch.cuda.synchronize()
+    assert fused_attention_layer_i8.launches == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == p["x"].shape
+    assert _scaled_err(got, want) <= 3e-2
+
+
+@pytest.mark.parametrize("B,T,W,Wh", [(3, 7, 64, 208), (130, 1, 80, 144), (2, 77, 128, 512), (1, 257, 64, 256)])
+def test_mlp_layer_i8_ragged(dev, B, T, W, Wh):
+    p = _layer(np.random.default_rng(W + Wh + 1), B, T, W, Wh, dev)
+    args = (p["x"], *p["ln"], *_i8(p["mlp"]))
+    before = fused_mlp_layer_i8.launches
+    got = fused_mlp_layer_i8(*args)
+    want = mlp_layer_i8_reference(*args)
+    torch.cuda.synchronize()
+    assert fused_mlp_layer_i8.launches == before + 1
     assert _scaled_err(got, want) <= 3e-2
 
 
@@ -100,3 +145,29 @@ def test_kernels_refuse_what_they_do_not_take(dev):
     x = torch.zeros((2, 8), device=dev)
     with pytest.raises(ValueError):  # bf16 embeddings
         fused_consistency_scores(x.bfloat16(), x.bfloat16(), x[:, None].bfloat16(), x[:, None].bfloat16())
+
+
+def test_layer_kernels_refuse_t_above_257(dev):
+    p = _layer(np.random.default_rng(1), 1, 258, 64, 256, dev)
+    with pytest.raises(ValueError, match="T <= 257"):
+        fused_attention_layer(p["x"], *p["ln"], *p["attn"], heads=1)
+    with pytest.raises(ValueError, match="T <= 257"):
+        fused_attention_layer_i8(p["x"], *p["ln"], *_i8(p["attn"]), heads=1)
+
+
+def test_int8_kernels_refuse_what_they_do_not_take(dev):
+    p = _layer(np.random.default_rng(2), 2, 4, 64, 256, dev)
+    a, m = _i8(p["attn"]), _i8(p["mlp"])
+    with pytest.raises(ValueError):  # f32 activations
+        fused_attention_layer_i8(p["x"].float(), *p["ln"], *a, heads=1)
+    with pytest.raises(ValueError):  # bf16 weights where int8 are taken
+        fused_attention_layer_i8(p["x"], *p["ln"], *p["attn"][:1], a[1], *a[2:], heads=1)
+    with pytest.raises(ValueError):  # f64 scales
+        fused_mlp_layer_i8(p["x"], *p["ln"], m[0], m[1].double(), *m[2:])
+    with pytest.raises(ValueError):  # non-contiguous weight
+        fused_mlp_layer_i8(p["x"], *p["ln"], m[0].t().contiguous().t(), *m[1:])
+    with pytest.raises(ValueError):  # head width 32
+        fused_attention_layer_i8(p["x"], *p["ln"], *a, heads=2)
+    q = _layer(np.random.default_rng(3), 2, 4, 72, 144, dev)
+    with pytest.raises(ValueError):  # width 72: not a multiple of 16
+        fused_mlp_layer_i8(q["x"], *q["ln"], *_i8(q["mlp"]))

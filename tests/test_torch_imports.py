@@ -80,14 +80,14 @@ def test_entry_points_without_device_raise_when_cuda_is_absent(no_cuda):
         ServingRuntime(ServingConfig(), detector=AdversarialDetector(model, device="cpu"))
 
 
-def test_int8_serving_raises_not_implemented():
+def test_mesh_serving_raises_not_implemented():
     from tvc_torch.models.clip import CLIPConfig, CLIPModel
+    from tvc_torch.parallel.steps import make_serving_step
     from tvc_torch.serving import ServingConfig, ServingRuntime
 
+    model = CLIPModel(CLIPConfig.from_name("tiny", int8_serving=True, fused_attention=True), device="cpu")
     with pytest.raises(NotImplementedError):
-        CLIPModel(CLIPConfig.tiny().__class__.from_name("tiny", int8_serving=True, fused_attention=True), device="cpu")
-    with pytest.raises(NotImplementedError):
-        ServingRuntime(ServingConfig(int8_serving=True), device="cpu")
+        make_serving_step(model, mesh=object(), qparams=model.qparams(), device="cpu")
     with pytest.raises(NotImplementedError):
         ServingRuntime(ServingConfig(clip_model="tiny_coco_trained"), device="cpu")
 

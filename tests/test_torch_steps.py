@@ -107,5 +107,3 @@ def test_serving_step_single_device_only(setup):
     _, tm, _, _ = setup
     with pytest.raises(NotImplementedError):
         make_serving_step(tm, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError):
-        make_serving_step(tm, qparams={}, device="cpu")

@@ -41,6 +41,45 @@ def test_bpe_ids_identical(captions, context):
     np.testing.assert_array_equal(got(captions), np.asarray(want(captions)))
 
 
+@pytest.fixture(scope="module")
+def captions_5000():
+    with gzip.open(ASSETS / "coco_captions_val2017.json.gz", "rt") as f:
+        return [c for _, c in json.load(f)[:5000]]
+
+
+@pytest.fixture(scope="module")
+def bpe_pair():
+    jax_tok = jtok.get_tokenizer(vocab_size=49408, context_length=77)
+    return jax_tok, ttok.get_tokenizer(vocab_size=49408, context_length=77)
+
+
+def test_native_bpe_ids_identical_on_5000_coco_captions(bpe_pair, captions_5000):
+    jax_tok, tok = bpe_pair
+    assert tok.native
+    before = tok.native_texts
+    got = tok(captions_5000)
+    assert tok.native_texts - before == sum(c.isascii() for c in captions_5000) > 4900
+    np.testing.assert_array_equal(got, np.asarray(jax_tok(captions_5000)))
+
+
+@pytest.mark.parametrize("context", [77, 32, 16])
+def test_native_bpe_mixed_batches_route_per_string(bpe_pair, captions, context):
+    """Non-ASCII and special-token strings keep the Python path inside a
+    batch whose other strings go native; the ids match the pure-Python
+    tokenizer and the JAX package's."""
+    merges = ASSETS / "clip_tokenizer" / "merges.txt"
+    vocab = ASSETS / "clip_tokenizer" / "vocab.json"
+    tok = ttok.BPETokenizer(str(merges), 49408, context, vocab_path=str(vocab))
+    plain = ttok.BPETokenizer(str(merges), 49408, context, vocab_path=str(vocab), native=False)
+    batch = captions[:40] + ODD + ["A Dog <|endoftext|> runs", "CAPS and\x1cseparators", "naïve ÉCOLE"]
+    got = tok(batch)
+    n_python = sum(not (t.lower().isascii() and "<|" not in t.lower()) for t in batch)
+    assert 0 < n_python < len(batch)
+    assert tok.native_texts == len(batch) - n_python and plain.native_texts == 0
+    np.testing.assert_array_equal(got, plain(batch))
+    np.testing.assert_array_equal(got, np.asarray(jtok.get_tokenizer(vocab_size=49408, context_length=context)(batch)))
+
+
 def test_hash_ids_identical_at_tiny(captions):
     want = jtok.get_tokenizer(vocab_size=512, context_length=16)
     got = ttok.get_tokenizer(vocab_size=512, context_length=16)

@@ -15,8 +15,21 @@ from tvc_torch.core.kernels.consistency_kernel import (
     consistency_scores_reference,
     fused_consistency_scores,
 )
+from tvc_torch.core.kernels.quantized_layer_kernel import (
+    attention_layer_i8_reference,
+    fused_attention_layer_i8,
+    fused_mlp_layer_i8,
+    mlp_layer_i8_reference,
+    quantize_linear,
+)
 
-KERNELS = (fused_consistency_scores, fused_attention_layer, fused_mlp_layer)
+KERNELS = (
+    fused_consistency_scores,
+    fused_attention_layer,
+    fused_mlp_layer,
+    fused_attention_layer_i8,
+    fused_mlp_layer_i8,
+)
 
 
 def reset_launch_counts() -> None:

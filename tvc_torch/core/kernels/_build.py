@@ -3,8 +3,9 @@
 Each source compiles on its own with ``nvcc`` into a shared library with a
 plain C interface, loaded with ``ctypes`` (no PyTorch headers, so a build
 takes seconds). Libraries land in ``build/tvc_torch_kernels/`` at the repo
-root, named by the hash of their source: an edited source rebuilds, an
-unchanged one loads the library already there. ``build_all`` starts one
+root, named by the hash of their source and of the shared headers
+(``csrc/*.cuh``): an edited source or header rebuilds, an unchanged one
+loads the library already there. ``build_all`` starts one
 ``nvcc`` per source, all at once.
 
 Every C entry point launches on the stream it is given and returns
@@ -44,6 +45,15 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         # qkv, out, seqs, T, W, heads, causal, stream
         "tvc_head_attention": [_P, _P, _I, _I, _I, _I, _I, _P],
     },
+    "quantized_layer": {
+        # h, ln_scale, ln_bias, q, scale, M, K, eps, has_ln, stream
+        "tvc_quant_rows": [_P, _P, _P, _P, _P, _I, _I, _F, _I, _P],
+        # a, row_scale, w, col_scale, bias, residual, out, M, N, K,
+        # epilogue, stream
+        "tvc_i8_gemm": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+        # qkv, out, seqs, T, W, heads, causal, stream
+        "tvc_head_attention_f32": [_P, _P, _I, _I, _I, _I, _I, _P],
+    },
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -61,9 +71,13 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{digest}.so"
+    """Named by the hash of the source, the shared headers it may include
+    and the flags."""
+    h = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def _start_build(name: str):

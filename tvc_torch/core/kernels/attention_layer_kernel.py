@@ -31,7 +31,7 @@ from tvc_torch.core.kernels import _build
 
 EPI_BIAS, EPI_GELU, EPI_RESIDUAL = 0, 1, 2
 HEAD_DIM = 64  # the attention kernel's head width
-MAX_T = 96  # the attention kernel keeps <= 96 logits per query row
+MAX_T = 257  # the attention kernel's shared memory is sized for T <= 257 (ViT-L/14)
 
 
 def layernorm_f32(x: Tensor, scale: Tensor, bias: Tensor, eps: float = 1e-5) -> Tensor:
@@ -103,9 +103,11 @@ def _check_cuda_operands(
     x: Tensor,
     vectors: Sequence[Tuple[str, Tensor, int]],
     matrices: Sequence[Tuple[str, Tensor, Tuple[int, int]]],
+    weight_dtype: torch.dtype = torch.bfloat16,
 ) -> None:
     """Raise unless every operand is what the kernels take: contiguous,
-    on x's device, bf16 activations/weights and f32 vectors."""
+    on x's device, bf16 activations, ``weight_dtype`` weights and f32
+    vectors."""
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     if x.ndim != 3 or x.dtype != torch.bfloat16 or not x.is_contiguous():
@@ -117,8 +119,8 @@ def _check_cuda_operands(
         if t.dtype != torch.float32 or tuple(t.shape) != (n,) or not t.is_contiguous() or t.device != x.device:
             raise ValueError(f"{name} must be a contiguous float32 [{n}] tensor on {x.device}")
     for name, t, shape in matrices:
-        if t.dtype != torch.bfloat16 or tuple(t.shape) != shape or not t.is_contiguous() or t.device != x.device:
-            raise ValueError(f"{name} must be a contiguous bf16 {list(shape)} tensor on {x.device}")
+        if t.dtype != weight_dtype or tuple(t.shape) != shape or not t.is_contiguous() or t.device != x.device:
+            raise ValueError(f"{name} must be a contiguous {weight_dtype} {list(shape)} tensor on {x.device}")
 
 
 def _gemm(lib, a, ln_scale, ln_bias, w, bias, residual, out, M, N, K, eps, has_ln, epilogue, stream):

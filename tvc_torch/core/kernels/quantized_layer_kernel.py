@@ -1,0 +1,261 @@
+"""Int8 (W8A8, dynamic per-row activations) pre-LN attention and MLP
+sub-blocks of the int8 CLIP serving towers (port of
+``tvc/core/pallas/quantized_layer_kernel.py``).
+
+    fused_attention_layer_i8: x + out(MHA(qkv(LN(x)))), int8 QKV / out-proj
+    fused_mlp_layer_i8:       x + proj(quick_gelu(fc(LN(x)))), int8 fc / proj
+
+Scheme, as the JAX package's: weights symmetric per output channel, int8
+``[in, out]`` with f32 scales ``[out]``, prepared once by
+:func:`quantize_linear`; activations symmetric per row, quantized at run
+time after the LayerNorm, after attention and after quick_gelu
+(:func:`_quant_rows`); each GEMM int8 x int8 -> int32, dequantized as
+``acc * row_scale * col_scale + bias`` in f32. LayerNorm, softmax and the
+residual stay f32; the per-head attention products run on compute-dtype
+operands with f32 accumulation.
+
+For CUDA tensors the wrappers launch the hand-written kernels of
+``tvc_torch/csrc/quantized_layer.cu`` (row-quantize, int8 tensor-core GEMM
+with a dequantizing epilogue, per-head attention with an f32 output): an
+attention layer is 5 launches and an MLP layer 4. For CPU tensors they
+compute the plain PyTorch versions beside them, which follow the TPU
+kernel's body line by line: ``torch.round`` rounds half to even as
+``jnp.round`` does, ``h / rs`` is the same IEEE division, and the int8
+products are summed exactly (in float64, whose 53-bit mantissa holds every
+int32 sum here) before the f32 dequantization. The compute dtype is
+``x.dtype`` (bf16 on the card, f32 in the CPU tests). Inference only.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Tuple
+
+import torch
+from torch import Tensor
+
+from tvc_torch.core.kernels import _build
+from tvc_torch.core.kernels.attention_layer_kernel import (
+    HEAD_DIM,
+    MAX_T,
+    _check_cuda_operands,
+    _mm_f32,
+    layernorm_f32,
+)
+
+QEPI_BF16, QEPI_GELU_F32, QEPI_RESIDUAL = 0, 1, 2
+
+
+def quantize_linear(w: Tensor) -> Tuple[Tensor, Tensor]:
+    """Symmetric per-output-channel int8 quantization of a ``[K, N]``
+    weight: ``(w_q int8 [K, N], scale f32 [N])`` with ``w ~= w_q * scale``."""
+    wf = w.float()
+    scale = wf.abs().amax(dim=0).clamp(min=1e-12) / 127.0
+    w_q = torch.clamp(torch.round(wf / scale), -127, 127).to(torch.int8)
+    return w_q.contiguous(), scale.contiguous()
+
+
+def _quant_rows(h: Tensor) -> Tuple[Tensor, Tensor]:
+    """Dynamic symmetric per-row int8: ``h [M, K]`` f32 -> ``(int8 [M, K],
+    scale f32 [M, 1])``."""
+    rs = h.abs().amax(dim=-1, keepdim=True).clamp(min=1e-12) / 127.0
+    return torch.clamp(torch.round(h / rs), -127, 127).to(torch.int8), rs
+
+
+def _mm_i32(a: Tensor, b: Tensor) -> Tensor:
+    """The exact int32 product of two int8 matrices, as f32 (the TPU
+    kernel's ``preferred_element_type=int32`` then ``astype(f32)``)."""
+    return torch.matmul(a.double(), b.double()).float()
+
+
+def attention_layer_i8_reference(
+    x: Tensor,
+    ln_scale: Tensor,
+    ln_bias: Tensor,
+    wqkv_q: Tensor,
+    sqkv: Tensor,
+    bqkv: Tensor,
+    wout_q: Tensor,
+    sout: Tensor,
+    bout: Tensor,
+    heads: int,
+    eps: float = 1e-5,
+    causal: bool = False,
+) -> Tensor:
+    """Plain PyTorch version of :func:`fused_attention_layer_i8`."""
+    cd = x.dtype
+    B, T, W = x.shape
+    D = W // heads
+    h = layernorm_f32(x, ln_scale, ln_bias, eps).reshape(B * T, W)
+    hq, hs = _quant_rows(h)
+    qkv = (_mm_i32(hq, wqkv_q) * hs * sqkv.float() + bqkv.float()).to(cd)
+    q, k, v = (
+        t.reshape(B, T, heads, D).transpose(1, 2) for t in qkv.split(W, dim=-1)
+    )
+    logits = _mm_f32(q, k.transpose(-1, -2)) * (1.0 / math.sqrt(D))  # [B, H, T, T]
+    if causal:
+        keep = torch.ones((T, T), dtype=torch.bool, device=x.device).tril()
+        logits = logits.masked_fill(~keep, float("-inf"))
+    w = torch.softmax(logits, dim=-1).to(cd)
+    attn = _mm_f32(w, v).transpose(1, 2).reshape(B * T, W)  # f32
+    aq, as_ = _quant_rows(attn)
+    out = _mm_i32(aq, wout_q) * as_ * sout.float() + bout.float()
+    return (x.float() + out.reshape(B, T, W)).to(x.dtype)
+
+
+def mlp_layer_i8_reference(
+    x: Tensor,
+    ln_scale: Tensor,
+    ln_bias: Tensor,
+    wfc_q: Tensor,
+    sfc: Tensor,
+    bfc: Tensor,
+    wproj_q: Tensor,
+    sproj: Tensor,
+    bproj: Tensor,
+    eps: float = 1e-5,
+) -> Tensor:
+    """Plain PyTorch version of :func:`fused_mlp_layer_i8`."""
+    B, T, W = x.shape
+    h = layernorm_f32(x, ln_scale, ln_bias, eps).reshape(B * T, W)
+    hq, hs = _quant_rows(h)
+    hf = _mm_i32(hq, wfc_q) * hs * sfc.float() + bfc.float()
+    g = hf * torch.sigmoid(1.702 * hf)  # quick_gelu, f32
+    gq, gs = _quant_rows(g)
+    out = _mm_i32(gq, wproj_q) * gs * sproj.float() + bproj.float()
+    return (x.float() + out.reshape(B, T, W)).to(x.dtype)
+
+
+def _quant_rows_cuda(lib, h, ln_scale, ln_bias, eps, stream) -> Tuple[Tensor, Tensor]:
+    """One row-quantize launch over ``h [M, K]``: LayerNorm first when
+    ``ln_scale`` is given (h bf16), else h f32. Returns (int8 [M, K], f32
+    [M])."""
+    M, K = h.shape
+    q = torch.empty((M, K), dtype=torch.int8, device=h.device)
+    scale = torch.empty((M,), dtype=torch.float32, device=h.device)
+    has_ln = ln_scale is not None
+    _build.check(
+        lib.tvc_quant_rows(
+            h.data_ptr(), ln_scale.data_ptr() if has_ln else None,
+            ln_bias.data_ptr() if has_ln else None, q.data_ptr(), scale.data_ptr(),
+            M, K, eps, int(has_ln), stream,
+        ),
+        "tvc_quant_rows",
+    )
+    return q, scale
+
+
+def _i8_gemm(lib, a, row_scale, w, col_scale, bias, residual, out, epilogue, stream) -> None:
+    M, K = a.shape
+    N = w.shape[1]
+    _build.check(
+        lib.tvc_i8_gemm(
+            a.data_ptr(), row_scale.data_ptr(), w.data_ptr(), col_scale.data_ptr(),
+            bias.data_ptr(), None if residual is None else residual.data_ptr(),
+            out.data_ptr(), M, N, K, epilogue, stream,
+        ),
+        "tvc_i8_gemm",
+    )
+
+
+def _check_widths(**widths) -> None:
+    for name, n in widths.items():
+        if n % 16 != 0:
+            raise ValueError(f"{name} {n} must be a multiple of 16 (16-byte int8 loads)")
+
+
+def fused_attention_layer_i8(
+    x: Tensor,
+    ln_scale: Tensor,
+    ln_bias: Tensor,
+    wqkv_q: Tensor,
+    sqkv: Tensor,
+    bqkv: Tensor,
+    wout_q: Tensor,
+    sout: Tensor,
+    bout: Tensor,
+    heads: int,
+    eps: float = 1e-5,
+    causal: bool = False,
+) -> Tensor:
+    """Pre-LN attention sub-block with int8 QKV / out-proj GEMMs: x [B, T,
+    W]; wqkv_q int8 [W, 3W], wout_q int8 [W, W] from :func:`quantize_linear`
+    with their f32 scales; biases and LayerNorm parameters f32."""
+    if x.device.type == "cpu":
+        return attention_layer_i8_reference(
+            x, ln_scale, ln_bias, wqkv_q, sqkv, bqkv, wout_q, sout, bout, heads, eps, causal
+        )
+    B, T, W = x.shape
+    _check_cuda_operands(
+        x,
+        [("ln_scale", ln_scale, W), ("ln_bias", ln_bias, W), ("sqkv", sqkv, 3 * W),
+         ("bqkv", bqkv, 3 * W), ("sout", sout, W), ("bout", bout, W)],
+        [("wqkv_q", wqkv_q, (W, 3 * W)), ("wout_q", wout_q, (W, W))],
+        weight_dtype=torch.int8,
+    )
+    _check_widths(width=W)
+    if W != heads * HEAD_DIM:
+        raise ValueError(f"the attention kernel takes head width {HEAD_DIM}; got W={W}, heads={heads}")
+    if T > MAX_T:
+        raise ValueError(f"the attention kernel takes T <= {MAX_T}; got T={T}")
+    M = B * T
+    lib = _build.load("quantized_layer")
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    hq, hs = _quant_rows_cuda(lib, x.view(M, W), ln_scale, ln_bias, eps, stream)
+    qkv = torch.empty((M, 3 * W), dtype=torch.bfloat16, device=x.device)
+    _i8_gemm(lib, hq, hs, wqkv_q, sqkv, bqkv, None, qkv, QEPI_BF16, stream)
+    attn = torch.empty((M, W), dtype=torch.float32, device=x.device)
+    _build.check(
+        lib.tvc_head_attention_f32(qkv.data_ptr(), attn.data_ptr(), B, T, W, heads, int(causal), stream),
+        "tvc_head_attention_f32",
+    )
+    aq, as_ = _quant_rows_cuda(lib, attn, None, None, eps, stream)
+    out = torch.empty_like(x)
+    _i8_gemm(lib, aq, as_, wout_q, sout, bout, x, out, QEPI_RESIDUAL, stream)
+    fused_attention_layer_i8.launches += 1
+    return out
+
+
+fused_attention_layer_i8.launches = 0
+
+
+def fused_mlp_layer_i8(
+    x: Tensor,
+    ln_scale: Tensor,
+    ln_bias: Tensor,
+    wfc_q: Tensor,
+    sfc: Tensor,
+    bfc: Tensor,
+    wproj_q: Tensor,
+    sproj: Tensor,
+    bproj: Tensor,
+    eps: float = 1e-5,
+) -> Tensor:
+    """Pre-LN MLP sub-block with int8 fc / proj GEMMs: x +
+    proj(quick_gelu(fc(LN(x)))); wfc_q int8 [W, Wh], wproj_q int8 [Wh, W]."""
+    if x.device.type == "cpu":
+        return mlp_layer_i8_reference(x, ln_scale, ln_bias, wfc_q, sfc, bfc, wproj_q, sproj, bproj, eps)
+    B, T, W = x.shape
+    Wh = wfc_q.shape[1] if wfc_q.ndim == 2 else -1
+    _check_cuda_operands(
+        x,
+        [("ln_scale", ln_scale, W), ("ln_bias", ln_bias, W), ("sfc", sfc, Wh),
+         ("bfc", bfc, Wh), ("sproj", sproj, W), ("bproj", bproj, W)],
+        [("wfc_q", wfc_q, (W, Wh)), ("wproj_q", wproj_q, (Wh, W))],
+        weight_dtype=torch.int8,
+    )
+    _check_widths(width=W, hidden_width=Wh)
+    M = B * T
+    lib = _build.load("quantized_layer")
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    hq, hs = _quant_rows_cuda(lib, x.view(M, W), ln_scale, ln_bias, eps, stream)
+    g = torch.empty((M, Wh), dtype=torch.float32, device=x.device)
+    _i8_gemm(lib, hq, hs, wfc_q, sfc, bfc, None, g, QEPI_GELU_F32, stream)
+    gq, gs = _quant_rows_cuda(lib, g, None, None, eps, stream)
+    out = torch.empty_like(x)
+    _i8_gemm(lib, gq, gs, wproj_q, sproj, bproj, x, out, QEPI_RESIDUAL, stream)
+    fused_mlp_layer_i8.launches += 1
+    return out
+
+
+fused_mlp_layer_i8.launches = 0

@@ -19,11 +19,10 @@
 //    8 warps each holding a 32x64 block of 16x16x16 bf16 WMMA accumulators
 //    in f32; the next k-tile is loaded into registers while the tensor
 //    cores work on the current one.
-//  * head_attention_kernel: one block per (sequence, head). The T x 64 q, k
-//    and v slices sit in shared memory (T <= 96); each warp takes a query
-//    row at a time, keeps its logits in registers (3 per lane), applies
-//    the causal mask, takes the f32 softmax with warp shuffles, rounds the
-//    weights to bf16 as the TPU kernel does, and accumulates P.V in f32.
+//  * head_attention_kernel<bf16> (head_attention.cuh): one block per
+//    (sequence, head), T <= 257, the T x 64 q, k and v slices in dynamic
+//    shared memory; f32 softmax, weights rounded to bf16, P.V accumulated
+//    in f32 and rounded to bf16.
 //
 // Bound: operations. A layer's GEMMs do 2 M K N flops on 2 (M K + K N + M N)
 // bytes: at ViT-B/32 (M = 64 x 50, K = 768) that is ~600 flops per byte,
@@ -45,9 +44,10 @@
 #include <mma.h>
 #include <stdint.h>
 
+#include "head_attention.cuh"
+
 namespace {
 
-using bf16 = __nv_bfloat16;
 using namespace nvcuda;
 
 constexpr int BM = 128, BN = 128, BK = 32;
@@ -56,18 +56,6 @@ constexpr int kLdA = BK + 8;  // padded leading dimensions (multiples of 8)
 constexpr int kLdB = BN + 8;
 
 enum Epilogue { EPI_BIAS = 0, EPI_GELU = 1, EPI_RESIDUAL = 2 };
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
 
 template <bool HAS_LN, int EPI>
 __global__ void __launch_bounds__(kGemmThreads)
@@ -218,83 +206,6 @@ __global__ void __launch_bounds__(kGemmThreads)
   }
 }
 
-constexpr int kHeadDim = 64;
-constexpr int kMaxT = 96;  // 3 logits per lane
-constexpr int kAttnWarps = 4;
-
-__global__ void __launch_bounds__(32 * kAttnWarps)
-    head_attention_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out,
-                          int T, int W, int H, int causal, float scale) {
-  __shared__ __align__(16) bf16 qs[kMaxT][kHeadDim];
-  // k rows padded to 33 words: lane j reading row j hits bank (j + d) % 32
-  __shared__ __nv_bfloat162 ks[kMaxT][kHeadDim / 2 + 1];
-  __shared__ __align__(16) bf16 vs[kMaxT][kHeadDim];
-  __shared__ float ps[kAttnWarps][kMaxT];
-
-  const int seq = blockIdx.x / H, h = blockIdx.x % H;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const size_t row0 = (size_t)seq * T;
-  const size_t W3 = 3 * (size_t)W;
-
-  for (int c = tid; c < T * (kHeadDim / 8); c += blockDim.x) {
-    const int t = c >> 3, part = (c & 7) * 8;
-    const bf16* base = qkv + (row0 + t) * W3 + (size_t)h * kHeadDim + part;
-    *reinterpret_cast<uint4*>(&qs[t][part]) = *reinterpret_cast<const uint4*>(base);
-    const uint4 kv = *reinterpret_cast<const uint4*>(base + W);
-    const __nv_bfloat162* k2 = reinterpret_cast<const __nv_bfloat162*>(&kv);
-#pragma unroll
-    for (int q = 0; q < 4; ++q) ks[t][part / 2 + q] = k2[q];
-    *reinterpret_cast<uint4*>(&vs[t][part]) = *reinterpret_cast<const uint4*>(base + 2 * W);
-  }
-  __syncthreads();
-
-  for (int i = warp; i < T; i += kAttnWarps) {
-    const __nv_bfloat162* q2 = reinterpret_cast<const __nv_bfloat162*>(qs[i]);
-    const int jend = causal ? i + 1 : T;
-    float s[3];
-#pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      const int j = lane + 32 * c;
-      s[c] = -INFINITY;
-      if (j < jend) {
-        float acc = 0.f;
-#pragma unroll 8
-        for (int d = 0; d < kHeadDim / 2; ++d) {
-          const float2 a = __bfloat1622float2(q2[d]);
-          const float2 b = __bfloat1622float2(ks[j][d]);
-          acc += a.x * b.x + a.y * b.y;
-        }
-        s[c] = acc * scale;
-      }
-    }
-    const float mx = warp_max(fmaxf(fmaxf(s[0], s[1]), s[2]));
-    float e[3], sum = 0.f;
-#pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      e[c] = (lane + 32 * c < jend) ? expf(s[c] - mx) : 0.f;
-      sum += e[c];
-    }
-    sum = warp_sum(sum);
-#pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      const int j = lane + 32 * c;
-      // softmax weights rounded to bf16 before P.V, as the TPU kernel does
-      if (j < T) ps[warp][j] = __bfloat162float(__float2bfloat16(e[c] / sum));
-    }
-    __syncwarp();
-    float o0 = 0.f, o1 = 0.f;
-    for (int j = 0; j < jend; ++j) {
-      const float p = ps[warp][j];
-      const float2 v = __bfloat1622float2(reinterpret_cast<const __nv_bfloat162*>(vs[j])[lane]);
-      o0 += p * v.x;
-      o1 += p * v.y;
-    }
-    reinterpret_cast<__nv_bfloat162*>(out + (row0 + i) * W + (size_t)h * kHeadDim)[lane] =
-        __floats2bfloat162_rn(o0, o1);
-    __syncwarp();
-  }
-}
-
 template <bool HAS_LN, int EPI>
 void launch_gemm(const void* a, const void* g, const void* b, const void* w,
                  const void* bias, const void* res, void* out, int M, int N,
@@ -328,10 +239,5 @@ extern "C" int tvc_ln_gemm(const void* a, const void* ln_scale,
 
 extern "C" int tvc_head_attention(const void* qkv, void* out, int seqs, int T,
                                   int W, int heads, int causal, void* stream) {
-  if (T > kMaxT || W != heads * kHeadDim) return (int)cudaErrorInvalidValue;
-  if (seqs > 0 && T > 0) {
-    head_attention_kernel<<<seqs * heads, 32 * kAttnWarps, 0, (cudaStream_t)stream>>>(
-        (const bf16*)qkv, (bf16*)out, T, W, heads, causal, 0.125f /* 1/sqrt(64) */);
-  }
-  return (int)cudaGetLastError();
+  return launch_head_attention<bf16>(qkv, out, seqs, T, W, heads, causal, (cudaStream_t)stream);
 }

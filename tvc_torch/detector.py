@@ -246,7 +246,13 @@ class AdversarialDetector:
 
     def _serving_step(self, with_bank: bool):
         """The cached serving step for (with_bank, R, K) and the current
-        parameter tree (compared with ``is``)."""
+        parameter tree.
+
+        In int8 serving the step holds the int8 weights quantized from
+        ``model.params`` when it was built, so the key holds the tree itself
+        and compares it with ``is``: assigning new parameters builds a new
+        step with new int8 weights (an ``id()`` of a freed tree could be
+        reused by the new one and serve stale weights)."""
         from tvc_torch.parallel.steps import make_serving_step
 
         cfg = self.config
@@ -256,8 +262,12 @@ class AdversarialDetector:
         if self._serving is None or not (
             self._serving[0][0] == key[0] and self._serving[0][1] is key[1]
         ):
+            mcfg = self.model.config
+            # quantize the serving weights once per step, not per batch
+            qp = self.model.qparams() if mcfg.int8_serving and mcfg.fused_attention else None
             step = make_serving_step(
-                self.model, top_k=K, num_refs=R, with_bank=with_bank, device=self.device
+                self.model, top_k=K, num_refs=R, with_bank=with_bank, qparams=qp,
+                device=self.device,
             )
             self._serving = (key, step)
         return self._serving[1]

@@ -7,7 +7,9 @@
   The module path is the differentiable one.
 * ``vision_features_fused`` / ``text_features_fused`` are the serving
   towers: every attention and MLP sub-block goes through the hand-written
-  layer kernels (``tvc_torch.core.kernels``).
+  layer kernels (``tvc_torch.core.kernels``). Their ``_i8`` twins take the
+  int8 weights of :func:`quantize_clip_params` and run the W8A8 layer
+  kernels (``config.int8_serving``).
 * ``CLIPModel`` holds the parameters, the tokenizer and the inference
   entry points; it runs on the card unless given ``device="cpu"``.
 
@@ -32,6 +34,11 @@ from tvc_torch.core.kernels.attention_layer_kernel import (
     fused_attention_layer,
     fused_mlp_layer,
     layernorm_f32,
+)
+from tvc_torch.core.kernels.quantized_layer_kernel import (
+    fused_attention_layer_i8,
+    fused_mlp_layer_i8,
+    quantize_linear,
 )
 from tvc_torch.core.similarity import l2_normalize
 
@@ -62,7 +69,8 @@ class CLIPConfig:
     model_name: str = "ViT-B/32"
     #: serve through the hand-written attention / MLP layer kernels
     fused_attention: bool = False
-    #: int8 W8A8 serving towers (not ported yet: CLIPModel raises)
+    #: int8 W8A8 serving towers (the W8A8 layer kernels); takes effect
+    #: only with ``fused_attention``
     int8_serving: bool = False
 
     @classmethod
@@ -424,16 +432,11 @@ def vision_features_fused(params: Dict, cfg: CLIPConfig, pixels: Tensor) -> Tens
     pixels: CLIP-normalized ``[B, H, W, 3]``. Returns ``[B, embed_dim]`` f32."""
     v = params["visual"]
     dtype = cfg.dtype
-    x = patch_embed(pixels, v["patch_embed"]["kernel"], cfg.patch_size, dtype)
-    B = x.shape[0]
-    cls = v["class_embedding"].to(dtype).expand(B, 1, cfg.vision_width)
-    x = torch.cat([cls, x], dim=1) + v["positional_embedding"].to(dtype)
-    x = layernorm_f32(x, v["ln_pre"]["scale"], v["ln_pre"]["bias"]).to(dtype)
+    x = _vision_embed(v, cfg, pixels)
     for blk in _blocks(v, cfg.vision_layers):
         x = fused_attention_layer(x, *_attn_args(blk, dtype), heads=cfg.vision_heads)
         x = fused_mlp_layer(x, *_mlp_args(blk, dtype))
-    x = layernorm_f32(x[:, 0, :], v["ln_post"]["scale"], v["ln_post"]["bias"])
-    return x @ v["proj"].float()
+    return _vision_head(v, x)
 
 
 def text_features_fused(params: Dict, cfg: CLIPConfig, tokens: Tensor) -> Tensor:
@@ -441,15 +444,103 @@ def text_features_fused(params: Dict, cfg: CLIPConfig, tokens: Tensor) -> Tensor
     layer kernels; same math as ``TextTower``. Returns ``[B, embed_dim]`` f32."""
     t = params["text"]
     dtype = cfg.dtype
-    T = tokens.shape[1]
-    x = t["token_embedding"]["embedding"].to(dtype)[tokens]
-    x = (x + t["positional_embedding"][:T].to(dtype)).contiguous()
+    x = _text_embed(t, dtype, tokens)
     for blk in _blocks(t, cfg.text_layers):
         x = fused_attention_layer(x, *_attn_args(blk, dtype), heads=cfg.text_heads, causal=True)
         x = fused_mlp_layer(x, *_mlp_args(blk, dtype))
+    return _text_head(t, x, tokens)
+
+
+def _vision_embed(v: Dict, cfg: CLIPConfig, pixels: Tensor) -> Tensor:
+    """Patch embedding, class token, positions and LN-pre, in ``cfg.dtype``."""
+    dtype = cfg.dtype
+    x = patch_embed(pixels, v["patch_embed"]["kernel"], cfg.patch_size, dtype)
+    B = x.shape[0]
+    cls = v["class_embedding"].to(dtype).expand(B, 1, cfg.vision_width)
+    x = torch.cat([cls, x], dim=1) + v["positional_embedding"].to(dtype)
+    return layernorm_f32(x, v["ln_pre"]["scale"], v["ln_pre"]["bias"]).to(dtype)
+
+
+def _vision_head(v: Dict, x: Tensor) -> Tensor:
+    """LN-post of the class token and the projection, f32."""
+    x = layernorm_f32(x[:, 0, :], v["ln_post"]["scale"], v["ln_post"]["bias"])
+    return x @ v["proj"].float()
+
+
+def _text_embed(t: Dict, dtype, tokens: Tensor) -> Tensor:
+    T = tokens.shape[1]
+    x = t["token_embedding"]["embedding"].to(dtype)[tokens]
+    return (x + t["positional_embedding"][:T].to(dtype)).contiguous()
+
+
+def _text_head(t: Dict, x: Tensor, tokens: Tensor) -> Tensor:
+    """Final LN, the feature at the EOT position (argmax id), projection."""
     x = layernorm_f32(x, t["ln_final"]["scale"], t["ln_final"]["bias"])
     x = x[torch.arange(x.shape[0], device=x.device), tokens.argmax(dim=-1)]
     return x @ t["text_projection"].float()
+
+
+def quantize_clip_params(params: Dict, cfg: CLIPConfig) -> Dict:
+    """The int8 serving weights: per-output-channel symmetric int8 for the
+    four projection GEMMs of every block of both towers (QKV, attn-out, MLP
+    fc, MLP proj), on the parameters' device. Returns
+    ``{"visual"|"text": {"block_i": {name: (w_q int8, scale f32)}}}``."""
+
+    def tower(tree: Dict, layers: int) -> Dict:
+        return {
+            f"block_{i}": {
+                "qkv": quantize_linear(blk["attn"]["qkv"]["kernel"]),
+                "out": quantize_linear(blk["attn"]["out"]["kernel"]),
+                "fc": quantize_linear(blk["mlp"]["fc"]["kernel"]),
+                "proj": quantize_linear(blk["mlp"]["proj"]["kernel"]),
+            }
+            for i, blk in enumerate(_blocks(tree, layers))
+        }
+
+    return {
+        "visual": tower(params["visual"], cfg.vision_layers),
+        "text": tower(params["text"], cfg.text_layers),
+    }
+
+
+def _attn_i8_args(blk: Dict, qblk: Dict):
+    return (
+        blk["ln_1"]["scale"].float(), blk["ln_1"]["bias"].float(),
+        *qblk["qkv"], blk["attn"]["qkv"]["bias"].float(),
+        *qblk["out"], blk["attn"]["out"]["bias"].float(),
+    )
+
+
+def _mlp_i8_args(blk: Dict, qblk: Dict):
+    return (
+        blk["ln_2"]["scale"].float(), blk["ln_2"]["bias"].float(),
+        *qblk["fc"], blk["mlp"]["fc"]["bias"].float(),
+        *qblk["proj"], blk["mlp"]["proj"]["bias"].float(),
+    )
+
+
+def vision_features_fused_i8(params: Dict, qparams: Dict, cfg: CLIPConfig, pixels: Tensor) -> Tensor:
+    """``vision_features_fused`` with every sub-block through the W8A8
+    layer kernels; ``qparams`` from :func:`quantize_clip_params`."""
+    v, qv = params["visual"], qparams["visual"]
+    x = _vision_embed(v, cfg, pixels)
+    for i, blk in enumerate(_blocks(v, cfg.vision_layers)):
+        qblk = qv[f"block_{i}"]
+        x = fused_attention_layer_i8(x, *_attn_i8_args(blk, qblk), heads=cfg.vision_heads)
+        x = fused_mlp_layer_i8(x, *_mlp_i8_args(blk, qblk))
+    return _vision_head(v, x)
+
+
+def text_features_fused_i8(params: Dict, qparams: Dict, cfg: CLIPConfig, tokens: Tensor) -> Tensor:
+    """``text_features_fused`` with every sub-block (causal) through the
+    W8A8 layer kernels."""
+    t, qt = params["text"], qparams["text"]
+    x = _text_embed(t, cfg.dtype, tokens)
+    for i, blk in enumerate(_blocks(t, cfg.text_layers)):
+        qblk = qt[f"block_{i}"]
+        x = fused_attention_layer_i8(x, *_attn_i8_args(blk, qblk), heads=cfg.text_heads, causal=True)
+        x = fused_mlp_layer_i8(x, *_mlp_i8_args(blk, qblk))
+    return _text_head(t, x, tokens)
 
 
 # ---------------------------------------------------------------------------
@@ -583,11 +674,6 @@ class CLIPModel:
         device: Optional[Union[str, torch.device]] = None,
     ):
         self.config = config or CLIPConfig()
-        if self.config.int8_serving:
-            raise NotImplementedError(
-                "int8_serving (the W8A8 layer kernels) is not ported yet; "
-                "serve the bf16 configuration"
-            )
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             # the f32 plain paths are references: full f32, no TF32
@@ -642,6 +728,12 @@ class CLIPModel:
             self._compute = (params, _unflatten(flat))
         return self._compute[1]
 
+    def qparams(self) -> Dict:
+        """The int8 serving weights of the current parameters
+        (:func:`quantize_clip_params`), for callers that pass ``qparams``
+        to ``infer_*_features`` instead of quantizing in every call."""
+        return quantize_clip_params(self.params, self.config)
+
     # -- functional core ---------------------------------------------------------
     def _module_call(self, params: Dict, tower: str, x: Tensor) -> Tensor:
         flat = {
@@ -657,28 +749,49 @@ class CLIPModel:
         return self._module_call(params, "text", tokens)
 
     @torch.no_grad()
-    def infer_image_features(self, params: Dict, pixels: Tensor) -> Tensor:
+    def infer_image_features(
+        self, params: Dict, pixels: Tensor, qparams: Optional[Dict] = None
+    ) -> Tensor:
         """Inference image features: the layer kernels when
-        ``config.fused_attention``, else the module."""
-        if self.config.fused_attention:
-            return vision_features_fused(self._compute_params(params), self.config, pixels)
+        ``config.fused_attention`` (the W8A8 ones with
+        ``config.int8_serving``), else the module. In int8, ``qparams=None``
+        quantizes the weights from ``params`` in this call; pass
+        :meth:`qparams` to skip that."""
+        cfg = self.config
+        if cfg.fused_attention:
+            if cfg.int8_serving:
+                qp = qparams if qparams is not None else quantize_clip_params(params, cfg)
+                return vision_features_fused_i8(self._compute_params(params), qp, cfg, pixels)
+            return vision_features_fused(self._compute_params(params), cfg, pixels)
         return self.image_features(params, pixels)
 
     @torch.no_grad()
-    def infer_text_features(self, params: Dict, tokens: Tensor) -> Tensor:
-        if self.config.fused_attention:
-            return text_features_fused(self._compute_params(params), self.config, tokens)
+    def infer_text_features(
+        self, params: Dict, tokens: Tensor, qparams: Optional[Dict] = None
+    ) -> Tensor:
+        """Inference text features; see :meth:`infer_image_features`."""
+        cfg = self.config
+        if cfg.fused_attention:
+            if cfg.int8_serving:
+                qp = qparams if qparams is not None else quantize_clip_params(params, cfg)
+                return text_features_fused_i8(self._compute_params(params), qp, cfg, tokens)
+            return text_features_fused(self._compute_params(params), cfg, tokens)
         return self.text_features(params, tokens)
 
     @torch.no_grad()
     def infer_text_features_bucketed(
-        self, params: Dict, short_tokens: Tensor, long_tokens: Tensor, inv_perm: Tensor
+        self,
+        params: Dict,
+        short_tokens: Tensor,
+        long_tokens: Tensor,
+        inv_perm: Tensor,
+        qparams: Optional[Dict] = None,
     ) -> Tensor:
         """Encode the short bucket at its own length and the long bucket at
         full length, then gather rows back to input order (exact: the tower
         is length-polymorphic)."""
-        fs = self.infer_text_features(params, short_tokens)
-        fl = self.infer_text_features(params, long_tokens)
+        fs = self.infer_text_features(params, short_tokens, qparams=qparams)
+        fl = self.infer_text_features(params, long_tokens, qparams=qparams)
         return torch.cat([fs, fl], dim=0)[inv_perm]
 
     # -- convenience API -----------------------------------------------------------

@@ -2,8 +2,10 @@
 
 * ``BPETokenizer`` — the published CLIP byte-pair encoding, reading the
   bundled ``vocab.json`` + ``merges.txt`` from ``tvc/assets/clip_tokenizer``
-  (data files, read by path). Pure Python; its ids equal those of the JAX
-  package, whose native C++ fast path gives the same ids.
+  (data files, read by path). Lowercased ASCII strings without special
+  tokens go through the native C++ tokenizer (``tvc_torch.native``), the
+  rest through Python, as the JAX package routes them; the ids are the
+  same on both paths and equal the JAX package's.
 * ``HashTokenizer`` — deterministic FNV-1a word hashing into the vocab
   (tiny test configs and any vocab without bundled assets).
 
@@ -74,7 +76,9 @@ class BPETokenizer:
         vocab_size: int = 49408,
         context_length: int = 77,
         vocab_path: Optional[str] = None,
+        native: bool = True,
     ):
+        """``native=False``: every string through the Python path."""
         self.vocab_size = vocab_size
         self.context_length = context_length
         byte_list = self._bytes_to_unicode()
@@ -97,6 +101,13 @@ class BPETokenizer:
         self.eot_id = self.encoder["<|endoftext|>"]
         self.pad_id = 0
         self._cache: Dict[str, List[str]] = {}
+        self.native = native
+        #: strings encoded by the native library (the tests read it)
+        self.native_texts = 0
+        if native:
+            from tvc_torch import native as _native
+
+            _native.bpe_init(self.encoder, self.bpe_ranks)
 
     @staticmethod
     def _bytes_to_unicode() -> Dict[int, str]:
@@ -146,8 +157,23 @@ class BPETokenizer:
 
     def __call__(self, texts: Sequence[str]) -> np.ndarray:
         out = np.full((len(texts), self.context_length), self.pad_id, dtype=np.int32)
-        for i, t in enumerate(texts):
-            ids = [self.sot_id] + self._encode_text(t)[: self.context_length - 2] + [self.eot_id]
+        rest = range(len(texts))
+        if self.native:
+            # the native library takes lowercased ASCII strings without
+            # special tokens; the others keep the Python path
+            lowered = [t.lower() for t in texts]
+            fast = [i for i, t in enumerate(lowered) if t.isascii() and "<|" not in t]
+            if fast:
+                from tvc_torch import native as _native
+
+                out[fast] = _native.bpe_encode_batch(
+                    [lowered[i] for i in fast], self.context_length, self.sot_id, self.eot_id, self.pad_id
+                )
+                self.native_texts += len(fast)
+                fast_set = set(fast)
+                rest = [i for i in rest if i not in fast_set]
+        for i in rest:
+            ids = [self.sot_id] + self._encode_text(texts[i])[: self.context_length - 2] + [self.eot_id]
             out[i, : len(ids)] = ids
         return out
 

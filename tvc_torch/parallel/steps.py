@@ -5,8 +5,9 @@ One call computes the CLIP image encode, one text-tower pass for the
 originals and the variants, the exact bank top-k by the text embedding,
 the reference gather and the consistency scoring, then the two-sided band
 decision. With ``config.fused_attention`` the towers run the hand-written
-layer kernels; scoring runs the consistency kernel for CUDA tensors (each
-wrapper picks its plain version only for CPU tensors).
+layer kernels (the W8A8 ones with ``config.int8_serving``); scoring runs the
+consistency kernel for CUDA tensors (each wrapper picks its plain version
+only for CPU tensors).
 """
 
 from __future__ import annotations
@@ -59,12 +60,14 @@ def make_serving_step(
     ([B, top_k] int32; -1 without a bank), ``img`` (L2-normed image
     features). Scores the first ``num_refs <= top_k`` retrieved rows.
 
-    Single device only: ``mesh`` and int8 ``qparams`` raise.
+    ``qparams``: the int8 serving weights (``CLIPModel.qparams()``) for
+    ``config.int8_serving``, used by every tower call of the step; None
+    quantizes them from ``params`` in each call.
+
+    Single device only: ``mesh`` raises.
     """
     if mesh is not None:
         raise NotImplementedError("mesh serving is not ported yet: single device only")
-    if qparams is not None or model.config.int8_serving:
-        raise NotImplementedError("int8 serving is not ported yet")
     device = resolve_device(device)
     if model.device != device:
         raise ValueError(f"model is on {model.device}, step on {device}")
@@ -107,7 +110,7 @@ def make_serving_step(
 
     def _encode_image(params, pixels):
         px = normalize_pixels(_dev(pixels, torch.float32))
-        return l2_normalize(model.infer_image_features(params, px))
+        return l2_normalize(model.infer_image_features(params, px, qparams=qparams))
 
     @torch.no_grad()
     def step(params, pixels, tokens, variant_tokens, variant_mask, bank, valid, weights, lower, upper):
@@ -117,7 +120,8 @@ def make_serving_step(
         B, V, T = variant_tokens.shape
         # ONE text-tower pass for originals + variants ([B*(V+1), T])
         all_tok = torch.cat([tokens[:, None, :], variant_tokens], dim=1).reshape(B * (V + 1), T)
-        allf = l2_normalize(model.infer_text_features(params, all_tok)).reshape(B, V + 1, -1)
+        allf = l2_normalize(model.infer_text_features(params, all_tok, qparams=qparams))
+        allf = allf.reshape(B, V + 1, -1)
         return _finish(params, img, allf, variant_mask, bank, valid, weights, lower, upper)
 
     @torch.no_grad()
@@ -129,7 +133,7 @@ def make_serving_step(
         B, V = variant_mask.shape
         allf = model.infer_text_features_bucketed(
             params, _dev(short_tok, torch.long), _dev(long_tok, torch.long),
-            _dev(inv_perm, torch.long),
+            _dev(inv_perm, torch.long), qparams=qparams,
         )
         allf = l2_normalize(allf).reshape(B, V + 1, -1)
         return _finish(params, img, allf, variant_mask, bank, valid, weights, lower, upper)

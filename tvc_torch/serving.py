@@ -44,7 +44,8 @@ class ServingConfig:
     port: int = 0  # 0 = ephemeral
     detection_threshold: Optional[float] = None
     num_text_variants: int = 5
-    #: int8 W8A8 serving (not ported yet: raises)
+    #: int8 W8A8 serving towers (the production tower kernels): builds the
+    #: model with fused_attention and int8_serving
     int8_serving: bool = False
     #: fixed text-token bucket (multiple of 8)
     text_bucket: int = 32
@@ -445,8 +446,8 @@ def _make_handler(runtime: ServingRuntime):
     return Handler
 
 
-def serve_main(argv: Optional[Sequence[str]] = None) -> None:
-    """Stand up the micro-batching detection service on the card."""
+def serve_args(argv: Optional[Sequence[str]] = None):
+    """``serve_main``'s command line -> (ServingConfig, device, warmup)."""
     import argparse
 
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -458,27 +459,32 @@ def serve_main(argv: Optional[Sequence[str]] = None) -> None:
     p.add_argument("--batch-max-size", type=int, default=64)
     p.add_argument("--batch-max-wait-ms", type=float, default=5.0)
     p.add_argument("--no-warmup", action="store_true")
-    p.add_argument("--int8", action="store_true", help="int8 W8A8 serving kernels (not ported yet)")
+    p.add_argument("--int8", action="store_true", help="int8 W8A8 serving towers")
     p.add_argument("--drift-window", type=int, default=512)
     p.add_argument("--drift-ks-alert", type=float, default=0.25)
     p.add_argument("--device", default=None, help="default: the card")
     args = p.parse_args(argv)
-    rt = ServingRuntime(
-        ServingConfig(
-            clip_model=args.clip_model,
-            bank_path=args.bank_path,
-            bank_size=args.bank_size,
-            host=args.host,
-            port=args.port,
-            batch_max_size=args.batch_max_size,
-            batch_max_wait_ms=args.batch_max_wait_ms,
-            int8_serving=args.int8,
-            drift_window=args.drift_window,
-            drift_ks_alert=args.drift_ks_alert,
-        ),
-        device=args.device,
+    cfg = ServingConfig(
+        clip_model=args.clip_model,
+        bank_path=args.bank_path,
+        bank_size=args.bank_size,
+        host=args.host,
+        port=args.port,
+        batch_max_size=args.batch_max_size,
+        batch_max_wait_ms=args.batch_max_wait_ms,
+        int8_serving=args.int8,
+        drift_window=args.drift_window,
+        drift_ks_alert=args.drift_ks_alert,
     )
-    if not args.no_warmup:
+    return cfg, args.device, not args.no_warmup
+
+
+def serve_main(argv: Optional[Sequence[str]] = None) -> None:
+    """Stand up the micro-batching detection service on the card
+    (``--int8``: the W8A8 serving towers)."""
+    cfg, device, warmup = serve_args(argv)
+    rt = ServingRuntime(cfg, device=device)
+    if warmup:
         print("warming up...")
         rt.warmup()
     rt.start()
