@@ -19,6 +19,13 @@ Phases (each raises on failure; the script then exits non-zero):
      with no injected detector (what ``serve --int8`` builds): the W8A8
      layer kernels and the native BPE tokenizer, held against the same
      path on the plain versions;
+  qwen: Qwen2-7B at full width (int8 W8A8, seeded random weights)
+     paraphrasing 192 COCO captions x 3 with 16 new tokens through
+     QwenModel.generate_paraphrases_batch (decode batch 576): launch counts
+     of the W8A8 GEMM and decode attention kernels checked against the
+     code, tok/s and ms/query, peak memory, a constrained (ASCII) call, the
+     logits held against the same path on the plain versions under teacher
+     forcing, a profile;
   6. summary: one JSON line of per-kernel numbers, the card's nvidia-smi
      line, then the last line {"ok": true, "device": {...}}.
 
@@ -48,6 +55,12 @@ PEAK_INT8_OPS = 1979e12  # dense int8 tensor-core rate
 PEAK_F32_FLOPS = 67e12  # f32 outside the tensor cores
 LAYER_TOL = 3e-2  # relative to max(1, |plain|): see phase_kernels
 CONSISTENCY_TOL = 1e-5
+# decode attention, relative to max(1, |plain|): the kernel and the plain
+# version round the same f32 softmax weights to bf16; a weight whose f32
+# value is one ulp apart (exp and sums in another order) can round to the
+# neighbouring bf16 value, moving an output by 2^-8 |w v|, and the output
+# rounding adds one bf16 ulp (2^-8 |y|)
+DECODE_TOL = 1e-2
 
 
 def log(msg: str) -> None:
@@ -310,13 +323,167 @@ def phase_kernels() -> dict:
             if not rel_err <= LAYER_TOL:
                 raise AssertionError(f"{name} {shape} disagrees: {abs_err:.3e} abs, {rel_err:.3e} scaled")
             k_ms, p_ms = time_ms(run_k), time_ms(run_p)
+            lib_ms = _int_mm_ms(M, args) if name.endswith("_i8") else None
             rows[name].append({"shape": shape, "ms": k_ms, "plain_ms": p_ms, "bound_ms": bms,
-                               "bound_by": by, "max_abs_err": abs_err})
+                               "bound_by": by, "max_abs_err": abs_err, "library_ms": lib_ms})
             log(f"kernel {name} {shape}: kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
-                f"bound_ms={bms:.5f} ({by}) max_abs_err={abs_err:.3e} scaled_err={rel_err:.3e}")
+                f"bound_ms={bms:.5f} ({by}) max_abs_err={abs_err:.3e} scaled_err={rel_err:.3e}"
+                + ("" if lib_ms is None else f" library_ms(GEMM only, torch._int_mm)={lib_ms:.4f}"))
     for name, shapes in rows.items():
         results[name] = {"shapes": shapes}
+    results.update(phase_qwen_kernels(rng, dev))
     return results
+
+
+def _int_mm_ms(M: int, args) -> float:
+    """GEMM-only yardstick of an int8 layer: torch._int_mm on int8
+    operands of its two GEMMs' shapes (the layer's int8 weights and
+    random int8 activations), one after the other."""
+    import torch
+
+    w1, w2 = args[3], args[6]
+    a1 = torch.randint(-127, 128, (M, w1.shape[0]), dtype=torch.int8, device=w1.device)
+    a2 = torch.randint(-127, 128, (M, w2.shape[0]), dtype=torch.int8, device=w2.device)
+    return time_ms(lambda: (torch._int_mm(a1, w1), torch._int_mm(a2, w2)))
+
+
+def _w8a8_bound(M, K, N, dtype_bytes=2):
+    """Bytes: x in, int8 weights and f32 scales in, the output out;
+    operations: 2 M K N int8."""
+    return bound_ms_of(dtype_bytes * M * K + K * N + 4 * N + dtype_bytes * M * N,
+                       2 * M * K * N / PEAK_INT8_OPS)
+
+
+def _decode_bound(B, KV, R, S, D, dtype_bytes=2):
+    """Bytes: q, k, v, the f32 mask in, the output out; operations: the
+    two products (2 x 2 B KV R S D) at the bf16 tensor-core rate."""
+    nbytes = dtype_bytes * (2 * B * KV * R * D + 2 * B * KV * S * D) + 4 * B * S
+    return bound_ms(nbytes, 4 * B * KV * R * S * D, PEAK_BF16_FLOPS)
+
+
+def phase_qwen_kernels(rng, dev) -> dict:
+    """The Qwen2-7B decode's kernels against their plain versions: the W8A8
+    GEMM at the five GEMM shapes of a decode step (M = 576) and at q|k|v
+    of the suffix prefill (M = 192 x 24), held to equality; the decode
+    attention at B = 576 (Qwen2-7B: KV = 4, R = 7, D = 128, S = 64 and
+    512; Qwen2-0.5B: KV = 2, R = 7, D = 64), held to DECODE_TOL; each
+    stacked wrapper on a 28-layer stack, held equal to the flat kernel on
+    the layer's view."""
+    import torch
+    import torch.nn.functional as F
+
+    from tvc_torch.core.kernels import (
+        decode_gqa_attention,
+        decode_gqa_attention_stacked,
+        decode_gqa_reference,
+        quantize_linear,
+        w8a8_matmul,
+        w8a8_matmul_reference,
+        w8a8_matmul_stacked,
+    )
+    from tvc_torch.core.kernels.quantized_layer_kernel import _quant_rows
+
+    bf = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(3)
+    t = lambda *shape: torch.randn(shape, generator=gen, device=dev)
+    out = {k: {"shapes": []} for k in ("w8a8_matmul", "w8a8_matmul_stacked",
+                                       "decode_gqa_attention", "decode_gqa_attention_stacked")}
+    L, H, I, V = 28, 3584, 18944, 151936
+    gemms = [("q|k|v", 576, H, 4608), ("o", 576, H, H), ("gate|up", 576, H, 2 * I), ("down", 576, I, H),
+             ("lm_head", 576, H, V), ("q|k|v suffix prefill", 192 * 24, H, 4608)]
+    for tag, M, K, N in gemms:
+        x = t(M, K).to(bf)
+        w_q, scale = quantize_linear(t(K, N) / math.sqrt(K))
+        got, want = w8a8_matmul(x, w_q, scale), w8a8_matmul_reference(x, w_q, scale)
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        if err != 0.0:
+            raise AssertionError(f"w8a8_matmul {tag} M={M} K={K} N={N} differs from its plain version by {err}")
+        xq = _quant_rows(x.float())[0]  # the kernel's int8 operand
+        k_ms = time_ms(lambda: w8a8_matmul(x, w_q, scale))
+        p_ms = time_ms(lambda: w8a8_matmul_reference(x, w_q, scale), iters=5, warmup=1)
+        lib_ms = time_ms(lambda: torch._int_mm(xq, w_q))
+        bms, by = _w8a8_bound(M, K, N)
+        shape = f"{tag} M={M} K={K} N={N}"
+        out["w8a8_matmul"]["shapes"].append({"shape": shape, "ms": k_ms, "plain_ms": p_ms, "bound_ms": bms,
+                                             "bound_by": by, "max_abs_err": err, "library_ms": lib_ms})
+        log(f"kernel w8a8_matmul {shape}: kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} bound_ms={bms:.5f} ({by}) "
+            f"max_abs_err={err:.3e} library_ms(GEMM only, torch._int_mm)={lib_ms:.4f}")
+        del w_q, scale, want
+    # stacked: q|k|v of all 28 layers, layer 27
+    M, K, N = 576, H, 4608
+    x = t(M, K).to(bf)
+    w_q = torch.randint(-127, 128, (L, K, N), dtype=torch.int8, device=dev)
+    scale = (t(L, N).abs() * 1e-3).contiguous()
+    got, flat = w8a8_matmul_stacked(x, w_q, scale, L - 1), w8a8_matmul(x, w_q[L - 1], scale[L - 1])
+    want = w8a8_matmul_reference(x, w_q[L - 1], scale[L - 1])
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max())
+    if not (torch.equal(got, flat) and err == 0.0):
+        raise AssertionError(f"w8a8_matmul_stacked differs from the flat kernel / plain version ({err})")
+    xq = _quant_rows(x.float())[0]
+    k_ms = time_ms(lambda: w8a8_matmul_stacked(x, w_q, scale, L - 1))
+    p_ms = time_ms(lambda: w8a8_matmul_reference(x, w_q[L - 1], scale[L - 1]), iters=5, warmup=1)
+    lib_ms = time_ms(lambda: torch._int_mm(xq, w_q[L - 1]))
+    bms, by = _w8a8_bound(M, K, N)
+    shape = f"q|k|v layer {L - 1} of {L} M={M} K={K} N={N}"
+    out["w8a8_matmul_stacked"]["shapes"].append({"shape": shape, "ms": k_ms, "plain_ms": p_ms, "bound_ms": bms,
+                                                 "bound_by": by, "max_abs_err": err, "library_ms": lib_ms})
+    log(f"kernel w8a8_matmul_stacked {shape}: kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} bound_ms={bms:.5f} "
+        f"({by}) max_abs_err={err:.3e} library_ms(GEMM only, torch._int_mm)={lib_ms:.4f}")
+    del w_q, scale
+
+    def decode_inputs(B, KV, R, S, D, L=None):
+        cache = (B, KV, S, D) if L is None else (L, B, KV, S, D)
+        mask = np.where(rng.random((B, S)) < 0.25, -np.inf, 0.0).astype(np.float32)
+        mask[:, 0] = 0.0
+        return t(B, KV, R, D).to(bf), t(*cache).to(bf), t(*cache).to(bf), torch.as_tensor(mask, device=dev)
+
+    def sdpa_ms(q, k, v, mask):
+        """One PyTorch call for the same function (GQA, additive mask)."""
+        B, KV, R, D = q.shape
+        qh, m = q.reshape(B, KV * R, 1, D), mask[:, None, None, :].to(q.dtype)
+        try:
+            return time_ms(lambda: F.scaled_dot_product_attention(qh, k, v, attn_mask=m, enable_gqa=True))
+        except TypeError:  # a PyTorch without enable_gqa
+            return None
+
+    for tag, B, KV, R, S, D in (("Qwen2-7B", 576, 4, 7, 64, 128), ("Qwen2-7B", 576, 4, 7, 512, 128),
+                                ("Qwen2-0.5B", 576, 2, 7, 64, 64)):
+        q, k, v, mask = decode_inputs(B, KV, R, S, D)
+        got, want = decode_gqa_attention(q, k, v, mask), decode_gqa_reference(q, k, v, mask)
+        torch.cuda.synchronize()
+        abs_err, rel_err = _layer_error(got, want)
+        if not rel_err <= DECODE_TOL:
+            raise AssertionError(f"decode_gqa_attention {tag} S={S} disagrees: {abs_err:.3e} abs, {rel_err:.3e} scaled")
+        k_ms = time_ms(lambda: decode_gqa_attention(q, k, v, mask))
+        p_ms = time_ms(lambda: decode_gqa_reference(q, k, v, mask))
+        lib_ms = sdpa_ms(q, k, v, mask)
+        bms, by = _decode_bound(B, KV, R, S, D)
+        shape = f"{tag} B={B} KV={KV} R={R} S={S} D={D}"
+        out["decode_gqa_attention"]["shapes"].append({"shape": shape, "ms": k_ms, "plain_ms": p_ms, "bound_ms": bms,
+                                                      "bound_by": by, "max_abs_err": abs_err, "library_ms": lib_ms})
+        log(f"kernel decode_gqa_attention {shape}: kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} bound_ms={bms:.5f} "
+            f"({by}) max_abs_err={abs_err:.3e} scaled_err={rel_err:.3e} library_ms(sdpa)={lib_ms}")
+    B, KV, R, S, D = 576, 4, 7, 64, 128
+    q, k, v, mask = decode_inputs(B, KV, R, S, D, L=L)
+    got, flat = decode_gqa_attention_stacked(q, k, v, mask, L - 1), decode_gqa_attention(q, k[L - 1], v[L - 1], mask)
+    want = decode_gqa_reference(q, k[L - 1], v[L - 1], mask)
+    torch.cuda.synchronize()
+    abs_err, rel_err = _layer_error(got, want)
+    if not (torch.equal(got, flat) and rel_err <= DECODE_TOL):
+        raise AssertionError(f"decode_gqa_attention_stacked differs from the flat kernel or its plain version ({rel_err})")
+    k_ms = time_ms(lambda: decode_gqa_attention_stacked(q, k, v, mask, L - 1))
+    p_ms = time_ms(lambda: decode_gqa_reference(q, k[L - 1], v[L - 1], mask))
+    lib_ms = sdpa_ms(q, k[L - 1], v[L - 1], mask)
+    bms, by = _decode_bound(B, KV, R, S, D)
+    shape = f"Qwen2-7B layer {L - 1} of {L} B={B} KV={KV} R={R} S={S} D={D}"
+    out["decode_gqa_attention_stacked"]["shapes"].append({"shape": shape, "ms": k_ms, "plain_ms": p_ms,
+                                                          "bound_ms": bms, "bound_by": by, "max_abs_err": abs_err,
+                                                          "library_ms": lib_ms})
+    log(f"kernel decode_gqa_attention_stacked {shape}: kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
+        f"bound_ms={bms:.5f} ({by}) max_abs_err={abs_err:.3e} library_ms(sdpa)={lib_ms}")
+    return out
 
 
 def _quantized(weights):
@@ -343,11 +510,21 @@ KERNEL_SOURCES = {
         "tvc_torch/csrc/quantized_layer.cu", "tvc/core/pallas/quantized_layer_kernel.py:173"),
     "fused_mlp_layer_i8": (
         "tvc_torch/csrc/quantized_layer.cu", "tvc/core/pallas/quantized_layer_kernel.py:235"),
+    # the stacked wrappers launch the flat kernels on the layer's view
+    "decode_gqa_attention": (
+        "tvc_torch/csrc/decode_attention.cu", "tvc/core/pallas/decode_attention_kernel.py:82"),
+    "decode_gqa_attention_stacked": (
+        "tvc_torch/csrc/decode_attention.cu", "tvc/core/pallas/decode_attention_kernel.py:149"),
+    "w8a8_matmul": (
+        "tvc_torch/csrc/quantized_layer.cu", "tvc/core/pallas/w8_matmul_kernel.py:190"),
+    "w8a8_matmul_stacked": (
+        "tvc_torch/csrc/quantized_layer.cu", "tvc/core/pallas/w8_matmul_kernel.py:288"),
 }
-#: the kernels each serving path launches; it launches no other
+#: the kernels each path launches; it launches no other
 PATH_KERNELS = {
     "bf16": ("fused_consistency_scores", "fused_attention_layer", "fused_mlp_layer"),
     "int8": ("fused_consistency_scores", "fused_attention_layer_i8", "fused_mlp_layer_i8"),
+    "qwen": ("w8a8_matmul", "w8a8_matmul_stacked", "decode_gqa_attention", "decode_gqa_attention_stacked"),
 }
 B_DEFENDED, V_DEFENDED = 256, 6
 
@@ -563,12 +740,170 @@ def phase_int8(card: dict, bf16: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase qwen: the Qwen2-7B paraphrase decode
+# ---------------------------------------------------------------------------
+
+N_PROMPTS, N_PARAPHRASES, MAX_NEW = 192, 3, 16
+N_FORCED = 8  # decode steps held against the plain versions under teacher forcing
+# Teacher-forced logits, kernel path vs the same path on the plain
+# versions. The int8 GEMMs are bit-identical (phase 3), so the two runs
+# part only at the decode attention, whose bf16 outputs differ by an ulp
+# here and there (DECODE_TOL); such a difference changes a later layer's
+# int8 quantum or bf16 rounding and travels through the remaining layers
+# of a random-weight network. Held: the median |d logit| within 2e-2 of
+# the logits' RMS (most logits untouched), the max within 0.5 of it (a
+# few rows carry a flip), and top-1 agreement on >= 90 % of (row, step)
+# pairs; a wrong index, layer or cache slot moves every logit by O(RMS).
+QWEN_MEDIAN_TOL, QWEN_MAX_TOL, QWEN_TOP1 = 2e-2, 0.5, 0.9
+
+
+def coco_captions(n: int):
+    """The first n captions in the order of the JAX package's
+    ``load_coco_captions()`` (one caption per image, the pairs permuted
+    with default_rng(12345)), read from the bundled asset."""
+    with gzip.open(REPO / "tvc" / "assets" / "coco_captions_val2017.json.gz", "rt") as f:
+        pairs = json.load(f)
+    seen, one = set(), []
+    for img_id, cap in pairs:
+        if img_id not in seen:
+            seen.add(img_id)
+            one.append(cap.strip())
+    order = np.random.default_rng(12345).permutation(len(one))
+    return [one[int(i)] for i in order[:n]]
+
+
+def qwen_expected_launches(cfg, prefix_len: int, steps: int) -> dict:
+    """Launches of one generate_paraphrases_batch call, read off
+    QwenModel.decode: 4 stacked GEMMs a layer in the prefix prefill (when
+    there is a prefix), in the suffix prefill and in each decode step; the
+    untied head after the suffix prefill and after each step; one decode
+    attention a layer in each step."""
+    L = cfg.num_layers
+    stacked = 4 * L * ((1 if prefix_len else 0) + 1 + steps)
+    head = (0 if cfg.tie_embeddings else 1) * (1 + steps)
+    return {"w8a8_matmul": stacked + head, "w8a8_matmul_stacked": stacked,
+            "decode_gqa_attention": L * steps, "decode_gqa_attention_stacked": L * steps}
+
+
+def phase_qwen(card: dict) -> dict:
+    """Qwen2-7B W8A8 at full width, seeded random weights, 192 COCO
+    captions x 3 paraphrases x 16 new tokens."""
+    import dataclasses
+
+    import torch
+
+    import tvc_torch.models.qwen as qwen_mod
+    from tvc_torch.core.kernels import (
+        decode_gqa_reference,
+        launch_counts,
+        reset_launch_counts,
+        w8a8_matmul_reference,
+    )
+    from tvc_torch.models.qwen import PARAPHRASE_PREFIX, PARAPHRASE_PROMPT, QwenConfig, QwenModel
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(QwenConfig.qwen2_7b(), quant_gemm="w8a8")
+    model = QwenModel(cfg, seed=0, max_new_tokens=MAX_NEW, init_int8=True, decode_only=True)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    log(f"[qwen] model: {cfg.model_name} int8 W8A8, {cfg.num_layers} x {cfg.hidden_size}, seeded random "
+        f"weights, init {init_s:.2f} s, {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated; "
+        f"tokenizer {type(model.tokenizer).__name__}")
+    texts = coco_captions(N_PROMPTS)
+    n_rows = N_PROMPTS * N_PARAPHRASES
+
+    # -- warm call through the entry point, launch counts checked
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    paras = model.generate_paraphrases_batch(texts, N_PARAPHRASES)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    counts = launch_counts()
+    P = len(model._prefix_ids(PARAPHRASE_PREFIX))
+    want = qwen_expected_launches(cfg, P, MAX_NEW)
+    log(f"[qwen] launches in one call (prefix {P} tokens, {MAX_NEW} steps): {counts}")
+    _check_path_counts(counts, "qwen", "one paraphrase batch")
+    if any(counts[k] != n for k, n in want.items()):
+        raise AssertionError(f"[qwen] launch counts {counts}, expected {want}")
+    if len(paras) != N_PROMPTS or any(len(p) > N_PARAPHRASES for p in paras):
+        raise AssertionError("[qwen] paraphrase lists of the wrong shape")
+    log(f"[qwen] warm call {warm_s:.2f} s; first paraphrases of {texts[0]!r}: {paras[0]}")
+
+    # -- throughput
+    times = []
+    for i in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.generate_paraphrases_batch(texts, N_PARAPHRASES, seed=i)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    t_med = statistics.median(times)
+    tok_s = n_rows * MAX_NEW / t_med
+    ms_q = 1e3 * t_med / N_PROMPTS
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[qwen] paraphrase decode {N_PROMPTS} x {N_PARAPHRASES} x {MAX_NEW} new tokens: calls "
+        f"{[round(x, 4) for x in times]} s, median {t_med:.4f} s: {tok_s:.1f} tok/s, {ms_q:.3f} ms/query; "
+        f"peak memory {peak:.2f} GiB; on {card['smi']}")
+
+    # -- constrained decoding: only printable-ASCII tokens
+    mask = model.ascii_token_mask()
+    t0 = time.perf_counter()
+    ascii_paras = model.generate_paraphrases_batch(texts, N_PARAPHRASES, token_mask=mask)
+    ascii_s = time.perf_counter() - t0
+    bad = [o for ps in ascii_paras for o in ps if not (o.isascii() and o.isprintable())]
+    if bad:
+        raise AssertionError(f"[qwen] constrained decode emitted non-ASCII text: {bad[:3]}")
+    log(f"[qwen] constrained (ASCII, {int(mask.sum())} of {mask.size} ids): {ascii_s:.2f} s; "
+        f"first: {ascii_paras[0]}")
+
+    # -- teacher-forced hold against the plain versions
+    prompts = [PARAPHRASE_PROMPT.format(text=x) for x in texts]
+    inp = model.prepare(prompts, N_PARAPHRASES, None, PARAPHRASE_PREFIX)
+    kern_logits, plain_logits = [], []
+    reset_launch_counts()
+    toks = model.decode(inp, 0.8, seed=0,
+                        on_logits=lambda i, lg: kern_logits.append(lg.clone()) if i < N_FORCED else None)
+    counts = launch_counts()
+    plain = [
+        (qwen_mod, "w8a8_matmul", w8a8_matmul_reference),
+        (qwen_mod, "w8a8_matmul_stacked", lambda x, w, s, l: w8a8_matmul_reference(x, w[l], s[l])),
+        (qwen_mod, "decode_gqa_attention_stacked", lambda q, k, v, m, l: decode_gqa_reference(q, k[l], v[l], m)),
+    ]
+    with ExitStack() as stack:
+        for module, name, fn in plain:
+            stack.enter_context(mock.patch.object(module, name, fn))
+        model.decode(inp, 0.8, seed=0, forced=toks.T[:N_FORCED], on_logits=lambda i, lg: plain_logits.append(lg))
+    torch.cuda.synchronize()
+    if launch_counts() != counts:
+        raise AssertionError("[qwen] the plain run launched a kernel")
+    a, b = torch.stack(kern_logits), torch.stack(plain_logits)
+    if not bool(torch.isfinite(a).all()):
+        raise AssertionError("[qwen] non-finite logits")
+    d = (a - b).abs()
+    rms = float(b.square().mean().sqrt())
+    d_max, d_med = float(d.max()), float(d.median())
+    top1 = float((a.argmax(-1) == b.argmax(-1)).float().mean())
+    log(f"[qwen] teacher-forced kernel vs plain, prefill + {N_FORCED - 1} steps x {n_rows} rows: "
+        f"max |d logit| {d_max:.4e}, median {d_med:.4e} (logit RMS {rms:.4f}); top-1 agreement {top1:.4f}")
+    if not (d_med <= QWEN_MEDIAN_TOL * rms and d_max <= QWEN_MAX_TOL * rms and top1 >= QWEN_TOP1):
+        raise AssertionError("[qwen] the kernel path disagrees with its plain version")
+    del a, b, kern_logits, plain_logits
+
+    profile_batch("qwen", lambda: model.generate_paraphrases_batch(texts, N_PARAPHRASES))
+    return {"launches": counts, "tok_s": tok_s, "ms_per_query": ms_q, "peak_gib": peak, "init_s": init_s,
+            "top1": top1, "d_max": d_max, "d_median": d_med}
+
+
 #: profiler names shortened to the kernel and its template arguments
 #: (the first match wins, so longer names come first)
 PROFILE_NAMES = (
     "ln_gemm_kernel<true, 0>", "ln_gemm_kernel<true, 1>", "ln_gemm_kernel<false, 2>",
-    "i8_gemm_kernel<0>", "i8_gemm_kernel<1>", "i8_gemm_kernel<2>",
-    "ln_quant_rows_kernel", "quant_rows_kernel",
+    "i8_gemm_kernel<0>", "i8_gemm_kernel<1>", "i8_gemm_kernel<2>", "i8_gemm_kernel<3>",
+    "i8_gemm_kernel<4>", "ln_quant_rows_kernel", "quant_rows_kernel<float>",
+    "quant_rows_kernel<__nv_bfloat16>", "decode_gqa_kernel<__nv_bfloat16, 128>",
+    "decode_gqa_kernel<__nv_bfloat16, 64>",
     "head_attention_kernel<float>", "head_attention_kernel<__nv_bfloat16>", "consistency_kernel",
 )
 
@@ -618,22 +953,27 @@ def main() -> int:
         bf16 = phase_slice(card)
     with phase("int8"):
         int8 = phase_int8(card, bf16)
+    with phase("qwen"):
+        qwen = phase_qwen(card)
+    paths = {"bf16": bf16, "int8": int8, "qwen": qwen}
     kernels = []
     for name, (source, replaces) in KERNEL_SOURCES.items():
         shapes = kres[name]["shapes"]
         first = shapes[0]
-        by_path = {path: res["launches"][name] for path, res in (("bf16", bf16), ("int8", int8))}
-        own = "int8" if name in PATH_KERNELS["int8"] else "bf16"
+        by_path = {path: res["launches"][name] for path, res in paths.items()}
+        own = next(path for path, names in PATH_KERNELS.items() if name in names)
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": by_path[own], "launches_by_path": by_path,
             "max_abs_err": max(s["max_abs_err"] for s in shapes),
             "ms": first["ms"], "plain_ms": first["plain_ms"],
             "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
-            "library_ms": None, "shape": first["shape"], "shapes": shapes,
+            "library_ms": first.get("library_ms"), "shape": first["shape"], "shapes": shapes,
         })
     log(f"defended queries/s at B={B_DEFENDED}, V={V_DEFENDED}: bf16 {bf16['qps']:.1f}, "
         f"int8 {int8['qps']:.1f} on {card['smi']}")
+    log(f"qwen paraphrase decode: {qwen['tok_s']:.1f} tok/s, {qwen['ms_per_query']:.3f} ms/query, "
+        f"peak {qwen['peak_gib']:.2f} GiB on {card['smi']}")
     print(json.dumps({"kernels": kernels}))
     print(card["smi"])
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card["name"], "count": card["count"]}}))

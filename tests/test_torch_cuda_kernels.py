@@ -1,7 +1,7 @@
 """The port's CUDA kernels against their plain versions on the card, at
 ragged shapes the main path does not give them (partial tiles, K not a
-multiple of the k-tile, T from 1 to 257, one-token sequences), and the
-operands they refuse.
+multiple of the k-tile, T from 1 to 257, one-token sequences) and at the
+Qwen2-7B decode's shapes, and the operands they refuse.
 
 Marked ``cuda``: each test skips without a GPU. On the card:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
@@ -17,6 +17,9 @@ from tvc_torch.core.kernels import (
     attention_layer_i8_reference,
     attention_layer_reference,
     consistency_scores_reference,
+    decode_gqa_attention,
+    decode_gqa_attention_stacked,
+    decode_gqa_reference,
     fused_attention_layer,
     fused_attention_layer_i8,
     fused_consistency_scores,
@@ -25,6 +28,9 @@ from tvc_torch.core.kernels import (
     mlp_layer_i8_reference,
     mlp_layer_reference,
     quantize_linear,
+    w8a8_matmul,
+    w8a8_matmul_reference,
+    w8a8_matmul_stacked,
 )
 
 pytestmark = pytest.mark.cuda
@@ -171,3 +177,114 @@ def test_int8_kernels_refuse_what_they_do_not_take(dev):
     q = _layer(np.random.default_rng(3), 2, 4, 72, 144, dev)
     with pytest.raises(ValueError):  # width 72: not a multiple of 16
         fused_mlp_layer_i8(q["x"], *q["ln"], *_i8(q["mlp"]))
+
+
+def _w8a8_operands(rng, M, K, N, dtype, dev):
+    x = torch.as_tensor(rng.standard_normal((M, K)).astype(np.float32)).to(dev, dtype)
+    w = torch.as_tensor((rng.standard_normal((K, N)) / math.sqrt(K)).astype(np.float32)).to(dev)
+    return (x, *quantize_linear(w))
+
+
+# The W8A8 GEMM is held to equality: kernel and plain quantize the same f32
+# values with the same IEEE division and rounding, sum int8 products
+# exactly (int32 on the tensor cores, float64 in the plain version) and
+# dequantize in the same f32 order, rounding once to the output dtype.
+@pytest.mark.parametrize("M,K,N,dtype", [
+    (1, 16, 16, torch.bfloat16), (37, 208, 144, torch.float32), (130, 64, 272, torch.bfloat16),
+    (15, 3584, 4608, torch.bfloat16), (576, 3584, 4608, torch.bfloat16), (576, 3584, 3584, torch.bfloat16),
+    (576, 3584, 37888, torch.bfloat16), (576, 18944, 3584, torch.bfloat16), (576, 3584, 151936, torch.bfloat16),
+    (4608, 3584, 4608, torch.bfloat16), (257, 896, 9728, torch.float32),
+])
+def test_w8a8_matmul_equals_plain(dev, M, K, N, dtype):
+    x, w_q, s = _w8a8_operands(np.random.default_rng(M + K + N), M, K, N, dtype, dev)
+    before = w8a8_matmul.launches
+    got = w8a8_matmul(x, w_q, s)
+    want = w8a8_matmul_reference(x, w_q, s)
+    torch.cuda.synchronize()
+    assert w8a8_matmul.launches == before + 1
+    assert got.dtype == dtype and got.shape == (M, N)
+    assert torch.equal(got, want), float((got.float() - want.float()).abs().max())
+
+
+def test_w8a8_matmul_stacked_is_the_flat_kernel_on_the_layer(dev):
+    rng = np.random.default_rng(5)
+    x = torch.as_tensor(rng.standard_normal((33, 128)).astype(np.float32)).to(dev, torch.bfloat16)
+    qs = [quantize_linear(torch.as_tensor(rng.standard_normal((128, 96)).astype(np.float32)).to(dev))
+          for _ in range(3)]
+    w_q, s = torch.stack([q for q, _ in qs]), torch.stack([c for _, c in qs])
+    before = (w8a8_matmul.launches, w8a8_matmul_stacked.launches)
+    got = w8a8_matmul_stacked(x, w_q, s, 2)
+    torch.cuda.synchronize()
+    assert (w8a8_matmul.launches, w8a8_matmul_stacked.launches) == (before[0] + 1, before[1] + 1)
+    assert torch.equal(got, w8a8_matmul_reference(x, *qs[2]))
+
+
+def _decode_operands(rng, B, KV, R, S, D, dtype, dev, L=None):
+    t = lambda *shape: torch.as_tensor(rng.standard_normal(shape).astype(np.float32)).to(dev, dtype)
+    cache = (B, KV, S, D) if L is None else (L, B, KV, S, D)
+    mask = np.where(rng.random((B, S)) < 0.3, -np.inf, 0.0).astype(np.float32)
+    mask[:, 0] = 0.0  # every row attends to at least one slot
+    return t(B, KV, R, D), t(*cache), t(*cache), torch.as_tensor(mask, device=dev)
+
+
+def _decode_err(got, want):
+    d = (got.float() - want.float()).abs() / want.float().abs().clamp(min=1.0)
+    return float(d.max())
+
+
+# Tolerance of the decode attention, relative to max(1, |y|): f32 1e-5 (sums
+# in another order, ~1e-7 relative); bf16 1e-2: the kernel and the plain
+# version round the same f32 softmax weights to bf16, and a weight whose
+# f32 value differs by an ulp (exp and sums in another order) can round to
+# the neighbouring bf16 value, moving an output by 2^-8 |w v|; the output
+# rounding adds one bf16 ulp (2^-8 |y|).
+@pytest.mark.parametrize("B,KV,R,S,D,dtype", [
+    (3, 2, 7, 1, 64, torch.bfloat16), (5, 4, 7, 63, 128, torch.bfloat16), (2, 1, 8, 512, 128, torch.float32),
+    (7, 2, 2, 33, 64, torch.float32), (576, 4, 7, 64, 128, torch.bfloat16), (576, 4, 7, 512, 128, torch.bfloat16),
+    (576, 2, 7, 64, 64, torch.bfloat16), (4, 4, 1, 2000, 128, torch.bfloat16),
+])
+def test_decode_gqa_attention_matches_plain(dev, B, KV, R, S, D, dtype):
+    q, k, v, mask = _decode_operands(np.random.default_rng(B * S + D), B, KV, R, S, D, dtype, dev)
+    before = decode_gqa_attention.launches
+    got = decode_gqa_attention(q, k, v, mask)
+    want = decode_gqa_reference(q, k, v, mask)
+    torch.cuda.synchronize()
+    assert decode_gqa_attention.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    assert _decode_err(got, want) <= (1e-5 if dtype == torch.float32 else 1e-2)
+
+
+def test_decode_gqa_attention_stacked_is_the_flat_kernel_on_the_layer(dev):
+    q, k, v, mask = _decode_operands(np.random.default_rng(9), 6, 2, 7, 40, 128, torch.bfloat16, dev, L=3)
+    before = (decode_gqa_attention.launches, decode_gqa_attention_stacked.launches)
+    got = decode_gqa_attention_stacked(q, k, v, mask, 1)
+    flat = decode_gqa_attention(q, k[1], v[1], mask)
+    torch.cuda.synchronize()
+    assert (decode_gqa_attention.launches, decode_gqa_attention_stacked.launches) == (before[0] + 2, before[1] + 1)
+    assert torch.equal(got, flat)
+
+
+def test_qwen_kernels_refuse_what_they_do_not_take(dev):
+    x, w_q, s = _w8a8_operands(np.random.default_rng(1), 4, 64, 32, torch.bfloat16, dev)
+    with pytest.raises(ValueError):  # f16 activations
+        w8a8_matmul(x.half(), w_q, s)
+    with pytest.raises(ValueError):  # float weights where int8 are taken
+        w8a8_matmul(x, w_q.float(), s)
+    with pytest.raises(ValueError):  # scale of the wrong width
+        w8a8_matmul(x, w_q, s[:16])
+    with pytest.raises(ValueError):  # K = 72: not a multiple of 16
+        w8a8_matmul(*_w8a8_operands(np.random.default_rng(2), 4, 72, 32, torch.bfloat16, dev))
+    with pytest.raises(ValueError):  # layer out of range
+        w8a8_matmul_stacked(x, w_q[None], s[None], 1)
+    q, k, v, mask = _decode_operands(np.random.default_rng(3), 2, 2, 7, 16, 128, torch.bfloat16, dev)
+    with pytest.raises(ValueError):  # bf16 mask
+        decode_gqa_attention(q, k, v, mask.bfloat16())
+    with pytest.raises(ValueError):  # f32 cache under bf16 queries
+        decode_gqa_attention(q, k.float(), v, mask)
+    with pytest.raises(ValueError):  # non-contiguous cache
+        decode_gqa_attention(q, k.transpose(2, 3).contiguous().transpose(2, 3), v, mask)
+    with pytest.raises(ValueError):  # R = 9 query heads per KV head
+        decode_gqa_attention(torch.cat([q, q[:, :, :2]], 2), k, v, mask)
+    q2, k2, v2, m2 = _decode_operands(np.random.default_rng(4), 2, 2, 7, 16, 96, torch.bfloat16, dev)
+    with pytest.raises(ValueError):  # head dim 96
+        decode_gqa_attention(q2, k2, v2, m2)

@@ -12,7 +12,7 @@ import torch
 
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "tvc_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "tvc")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "tvc", "transformers")
 
 
 def _port_modules():
@@ -78,6 +78,15 @@ def test_entry_points_without_device_raise_when_cuda_is_absent(no_cuda):
         ServingRuntime(ServingConfig())
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         ServingRuntime(ServingConfig(), detector=AdversarialDetector(model, device="cpu"))
+
+
+def test_qwen_without_device_raises_when_cuda_is_absent(no_cuda):
+    from tvc_torch.models.qwen import QwenConfig, QwenModel
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        QwenModel(QwenConfig.tiny())
+    m = QwenModel(QwenConfig.tiny(), device="cpu", max_new_tokens=2)
+    assert m.device.type == "cpu" and len(m.generate(["a b"], temperature=0.0)) == 1
 
 
 def test_mesh_serving_raises_not_implemented():

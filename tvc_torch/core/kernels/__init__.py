@@ -15,12 +15,22 @@ from tvc_torch.core.kernels.consistency_kernel import (
     consistency_scores_reference,
     fused_consistency_scores,
 )
+from tvc_torch.core.kernels.decode_attention_kernel import (
+    decode_gqa_attention,
+    decode_gqa_attention_stacked,
+    decode_gqa_reference,
+)
 from tvc_torch.core.kernels.quantized_layer_kernel import (
     attention_layer_i8_reference,
     fused_attention_layer_i8,
     fused_mlp_layer_i8,
     mlp_layer_i8_reference,
     quantize_linear,
+)
+from tvc_torch.core.kernels.w8_matmul_kernel import (
+    w8a8_matmul,
+    w8a8_matmul_reference,
+    w8a8_matmul_stacked,
 )
 
 KERNELS = (
@@ -29,6 +39,10 @@ KERNELS = (
     fused_mlp_layer,
     fused_attention_layer_i8,
     fused_mlp_layer_i8,
+    decode_gqa_attention,
+    decode_gqa_attention_stacked,
+    w8a8_matmul,
+    w8a8_matmul_stacked,
 )
 
 

@@ -53,6 +53,14 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "tvc_i8_gemm": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
         # qkv, out, seqs, T, W, heads, causal, stream
         "tvc_head_attention_f32": [_P, _P, _I, _I, _I, _I, _I, _P],
+        # h (bf16), q, scale, M, K, stream
+        "tvc_quant_rows_bf16": [_P, _P, _P, _I, _I, _P],
+    },
+    "decode_attention": {
+        # q, k, v, mask, out, B, KV, R, S, D, is_bf16, stream
+        "tvc_decode_gqa": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+        # R, S, D -> bytes of shared memory a block needs
+        "tvc_decode_gqa_smem": [_I, _I, _I],
     },
 }
 

@@ -1,0 +1,117 @@
+"""One-token grouped-query attention over the KV cache (port of
+``tvc/core/pallas/decode_attention_kernel.py``).
+
+    decode_gqa_attention(q [B, KV, R, D], k, v [B, KV, S, D], mask [B, S])
+        -> [B, KV, R, D] in q's dtype
+
+with R query heads per KV head, a KV-major cache (each (b, kv) slab a
+contiguous [S, D] matrix) and an additive f32 mask (0 attend, -inf masked
+slot). Numerics as the TPU kernel's: f32 logits of the compute-dtype
+operands scaled by D^-1/2, the mask added, an f32 softmax, the weights
+rounded to q's dtype, AV accumulated in f32 and rounded to q's dtype.
+
+For CUDA tensors the wrapper launches the hand-written kernel of
+``tvc_torch/csrc/decode_attention.cu`` (one block per (b, kv); D 64 or 128,
+R <= 8); for CPU tensors it computes the plain version beside it, which is
+the JAX package's oracle ``decode_gqa_reference``.
+
+``decode_gqa_attention_stacked(q, k, v [L, B, KV, S, D], mask, layer)`` is
+the same function over layer ``layer`` of the stacked all-layer cache: the
+TPU kernel selects the layer by scalar prefetch, and here ``k[layer]`` of
+the contiguous stack is already a zero-copy view, so the stacked wrapper
+calls :func:`decode_gqa_attention` on it. ``decode_gqa_attention.launches``
+counts every launch of the kernel, ``decode_gqa_attention_stacked.launches``
+the stacked calls among them. Inference only.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import Tensor
+
+from tvc_torch.core.kernels import _build
+
+HEAD_DIMS = (64, 128)  # the kernel's head widths
+MAX_R = 8  # query heads per KV head the kernel takes
+MAX_SMEM = 227 * 1024  # shared memory a Hopper block can use
+
+
+def decode_gqa_reference(q: Tensor, k: Tensor, v: Tensor, mask: Tensor) -> Tensor:
+    """Plain PyTorch version of :func:`decode_gqa_attention` (the JAX
+    package's ``decode_gqa_reference``)."""
+    D = q.shape[-1]
+    logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) / math.sqrt(D)  # [B, KV, R, S]
+    logits = logits + mask.float()[:, None, None, :]
+    w = torch.softmax(logits, dim=-1).to(q.dtype)
+    return torch.matmul(w.float(), v.float()).to(q.dtype)
+
+
+def _check_operands(q: Tensor, k: Tensor, v: Tensor, mask: Tensor) -> None:
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    if q.ndim != 4 or q.dtype not in (torch.bfloat16, torch.float32) or not q.is_contiguous():
+        raise ValueError(f"q must be a contiguous bf16 or float32 [B, KV, R, D] tensor, got "
+                         f"{q.dtype} {tuple(q.shape)}")
+    B, KV, R, D = q.shape
+    S = k.shape[2] if k.ndim == 4 else -1
+    for name, t in (("k", k), ("v", v)):
+        if t.dtype != q.dtype or t.ndim != 4 or tuple(t.shape) != (B, KV, S, D) or not t.is_contiguous() \
+                or t.device != q.device:
+            raise ValueError(f"{name} must be a contiguous {q.dtype} [{B}, {KV}, S, {D}] tensor on {q.device}, "
+                             f"got {t.dtype} {tuple(t.shape)}")
+    if mask.dtype != torch.float32 or tuple(mask.shape) != (B, S) or not mask.is_contiguous() \
+            or mask.device != q.device:
+        raise ValueError(f"mask must be a contiguous float32 [{B}, {S}] tensor on {q.device}")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"the decode attention kernel takes head dims {HEAD_DIMS}; got D={D}")
+    if not 1 <= R <= MAX_R:
+        raise ValueError(f"the decode attention kernel takes 1 <= R <= {MAX_R} query heads per KV head; got R={R}")
+    if S < 1:
+        raise ValueError("the cache has no slots")
+
+
+def decode_gqa_attention(q: Tensor, k: Tensor, v: Tensor, mask: Tensor) -> Tensor:
+    """Single-position GQA attention: q [B, KV, R, D], k / v [B, KV, S, D]
+    (KV-major), mask [B, S] additive f32; returns [B, KV, R, D] in q's
+    dtype."""
+    if q.device.type == "cpu":
+        return decode_gqa_reference(q, k, v, mask)
+    _check_operands(q, k, v, mask)
+    B, KV, R, D = q.shape
+    S = k.shape[2]
+    lib = _build.load("decode_attention")
+    if lib.tvc_decode_gqa_smem(R, S, D) > MAX_SMEM:
+        raise ValueError(f"S={S} needs more shared memory than a block has (R={R}, D={D})")
+    out = torch.empty_like(q)
+    _build.check(
+        lib.tvc_decode_gqa(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), out.data_ptr(),
+            B, KV, R, S, D, int(q.dtype == torch.bfloat16),
+            torch.cuda.current_stream(q.device).cuda_stream,
+        ),
+        "tvc_decode_gqa",
+    )
+    decode_gqa_attention.launches += 1
+    return out
+
+
+decode_gqa_attention.launches = 0
+
+
+def decode_gqa_attention_stacked(q: Tensor, k: Tensor, v: Tensor, mask: Tensor, layer: int) -> Tensor:
+    """:func:`decode_gqa_attention` over layer ``layer`` of the stacked
+    cache k, v [L, B, KV, S, D]."""
+    layer = int(layer)
+    if k.ndim != 5 or v.ndim != 5 or not 0 <= layer < k.shape[0]:
+        raise ValueError(f"k, v must be stacked [L, B, KV, S, D] caches holding layer {layer}, got "
+                         f"{tuple(k.shape)} and {tuple(v.shape)}")
+    if q.device.type == "cpu":
+        return decode_gqa_reference(q, k[layer], v[layer], mask)
+    out = decode_gqa_attention(q, k[layer], v[layer], mask)
+    decode_gqa_attention_stacked.launches += 1
+    return out
+
+
+decode_gqa_attention_stacked.launches = 0

@@ -46,11 +46,18 @@ from tvc_torch.core.kernels.attention_layer_kernel import (
 QEPI_BF16, QEPI_GELU_F32, QEPI_RESIDUAL = 0, 1, 2
 
 
+def over_127(t: Tensor) -> Tensor:
+    """``t / 127`` as an IEEE division on every device (PyTorch's CUDA
+    division by a Python scalar multiplies by the scalar's reciprocal,
+    which can be one ulp away; the kernels and the JAX package divide)."""
+    return t / torch.full((), 127.0, dtype=t.dtype, device=t.device)
+
+
 def quantize_linear(w: Tensor) -> Tuple[Tensor, Tensor]:
     """Symmetric per-output-channel int8 quantization of a ``[K, N]``
     weight: ``(w_q int8 [K, N], scale f32 [N])`` with ``w ~= w_q * scale``."""
     wf = w.float()
-    scale = wf.abs().amax(dim=0).clamp(min=1e-12) / 127.0
+    scale = over_127(wf.abs().amax(dim=0).clamp(min=1e-12))
     w_q = torch.clamp(torch.round(wf / scale), -127, 127).to(torch.int8)
     return w_q.contiguous(), scale.contiguous()
 
@@ -58,7 +65,7 @@ def quantize_linear(w: Tensor) -> Tuple[Tensor, Tensor]:
 def _quant_rows(h: Tensor) -> Tuple[Tensor, Tensor]:
     """Dynamic symmetric per-row int8: ``h [M, K]`` f32 -> ``(int8 [M, K],
     scale f32 [M, 1])``."""
-    rs = h.abs().amax(dim=-1, keepdim=True).clamp(min=1e-12) / 127.0
+    rs = over_127(h.abs().amax(dim=-1, keepdim=True).clamp(min=1e-12))
     return torch.clamp(torch.round(h / rs), -127, 127).to(torch.int8), rs
 
 
@@ -151,7 +158,7 @@ def _i8_gemm(lib, a, row_scale, w, col_scale, bias, residual, out, epilogue, str
     _build.check(
         lib.tvc_i8_gemm(
             a.data_ptr(), row_scale.data_ptr(), w.data_ptr(), col_scale.data_ptr(),
-            bias.data_ptr(), None if residual is None else residual.data_ptr(),
+            None if bias is None else bias.data_ptr(), None if residual is None else residual.data_ptr(),
             out.data_ptr(), M, N, K, epilogue, stream,
         ),
         "tvc_i8_gemm",

@@ -35,7 +35,21 @@
 //    tiles are stored as panels of 16 int8 columns so that every fragment
 //    starts on a 256-byte boundary. Epilogue: dequantize + bias, then
 //    bf16 out (qkv), quick_gelu f32 out (fc), or + residual bf16 out
-//    (out-proj, proj).
+//    (out-proj, proj); or dequantize alone, bf16 or f32 out (the W8A8
+//    GEMM below).
+//
+// The same row-quantize and GEMM kernels also serve the Qwen2 decode's
+// W8A8 GEMM, replacing tvc/core/pallas/w8_matmul_kernel.py w8a8_matmul
+// (body _w8a8_matmul_kernel) and, on a layer's zero-copy view of the
+// stacked [L, K, N] weights, w8a8_matmul_stacked (_w8a8_stacked_kernel):
+//   y = ((x_q . Wq) . rs) . cs   in f32, rounded to x's dtype,
+// with x_q, rs the per-row quantization of x (quant_rows_kernel, f32 or
+// bf16 rows; bf16 -> f32 is exact, so the quanta are those of x.astype(f32))
+// and no bias: the decode adds its q|k|v bias after the rounding. Two
+// launches a call. Bound: at the Qwen2-7B decode batch (M = 576) the
+// gate|up GEMM (K = 3584, N = 37888) does 2 M K N = 156 G operations on
+// 136 MB of int8 weights, ~1,150 operations per byte, above the ridge:
+// bound by operations (~79 us at 1,979 TOP/s).
 //  * head_attention_kernel<float> (head_attention.cuh): the bf16 layer's
 //    per-(sequence, head) attention with an f32 output.
 // An attention layer is 5 launches (LN-quantize, QKV GEMM, attention,
@@ -68,7 +82,13 @@ using namespace nvcuda;
 
 constexpr int kRowWarps = 8;  // rows per block of the row-quantize kernels
 
-enum QEpilogue { QEPI_BF16 = 0, QEPI_GELU_F32 = 1, QEPI_RESIDUAL = 2 };
+enum QEpilogue {
+  QEPI_BF16 = 0,
+  QEPI_GELU_F32 = 1,
+  QEPI_RESIDUAL = 2,
+  QEPI_DEQUANT_BF16 = 3,  // (acc . rs) . cs, no bias, bf16 out
+  QEPI_DEQUANT_F32 = 4,   // the same, f32 out
+};
 
 __device__ __forceinline__ float row_scale_of(float absmax) {
   return __fdiv_rn(fmaxf(absmax, 1e-12f), 127.f);
@@ -137,25 +157,41 @@ __global__ void __launch_bounds__(32 * kRowWarps)
   if (lane == 0) scale[row] = rs;
 }
 
-// f32 row -> int8 row + scale. h f32 [M, K], K % 8 == 0.
+// Eight consecutive elements of a row as f32 (16 bytes of bf16, 32 of f32).
+__device__ __forceinline__ void load8(const float* p, float* f) {
+  const float4 a = reinterpret_cast<const float4*>(p)[0], b = reinterpret_cast<const float4*>(p)[1];
+  f[0] = a.x; f[1] = a.y; f[2] = a.z; f[3] = a.w; f[4] = b.x; f[5] = b.y; f[6] = b.z; f[7] = b.w;
+}
+__device__ __forceinline__ void load8(const bf16* p, float* f) {
+  const uint4 raw = *reinterpret_cast<const uint4*>(p);
+  const bf16* e = reinterpret_cast<const bf16*>(&raw);
+#pragma unroll
+  for (int t = 0; t < 8; ++t) f[t] = __bfloat162float(e[t]);
+}
+
+// f32 or bf16 row -> int8 row + scale. h [M, K], K % 8 == 0.
+template <typename T>
 __global__ void __launch_bounds__(32 * kRowWarps)
-    quant_rows_kernel(const float* __restrict__ h, int8_t* __restrict__ q,
+    quant_rows_kernel(const T* __restrict__ h, int8_t* __restrict__ q,
                       float* __restrict__ scale, int M, int K) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int row = blockIdx.x * kRowWarps + warp;
   if (row >= M) return;
-  const float4* h4 = reinterpret_cast<const float4*>(h + (size_t)row * K);
+  const T* hr = h + (size_t)row * K;
   float amax = 0.f;
   for (int c = lane; c < K / 8; c += 32) {
-    const float4 a = h4[2 * c], b = h4[2 * c + 1];
-    amax = fmaxf(amax, fmaxf(fmaxf(fabsf(a.x), fabsf(a.y)), fmaxf(fabsf(a.z), fabsf(a.w))));
-    amax = fmaxf(amax, fmaxf(fmaxf(fabsf(b.x), fabsf(b.y)), fmaxf(fabsf(b.z), fabsf(b.w))));
+    float f[8];
+    load8(hr + c * 8, f);
+#pragma unroll
+    for (int t = 0; t < 8; ++t) amax = fmaxf(amax, fabsf(f[t]));
   }
   const float rs = row_scale_of(warp_max(amax));
   for (int c = lane; c < K / 8; c += 32) {
-    const float4 a = h4[2 * c], b = h4[2 * c + 1];
-    const int v[8] = {quant1(a.x, rs), quant1(a.y, rs), quant1(a.z, rs), quant1(a.w, rs),
-                      quant1(b.x, rs), quant1(b.y, rs), quant1(b.z, rs), quant1(b.w, rs)};
+    float f[8];
+    load8(hr + c * 8, f);
+    int v[8];
+#pragma unroll
+    for (int t = 0; t < 8; ++t) v[t] = quant1(f[t], rs);
     *reinterpret_cast<uint2*>(q + (size_t)row * K + c * 8) = pack8(v);
   }
   if (lane == 0) scale[row] = rs;
@@ -236,7 +272,9 @@ __global__ void __launch_bounds__(kQGemmThreads)
   }
 
   // epilogue, one 16x16 fragment at a time through the warp's scratch tile:
-  // f32 dequant (acc . row_scale) . col_scale + bias, in the TPU kernel's order
+  // f32 dequant (acc . row_scale) . col_scale (+ bias), in the TPU kernel's order
+  constexpr bool kBias = EPI == QEPI_BF16 || EPI == QEPI_GELU_F32 || EPI == QEPI_RESIDUAL;
+  constexpr bool kF32Out = EPI == QEPI_GELU_F32 || EPI == QEPI_DEQUANT_F32;
   int* sc = scratch[warp];
   const int r = lane >> 1, c0 = (lane & 1) * 8;
 #pragma unroll
@@ -251,8 +289,10 @@ __global__ void __launch_bounds__(kQGemmThreads)
         const float rs = row_scale[gm];
         float v[8];
 #pragma unroll
-        for (int q = 0; q < 8; ++q)
-          v[q] = __fadd_rn(__fmul_rn(__fmul_rn((float)sc[r * 16 + c0 + q], rs), col_scale[gn + q]), bias[gn + q]);
+        for (int q = 0; q < 8; ++q) {
+          v[q] = __fmul_rn(__fmul_rn((float)sc[r * 16 + c0 + q], rs), col_scale[gn + q]);
+          if (kBias) v[q] = __fadd_rn(v[q], bias[gn + q]);
+        }
         if (EPI == QEPI_GELU_F32) {
           // quick_gelu in f32: h * sigmoid(1.702 h), sigmoid as 1 / (1 + exp(-t))
 #pragma unroll
@@ -260,6 +300,8 @@ __global__ void __launch_bounds__(kQGemmThreads)
             const float sg = __fdiv_rn(1.f, __fadd_rn(1.f, expf(-__fmul_rn(1.702f, v[q]))));
             v[q] = __fmul_rn(v[q], sg);
           }
+        }
+        if (kF32Out) {
           float4* o = reinterpret_cast<float4*>(static_cast<float*>(out) + (size_t)gm * N + gn);
           o[0] = make_float4(v[0], v[1], v[2], v[3]);
           o[1] = make_float4(v[4], v[5], v[6], v[7]);
@@ -308,15 +350,24 @@ extern "C" int tvc_quant_rows(const void* h, const void* ln_scale, const void* l
           (const bf16*)h, (const float*)ln_scale, (const float*)ln_bias, (int8_t*)q,
           (float*)scale, M, K, eps);
     else
-      quant_rows_kernel<<<blocks, 32 * kRowWarps, 0, s>>>(
+      quant_rows_kernel<float><<<blocks, 32 * kRowWarps, 0, s>>>(
           (const float*)h, (int8_t*)q, (float*)scale, M, K);
   }
   return (int)cudaGetLastError();
 }
 
+// bf16 rows -> q int8 [M, K] and scale f32 [M] (no LayerNorm).
+extern "C" int tvc_quant_rows_bf16(const void* h, void* q, void* scale, int M, int K, void* stream) {
+  if (K % 8 != 0) return (int)cudaErrorInvalidValue;
+  if (M > 0 && K > 0)
+    quant_rows_kernel<bf16><<<(M + kRowWarps - 1) / kRowWarps, 32 * kRowWarps, 0, (cudaStream_t)stream>>>(
+        (const bf16*)h, (int8_t*)q, (float*)scale, M, K);
+  return (int)cudaGetLastError();
+}
+
 // out = epilogue(deq(a . w)): a int8 [M, K] with row_scale [M]; w int8
-// [K, N] with col_scale [N]; bias f32 [N]; residual bf16 [M, N] for
-// QEPI_RESIDUAL. K and N multiples of 16.
+// [K, N] with col_scale [N]; bias f32 [N] (unused by QEPI_DEQUANT_*);
+// residual bf16 [M, N] for QEPI_RESIDUAL. K and N multiples of 16.
 extern "C" int tvc_i8_gemm(const void* a, const void* row_scale, const void* w,
                            const void* col_scale, const void* bias, const void* residual,
                            void* out, int M, int N, int K, int epilogue, void* stream) {
@@ -329,6 +380,10 @@ extern "C" int tvc_i8_gemm(const void* a, const void* row_scale, const void* w,
       launch_i8_gemm<QEPI_GELU_F32>(a, row_scale, w, col_scale, bias, residual, out, M, N, K, s);
     else if (epilogue == QEPI_RESIDUAL)
       launch_i8_gemm<QEPI_RESIDUAL>(a, row_scale, w, col_scale, bias, residual, out, M, N, K, s);
+    else if (epilogue == QEPI_DEQUANT_BF16)
+      launch_i8_gemm<QEPI_DEQUANT_BF16>(a, row_scale, w, col_scale, bias, residual, out, M, N, K, s);
+    else if (epilogue == QEPI_DEQUANT_F32)
+      launch_i8_gemm<QEPI_DEQUANT_F32>(a, row_scale, w, col_scale, bias, residual, out, M, N, K, s);
     else
       return (int)cudaErrorInvalidValue;
   }
