@@ -26,6 +26,15 @@ Phases (each raises on failure; the script then exits non-zero):
      code, tok/s and ms/query, peak memory, a constrained (ASCII) call, the
      logits held against the same path on the plain versions under teacher
      forcing, a profile;
+  pipeline: full TVC through MultiModalDetectionPipeline: Qwen2-1.5B
+     (weight-only int8 "w8", seeded random weights, tied int8 head) in a
+     TextAugmenter, the int8 ViT-B/32 detector and bank of phase 5, 192
+     COCO captions x 5 variants (decode batch 960): launch counts against
+     the code, the detection held against the plain CLIP kernels on the
+     same variants, the teacher-forced logits against the plain w8 path,
+     paraphrase tok/s, pipeline queries/s and stage times, the share of
+     variant slots the LLM filled, peak memory, a profile, and
+     process_stream over three batches equal to process_batch on each;
   6. summary: one JSON line of per-kernel numbers, the card's nvidia-smi
      line, then the last line {"ok": true, "device": {...}}.
 
@@ -323,15 +332,16 @@ def phase_kernels() -> dict:
             if not rel_err <= LAYER_TOL:
                 raise AssertionError(f"{name} {shape} disagrees: {abs_err:.3e} abs, {rel_err:.3e} scaled")
             k_ms, p_ms = time_ms(run_k), time_ms(run_p)
-            lib_ms = _int_mm_ms(M, args) if name.endswith("_i8") else None
+            lib_ms = _int_mm_ms(M, args) if name.endswith("_i8") else _bf16_mm_ms(M, args)
             rows[name].append({"shape": shape, "ms": k_ms, "plain_ms": p_ms, "bound_ms": bms,
                                "bound_by": by, "max_abs_err": abs_err, "library_ms": lib_ms})
             log(f"kernel {name} {shape}: kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
                 f"bound_ms={bms:.5f} ({by}) max_abs_err={abs_err:.3e} scaled_err={rel_err:.3e}"
-                + ("" if lib_ms is None else f" library_ms(GEMM only, torch._int_mm)={lib_ms:.4f}"))
+                + f" library_ms(GEMM only, {'torch._int_mm' if name.endswith('_i8') else 'cuBLAS bf16'})={lib_ms:.4f}")
     for name, shapes in rows.items():
         results[name] = {"shapes": shapes}
     results.update(phase_qwen_kernels(rng, dev))
+    results.update(phase_w8_kernels(dev))
     return results
 
 
@@ -345,6 +355,18 @@ def _int_mm_ms(M: int, args) -> float:
     a1 = torch.randint(-127, 128, (M, w1.shape[0]), dtype=torch.int8, device=w1.device)
     a2 = torch.randint(-127, 128, (M, w2.shape[0]), dtype=torch.int8, device=w2.device)
     return time_ms(lambda: (torch._int_mm(a1, w1), torch._int_mm(a2, w2)))
+
+
+def _bf16_mm_ms(M: int, args) -> float:
+    """GEMM-only yardstick of a bf16 layer: cuBLAS on bf16 operands of its
+    two GEMMs' shapes (the layer's weights and random activations), one
+    after the other."""
+    import torch
+
+    w1, w2 = args[3], args[5]
+    a1 = torch.randn((M, w1.shape[0]), dtype=torch.bfloat16, device=w1.device)
+    a2 = torch.randn((M, w2.shape[0]), dtype=torch.bfloat16, device=w2.device)
+    return time_ms(lambda: (a1 @ w1, a2 @ w2))
 
 
 def _w8a8_bound(M, K, N, dtype_bytes=2):
@@ -449,7 +471,7 @@ def phase_qwen_kernels(rng, dev) -> dict:
             return None
 
     for tag, B, KV, R, S, D in (("Qwen2-7B", 576, 4, 7, 64, 128), ("Qwen2-7B", 576, 4, 7, 512, 128),
-                                ("Qwen2-0.5B", 576, 2, 7, 64, 64)):
+                                ("Qwen2-0.5B", 576, 2, 7, 64, 64), ("Qwen2-1.5B", 960, 2, 6, 64, 128)):
         q, k, v, mask = decode_inputs(B, KV, R, S, D)
         got, want = decode_gqa_attention(q, k, v, mask), decode_gqa_reference(q, k, v, mask)
         torch.cuda.synchronize()
@@ -486,6 +508,74 @@ def phase_qwen_kernels(rng, dev) -> dict:
     return out
 
 
+# The weight-only GEMM against its plain version, relative to max(1, |y|):
+# both convert the same int8 weights exactly and sum the same exact bf16 x
+# int8 products in f32, in another order (~1e-6 relative), scale in f32 and
+# round once to bf16, so an output differs by at most one bf16 ulp (at most
+# 2^-7 |y|) where the sum lands next to a rounding boundary.
+W8_TOL = 1e-2
+
+
+def _w8_bound(M, K, N):
+    """Bytes: bf16 x in, int8 weights and f32 scales in, the bf16 output
+    out; operations: 2 M K N at the bf16 tensor-core rate."""
+    return bound_ms(2 * M * K + K * N + 4 * N + 2 * M * N, 2 * M * K * N, PEAK_BF16_FLOPS)
+
+
+def phase_w8_kernels(dev) -> dict:
+    """The Qwen2-1.5B weight-only GEMM against its plain version: the four
+    layer GEMMs of a decode step at M = 960 (192 captions x 5 paraphrases),
+    gate|up at the prefix prefill's M = 15, and the stacked wrapper on a
+    28-layer q|k|v stack, held equal to the flat kernel on the layer's view.
+    Library: cuBLAS x @ w on the weights dequantized to bf16 beforehand
+    (GEMM only)."""
+    import torch
+
+    from tvc_torch.core.kernels import quantize_linear, w8_matmul, w8_matmul_plain, w8_matmul_stacked
+
+    bf = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(4)
+    t = lambda *shape: torch.randn(shape, generator=gen, device=dev)
+    out = {"w8_matmul": {"shapes": []}, "w8_matmul_stacked": {"shapes": []}}
+    L, H, I = 28, 1536, 8960
+
+    def hold(name, tag, run_k, run_p, run_lib, M, K, N):
+        got, want = run_k(), run_p()
+        torch.cuda.synchronize()
+        abs_err, rel_err = _layer_error(got, want)
+        if not rel_err <= W8_TOL:
+            raise AssertionError(f"{name} {tag} disagrees with its plain version: {abs_err:.3e} abs, "
+                                 f"{rel_err:.3e} scaled")
+        k_ms, p_ms, lib_ms = time_ms(run_k), time_ms(run_p, iters=5, warmup=1), time_ms(run_lib)
+        bms, by = _w8_bound(M, K, N)
+        shape = f"{tag} M={M} K={K} N={N}"
+        out[name]["shapes"].append({"shape": shape, "ms": k_ms, "plain_ms": p_ms, "bound_ms": bms, "bound_by": by,
+                                    "max_abs_err": abs_err, "library_ms": lib_ms})
+        log(f"kernel {name} {shape}: kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} bound_ms={bms:.5f} ({by}) "
+            f"max_abs_err={abs_err:.3e} scaled_err={rel_err:.3e} library_ms(GEMM only, cuBLAS bf16)={lib_ms:.4f}")
+
+    for tag, M, K, N in (("q|k|v", 960, H, 2048), ("o", 960, H, H), ("gate|up", 960, H, 2 * I),
+                         ("down", 960, I, H), ("gate|up prefix prefill", 15, H, 2 * I)):
+        x = t(M, K).to(bf)
+        w_q, scale = quantize_linear(t(K, N) / math.sqrt(K))
+        w_bf = w_q.to(bf) * scale.to(bf)
+        hold("w8_matmul", tag, lambda: w8_matmul(x, w_q, scale), lambda: w8_matmul_plain(x, w_q, scale),
+             lambda: x @ w_bf, M, K, N)
+        del w_q, scale, w_bf
+    M, K, N = 960, H, 2048
+    x = t(M, K).to(bf)
+    w_q = torch.randint(-127, 128, (L, K, N), dtype=torch.int8, device=dev)
+    scale = (t(L, N).abs() * 1e-3).contiguous()
+    got, flat = w8_matmul_stacked(x, w_q, scale, L - 1), w8_matmul(x, w_q[L - 1], scale[L - 1])
+    torch.cuda.synchronize()
+    if not torch.equal(got, flat):
+        raise AssertionError("w8_matmul_stacked differs from the flat kernel on the layer's view")
+    w_bf = w_q[L - 1].to(bf) * scale[L - 1].to(bf)
+    hold("w8_matmul_stacked", f"q|k|v layer {L - 1} of {L}", lambda: w8_matmul_stacked(x, w_q, scale, L - 1),
+         lambda: w8_matmul_plain(x, w_q[L - 1], scale[L - 1]), lambda: x @ w_bf, M, K, N)
+    return out
+
+
 def _quantized(weights):
     """(w, b, w, b) bf16 layer weights -> the int8 layer's (w_q, scale, b,
     w_q, scale, b), quantized from the same seeded values."""
@@ -519,12 +609,18 @@ KERNEL_SOURCES = {
         "tvc_torch/csrc/quantized_layer.cu", "tvc/core/pallas/w8_matmul_kernel.py:190"),
     "w8a8_matmul_stacked": (
         "tvc_torch/csrc/quantized_layer.cu", "tvc/core/pallas/w8_matmul_kernel.py:288"),
+    "w8_matmul": (
+        "tvc_torch/csrc/w8_matmul.cu", "tvc/core/pallas/w8_matmul_kernel.py:101"),
+    "w8_matmul_stacked": (
+        "tvc_torch/csrc/w8_matmul.cu", "tvc/core/pallas/w8_matmul_kernel.py:340"),
 }
 #: the kernels each path launches; it launches no other
 PATH_KERNELS = {
     "bf16": ("fused_consistency_scores", "fused_attention_layer", "fused_mlp_layer"),
     "int8": ("fused_consistency_scores", "fused_attention_layer_i8", "fused_mlp_layer_i8"),
     "qwen": ("w8a8_matmul", "w8a8_matmul_stacked", "decode_gqa_attention", "decode_gqa_attention_stacked"),
+    "pipeline": ("fused_consistency_scores", "fused_attention_layer_i8", "fused_mlp_layer_i8", "w8_matmul",
+                 "w8_matmul_stacked", "decode_gqa_attention", "decode_gqa_attention_stacked"),
 }
 B_DEFENDED, V_DEFENDED = 256, 6
 
@@ -737,6 +833,7 @@ def phase_int8(card: dict, bf16: dict) -> dict:
     log(f"[int8] informational: flag agreement int8 vs bf16 on the same weights and inputs "
         f"{float(np.mean(other.is_adversarial == out['result'].is_adversarial)):.4f}, "
         f"max |d agg| {float(np.abs(other.aggregated_score - out['result'].aggregated_score).max()):.3e}")
+    out["detector"] = det
     return out
 
 
@@ -773,16 +870,26 @@ def coco_captions(n: int):
     return [one[int(i)] for i in order[:n]]
 
 
-def qwen_expected_launches(cfg, prefix_len: int, steps: int) -> dict:
-    """Launches of one generate_paraphrases_batch call, read off
-    QwenModel.decode: 4 stacked GEMMs a layer in the prefix prefill (when
-    there is a prefix), in the suffix prefill and in each decode step; the
-    untied head after the suffix prefill and after each step; one decode
-    attention a layer in each step."""
-    L = cfg.num_layers
-    stacked = 4 * L * ((1 if prefix_len else 0) + 1 + steps)
-    head = (0 if cfg.tie_embeddings else 1) * (1 + steps)
-    return {"w8a8_matmul": stacked + head, "w8a8_matmul_stacked": stacked,
+def qwen_expected_launches(cfg, prefix_len: int, steps: int, prompts: int = 1, suffix_len: int = 1,
+                           n_samples: int = 1) -> dict:
+    """Launches of one generate_paraphrases_batch call that ran ``steps``
+    decode steps, read off QwenModel.decode and _mm: 4 stacked GEMMs a
+    layer in the prefix prefill (batch 1, when there is a prefix), in the
+    suffix prefill (prompts x suffix_len rows) and in each decode step
+    (prompts x n_samples rows); the untied head (a flat GEMM; a tied head
+    is a plain matmul) after the suffix prefill (prompts rows) and after
+    each step; one decode attention a layer in each step. Under "w8a8"
+    every GEMM launches its kernel; under "w8" a block launches it only at
+    most W8_MAX_ROWS rows (a larger one dequantizes, then matmuls)."""
+    from tvc_torch.models.qwen import W8_MAX_ROWS
+
+    w8a8 = cfg.quant_gemm == "w8a8"
+    runs = lambda rows: int(rows > 0 and (w8a8 or rows <= W8_MAX_ROWS))
+    L, decode_rows = cfg.num_layers, prompts * n_samples
+    stacked = 4 * L * (runs(prefix_len) + runs(prompts * suffix_len) + steps * runs(decode_rows))
+    head = 0 if cfg.tie_embeddings else runs(prompts) + steps * runs(decode_rows)
+    gemm = "w8a8_matmul" if w8a8 else "w8_matmul"
+    return {gemm: stacked + head, gemm + "_stacked": stacked,
             "decode_gqa_attention": L * steps, "decode_gqa_attention_stacked": L * steps}
 
 
@@ -896,6 +1003,250 @@ def phase_qwen(card: dict) -> dict:
             "top1": top1, "d_max": d_max, "d_median": d_med}
 
 
+# ---------------------------------------------------------------------------
+# phase pipeline: full TVC, Qwen2-1.5B w8 paraphrases into the int8 detector
+# ---------------------------------------------------------------------------
+
+PIPE_PROMPTS, PIPE_STREAM_BATCH = 192, 64
+
+
+@contextmanager
+def qwen_ranges(qwen_mod):
+    """Profiler ranges around the weight-only route's dequant fallback and
+    the tied head (both plain PyTorch), for a profile to report."""
+    from torch.profiler import record_function
+
+    fallback, head = qwen_mod.w8_matmul_reference, qwen_mod.QwenModel._head
+
+    def ranged_fallback(*args):
+        with record_function(RANGE_PREFIX + "w8 dequant fallback"):
+            return fallback(*args)
+
+    def ranged_head(self, non_layer, allowed):
+        with record_function(RANGE_PREFIX + "tied head"):
+            fn = head(self, non_layer, allowed)
+
+        def run(x):
+            with record_function(RANGE_PREFIX + "tied head"):
+                return fn(x)
+
+        return run
+
+    with mock.patch.object(qwen_mod, "w8_matmul_reference", ranged_fallback), \
+            mock.patch.object(qwen_mod.QwenModel, "_head", ranged_head):
+        yield
+
+
+def phase_pipeline(card: dict, int8: dict) -> dict:
+    """Full TVC through MultiModalDetectionPipeline: Qwen2-1.5B built as the
+    genref benchmark builds it (cast to bf16, then quantize_weights_int8,
+    weight-only "w8"), its ParaphraseAdapter in a TextAugmenter as the
+    experiment harness wires it, and phase int8's ViT-B/32 int8 model and
+    131,072-row bank; 192 COCO captions with V = 5, R = 3, top-k 5."""
+    import gc
+
+    import torch
+
+    import tvc_torch.models.clip as clip_mod
+    import tvc_torch.models.qwen as qwen_mod
+    import tvc_torch.parallel.steps as steps_mod
+    from tvc_torch.augment import TextAugmentConfig, TextAugmenter
+    from tvc_torch.core.kernels import (
+        attention_layer_i8_reference,
+        consistency_scores_reference,
+        decode_gqa_reference,
+        launch_counts,
+        mlp_layer_i8_reference,
+        reset_launch_counts,
+        w8_matmul_plain,
+    )
+    from tvc_torch.models.qwen import PARAPHRASE_PREFIX, PARAPHRASE_PROMPT, QwenConfig, QwenModel
+    from tvc_torch.pipeline import MultiModalDetectionPipeline, PipelineConfig
+
+    gc.collect()
+    torch.cuda.empty_cache()  # the 7B model of phase qwen is gone
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg = QwenConfig.qwen2_1_5b()
+    qwen = QwenModel(cfg, seed=0, max_new_tokens=MAX_NEW, cast_params_bf16=True)
+    qwen.quantize_weights_int8()
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated() / 2**30
+    if cfg.quant_gemm != "w8":
+        raise AssertionError(f"QwenConfig.qwen2_1_5b() routes quant_gemm={cfg.quant_gemm!r}")
+    log(f"[pipeline] qwen: {cfg.model_name} weight-only int8 (w8), {cfg.num_layers} x {cfg.hidden_size}, "
+        f"{cfg.num_heads} / {cfg.num_kv_heads} heads, tied int8 head, seeded random weights, cast + quantize "
+        f"{init_s:.2f} s (peak {init_peak:.2f} GiB: the f32 init), {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+        f"allocated")
+    det8 = int8["detector"]
+    model, retriever = det8.model, det8.retriever
+    V = PipelineConfig().num_text_variants
+
+    def make_augmenter():
+        return TextAugmenter(TextAugmentConfig(), paraphrase_generator=qwen.as_paraphrase_generator())
+
+    pipe = MultiModalDetectionPipeline(model, PipelineConfig(), text_augmenter=make_augmenter(), retriever=retriever)
+    texts = coco_captions(PIPE_PROMPTS)
+    size = model.config.image_size
+    images = np.random.default_rng(7).random((PIPE_PROMPTS, size, size, 3), dtype=np.float32)
+    prompts = [PARAPHRASE_PROMPT.format(text=x) for x in texts]
+    inp = qwen.prepare(prompts, V, None, PARAPHRASE_PREFIX)
+    P, T = inp.P, inp.tokens.shape[1]
+    n_rows = PIPE_PROMPTS * V
+
+    # -- one batch through the entry point, launch counts checked
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    res = pipe.process_batch(images, texts)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    counts = launch_counts()
+    steps = qwen.last_decode_steps
+    want = qwen_expected_launches(cfg, P, steps, prompts=PIPE_PROMPTS, suffix_len=T, n_samples=V)
+    log(f"[pipeline] launches in one process_batch (B={PIPE_PROMPTS}, V={V}; prefix {P} tokens, suffix "
+        f"{PIPE_PROMPTS} x {T} rows, {steps} decode steps at {n_rows} rows): {counts}; Qwen expected {want}")
+    _check_path_counts(counts, "pipeline", "one process_batch")
+    if steps != MAX_NEW or any(counts[k] != n for k, n in want.items()):
+        raise AssertionError(f"[pipeline] launch counts {counts}, expected {want} ({steps} steps)")
+    if res.scores.shape != (PIPE_PROMPTS,) or not np.all(np.isfinite(res.scores)) or res.errors:
+        raise AssertionError(f"[pipeline] bad result: scores {res.scores.shape}, errors {res.errors}")
+    if len(res.variants) != PIPE_PROMPTS or any(not 0 < len(v) <= V for v in res.variants):
+        raise AssertionError("[pipeline] variant lists of the wrong shape")
+    if any(len(r) != 5 for r in res.retrieved):
+        raise AssertionError("[pipeline] retrieved lists of the wrong length")
+    log(f"[pipeline] first batch {warm_s:.2f} s; variants of {texts[0]!r}: {res.variants[0]}; retrieved "
+        f"{res.retrieved[0]}; flagged {int(res.is_adversarial.sum())} of {PIPE_PROMPTS}")
+
+    # -- the share of variant slots the paraphrase strategy filled (the
+    # adapter's seed is a digest of the texts, so this decode repeats the
+    # pipeline's)
+    paras = qwen.as_paraphrase_generator().batch(texts, V)
+    slots = sum(len(v) for v in res.variants)
+    from_llm = sum(v in set(p) for vl, p in zip(res.variants, paras) for v in vl)
+    log(f"[pipeline] variant slots from the paraphrase strategy: {from_llm} of {slots} "
+        f"({from_llm / slots:.4f}); the host strategies fill the rest first and the augmenter skips the "
+        f"later strategies once {V} variants survive; first paraphrases: {paras[0]}")
+
+    # -- the detection on the plain CLIP kernels, given the same variants
+    plain_clip = [
+        (clip_mod, "fused_attention_layer_i8", attention_layer_i8_reference),
+        (clip_mod, "fused_mlp_layer_i8", mlp_layer_i8_reference),
+        (steps_mod, "fused_consistency_scores", consistency_scores_reference),
+    ]
+    before = launch_counts()
+    with ExitStack() as stack:
+        for module, name, fn in plain_clip:
+            stack.enter_context(mock.patch.object(module, name, fn))
+        ref = pipe._detect_and_retrieve(images, texts, res.variants, {}, [])
+    torch.cuda.synchronize()
+    if launch_counts() != before:
+        raise AssertionError("[pipeline] the plain run launched a kernel")
+    # the retrieved items are the fused step's top-5; its first R = 3 are
+    # the scored references
+    same_refs = np.array([sorted(a[:3]) == sorted(b[:3]) for a, b in zip(res.retrieved, ref.retrieved)])
+    d_agg = np.abs(res.scores - ref.scores)
+    thr = pipe.detector.threshold_manager.get_threshold()
+    away = same_refs & (np.abs(ref.scores - thr) > LAYER_TOL)
+    flag_agree = float(np.mean(res.is_adversarial == ref.is_adversarial))
+    log(f"[pipeline] kernel vs plain CLIP kernels on the same variants: max |d score| {d_agg.max():.3e} over all "
+        f"rows, {d_agg[same_refs].max():.3e} over the {int(same_refs.sum())} rows with the same 3 references; "
+        f"flag agreement {flag_agree:.4f}")
+    if same_refs.mean() < 0.9 or d_agg[same_refs].max() > LAYER_TOL or \
+            not np.array_equal(res.is_adversarial[away], ref.is_adversarial[away]):
+        raise AssertionError("[pipeline] the detection disagrees with its plain version")
+
+    # -- teacher-forced logits: the w8 path vs the same path on the plain
+    # versions, prefill + N_FORCED - 1 steps at decode batch 960
+    kern_logits, plain_logits = [], []
+    reset_launch_counts()
+    toks = qwen.decode(inp, 0.8, seed=0,
+                       on_logits=lambda i, lg: kern_logits.append(lg.clone()) if i < N_FORCED else None)
+    counts_tf = launch_counts()
+    plain_qwen = [
+        (qwen_mod, "w8_matmul", w8_matmul_plain),
+        (qwen_mod, "w8_matmul_stacked", lambda x, w, s, l: w8_matmul_plain(x, w[l], s[l])),
+        (qwen_mod, "decode_gqa_attention_stacked", lambda q, k, v, m, l: decode_gqa_reference(q, k[l], v[l], m)),
+    ]
+    with ExitStack() as stack:
+        for module, name, fn in plain_qwen:
+            stack.enter_context(mock.patch.object(module, name, fn))
+        qwen.decode(inp, 0.8, seed=0, forced=toks.T[:N_FORCED], on_logits=lambda i, lg: plain_logits.append(lg))
+    torch.cuda.synchronize()
+    if launch_counts() != counts_tf:
+        raise AssertionError("[pipeline] the plain Qwen run launched a kernel")
+    a, b = torch.stack(kern_logits), torch.stack(plain_logits)
+    if not bool(torch.isfinite(a).all()):
+        raise AssertionError("[pipeline] non-finite logits")
+    d = (a - b).abs()
+    rms = float(b.square().mean().sqrt())
+    d_max, d_med = float(d.max()), float(d.median())
+    top1 = float((a.argmax(-1) == b.argmax(-1)).float().mean())
+    log(f"[pipeline] teacher-forced w8 kernel path vs plain, prefill + {N_FORCED - 1} steps x {n_rows} rows: "
+        f"max |d logit| {d_max:.4e}, median {d_med:.4e} (logit RMS {rms:.4f}); top-1 agreement {top1:.4f}")
+    if not (d_med <= QWEN_MEDIAN_TOL * rms and d_max <= QWEN_MAX_TOL * rms and top1 >= QWEN_TOP1):
+        raise AssertionError("[pipeline] the w8 kernel path disagrees with its plain version")
+    del a, b, d, kern_logits, plain_logits, toks
+
+    # -- paraphrase decode alone at batch 960
+    times = []
+    for i in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        qwen.generate_paraphrases_batch(texts, V, seed=i)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    t_med = statistics.median(times)
+    tok_s = n_rows * MAX_NEW / t_med
+    ms_q = 1e3 * t_med / PIPE_PROMPTS
+    log(f"[pipeline] paraphrase decode {PIPE_PROMPTS} x {V} x {MAX_NEW} new tokens (batch {n_rows}): calls "
+        f"{[round(x, 4) for x in times]} s, median {t_med:.4f} s: {tok_s:.1f} tok/s, {ms_q:.3f} ms/query on "
+        f"{card['smi']}")
+
+    # -- full TVC queries/s, each timed batch with an empty variant cache
+    pipe.profiler = type(pipe.profiler)(True)
+    torch.cuda.reset_peak_memory_stats()
+    q_times = []
+    for _ in range(3):
+        pipe.text_augmenter.clear_cache()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pipe.process_batch(images, texts)
+        torch.cuda.synchronize()
+        q_times.append(time.perf_counter() - t0)
+    qps = PIPE_PROMPTS / statistics.median(q_times)
+    stages = {k: round(v["mean"] * 1e3, 3) for k, v in pipe.profiler.get_stats().items()}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[pipeline] full TVC process_batch at B={PIPE_PROMPTS}: {[round(x, 4) for x in q_times]} s, "
+        f"{qps:.2f} queries/s; PipelineProfiler mean ms {stages}; peak memory over these batches {peak:.2f} GiB; "
+        f"on {card['smi']}")
+    pipe.text_augmenter.clear_cache()
+    with qwen_ranges(qwen_mod):
+        profile_batch("pipeline", lambda: pipe.process_batch(images, texts))
+
+    # -- process_stream over three batches of 64 equals process_batch on
+    # each, both with a fresh augmenter (empty cache, synonym draws from
+    # the seed)
+    nb = PIPE_STREAM_BATCH
+    batches = [(images[i : i + nb], texts[i : i + nb]) for i in range(0, PIPE_PROMPTS, nb)]
+    pipe.text_augmenter = make_augmenter()
+    reset_launch_counts()
+    stream = pipe.process_stream(iter(batches))
+    torch.cuda.synchronize()
+    stream_counts = launch_counts()
+    _check_path_counts(stream_counts, "pipeline", "process_stream")
+    pipe.text_augmenter = make_augmenter()
+    single = [pipe.process_batch(im, tx) for im, tx in batches]
+    for k, (a, b) in enumerate(zip(stream, single)):
+        if not (a.variants == b.variants and a.retrieved == b.retrieved
+                and np.array_equal(a.scores, b.scores) and np.array_equal(a.is_adversarial, b.is_adversarial)):
+            raise AssertionError(f"[pipeline] process_stream batch {k} differs from process_batch")
+    log(f"[pipeline] process_stream over {len(batches)} batches of {nb} equals process_batch on each "
+        f"(variants, items, scores, flags); launches {stream_counts}")
+    return {"launches": counts, "qps": qps, "tok_s": tok_s, "ms_per_query": ms_q, "peak_gib": peak,
+            "top1": top1, "d_max": d_max, "d_median": d_med, "llm_share": from_llm / slots, "stages_ms": stages}
+
+
 #: profiler names shortened to the kernel and its template arguments
 #: (the first match wins, so longer names come first)
 PROFILE_NAMES = (
@@ -905,13 +1256,17 @@ PROFILE_NAMES = (
     "quant_rows_kernel<__nv_bfloat16>", "decode_gqa_kernel<__nv_bfloat16, 128>",
     "decode_gqa_kernel<__nv_bfloat16, 64>",
     "head_attention_kernel<float>", "head_attention_kernel<__nv_bfloat16>", "consistency_kernel",
+    "w8_gemm_kernel",
 )
+#: the prefix of the record_function ranges a profile reports by name
+RANGE_PREFIX = "smoke:"
 
 
 def profile_batch(path: str, run) -> None:
-    """Where one defended batch's time goes: device time by kernel (from
-    the profiler's device events) and the device's idle share of the
-    batch's host wall time."""
+    """Where one batch's time goes: device time by kernel (from the
+    profiler's device events), the device time under each RANGE_PREFIX
+    range the run opens, and the device's idle share of the batch's host
+    wall time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -921,7 +1276,8 @@ def profile_batch(path: str, run) -> None:
         run()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA and not e.name.startswith(RANGE_PREFIX)]
     if not kernels:
         log(f"[{path}] profile: batch wall {wall_ms:.3f} ms; device time not measured (no device events)")
         return
@@ -935,6 +1291,13 @@ def profile_batch(path: str, run) -> None:
         f"idle share {1 - busy / wall_ms:.3f}")
     for name, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:14]:
         log(f"[{path}] profile:   {ms:9.3f} ms {100 * ms / busy:5.1f}% x{n:<4d} {name[:110]}")
+    for avg in prof.key_averages():
+        # the host-side range; its device time is that of the kernels it launched
+        if avg.key.startswith(RANGE_PREFIX) and avg.device_type == torch.autograd.DeviceType.CPU:
+            dev_us = getattr(avg, "device_time_total", None)
+            dev_us = avg.cuda_time_total if dev_us is None else dev_us
+            log(f"[{path}] profile: range {avg.key[len(RANGE_PREFIX):]!r}: device {dev_us / 1e3:.3f} ms "
+                f"in {avg.count} calls")
 
 
 def main() -> int:
@@ -955,7 +1318,9 @@ def main() -> int:
         int8 = phase_int8(card, bf16)
     with phase("qwen"):
         qwen = phase_qwen(card)
-    paths = {"bf16": bf16, "int8": int8, "qwen": qwen}
+    with phase("pipeline"):
+        pipeline = phase_pipeline(card, int8)
+    paths = {"bf16": bf16, "int8": int8, "qwen": qwen, "pipeline": pipeline}
     kernels = []
     for name, (source, replaces) in KERNEL_SOURCES.items():
         shapes = kres[name]["shapes"]
@@ -974,6 +1339,9 @@ def main() -> int:
         f"int8 {int8['qps']:.1f} on {card['smi']}")
     log(f"qwen paraphrase decode: {qwen['tok_s']:.1f} tok/s, {qwen['ms_per_query']:.3f} ms/query, "
         f"peak {qwen['peak_gib']:.2f} GiB on {card['smi']}")
+    log(f"full TVC pipeline (Qwen2-1.5B w8 + int8 ViT-B/32): {pipeline['qps']:.2f} queries/s, paraphrase decode "
+        f"{pipeline['tok_s']:.1f} tok/s, {pipeline['ms_per_query']:.3f} ms/query, peak {pipeline['peak_gib']:.2f} "
+        f"GiB on {card['smi']}")
     print(json.dumps({"kernels": kernels}))
     print(card["smi"])
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card["name"], "count": card["count"]}}))

@@ -1,7 +1,7 @@
 """The port's CUDA kernels against their plain versions on the card, at
 ragged shapes the main path does not give them (partial tiles, K not a
 multiple of the k-tile, T from 1 to 257, one-token sequences) and at the
-Qwen2-7B decode's shapes, and the operands they refuse.
+Qwen2-7B and Qwen2-1.5B decodes' shapes, and the operands they refuse.
 
 Marked ``cuda``: each test skips without a GPU. On the card:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
@@ -28,6 +28,9 @@ from tvc_torch.core.kernels import (
     mlp_layer_i8_reference,
     mlp_layer_reference,
     quantize_linear,
+    w8_matmul,
+    w8_matmul_plain,
+    w8_matmul_stacked,
     w8a8_matmul,
     w8a8_matmul_reference,
     w8a8_matmul_stacked,
@@ -241,7 +244,7 @@ def _decode_err(got, want):
 @pytest.mark.parametrize("B,KV,R,S,D,dtype", [
     (3, 2, 7, 1, 64, torch.bfloat16), (5, 4, 7, 63, 128, torch.bfloat16), (2, 1, 8, 512, 128, torch.float32),
     (7, 2, 2, 33, 64, torch.float32), (576, 4, 7, 64, 128, torch.bfloat16), (576, 4, 7, 512, 128, torch.bfloat16),
-    (576, 2, 7, 64, 64, torch.bfloat16), (4, 4, 1, 2000, 128, torch.bfloat16),
+    (576, 2, 7, 64, 64, torch.bfloat16), (4, 4, 1, 2000, 128, torch.bfloat16), (960, 2, 6, 64, 128, torch.bfloat16),
 ])
 def test_decode_gqa_attention_matches_plain(dev, B, KV, R, S, D, dtype):
     q, k, v, mask = _decode_operands(np.random.default_rng(B * S + D), B, KV, R, S, D, dtype, dev)
@@ -288,3 +291,55 @@ def test_qwen_kernels_refuse_what_they_do_not_take(dev):
     q2, k2, v2, m2 = _decode_operands(np.random.default_rng(4), 2, 2, 7, 16, 96, torch.bfloat16, dev)
     with pytest.raises(ValueError):  # head dim 96
         decode_gqa_attention(q2, k2, v2, m2)
+
+
+# The weight-only GEMM, relative to max(1, |y|): kernel and plain convert the
+# same int8 weights exactly and sum the same exact bf16 products in f32 in
+# another order, then scale in f32 and round once to bf16: one bf16 ulp
+# (at most 2^-7 |y|) apart where a sum lands next to a rounding boundary.
+@pytest.mark.parametrize("M,K,N", [
+    (1, 16, 16), (37, 208, 144), (130, 64, 272), (15, 1536, 17920), (15, 1536, 2048),
+    (960, 1536, 2048), (960, 1536, 1536), (960, 1536, 17920), (960, 8960, 1536), (1024, 1536, 2048),
+])
+def test_w8_matmul_matches_plain(dev, M, K, N):
+    x, w_q, s = _w8a8_operands(np.random.default_rng(M + K + N + 1), M, K, N, torch.bfloat16, dev)
+    before = w8_matmul.launches
+    got = w8_matmul(x, w_q, s)
+    want = w8_matmul_plain(x, w_q, s)
+    torch.cuda.synchronize()
+    assert w8_matmul.launches == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == (M, N)
+    assert _scaled_err(got, want) <= 1e-2
+    assert torch.equal(got, w8_matmul(x, w_q, s))  # no split-K, no atomics: the same bits every run
+
+
+def test_w8_matmul_stacked_is_the_flat_kernel_on_the_layer(dev):
+    rng = np.random.default_rng(6)
+    x = torch.as_tensor(rng.standard_normal((33, 128)).astype(np.float32)).to(dev, torch.bfloat16)
+    qs = [quantize_linear(torch.as_tensor(rng.standard_normal((128, 96)).astype(np.float32)).to(dev))
+          for _ in range(3)]
+    w_q, s = torch.stack([q for q, _ in qs]), torch.stack([c for _, c in qs])
+    before = (w8_matmul.launches, w8_matmul_stacked.launches)
+    got = w8_matmul_stacked(x, w_q, s, 2)
+    torch.cuda.synchronize()
+    assert (w8_matmul.launches, w8_matmul_stacked.launches) == (before[0] + 1, before[1] + 1)
+    assert torch.equal(got, w8_matmul(x, *qs[2]))
+    assert _scaled_err(got, w8_matmul_plain(x, *qs[2])) <= 1e-2
+
+
+def test_w8_matmul_refuses_what_it_does_not_take(dev):
+    x, w_q, s = _w8a8_operands(np.random.default_rng(7), 4, 64, 32, torch.bfloat16, dev)
+    with pytest.raises(ValueError, match="bf16 activations"):  # f32 activations: not ported
+        w8_matmul(x.float(), w_q, s)
+    with pytest.raises(ValueError):  # f16 activations
+        w8_matmul(x.half(), w_q, s)
+    with pytest.raises(ValueError):  # float weights where int8 are taken
+        w8_matmul(x, w_q.float(), s)
+    with pytest.raises(ValueError):  # scale of the wrong width
+        w8_matmul(x, w_q, s[:16])
+    with pytest.raises(ValueError):  # K = 72: not a multiple of 16
+        w8_matmul(*_w8a8_operands(np.random.default_rng(8), 4, 72, 32, torch.bfloat16, dev))
+    with pytest.raises(ValueError):  # x off a 16-byte boundary
+        w8_matmul(torch.zeros(4 * 64 + 1, dtype=torch.bfloat16, device=dev)[1:].view(4, 64), w_q, s)
+    with pytest.raises(ValueError):  # layer out of range
+        w8_matmul_stacked(x, w_q[None], s[None], 1)

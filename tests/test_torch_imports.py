@@ -36,6 +36,11 @@ def test_importing_every_module_loads_no_jax_and_no_tvc():
     bad = [m for m in loaded if m.split(".")[0] in FORBIDDEN]
     assert not bad, bad
     assert "tvc_torch.serving" in loaded
+    for m in ("tvc_torch.pipeline", "tvc_torch.augment.text_augment", "tvc_torch.attacks.text_attack",
+              "tvc_torch.metrics"):
+        assert m in loaded, m
+    # the lexicon probes nltk at its first lookup, never at import
+    assert "nltk" not in loaded
 
 
 @pytest.mark.parametrize("path", sorted(str(p.relative_to(REPO)) for p in PORT.rglob("*.py")) + ["chip_smoke.py"])
@@ -87,6 +92,16 @@ def test_qwen_without_device_raises_when_cuda_is_absent(no_cuda):
         QwenModel(QwenConfig.tiny())
     m = QwenModel(QwenConfig.tiny(), device="cpu", max_new_tokens=2)
     assert m.device.type == "cpu" and len(m.generate(["a b"], temperature=0.0)) == 1
+
+
+def test_pipeline_without_device_raises_when_cuda_is_absent(no_cuda):
+    from tvc_torch.models.clip import CLIPConfig, CLIPModel
+    from tvc_torch.pipeline import MultiModalDetectionPipeline
+
+    model = CLIPModel(CLIPConfig.tiny(), device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        MultiModalDetectionPipeline(model)
+    assert MultiModalDetectionPipeline(model, device="cpu").detector.device.type == "cpu"
 
 
 def test_mesh_serving_raises_not_implemented():

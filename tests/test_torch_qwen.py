@@ -1,7 +1,8 @@
 """tvc_torch's Qwen2 (``tvc_torch/models/qwen.py``) against the JAX package's
 ``tvc/models/qwen.py`` on ``QwenConfig.tiny()`` with the same weights
 (``qwen_params_from_jax``): the full forward, greedy decodes token for
-token (f32 and int8 W8A8), prefix-shared prefill, ``n_samples`` tiling,
+token (f32, int8 W8A8 and int8 weight-only "w8", its routing by the row
+threshold), prefix-shared prefill, ``n_samples`` tiling,
 early exit, constrained decoding, sampling properties and the int8 /
 ``decode_only`` trees. On the CPU the kernel wrappers compute their plain
 versions."""
@@ -18,7 +19,7 @@ import torch
 import chip_smoke
 import tvc_torch.models.qwen as tq
 from tvc.models import qwen as jq
-from tvc_torch.core.kernels import decode_gqa_reference, w8a8_matmul_reference
+from tvc_torch.core.kernels import decode_gqa_reference, w8_matmul_plain, w8_matmul_reference, w8a8_matmul_reference
 
 PROMPTS = ["a dog runs in the park", "two cats on a mat near the window"]
 
@@ -46,6 +47,16 @@ def w8a8():
     jm = jq.QwenModel(dataclasses.replace(jq.QwenConfig.tiny(), quant_gemm="w8a8"), seed=0, max_new_tokens=8)
     jm.quantize_weights_int8()
     return jm, _port(jm, dataclasses.replace(tq.QwenConfig.tiny(), quant_gemm="w8a8"), max_new_tokens=8)
+
+
+@pytest.fixture(scope="module")
+def w8():
+    """The JAX model quantized by quantize_weights_int8 with the default
+    quant_gemm="w8" (weight-only Pallas kernels in interpret mode), and the
+    port on the same int8 weights."""
+    jm = jq.QwenModel(jq.QwenConfig.tiny(), seed=0, max_new_tokens=8)
+    jm.quantize_weights_int8()
+    return jm, _port(jm, tq.QwenConfig.tiny(), max_new_tokens=8)
 
 
 class WordTok:
@@ -269,10 +280,6 @@ def test_params_swap_rebuilds_the_decode_state(f32):
 
 
 def test_what_is_not_ported_raises():
-    m = tq.QwenModel(tq.QwenConfig.tiny(), seed=0, device="cpu", max_new_tokens=4)
-    m.quantize_weights_int8()  # quant_gemm defaults to "w8"
-    with pytest.raises(NotImplementedError, match="rows 10 and 13"):
-        m.generate(["a b c"])
     with pytest.raises(NotImplementedError, match="mesh"):
         tq.QwenModel(tq.QwenConfig.tiny(), device="cpu", mesh=object())
 
@@ -297,35 +304,126 @@ def test_ascii_token_mask_with_the_hash_tokenizer(f32):
     assert m.shape == (512,) and m.all() and m is tm.ascii_token_mask()
 
 
-def test_launch_formula_matches_the_decode():
-    """chip_smoke's expected launch counts, read off the code, equal the
-    calls the decode makes (counted here on the CPU through the plain
-    versions), and give 2,033 GEMMs and 448 attentions at Qwen2-7B."""
-    cfg = dataclasses.replace(tq.QwenConfig.tiny(), tie_embeddings=False, quant_gemm="w8a8")
-    m = tq.QwenModel(cfg, seed=0, max_new_tokens=8, init_int8=True, tokenizer=WordTok(), device="cpu")
-    calls = {"flat": 0, "stacked": 0, "attn": 0}
+def _spies(gemm: str, rows: dict):
+    """Plain versions in place of the decode's kernels, each call counted
+    (and its activation rows recorded) under its name in ``rows``."""
+    plain = w8a8_matmul_reference if gemm == "w8a8_matmul" else w8_matmul_plain
 
-    def count(key, fn):
-        def f(*a):
-            calls[key] += 1
-            return fn(*a)
+    def spy(name, fn):
+        def f(x, *a):
+            rows.setdefault(name, []).append(int(np.prod(x.shape[:-1])))
+            return fn(x, *a)
         return f
 
-    with mock.patch.object(tq, "w8a8_matmul", count("flat", w8a8_matmul_reference)), \
-            mock.patch.object(tq, "w8a8_matmul_stacked",
-                              count("stacked", lambda x, w, s, l: w8a8_matmul_reference(x, w[l], s[l]))), \
-            mock.patch.object(tq, "decode_gqa_attention_stacked",
-                              count("attn", lambda q, k, v, mk, l: decode_gqa_reference(q, k[l], v[l], mk))):
-        m.generate_paraphrases_batch(["a cat sat on the mat", "two dogs"], 3)
-    P = len(m._prefix_ids(tq.PARAPHRASE_PREFIX))
-    assert P > 0
-    want = chip_smoke.qwen_expected_launches(cfg, P, 8)
-    assert calls["stacked"] == want["w8a8_matmul_stacked"]
-    assert calls["flat"] + calls["stacked"] == want["w8a8_matmul"]
-    assert calls["attn"] == want["decode_gqa_attention_stacked"] == want["decode_gqa_attention"]
-    big = chip_smoke.qwen_expected_launches(tq.QwenConfig.qwen2_7b(), 15, 16)
+    return [
+        mock.patch.object(tq, gemm, spy(gemm, plain)),
+        mock.patch.object(tq, gemm + "_stacked", spy(gemm + "_stacked", lambda x, w, s, l: plain(x, w[l], s[l]))),
+        mock.patch.object(tq, "w8_matmul_reference", spy("w8_matmul_reference", w8_matmul_reference)),
+        mock.patch.object(tq, "decode_gqa_attention_stacked",
+                          spy("decode_gqa_attention_stacked", lambda q, k, v, mk, l: decode_gqa_reference(q, k[l], v[l], mk))),
+    ]
+
+
+@pytest.mark.parametrize("quant_gemm,tied,max_rows", [("w8a8", False, 1024), ("w8", False, 1024), ("w8", True, 1024),
+                                                      ("w8", False, 8)])
+def test_launch_formula_matches_the_decode(quant_gemm, tied, max_rows):
+    """chip_smoke's expected launch counts, read off the code, equal the
+    calls the decode makes (counted here on the CPU through the plain
+    versions) on each route, the w8 one also with a row limit the suffix
+    prefill and the decode steps exceed; and give 2,033 GEMMs and 448
+    attentions at Qwen2-7B W8A8 and 1,904 weight-only GEMMs at Qwen2-1.5B
+    w8 paraphrasing 192 captions x 5 (suffix prefill 192 x 32 rows: the
+    dequant fallback)."""
+    cfg = dataclasses.replace(tq.QwenConfig.tiny(), tie_embeddings=tied, quant_gemm=quant_gemm)
+    m = tq.QwenModel(cfg, seed=0, max_new_tokens=8, init_int8=True, tokenizer=WordTok(), device="cpu")
+    gemm = f"{quant_gemm}_matmul"
+    rows = {}
+    texts = ["a cat sat on the mat", "two dogs"]
+    with mock.patch.object(tq, "W8_MAX_ROWS", max_rows):
+        for p in _spies(gemm, rows):
+            p.start()
+        try:
+            m.generate_paraphrases_batch(texts, 3)
+        finally:
+            mock.patch.stopall()
+        P = len(m._prefix_ids(tq.PARAPHRASE_PREFIX))
+        T = m.prepare([tq.PARAPHRASE_PROMPT.format(text=t) for t in texts], 3, None, tq.PARAPHRASE_PREFIX).tokens.shape[1]
+        want = chip_smoke.qwen_expected_launches(cfg, P, m.last_decode_steps, prompts=2, suffix_len=T, n_samples=3)
+    assert P > 0 and m.last_decode_steps == 8
+    n = {k: len(v) for k, v in rows.items()}
+    assert n.get(gemm + "_stacked", 0) == want[gemm + "_stacked"]
+    assert n.get(gemm, 0) + n.get(gemm + "_stacked", 0) == want[gemm]
+    assert n["decode_gqa_attention_stacked"] == want["decode_gqa_attention_stacked"] == want["decode_gqa_attention"]
+    # every GEMM of the decode went through the kernel or, above the row
+    # limit under "w8", through the dequant fallback
+    L, steps = cfg.num_layers, m.last_decode_steps
+    total = 4 * L * (2 + steps) + (0 if tied else 1 + steps)
+    assert n.get(gemm, 0) + n.get(gemm + "_stacked", 0) + n.get("w8_matmul_reference", 0) == total
+    fallback = rows.get("w8_matmul_reference", [])
+    assert all(r > max_rows for r in fallback) and (len(fallback) > 0) == (max_rows == 8)
+    if quant_gemm == "w8":
+        assert all(r <= max_rows for k in (gemm, gemm + "_stacked") for r in rows.get(k, []))
+    big = chip_smoke.qwen_expected_launches(dataclasses.replace(tq.QwenConfig.qwen2_7b(), quant_gemm="w8a8"), 15, 16)
     assert big == {"w8a8_matmul": 2033, "w8a8_matmul_stacked": 2016,
                    "decode_gqa_attention": 448, "decode_gqa_attention_stacked": 448}
+    small = chip_smoke.qwen_expected_launches(tq.QwenConfig.qwen2_1_5b(), 15, 16, prompts=192, suffix_len=32,
+                                              n_samples=5)
+    assert small == {"w8_matmul": 1904, "w8_matmul_stacked": 1904,
+                     "decode_gqa_attention": 448, "decode_gqa_attention_stacked": 448}
+
+
+def test_greedy_generate_matches_jax_w8(w8):
+    """Weight-only int8: the same int8 weights on both sides, the products
+    summed in f32 (the kernel's function on the CPU) on every GEMM."""
+    jm, tm = w8
+    want = jm.generate(PROMPTS, temperature=0.0, n_samples=2)
+    assert tm.generate(PROMPTS, temperature=0.0, n_samples=2) == want
+    assert want[0] == want[1] and want[2] == want[3]
+
+
+def test_greedy_generate_matches_jax_w8_after_cast_params_bf16(f32):
+    """cast_params_bf16 then quantize_weights_int8 (the genref order), each
+    side quantizing its own bf16 tree: the int8 values agree within one
+    quantum (a scale one ulp apart, as in the f32 test above, can move a
+    bf16 weight that lies on a .5 boundary) and the greedy tokens are
+    equal."""
+    jm = jq.QwenModel(jq.QwenConfig.tiny(), params=f32[0].params, max_new_tokens=8, cast_params_bf16=True)
+    jm.quantize_weights_int8()
+    tm = tq.QwenModel(tq.QwenConfig.tiny(), params=f32[1].params, device="cpu", max_new_tokens=8,
+                      cast_params_bf16=True)
+    tm.quantize_weights_int8()
+    want_tree, got_tree = tq._flatten(_np_tree(jm.params)), tq._flatten(tm.params)
+    for name, leaf in got_tree.items():
+        if tq._is_q(leaf):
+            d = np.abs(leaf["int8"].numpy().astype(int) - want_tree[name]["int8"].astype(int))
+            assert d.max() <= 1 and d.mean() < 1e-2, name
+    assert tm.generate(PROMPTS, temperature=0.0) == jm.generate(PROMPTS, temperature=0.0)
+
+
+def test_w8_routes_by_the_row_threshold():
+    """130 prompts: the suffix prefill block (130 x 8 rows) exceeds
+    W8_MAX_ROWS and dequantizes, then matmuls (w8_matmul_reference), the
+    decode steps (130 rows) take the kernel; the greedy tokens equal the
+    JAX package's, which routes the same way. The embedding stays f32
+    here: under jit XLA's CPU backend computes the JAX package's bf16
+    dequant of a tied int8 table (``int8 * scale`` in bf16) in f32 without
+    the bf16 rounding, which the port keeps (ROADMAP §3)."""
+    texts = [f"caption number {i} of a dog" for i in range(130)]
+    jm = jq.QwenModel(jq.QwenConfig.tiny(), seed=0, max_new_tokens=8)
+    jm.quantize_weights_int8(include_embed=False)
+    tm = _port(jm, tq.QwenConfig.tiny(), max_new_tokens=8)
+    rows = {}
+    for p in _spies("w8_matmul", rows):
+        p.start()
+    try:
+        got = tm.generate(texts, temperature=0.0)
+    finally:
+        mock.patch.stopall()
+    assert got == jm.generate(texts, temperature=0.0)
+    L = tq.QwenConfig.tiny().num_layers
+    assert rows["w8_matmul_reference"] == [130 * 8] * 4 * L
+    assert rows["w8_matmul_stacked"] == [130] * 4 * L * 8 and "w8_matmul" not in rows
+    assert all(r <= tq.W8_MAX_ROWS < 130 * 8 for r in rows["w8_matmul_stacked"])
 
 
 def test_chip_smoke_captions_follow_the_jax_loader():

@@ -28,6 +28,10 @@ from tvc_torch.core.kernels.quantized_layer_kernel import (
     quantize_linear,
 )
 from tvc_torch.core.kernels.w8_matmul_kernel import (
+    w8_matmul,
+    w8_matmul_plain,
+    w8_matmul_reference,
+    w8_matmul_stacked,
     w8a8_matmul,
     w8a8_matmul_reference,
     w8a8_matmul_stacked,
@@ -43,6 +47,8 @@ KERNELS = (
     decode_gqa_attention_stacked,
     w8a8_matmul,
     w8a8_matmul_stacked,
+    w8_matmul,
+    w8_matmul_stacked,
 )
 
 

@@ -62,6 +62,10 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         # R, S, D -> bytes of shared memory a block needs
         "tvc_decode_gqa_smem": [_I, _I, _I],
     },
+    "w8_matmul": {
+        # x (bf16), w (int8), scale (f32), out (bf16), M, N, K, stream
+        "tvc_w8_matmul": [_P, _P, _P, _P, _I, _I, _I, _P],
+    },
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

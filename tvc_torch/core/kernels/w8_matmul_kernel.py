@@ -1,6 +1,7 @@
-"""The W8A8 GEMM of the Qwen2 decode (port of
-``tvc/core/pallas/w8_matmul_kernel.py`` ``w8a8_matmul`` and
-``w8a8_matmul_stacked``).
+"""The int8 GEMMs of the Qwen2 decode (port of
+``tvc/core/pallas/w8_matmul_kernel.py``): the W8A8 ``w8a8_matmul`` /
+``w8a8_matmul_stacked`` and the weight-only ``w8_matmul`` /
+``w8_matmul_stacked``.
 
     w8a8_matmul(x [M, K], w_q int8 [K, N], scale f32 [N]) -> [M, N], x's dtype
         = ((q(x) . w_q) . rs) . scale
@@ -17,16 +18,27 @@ rows) and the int8 tensor-core GEMM with its dequantize-only epilogue, two
 launches a call. For CPU tensors it computes the plain version beside it,
 which sums the int8 products in float64 (exact for every int32 sum here).
 
-``w8a8_matmul_stacked(x, w_q [L, K, N], scale [L, N], layer)`` is the same
-function on layer ``layer`` of the stacked weights: the TPU kernel selects
-the layer by scalar prefetch so that ``lax.scan`` copies no slab, and here
-``w_q[layer]`` of the contiguous stack is already a zero-copy view, so the
-stacked wrapper calls :func:`w8a8_matmul` on it. ``w8a8_matmul.launches``
-therefore counts every launch of the kernel, ``w8a8_matmul_stacked.launches``
-the stacked calls among them.
+    w8_matmul(x [M, K], w_q int8 [K, N], scale f32 [N]) -> [M, N], x's dtype
+        = ((x . w_q) summed in f32) * scale
 
-The weight-only ``w8_matmul`` / ``w8_matmul_stacked`` (TPU kernels
-``w8_matmul_kernel.py:101`` and ``:340``) are not ported yet.
+is the weight-only GEMM (the JAX package's default ``quant_gemm="w8"``):
+the activations stay in the model dtype, the int8 weights convert exactly
+to it, the products are summed in f32 and scaled per output channel in
+f32, then rounded once to x's dtype. For CUDA tensors the wrapper launches
+the kernel of ``tvc_torch/csrc/w8_matmul.cu`` (bf16 activations only: the
+card's path; f32 activations raise); for CPU tensors it computes the plain
+version :func:`w8_matmul_plain`. :func:`w8_matmul_reference` is another
+function: the JAX package's dequantize-then-matmul oracle, which rounds
+every dequantized weight to x's dtype first; the decode takes it for
+activation blocks above the kernels' row limit, as the JAX package does.
+
+``*_stacked(x, w_q [L, K, N], scale [L, N], layer)`` is the same function
+on layer ``layer`` of the stacked weights: the TPU kernels select the layer
+by scalar prefetch so that ``lax.scan`` copies no slab, and here
+``w_q[layer]`` of the contiguous stack is already a zero-copy view, so each
+stacked wrapper calls its flat wrapper on it. ``<flat>.launches`` therefore
+counts every launch of the kernel, ``<stacked>.launches`` the stacked calls
+among them.
 """
 
 from __future__ import annotations
@@ -52,11 +64,12 @@ def w8a8_matmul_reference(x: Tensor, w_q: Tensor, scale: Tensor) -> Tensor:
     return (_mm_i32(xq, w_q) * rs * scale.float()).to(x.dtype)
 
 
-def _check_operands(x: Tensor, w_q: Tensor, scale: Tensor) -> None:
+def _check_operands(x: Tensor, w_q: Tensor, scale: Tensor, dtypes=(torch.bfloat16, torch.float32)) -> None:
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
-    if x.ndim != 2 or x.dtype not in (torch.bfloat16, torch.float32) or not x.is_contiguous():
-        raise ValueError(f"x must be a contiguous bf16 or float32 [M, K] tensor, got {x.dtype} {tuple(x.shape)}")
+    if x.ndim != 2 or x.dtype not in dtypes or not x.is_contiguous():
+        raise ValueError(f"x must be a contiguous {' or '.join(map(str, dtypes))} [M, K] tensor, got "
+                         f"{x.dtype} {tuple(x.shape)}")
     M, K = x.shape
     N = w_q.shape[-1] if w_q.ndim == 2 else -1
     if w_q.dtype != torch.int8 or w_q.ndim != 2 or w_q.shape[0] != K or not w_q.is_contiguous() \
@@ -119,3 +132,61 @@ def w8a8_matmul_stacked(x: Tensor, w_q: Tensor, scale: Tensor, layer: int) -> Te
 
 
 w8a8_matmul_stacked.launches = 0
+
+
+# -- weight-only ------------------------------------------------------------------
+
+
+def w8_matmul_plain(x: Tensor, w_q: Tensor, scale: Tensor) -> Tensor:
+    """Plain PyTorch version of :func:`w8_matmul`: the int8 weights
+    converted exactly, the products summed in f32, scaled in f32, rounded
+    once to x's dtype."""
+    return (torch.matmul(x.float(), w_q.float()) * scale.float()).to(x.dtype)
+
+
+def w8_matmul_reference(x: Tensor, w_q: Tensor, scale: Tensor) -> Tensor:
+    """The JAX package's ``w8_matmul_reference``: dequantize in x's dtype
+    (``w_q * scale``, each weight rounded to that dtype), then one matmul
+    summed in f32 and rounded to x's dtype. x may carry leading batch dims."""
+    w = w_q.to(x.dtype) * scale.to(x.dtype)
+    return torch.matmul(x, w)
+
+
+def w8_matmul(x: Tensor, w_q: Tensor, scale: Tensor) -> Tensor:
+    """x [M, K] @ (w_q int8 [K, N] * scale f32 [N]) with bf16 activations
+    (f32 too on the CPU); returns [M, N] in x's dtype."""
+    if x.device.type == "cpu":
+        return w8_matmul_plain(x, w_q, scale)
+    if x.dtype == torch.float32:
+        raise ValueError("w8_matmul: the CUDA kernel takes bf16 activations; f32 activations are not ported")
+    _check_operands(x, w_q, scale, dtypes=(torch.bfloat16,))
+    if x.data_ptr() % 16 or w_q.data_ptr() % 16:
+        raise ValueError("w8_matmul: x and w_q must start on 16-byte boundaries (16-byte loads)")
+    M, K = x.shape
+    N = w_q.shape[1]
+    lib = _build.load("w8_matmul")
+    out = torch.empty((M, N), dtype=x.dtype, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    _build.check(
+        lib.tvc_w8_matmul(x.data_ptr(), w_q.data_ptr(), scale.data_ptr(), out.data_ptr(), M, N, K, stream),
+        "tvc_w8_matmul",
+    )
+    w8_matmul.launches += 1
+    return out
+
+
+w8_matmul.launches = 0
+
+
+def w8_matmul_stacked(x: Tensor, w_q: Tensor, scale: Tensor, layer: int) -> Tensor:
+    """x [M, K] @ (w_q [L, K, N])[layer] * (scale [L, N])[layer], weight-only."""
+    layer = int(layer)
+    _check_stacked(w_q, scale, layer)
+    if x.device.type == "cpu":
+        return w8_matmul_plain(x, w_q[layer], scale[layer])
+    out = w8_matmul(x, w_q[layer], scale[layer])
+    w8_matmul_stacked.launches += 1
+    return out
+
+
+w8_matmul_stacked.launches = 0

@@ -14,13 +14,20 @@ paraphrase generation for the text variants of full TVC.
   paraphrase / translate entry points. It runs on the card unless given
   ``device="cpu"``.
 
-Every int8 GEMM of the decode goes through the W8A8 kernel
-(``w8a8_matmul`` / ``w8a8_matmul_stacked``) and every decode step's
-attention through ``decode_gqa_attention_stacked``; the prefill attention,
-norms, rope and sampling are plain PyTorch, as the JAX package leaves them
+The int8 GEMMs of the decode route as the JAX package routes them
+(``QwenConfig.quant_gemm``): under ``"w8a8"`` every one goes through the
+W8A8 kernel (``w8a8_matmul`` / ``w8a8_matmul_stacked``; both of the JAX
+package's W8A8 routes sum int32 exactly, so one kernel serves every
+block); under the default ``"w8"`` an activation block of at most
+``W8_MAX_ROWS`` rows goes through the weight-only kernel (``w8_matmul`` /
+``w8_matmul_stacked``) and a larger one (the suffix prefill) through the
+dequantize-then-matmul ``w8_matmul_reference``, a plain matmul as the JAX
+package leaves it to XLA. Every decode step's attention goes through
+``decode_gqa_attention_stacked``; the prefill attention, norms, rope, the
+tied head and sampling are plain PyTorch, as the JAX package leaves them
 to XLA. Sampling uses an explicit ``torch.Generator`` and an exact top-50:
 the draws are not ``jax.random``'s. Not ported yet: the tensor-parallel
-decode (``mesh=``) and the weight-only ``quant_gemm="w8"`` GEMMs.
+decode (``mesh=``).
 """
 
 from __future__ import annotations
@@ -39,13 +46,18 @@ from torch import Tensor, nn
 from tvc_torch._device import resolve_device
 from tvc_torch.core.kernels.decode_attention_kernel import decode_gqa_attention_stacked
 from tvc_torch.core.kernels.quantized_layer_kernel import quantize_linear
-from tvc_torch.core.kernels.w8_matmul_kernel import w8a8_matmul, w8a8_matmul_stacked
-
-W8_NOT_PORTED = (
-    'quant_gemm="w8" (weight-only int8) needs the TPU kernels w8_matmul and '
-    "w8_matmul_stacked (tvc/core/pallas/w8_matmul_kernel.py:101, :340; kernel "
-    'table rows 10 and 13), which are not ported yet: use quant_gemm="w8a8"'
+from tvc_torch.core.kernels.w8_matmul_kernel import (
+    w8_matmul,
+    w8_matmul_reference,
+    w8_matmul_stacked,
+    w8a8_matmul,
+    w8a8_matmul_stacked,
 )
+
+#: the largest activation block (B * T rows) the weight-only kernels take;
+#: larger blocks dequantize, then matmul (the JAX package's VMEM limit,
+#: ``tvc/models/qwen.py`` ``mm`` / ``mm_stacked``)
+W8_MAX_ROWS = 1024
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,9 +76,9 @@ class QwenConfig:
     tie_embeddings: bool = True
     dtype: Any = torch.bfloat16
     model_name: str = "Qwen/Qwen2-0.5B-Instruct"
-    #: the GEMM that serves int8 weight leaves in the decode: "w8a8"
-    #: quantizes the activations per row too (the W8A8 kernel); "w8"
-    #: (weight-only) is not ported yet and raises
+    #: the GEMM that serves int8 weight leaves in the decode: "w8"
+    #: (weight-only: activations in the model dtype) or "w8a8" (the
+    #: activations quantized per row to int8 too)
     quant_gemm: str = "w8"
 
     @classmethod
@@ -605,27 +617,31 @@ class QwenModel:
 
     # -- the decode math ---------------------------------------------------------------
     def _mm(self, x3: Tensor, leaf) -> Tensor:
-        """x [B, T, K] @ weight leaf; int8 leaves through the W8A8 kernel."""
+        """x [B, T, K] @ weight leaf; int8 leaves through the W8A8 kernel,
+        or under "w8" through the weight-only kernel up to W8_MAX_ROWS rows
+        and dequantize-then-matmul above."""
         c = self.config
         B, T = x3.shape[:2]
         if _is_q(leaf):
-            if c.quant_gemm != "w8a8":
-                raise NotImplementedError(W8_NOT_PORTED)
-            y = w8a8_matmul(x3.reshape(B * T, -1).to(c.dtype).contiguous(), leaf["int8"], leaf["scale"])
+            if c.quant_gemm != "w8a8" and B * T > W8_MAX_ROWS:
+                return w8_matmul_reference(x3.to(c.dtype), leaf["int8"], leaf["scale"])
+            kern = w8a8_matmul if c.quant_gemm == "w8a8" else w8_matmul
+            y = kern(x3.reshape(B * T, -1).to(c.dtype).contiguous(), leaf["int8"], leaf["scale"])
             return y.reshape(B, T, -1)
         return x3.to(c.dtype) @ leaf.to(c.dtype)
 
     def _mm_stacked(self, x3: Tensor, leaf, l: int) -> Tensor:
-        """x [B, T, K] @ (stacked weight leaf)[l]."""
+        """x [B, T, K] @ (stacked weight leaf)[l]: int8 leaves through the
+        stacked kernels where :meth:`_mm` would take a kernel, else
+        :meth:`_mm` on layer l's slice."""
         c = self.config
+        B, T = x3.shape[:2]
         if _is_q(leaf):
-            if c.quant_gemm != "w8a8":
-                raise NotImplementedError(W8_NOT_PORTED)
-            B, T = x3.shape[:2]
-            y = w8a8_matmul_stacked(
-                x3.reshape(B * T, -1).to(c.dtype).contiguous(), leaf["int8"], leaf["scale"], l
-            )
-            return y.reshape(B, T, -1)
+            if c.quant_gemm == "w8a8" or B * T <= W8_MAX_ROWS:
+                kern = w8a8_matmul_stacked if c.quant_gemm == "w8a8" else w8_matmul_stacked
+                y = kern(x3.reshape(B * T, -1).to(c.dtype).contiguous(), leaf["int8"], leaf["scale"], l)
+                return y.reshape(B, T, -1)
+            return self._mm(x3, {"int8": leaf["int8"][l], "scale": leaf["scale"][l]})
         return self._mm(x3, leaf[l])
 
     def _embed(self, non_layer: Dict, tokens: Tensor) -> Tensor:
@@ -725,7 +741,8 @@ class QwenModel:
         ``forced`` [n, B * n_samples]: take these tokens instead of sampling
         and stop after n steps (teacher forcing, to hold two runs of the
         same path against each other); ``on_logits(step, logits)`` sees the
-        f32 logits each step samples from."""
+        f32 logits each step samples from. ``self.last_decode_steps`` is
+        the number of steps the loop ran (fewer after an early exit)."""
         c, dev = self.config, self.device
         non_layer, stacked = self._decode_state()
         Dh = c.hidden_size // c.num_heads
@@ -774,9 +791,11 @@ class QwenModel:
         steps = self.max_new_tokens if forced is None else min(self.max_new_tokens, forced.shape[0])
         chunk = DECODE_CHUNK
         early_exit = self.max_new_tokens > chunk and self.max_new_tokens % chunk == 0
+        self.last_decode_steps = 0
         for i in range(steps):
             if early_exit and i and i % chunk == 0 and bool(done.all()):
                 break  # every sequence has ended: the rest is the EOT fill
+            self.last_decode_steps = i + 1
             if on_logits is not None:
                 on_logits(i, next_logits)
             if forced is not None:

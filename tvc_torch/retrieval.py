@@ -1,5 +1,7 @@
 """Dual-encoder retrieval over an embedding bank (port of ``tvc/retrieval.py``:
-the image index the detector and the serving runtime use).
+the image index the detector and the serving runtime use, and text ->
+image retrieval, the pipeline's fallback when the fused step's top-k does
+not cover ``retrieval_top_k``).
 
 Banks live on the model's device.
 """
@@ -8,6 +10,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import time
 from pathlib import Path
 from typing import Any, Dict, List, Optional, Sequence
 
@@ -29,6 +32,14 @@ class RetrievalConfig:
             raise ValueError("top_k must be >= 1")
 
 
+@dataclasses.dataclass
+class RetrievalResult:
+    indices: np.ndarray  # [B, k]
+    scores: np.ndarray  # [B, k]
+    items: List[List[Any]]  # the retrieved items (paths, captions, ids)
+    query_time: float
+
+
 class MultiModalRetriever:
     """Text -> image retrieval against a CLIP image-embedding bank."""
 
@@ -37,7 +48,8 @@ class MultiModalRetriever:
         self.config = config or RetrievalConfig()
         self.image_bank: Optional[EmbeddingBank] = None
         self.image_items: List[Any] = []
-        self.stats = {"queries": 0}
+        self._cache: Dict[str, RetrievalResult] = {}
+        self.stats = {"queries": 0, "cache_hits": 0, "total_query_time": 0.0}
 
     def build_image_index(
         self,
@@ -62,6 +74,31 @@ class MultiModalRetriever:
             device=self.model.device,
         ).build(np.asarray(embeddings))
         self.image_items = list(items) if items is not None else list(range(len(embeddings)))
+        self._cache.clear()
+
+    def retrieve_images_by_text(self, texts, top_k: Optional[int] = None) -> RetrievalResult:
+        """One str or a list of texts -> the top-k bank items of each; a
+        single text's result is cached under its text and k."""
+        if self.image_bank is None:
+            raise RuntimeError("image index not built")
+        single = isinstance(texts, str)
+        texts = [texts] if single else list(texts)
+        k = top_k or self.config.top_k
+        key = f"t2i:{k}:{texts[0]}" if single else None
+        if key in self._cache:
+            self.stats["cache_hits"] += 1
+            return self._cache[key]
+        t0 = time.time()
+        scores, idx = self.image_bank.search(self.model.encode_text(texts), k)
+        idx_np = idx.cpu().numpy()
+        elapsed = time.time() - t0
+        self.stats["queries"] += idx_np.shape[0]
+        self.stats["total_query_time"] += elapsed
+        items = [[self.image_items[j] if 0 <= j < len(self.image_items) else None for j in row] for row in idx_np]
+        result = RetrievalResult(indices=idx_np, scores=scores.cpu().numpy(), items=items, query_time=elapsed)
+        if key is not None:
+            self._cache[key] = result
+        return result
 
     def retrieve_reference_embeddings(self, texts, top_k: Optional[int] = None) -> np.ndarray:
         """[B, k, D] bank rows retrieved by the texts (the detector's staged
