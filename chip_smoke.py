@@ -8,7 +8,7 @@ Phases (each raises on failure; the script then exits non-zero):
      nvcc per source, all started together);
   3. kernels: each kernel against its plain PyTorch version on the card,
      at the main paths' shapes and at ViT-L/14's vision shape (T=257),
-     with kernel / plain times and the bound;
+     with kernel / plain / library times and the bound;
   4. slice: ViT-B/32 bf16 with the fused layers and seeded random weights,
      a 131,072 x 512 bank, an AdversarialDetector behind a ServingRuntime:
      warmup, requests through submit() and HTTP, then detect_batch at
@@ -35,6 +35,18 @@ Phases (each raises on failure; the script then exits non-zero):
      paraphrase tok/s, pipeline queries/s and stage times, the share of
      variant slots the LLM filled, peak memory, a profile, and
      process_stream over three batches equal to process_batch on each;
+  mha: CLIPModel(CLIPConfig.vit_b32(fused_attention=True)) through
+     inference_module.encode_image at B=256 (one fused_mha launch a vision
+     layer, held against the einsum module on the same parameters), the
+     images/s of three vision paths, and ViT-L/14 at B=64;
+  retrieval: the retriever over that model: a text index of all 25,014
+     COCO captions, an image index of 1,024 seeded PIL photos of mixed
+     sizes (the native resize), 256 queries each way, the similarity
+     matrix, bank_topk over the text bank against text_bank.search,
+     detect_adversarial twice (a cache hit), and the order of exact ties
+     (raw torch.topk, EmbeddingBank.search, the serving step's top-k);
+  large bank: bank_topk at B=256 over a 4,194,304 x 512 f32 bank against
+     its plain version, peak memory, a profile;
   6. summary: one JSON line of per-kernel numbers, the card's nvidia-smi
      line, then the last line {"ok": true, "device": {...}}.
 
@@ -342,6 +354,7 @@ def phase_kernels() -> dict:
         results[name] = {"shapes": shapes}
     results.update(phase_qwen_kernels(rng, dev))
     results.update(phase_w8_kernels(dev))
+    results.update(phase_mha_topk_kernels(dev))
     return results
 
 
@@ -576,6 +589,133 @@ def phase_w8_kernels(dev) -> dict:
     return out
 
 
+# The multi-head attention kernel against its plain version, relative to
+# max(1, |y|): in bf16 both round the same f32 softmax weights to bf16 (a
+# weight one f32 ulp apart, from exp and sums in another order, can round
+# to the neighbouring value) and round the output once, as DECODE_TOL says;
+# in f32 nothing rounds to bf16 and the sums differ only in order.
+MHA_TOL = {"bfloat16": DECODE_TOL, "float32": 1e-5}
+# The bank top-k against its plain version: f32 sums of the same products
+# in another order than cuBLAS's (~1e-7 at unit-norm scores), so values
+# agree to 1e-5 and rows whose scores lie within 1e-5 may swap.
+TOPK_TOL = 1e-5
+
+
+def _mha_bound(B, T, H, D, causal, elem):
+    """Bytes: q, k, v in and the output out; operations: the two products
+    over every (query, key) pair, at the bf16 tensor-core rate for bf16
+    operands and the f32 rate for f32."""
+    pairs = T * (T + 1) // 2 if causal else T * T
+    peak = PEAK_BF16_FLOPS if elem == 2 else PEAK_F32_FLOPS
+    return bound_ms(4 * B * T * H * D * elem, 4 * B * H * pairs * D, peak)
+
+
+def _topk_bound(B, N, D, k, bank_elem=4, q_elem=4):
+    """Bytes: queries and bank in, (score, index) pairs out; operations:
+    2 B N D f32 multiply-adds (bf16 operands convert exactly to f32)."""
+    return bound_ms(q_elem * B * D + bank_elem * N * D + 8 * B * k, 2 * B * N * D, PEAK_F32_FLOPS)
+
+
+def topk_agreement(got, want, q, bank, tol=TOPK_TOL) -> dict:
+    """Hold the kernel's (scores, rows) against the plain version's on the
+    same (already normalized) operands: values within tol; every returned
+    row's plain score (q . bank_row in f64) within tol of the kernel's value;
+    the same set of rows wherever the plain k-th and (k+1)-th scores differ
+    by more than tol. Raises on a miss; returns the counts."""
+    import torch
+
+    (gv, gi), (wv, wi) = got, want[:2]
+    if gi.dtype != torch.int32 or tuple(gi.shape) != tuple(wi.shape):
+        raise AssertionError(f"bank_topk returned {gi.dtype} {tuple(gi.shape)}")
+    d_val = float((gv - wv).abs().max())
+    exact = (q.double()[:, None, :] * bank[gi.long()].double()).sum(-1)
+    d_row = float((exact - gv.double()).abs().max())
+    k = gi.shape[1]
+    nxt = want[2] if len(want) > 2 else None
+    clear = torch.ones(gi.shape[0], dtype=torch.bool, device=gi.device) if nxt is None else (wv[:, -1] - nxt) > tol
+    same_set = bool(torch.equal(gi[clear].sort(-1).values, wi[clear].sort(-1).values))
+    same_list = float((gi == wi).all(-1).float().mean())
+    if not (d_val <= tol and d_row <= tol and same_set):
+        raise AssertionError(f"bank_topk disagrees: values {d_val:.3e}, rows {d_row:.3e}, same sets {same_set}")
+    return {"max_abs_err": d_val, "row_err": d_row, "clear_rows": int(clear.sum()), "same_lists": same_list, "k": k}
+
+
+def phase_mha_topk_kernels(dev) -> dict:
+    """fused_mha at ViT-B/32's vision shape, ViT-L/14's (T = 257), the
+    text tower's causal shape and one f32 D = 32 shape; bank_topk at the
+    serving bank's shape (f32, normalize=True: the wrapper and the kernel
+    alone on the normalized operands), with a bf16 bank and
+    normalize=False, and with n_valid < N. Library yardsticks:
+    scaled_dot_product_attention, and torch.topk(q @ bank.T, k) in f32
+    without TF32."""
+    import torch
+    import torch.nn.functional as F
+
+    from tvc_torch.core.kernels import bank_topk, bank_topk_reference, fused_mha, mha_reference
+    from tvc_torch.core.similarity import l2_normalize
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    out = {"fused_mha": {"shapes": []}, "bank_topk": {"shapes": []}}
+    for tag, B, T, H, D, dtype, causal in (
+        ("ViT-B/32 vision", 256, 50, 12, 64, torch.bfloat16, False),
+        ("ViT-L/14 vision", 64, 257, 16, 64, torch.bfloat16, False),
+        ("text", 448, 32, 8, 64, torch.bfloat16, True),
+        ("W=768 in 24 heads", 256, 50, 24, 32, torch.float32, False),
+    ):
+        q, k, v = (torch.randn((B, T, H, D), generator=gen, device=dev).to(dtype) for _ in range(3))
+        abs_err, rel_err = _layer_error(fused_mha(q, k, v, causal), mha_reference(q, k, v, causal))
+        tol = MHA_TOL[str(dtype).split(".")[-1]]
+        if not rel_err <= tol:
+            raise AssertionError(f"fused_mha {tag} disagrees: {abs_err:.3e} abs, {rel_err:.3e} scaled (tol {tol})")
+        qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        k_ms = time_ms(lambda: fused_mha(q, k, v, causal))
+        p_ms = time_ms(lambda: mha_reference(q, k, v, causal))
+        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, is_causal=causal))
+        bms, by = _mha_bound(B, T, H, D, causal, q.element_size())
+        shape = f"{tag} B={B} T={T} H={H} D={D} {str(dtype).split('.')[-1]}" + (" causal" if causal else "")
+        out["fused_mha"]["shapes"].append({"shape": shape, "ms": k_ms, "plain_ms": p_ms, "bound_ms": bms,
+                                           "bound_by": by, "max_abs_err": abs_err, "library_ms": lib_ms})
+        log(f"kernel fused_mha {shape}: kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} bound_ms={bms:.5f} ({by}) "
+            f"max_abs_err={abs_err:.3e} scaled_err={rel_err:.3e} library_ms(sdpa)={lib_ms:.4f}")
+        del q, k, v, qh, kh, vh
+
+    B, N, D, K = 256, 131072, 512, 10
+    q = torch.randn((B, D), generator=gen, device=dev)
+    bank = torch.randn((N, D), generator=gen, device=dev)
+    qn, bn = l2_normalize(q), l2_normalize(bank)
+
+    def plain_next(qq, bb, **kw):
+        v, i = bank_topk_reference(qq, bb, K + 1, **kw)
+        return v[:, :K], i[:, :K], v[:, K]
+
+    cases = [
+        ("f32 normalize=True", (q, bank), {}, (qn, bn), _topk_bound(B, N, D, K)),
+        ("bf16 bank normalize=False", (qn, bn.to(torch.bfloat16)), {"normalize": False},
+         (qn, bn.to(torch.bfloat16).float()), _topk_bound(B, N, D, K, bank_elem=2)),
+        ("f32 n_valid=100000 normalize=False", (qn, bn), {"normalize": False, "n_valid": 100000},
+         (qn, bn[:100000]), _topk_bound(B, 100000, D, K)),
+    ]
+    for tag, (qq, bb), kw, (q_exact, b_exact), (bms, by) in cases:
+        got = bank_topk(qq, bb, K, **kw)
+        want = plain_next(qq, bb, **kw)
+        agree = topk_agreement(got, want, q_exact, b_exact)
+        nkw = {**kw, "normalize": False}
+        qk, bk = (qn, bn) if not kw else (qq, bb)
+        k_ms = time_ms(lambda: bank_topk(qk, bk, K, **nkw), iters=10)  # the kernel alone
+        w_ms = time_ms(lambda: bank_topk(qq, bb, K, **kw), iters=10)  # with the wrapper's normalize
+        p_ms = time_ms(lambda: bank_topk_reference(qk, bk, K, **nkw), iters=5, warmup=1)
+        bf = bk.float() if bk.dtype != torch.float32 else bk
+        lib_ms = time_ms(lambda: torch.topk(qk @ bf.T, K), iters=10)
+        shape = f"{tag} B={B} N={N} D={D} k={K}"
+        out["bank_topk"]["shapes"].append({"shape": shape, "ms": k_ms, "wrapper_ms": w_ms, "plain_ms": p_ms,
+                                           "bound_ms": bms, "bound_by": by, "max_abs_err": agree["max_abs_err"],
+                                           "library_ms": lib_ms})
+        log(f"kernel bank_topk {shape}: kernel_ms={k_ms:.4f} wrapper_ms(with normalize)={w_ms:.4f} "
+            f"plain_ms={p_ms:.4f} bound_ms={bms:.5f} ({by}) library_ms(torch.topk(q @ bank.T), f32)={lib_ms:.4f} "
+            f"agreement {agree}")
+    return out
+
+
 def _quantized(weights):
     """(w, b, w, b) bf16 layer weights -> the int8 layer's (w_q, scale, b,
     w_q, scale, b), quantized from the same seeded values."""
@@ -613,6 +753,10 @@ KERNEL_SOURCES = {
         "tvc_torch/csrc/w8_matmul.cu", "tvc/core/pallas/w8_matmul_kernel.py:101"),
     "w8_matmul_stacked": (
         "tvc_torch/csrc/w8_matmul.cu", "tvc/core/pallas/w8_matmul_kernel.py:340"),
+    "fused_mha": (
+        "tvc_torch/csrc/mha.cu", "tvc/core/pallas/attention_kernel.py:58"),
+    "bank_topk": (
+        "tvc_torch/csrc/bank_topk.cu", "tvc/core/pallas/topk_kernel.py:103"),
 }
 #: the kernels each path launches; it launches no other
 PATH_KERNELS = {
@@ -621,6 +765,8 @@ PATH_KERNELS = {
     "qwen": ("w8a8_matmul", "w8a8_matmul_stacked", "decode_gqa_attention", "decode_gqa_attention_stacked"),
     "pipeline": ("fused_consistency_scores", "fused_attention_layer_i8", "fused_mlp_layer_i8", "w8_matmul",
                  "w8_matmul_stacked", "decode_gqa_attention", "decode_gqa_attention_stacked"),
+    "mha": ("fused_mha",),
+    "retrieval": ("fused_consistency_scores", "fused_attention_layer", "fused_mlp_layer", "bank_topk"),
 }
 B_DEFENDED, V_DEFENDED = 256, 6
 
@@ -1247,6 +1393,337 @@ def phase_pipeline(card: dict, int8: dict) -> dict:
             "top1": top1, "d_max": d_max, "d_median": d_med, "llm_share": from_llm / slots, "stages_ms": stages}
 
 
+# ---------------------------------------------------------------------------
+# phase mha: the module vision tower through fused_mha
+# ---------------------------------------------------------------------------
+
+B_MHA, B_MHA_L14 = 256, 64
+
+
+def _images_per_s(run, B: int, iters: int = 5) -> float:
+    import torch
+
+    run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        run()
+    torch.cuda.synchronize()
+    return B * iters / (time.perf_counter() - t0)
+
+
+# The module tower with fused_mha against the einsum module on the same
+# parameters. Both are bf16 towers whose attention agrees to an ulp, but
+# an ulp of one layer's bf16 activations moves later layers' roundings,
+# and through 12-24 random-weight layers the features of two correct bf16
+# paths part by 3-5e-2 of max(1, |y|) element by element (each as far from
+# the same tower in f32), while their directions agree to ~1e-4. So the
+# features are held by direction (1 - cos <= MHA_COS_TOL for every image)
+# and by accuracy: their distance from the f32 module on the same
+# parameters within MHA_F32_RATIO times the einsum module's. A wrong head,
+# row or scale moves every feature by O(1).
+MHA_COS_TOL, MHA_F32_RATIO = 1e-3, 2.0
+
+
+def _mha_encode(model, px, path: str):
+    """One inference-module encode with the launch counts set to 0 just
+    before and read just after: one fused_mha launch per vision layer
+    (Attention calls it whenever it has no mask, and only the vision tower
+    has none) and no other kernel; the features held against the einsum
+    module and the f32 module on the same parameters."""
+    import dataclasses
+
+    import torch
+    import torch.nn.functional as F
+
+    from tvc_torch.core.kernels import launch_counts, reset_launch_counts
+    from tvc_torch.models.clip import CLIPModel
+
+    reset_launch_counts()
+    with torch.no_grad():
+        feats = model.inference_module.encode_image(px)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    _check_path_counts(counts, path, "one inference_module.encode_image")
+    if counts["fused_mha"] != model.config.vision_layers:
+        raise AssertionError(f"[{path}] {counts['fused_mha']} fused_mha launches, expected one a vision layer "
+                             f"({model.config.vision_layers})")
+    f32 = CLIPModel(dataclasses.replace(model.config, dtype=torch.float32), params=model.params)
+    with torch.no_grad():
+        ref = model.module.encode_image(px)  # the einsum path, bf16
+        truth = f32.module.encode_image(px)  # the einsum path in f32
+    del f32
+    errs = {
+        "fused_mha vs einsum": _layer_error(feats, ref)[1],
+        "fused_mha vs f32": _layer_error(feats, truth)[1],
+        "einsum vs f32": _layer_error(ref, truth)[1],
+        "1 - cos(fused_mha, einsum)": float((1 - F.cosine_similarity(feats.float(), ref.float())).max()),
+    }
+    if feats.shape != ref.shape or not bool(torch.isfinite(feats).all()) \
+            or errs["1 - cos(fused_mha, einsum)"] > MHA_COS_TOL \
+            or errs["fused_mha vs f32"] > MHA_F32_RATIO * errs["einsum vs f32"]:
+        raise AssertionError(f"[{path}] the fused_mha tower disagrees: {errs} (scaled by max(1, |y|))")
+    return feats, counts, errs
+
+
+def phase_mha(card: dict) -> dict:
+    """CLIPModel(CLIPConfig.vit_b32(fused_attention=True)) with seeded
+    weights: inference_module.encode_image at B=256, 224 px, held against
+    the einsum module on the same parameters (bf16 layers on both sides:
+    LAYER_TOL); images/s of the einsum module, the module with fused_mha and
+    the layer kernels (infer_image_features); then ViT-L/14 once at B=64."""
+    import gc
+
+    import torch
+
+    from tvc_torch.models.clip import CLIPConfig, CLIPModel, normalize_pixels
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = CLIPModel(CLIPConfig.vit_b32(fused_attention=True), seed=0)
+    size = model.config.image_size
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    px = normalize_pixels(torch.rand((B_MHA, size, size, 3), generator=gen, device="cuda"))
+    feats, counts, errs = _mha_encode(model, px, "mha")
+    log(f"[mha] ViT-B/32 inference_module.encode_image B={B_MHA}: launches {counts}; features (max over "
+        f"elements of |d| / max(1, |y|)) {errs}")
+    with torch.no_grad():
+        rates = {
+            "einsum module": _images_per_s(lambda: model.module.encode_image(px), B_MHA),
+            "module with fused_mha": _images_per_s(lambda: model.inference_module.encode_image(px), B_MHA),
+            "layer kernels (infer_image_features)": _images_per_s(
+                lambda: model.infer_image_features(model.params, px), B_MHA),
+        }
+    log(f"[mha] ViT-B/32 vision images/s at B={B_MHA}: "
+        + ", ".join(f"{k} {v:.1f}" for k, v in rates.items()) + f" on {card['smi']}")
+    with torch.no_grad():
+        profile_batch("mha", lambda: model.inference_module.encode_image(px))
+
+    large = CLIPModel(CLIPConfig.vit_l14(fused_attention=True), seed=0)
+    px_l = normalize_pixels(torch.rand((B_MHA_L14, size, size, 3), generator=gen, device="cuda"))
+    _, counts_l, errs_l = _mha_encode(large, px_l, "mha")
+    with torch.no_grad():
+        rate_l = _images_per_s(lambda: large.inference_module.encode_image(px_l), B_MHA_L14, iters=3)
+    log(f"[mha] ViT-L/14 inference_module.encode_image B={B_MHA_L14}: launches {counts_l}; features {errs_l}; "
+        f"{rate_l:.1f} images/s")
+    del large, px_l
+    return {"launches": counts, "model": model, "images_per_s": rates, "l14_images_per_s": rate_l,
+            "errs": errs, "l14_errs": errs_l, "l14_launches": counts_l["fused_mha"]}
+
+
+# ---------------------------------------------------------------------------
+# phase retrieval: text and image indexes, both directions, bank_topk
+# ---------------------------------------------------------------------------
+
+N_RETRIEVAL_IMAGES, N_RETRIEVAL_QUERIES = 1024, 256
+PHOTO_SIZES = ((640, 480), (500, 375), (320, 240))  # (width, height) of COCO-like photos
+
+
+def coco_all_captions():
+    """All 25,014 bundled COCO val2017 captions, in file order."""
+    with gzip.open(REPO / "tvc" / "assets" / "coco_captions_val2017.json.gz", "rt") as f:
+        return [cap.strip() for _, cap in json.load(f)]
+
+
+def _photos(n: int, seed: int):
+    """n seeded PIL RGB images cycling through PHOTO_SIZES."""
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(n):
+        w, h = PHOTO_SIZES[i % len(PHOTO_SIZES)]
+        out.append(Image.fromarray(rng.integers(0, 256, (h, w, 3), dtype=np.uint8)))
+    return out
+
+
+def _tied_unit_rows(rng, n_base: int, D: int):
+    """n_base unit vectors of +-0.5 on four coordinates: every inner
+    product of two of them is a multiple of 0.25, exact in any order."""
+    base = np.zeros((n_base, D), np.float32)
+    for r in base:
+        r[rng.choice(D, 4, replace=False)] = rng.choice([-0.5, 0.5], 4)
+    return base
+
+
+def _first_members(group_of: np.ndarray, idx: np.ndarray) -> bool:
+    """Each row of idx is the first len(row) members (ascending) of the
+    group its first entry belongs to: exact ties ordered lower index first."""
+    for row in idx:
+        members = np.flatnonzero(group_of == group_of[row[0]])[: len(row)]
+        if not np.array_equal(row, members):
+            return False
+    return True
+
+
+def check_tie_order(model) -> dict:
+    """Equal scores come out lower index first on the card: raw torch.topk
+    (recorded, not held), EmbeddingBank.search and the serving step's bank
+    top-k (held) over a 131,072-row bank of six repeated unit rows, where
+    the top-k of every query is an exact tie."""
+    import torch
+
+    from tvc_torch.bank import EmbeddingBank
+    from tvc_torch.parallel.steps import make_serving_step
+
+    rng = np.random.default_rng(31)
+    D, N, K = model.config.embed_dim, 131072, 10
+    base = _tied_unit_rows(rng, 6, D)
+    group_of = rng.integers(0, 6, N)
+    bank = base[group_of]
+    q = torch.as_tensor(base[rng.integers(0, 6, 32)], device="cuda")
+    bank_t = torch.as_tensor(bank, device="cuda")
+    raw = torch.topk(q @ bank_t.T, K).indices.cpu().numpy()
+    raw_ok = _first_members(group_of, raw)
+    _, idx = EmbeddingBank(D).build(bank).search(q, K)
+    search_ok = _first_members(group_of, idx.cpu().numpy())
+    step = make_serving_step(model, top_k=K, num_refs=3)
+    B, V = 32, 2
+    caps = coco_all_captions()[: B * (V + 1)]
+    tokens = np.asarray(model.tokenize(caps))
+    out = step(model.params, np.random.default_rng(3).random((B, 224, 224, 3), dtype=np.float32), tokens[:B],
+               tokens[B:].reshape(B, V, -1), np.ones((B, V), bool), bank_t, np.ones(N, bool),
+               np.asarray([0.4, 0.4, 0.2], np.float32), np.float32(-np.inf), np.float32(0.5))
+    step_ok = _first_members(group_of, out["ref_idx"].cpu().numpy().astype(np.int64))
+    res = {"raw torch.topk": raw_ok, "EmbeddingBank.search": search_ok, "serving step": step_ok}
+    log(f"[retrieval] exact ties ordered lower index first on the card: {res}")
+    if not (search_ok and step_ok):
+        raise AssertionError(f"tie order differs from lax.top_k's: {res}")
+    return res
+
+
+def phase_retrieval(card: dict, mha: dict) -> dict:
+    """The retriever over phase mha's ViT-B/32 bf16 fused_attention model:
+    a text index of all 25,014 bundled COCO captions, an image index of
+    1,024 seeded PIL photos of mixed sizes (resized natively), 256 queries
+    each way, the similarity matrix, bank_topk over the text bank (the same
+    rows as text_bank.search except at ties within 1e-5), detect_adversarial
+    on one photo twice (the second a cache hit), and the tie-order check.
+    The launch counts cover the whole phase."""
+    import torch
+
+    from tvc_torch.core.kernels import bank_topk, launch_counts, reset_launch_counts
+    from tvc_torch.core.similarity import l2_normalize
+    from tvc_torch.detector import AdversarialDetector, DetectorConfig
+    from tvc_torch.models.clip import preprocess_images
+    from tvc_torch.retrieval import MultiModalRetriever
+
+    model = mha["model"]
+    caps = coco_all_captions()
+    photos = _photos(N_RETRIEVAL_IMAGES, seed=41)
+    t0 = time.perf_counter()
+    preprocess_images(photos[:256], model.config.image_size)
+    host_ms = 1e3 * (time.perf_counter() - t0) / 256
+    log(f"[retrieval] native resize + normalize of 256 photos ({PHOTO_SIZES} px): {host_ms:.3f} host ms per image")
+
+    reset_launch_counts()
+    retriever = MultiModalRetriever(model)
+    t0 = time.perf_counter()
+    retriever.build_text_index(caps)
+    torch.cuda.synchronize()
+    text_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    retriever.build_image_index(photos)
+    torch.cuda.synchronize()
+    image_s = time.perf_counter() - t0
+    log(f"[retrieval] text index: {retriever.text_bank.size} captions in {text_s:.2f} s; image index: "
+        f"{retriever.image_bank.size} photos in {image_s:.2f} s")
+
+    nq = N_RETRIEVAL_QUERIES
+    t0 = time.perf_counter()
+    by_image = retriever.retrieve_texts_by_image(photos[:nq])
+    by_text = retriever.retrieve_images_by_text(caps[:nq])
+    sim = retriever.compute_similarity_matrix(caps[:nq])
+    torch.cuda.synchronize()
+    query_s = time.perf_counter() - t0
+    for name, res in (("texts by image", by_image), ("images by text", by_text)):
+        if res.indices.shape != (nq, 10) or not np.all(np.isfinite(res.scores)) or len(res.items) != nq:
+            raise AssertionError(f"[retrieval] bad {name} result")
+    if sim.shape != (nq, N_RETRIEVAL_IMAGES) or not np.all(np.isfinite(sim)):
+        raise AssertionError(f"[retrieval] similarity matrix {sim.shape}")
+    # the query images' features: bank_topk's queries over the text bank
+    img = l2_normalize(torch.as_tensor(np.asarray(retriever._encode_images_batched(photos[:nq])), device="cuda"))
+    if float(np.abs(np.take_along_axis(sim, by_text.indices, 1) - by_text.scores).max()) > TOPK_TOL:
+        raise AssertionError("[retrieval] similarity matrix and t2i scores disagree")
+    log(f"[retrieval] {nq} queries each way + the {sim.shape} similarity matrix in {query_s:.2f} s; first image's "
+        f"captions {by_image.items[0][:3]}")
+
+    # bank_topk over the text bank against text_bank.search
+    tb = retriever.text_bank
+    got = bank_topk(img, tb._bank, 10, n_valid=tb.size, normalize=False)
+    sv, si = tb.search(img, 11)
+    agree = topk_agreement(got, (sv[:, :10], si[:, :10].to(torch.int32), sv[:, 10]), img, tb._bank)
+    log(f"[retrieval] bank_topk over the {tb.size}-caption text bank vs text_bank.search: {agree}")
+
+    # detect_adversarial on one photo, twice
+    det = AdversarialDetector(model, DetectorConfig(num_text_variants=V_DEFENDED), retriever=retriever)
+    photo = _photos(1, seed=43)[0]
+    first = det.detect_adversarial(photo, caps[0])
+    second = det.detect_adversarial(photo, caps[0])
+    if det.stats["cache_hits"] != 1 or second != first or not np.isfinite(first["aggregated_score"]):
+        raise AssertionError(f"[retrieval] detect_adversarial cache: {det.stats}, {first} vs {second}")
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    _check_path_counts(counts, "retrieval", "the retrieval phase")
+    log(f"[retrieval] detect_adversarial({photo.size} photo): {first['aggregated_score']:.4f}, flagged "
+        f"{first['is_adversarial']}, second call a cache hit; launches over the phase {counts}")
+    ties = check_tie_order(model)
+    return {"launches": counts, "host_ms_per_image": host_ms, "text_index_s": text_s, "image_index_s": image_s,
+            "topk": agree, "ties": ties}
+
+
+# ---------------------------------------------------------------------------
+# phase large bank: bank_topk where the [B, N] scores would not fit in L2
+# ---------------------------------------------------------------------------
+
+N_LARGE = 4_194_304
+
+
+def phase_large_bank(card: dict) -> dict:
+    """bank_topk at B=256 over a 4,194,304 x 512 f32 bank (8 GiB; the
+    wrapper's normalized copy another 8 GiB, the plain version's [B, N]
+    scores 4 GiB) against its plain version, with a profile."""
+    import gc
+
+    import torch
+
+    from tvc_torch.core.kernels import bank_topk, bank_topk_reference, launch_counts, reset_launch_counts
+    from tvc_torch.core.similarity import l2_normalize
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    B, D, K = 256, 512, 10
+    gen = torch.Generator(device="cuda").manual_seed(51)
+    q = torch.randn((B, D), generator=gen, device="cuda")
+    bank = torch.randn((N_LARGE, D), generator=gen, device="cuda")
+    reset_launch_counts()
+    got = bank_topk(q, bank, K)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    if counts["bank_topk"] != 1:
+        raise AssertionError(f"[large bank] launches {counts}")
+    v, i = bank_topk_reference(q, bank, K + 1)
+    qn, bn = l2_normalize(q), l2_normalize(bank)
+    agree = topk_agreement(got, (v[:, :K], i[:, :K], v[:, K]), qn, bn)
+    del v, i
+    k_ms = time_ms(lambda: bank_topk(qn, bn, K, normalize=False), iters=5, warmup=1)
+    w_ms = time_ms(lambda: bank_topk(q, bank, K), iters=3, warmup=1)
+    p_ms = time_ms(lambda: bank_topk_reference(qn, bn, K, normalize=False), iters=3, warmup=1)
+    lib_ms = time_ms(lambda: torch.topk(qn @ bn.T, K), iters=3, warmup=1)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    bms, by = _topk_bound(B, N_LARGE, D, K)
+    log(f"[large bank] bank_topk B={B} N={N_LARGE} D={D} k={K} f32: kernel_ms={k_ms:.4f} "
+        f"wrapper_ms(with normalize)={w_ms:.4f} plain_ms={p_ms:.4f} library_ms(torch.topk(q @ bank.T))={lib_ms:.4f} "
+        f"bound_ms={bms:.5f} ({by}); {agree}; peak memory {peak:.2f} GiB on {card['smi']}")
+    profile_batch("large bank", lambda: bank_topk(q, bank, K))  # the wrapper: normalize, then the kernels
+    del bank, bn
+    return {"launches": counts, "shape": {
+        "shape": f"large bank B={B} N={N_LARGE} D={D} k={K} f32", "ms": k_ms, "wrapper_ms": w_ms, "plain_ms": p_ms,
+        "bound_ms": bms, "bound_by": by, "max_abs_err": agree["max_abs_err"], "library_ms": lib_ms},
+        "peak_gib": peak}
+
+
 #: profiler names shortened to the kernel and its template arguments
 #: (the first match wins, so longer names come first)
 PROFILE_NAMES = (
@@ -1255,8 +1732,11 @@ PROFILE_NAMES = (
     "i8_gemm_kernel<4>", "ln_quant_rows_kernel", "quant_rows_kernel<float>",
     "quant_rows_kernel<__nv_bfloat16>", "decode_gqa_kernel<__nv_bfloat16, 128>",
     "decode_gqa_kernel<__nv_bfloat16, 64>",
-    "head_attention_kernel<float>", "head_attention_kernel<__nv_bfloat16>", "consistency_kernel",
-    "w8_gemm_kernel",
+    "head_attention_kernel<__nv_bfloat16, float, 64>", "head_attention_kernel<__nv_bfloat16, __nv_bfloat16, 64>",
+    "head_attention_kernel<__nv_bfloat16, __nv_bfloat16, 32>", "head_attention_kernel<float, float, 64>",
+    "head_attention_kernel<float, float, 32>", "consistency_kernel", "w8_gemm_kernel",
+    "bank_topk_partial_kernel<float, float>", "bank_topk_partial_kernel<float, __nv_bfloat16>",
+    "bank_topk_merge_kernel",
 )
 #: the prefix of the record_function ranges a profile reports by name
 RANGE_PREFIX = "smoke:"
@@ -1320,7 +1800,16 @@ def main() -> int:
         qwen = phase_qwen(card)
     with phase("pipeline"):
         pipeline = phase_pipeline(card, int8)
-    paths = {"bf16": bf16, "int8": int8, "qwen": qwen, "pipeline": pipeline}
+    del bf16["detector"], int8["detector"]  # their models and banks
+    with phase("mha"):
+        mha = phase_mha(card)
+    with phase("retrieval"):
+        retrieval = phase_retrieval(card, mha)
+    del mha["model"]
+    with phase("large bank"):
+        large = phase_large_bank(card)
+    kres["bank_topk"]["shapes"].append(large["shape"])
+    paths = {"bf16": bf16, "int8": int8, "qwen": qwen, "pipeline": pipeline, "mha": mha, "retrieval": retrieval}
     kernels = []
     for name, (source, replaces) in KERNEL_SOURCES.items():
         shapes = kres[name]["shapes"]
@@ -1342,6 +1831,11 @@ def main() -> int:
     log(f"full TVC pipeline (Qwen2-1.5B w8 + int8 ViT-B/32): {pipeline['qps']:.2f} queries/s, paraphrase decode "
         f"{pipeline['tok_s']:.1f} tok/s, {pipeline['ms_per_query']:.3f} ms/query, peak {pipeline['peak_gib']:.2f} "
         f"GiB on {card['smi']}")
+    log(f"ViT-B/32 vision images/s at B={B_MHA}: " + ", ".join(f"{k} {v:.1f}" for k, v in mha["images_per_s"].items())
+        + f"; ViT-L/14 with fused_mha at B={B_MHA_L14}: {mha['l14_images_per_s']:.1f} on {card['smi']}")
+    log(f"retrieval: native resize {retrieval['host_ms_per_image']:.3f} host ms per image; text index "
+        f"{retrieval['text_index_s']:.2f} s; tie order {retrieval['ties']}; large bank_topk peak memory "
+        f"{large['peak_gib']:.2f} GiB")
     print(json.dumps({"kernels": kernels}))
     print(card["smi"])
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card["name"], "count": card["count"]}}))

@@ -15,6 +15,10 @@ import torch
 
 from tvc_torch.core.kernels import (
     attention_layer_i8_reference,
+    bank_topk,
+    bank_topk_reference,
+    fused_mha,
+    mha_reference,
     attention_layer_reference,
     consistency_scores_reference,
     decode_gqa_attention,
@@ -35,6 +39,7 @@ from tvc_torch.core.kernels import (
     w8a8_matmul_reference,
     w8a8_matmul_stacked,
 )
+from tvc_torch.core.similarity import l2_normalize
 
 pytestmark = pytest.mark.cuda
 
@@ -343,3 +348,127 @@ def test_w8_matmul_refuses_what_it_does_not_take(dev):
         w8_matmul(torch.zeros(4 * 64 + 1, dtype=torch.bfloat16, device=dev)[1:].view(4, 64), w_q, s)
     with pytest.raises(ValueError):  # layer out of range
         w8_matmul_stacked(x, w_q[None], s[None], 1)
+
+
+# -- fused_mha ------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("B,T,H,D,dtype,causal", [
+    (256, 50, 12, 64, torch.bfloat16, False), (64, 257, 16, 64, torch.bfloat16, False),
+    (448, 32, 8, 64, torch.bfloat16, True), (5, 17, 2, 32, torch.bfloat16, False), (3, 1, 2, 64, torch.bfloat16, True),
+    (6, 257, 4, 64, torch.float32, False), (7, 17, 2, 32, torch.float32, True), (2, 77, 3, 32, torch.float32, False),
+])
+def test_fused_mha_matches_plain(dev, B, T, H, D, dtype, causal):
+    """bf16: 1e-2 of max(1, |y|) (a softmax weight one f32 ulp apart can
+    round to the neighbouring bf16 value, and the output rounds once);
+    f32: 1e-5 (sums in another order)."""
+    g = torch.Generator(device=dev).manual_seed(B * T + D)
+    q, k, v = (torch.randn((B, T, H, D), generator=g, device=dev).to(dtype) for _ in range(3))
+    got, want = fused_mha(q, k, v, causal=causal), mha_reference(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (B, T, H, D)
+    assert _scaled_err(got, want) <= (1e-2 if dtype == torch.bfloat16 else 1e-5)
+
+
+def test_fused_mha_reads_views_of_a_packed_projection(dev):
+    """q, k, v as views of one [B, T, 3W] projection (row stride 3W) give
+    what their contiguous copies give."""
+    B, T, H, D = 4, 50, 12, 64
+    qkv = torch.randn((B, T, 3 * H * D), device=dev).to(torch.bfloat16)
+    views = [t.reshape(B, T, H, D) for t in qkv.split(H * D, dim=-1)]
+    got = fused_mha(*views)
+    want = fused_mha(*(t.contiguous() for t in views))
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_fused_mha_refuses_what_it_does_not_take(dev):
+    x = torch.zeros((2, 8, 2, 128), device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head dims"):
+        fused_mha(x, x, x)
+    y = torch.zeros((1, 258, 2, 64), device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="T <= 257"):
+        fused_mha(y, y, y)
+    z = torch.zeros((1, 8, 2, 64), device=dev, dtype=torch.float16)
+    with pytest.raises(ValueError, match="bf16 or float32"):
+        fused_mha(z, z, z)
+
+
+# -- bank_topk --------------------------------------------------------------------
+
+
+def _topk_check(got, want, q, bank, normalize=True, tol=1e-5):
+    """Kernel values within tol of the plain values; every returned row's
+    plain score within tol of the kernel's value; where the k-th and
+    (k+1)-th plain scores differ by more than tol, the same rows."""
+    (gv, gi), (wv, wi) = got, want
+    assert gi.dtype == torch.int32 and gv.dtype == torch.float32
+    assert float((gv - wv).abs().max()) <= tol
+    qq, bb = (l2_normalize(t.float()) if normalize else t.float() for t in (q, bank))
+    plain_of = (qq[:, None, :] * bb[gi.long()]).sum(-1)
+    assert float((plain_of - gv).abs().max()) <= tol
+    k = gi.shape[1]
+    nxt = bank_topk_reference(q, bank, k + 1, normalize=normalize)[0][:, k] if k < bank.shape[0] else None
+    rows = torch.ones(gi.shape[0], dtype=torch.bool, device=gi.device) if nxt is None else (wv[:, -1] - nxt) > tol
+    assert torch.equal(gi[rows].sort(-1).values, wi[rows].sort(-1).values)
+
+
+@pytest.mark.parametrize("B,N,D,k", [(256, 131072, 512, 10), (3, 1000, 64, 128), (70, 4097, 32, 1), (1, 64, 8, 64)])
+def test_bank_topk_matches_plain(dev, B, N, D, k):
+    g = torch.Generator(device=dev).manual_seed(N)
+    q = torch.randn((B, D), generator=g, device=dev)
+    bank = torch.randn((N, D), generator=g, device=dev)
+    got, want = bank_topk(q, bank, k), bank_topk_reference(q, bank, k)
+    torch.cuda.synchronize()
+    _topk_check(got, want, q, bank)
+
+
+def test_bank_topk_bf16_bank_and_n_valid(dev):
+    g = torch.Generator(device=dev).manual_seed(5)
+    q = torch.randn((40, 128), generator=g, device=dev)
+    bank = torch.randn((9000, 128), generator=g, device=dev).to(torch.bfloat16)
+    _topk_check(bank_topk(q, bank, 16, normalize=False), bank_topk_reference(q, bank, 16, normalize=False),
+                q, bank, normalize=False, tol=1e-4)
+    for nv in (5000, torch.tensor(5000, device=dev)):
+        gv, gi = bank_topk(q, bank.float(), 16, n_valid=nv)
+        wv, wi = bank_topk_reference(q, bank.float(), 16, n_valid=nv)
+        assert int(gi.max()) < 5000 and float((gv - wv).abs().max()) <= 1e-5
+
+
+@pytest.mark.parametrize("n_valid,k,block_n", [(3, 5, 2048), (3, 5, 128), (10, 12, 128), (0, 4, 128), (100, 120, 128)])
+def test_bank_topk_surplus_slots_equal_plain(dev, n_valid, k, block_n):
+    """Fewer valid rows than k: the surplus slots' (-inf, index) exactly."""
+    g = torch.Generator(device=dev).manual_seed(k)
+    q = torch.randn((9, 16), generator=g, device=dev)
+    bank = torch.randn((600, 16), generator=g, device=dev)
+    gv, gi = bank_topk(q, bank, k, n_valid=n_valid, block_n=block_n)
+    wv, wi = bank_topk_reference(q, bank, k, n_valid=n_valid, block_n=block_n)
+    n = min(n_valid, k)
+    assert torch.equal(gi[:, n:], wi[:, n:]) and bool(torch.isneginf(gv[:, n:]).all())
+    if n:
+        assert float((gv[:, :n] - wv[:, :n]).abs().max()) <= 1e-5
+
+
+def test_bank_topk_orders_exact_ties_by_index(dev):
+    """Duplicated rows of +-0.5 unit vectors: every score is exact, so the
+    kernel's lists equal the plain version's (lower index first) exactly."""
+    rng = np.random.default_rng(9)
+    base = np.zeros((6, 64), np.float32)
+    for r in base:
+        r[rng.choice(64, 4, replace=False)] = rng.choice([-0.5, 0.5], 4)
+    bank = torch.as_tensor(base[rng.integers(0, 6, 20000)], device=dev)
+    q = torch.as_tensor(base[rng.integers(0, 6, 33)], device=dev)
+    for k in (10, 128):
+        gv, gi = bank_topk(q, bank, k)
+        wv, wi = bank_topk_reference(q, bank, k)
+        assert torch.equal(gi, wi) and torch.equal(gv, wv)
+
+
+def test_bank_topk_refuses_what_it_does_not_take(dev):
+    q = torch.zeros((2, 64), device=dev)
+    with pytest.raises(ValueError, match="k <= 128"):
+        bank_topk(q, torch.zeros((300, 64), device=dev), 129)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        bank_topk(torch.zeros((2, 12), device=dev), torch.zeros((30, 12), device=dev), 3)
+    with pytest.raises(ValueError, match="width"):
+        bank_topk(q, torch.zeros((30, 32), device=dev), 3)

@@ -37,7 +37,8 @@ def test_importing_every_module_loads_no_jax_and_no_tvc():
     assert not bad, bad
     assert "tvc_torch.serving" in loaded
     for m in ("tvc_torch.pipeline", "tvc_torch.augment.text_augment", "tvc_torch.attacks.text_attack",
-              "tvc_torch.metrics"):
+              "tvc_torch.metrics", "tvc_torch.core.kernels.attention_kernel", "tvc_torch.core.kernels.topk_kernel",
+              "tvc_torch.native", "tvc_torch.retrieval"):
         assert m in loaded, m
     # the lexicon probes nltk at its first lookup, never at import
     assert "nltk" not in loaded

@@ -161,7 +161,10 @@ def test_process_single_and_the_retrieval_fallback(models):
                                                     num_text_variants=4), retriever=tr, device="cpu")
     p = create_detection_pipeline(tclip, PipelineConfig(**PIPE), retriever=tr, detector=det,
                                   text_augmenter=TextAugmenter(TextAugmentConfig(**AUG)))
-    res = p.process_batch(images[:B], CAPTIONS[:B])
+    # a list of images, as process_single passes its one image: lists go
+    # through preprocess_images (the native resize, uint8 pixels) in both
+    # packages, arrays straight to the tower
+    res = p.process_batch(list(images[:B]), CAPTIONS[:B])
     assert res.retrieved == got.items
     single = p.process_single(images[0], CAPTIONS[0])
     assert single["retrieved"] == got.items[0] and single["variants"] == res.variants[0]

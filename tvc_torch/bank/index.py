@@ -2,8 +2,10 @@
 ``tvc/bank/index.py``, single device).
 
 The bank ``[N, D]`` is padded to a multiple of 8 rows; pad rows are masked
-to -inf before the top-k. Search is one ``torch.matmul`` plus
-``torch.topk``, as the JAX package leaves it to XLA.
+to -inf before the top-k. Search is one ``torch.matmul`` plus an exact
+top-k, as the JAX package leaves it to XLA. The top-k orders equal scores
+by the lower index first, as ``lax.top_k`` does (``topk_index_order``;
+``torch.topk`` promises no order on ties).
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ import torch
 from torch import Tensor
 
 from tvc_torch._device import resolve_device
+from tvc_torch.core.kernels.topk_kernel import topk_index_order
 from tvc_torch.core.similarity import l2_normalize
 
 ROW_MULTIPLE = 8
@@ -28,7 +31,7 @@ def topk_exact(
     if normalize:
         queries = l2_normalize(queries)
         bank = l2_normalize(bank)
-    return torch.topk(queries @ bank.T, k, dim=-1)
+    return topk_index_order(queries @ bank.T, k)
 
 
 class EmbeddingBank:
@@ -84,7 +87,7 @@ class EmbeddingBank:
         if self.normalize:
             q = l2_normalize(q)
         sims = (q @ self._bank.T).masked_fill(~self._valid[None, :], float("-inf"))
-        return torch.topk(sims, k, dim=-1)
+        return topk_index_order(sims, k)
 
     @torch.no_grad()
     def similarity_matrix(self, queries) -> Tensor:

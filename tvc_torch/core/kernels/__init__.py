@@ -5,6 +5,7 @@ computes the plain version for CPU tensors; ``<wrapper>.launches`` counts
 the calls that launched the kernel.
 """
 
+from tvc_torch.core.kernels.attention_kernel import fused_mha, mha_reference
 from tvc_torch.core.kernels.attention_layer_kernel import (
     attention_layer_reference,
     fused_attention_layer,
@@ -27,6 +28,7 @@ from tvc_torch.core.kernels.quantized_layer_kernel import (
     mlp_layer_i8_reference,
     quantize_linear,
 )
+from tvc_torch.core.kernels.topk_kernel import bank_topk, bank_topk_reference
 from tvc_torch.core.kernels.w8_matmul_kernel import (
     w8_matmul,
     w8_matmul_plain,
@@ -49,6 +51,8 @@ KERNELS = (
     w8a8_matmul_stacked,
     w8_matmul,
     w8_matmul_stacked,
+    bank_topk,
+    fused_mha,
 )
 
 

@@ -66,6 +66,19 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         # x (bf16), w (int8), scale (f32), out (bf16), M, N, K, stream
         "tvc_w8_matmul": [_P, _P, _P, _P, _I, _I, _I, _P],
     },
+    "mha": {
+        # q, k, v, out, ld, B, T, H, D, is_bf16, causal, scale, stream
+        "tvc_mha": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+    },
+    "bank_topk": {
+        # q, bank, valid (u8 or null), part_vals, part_idx, B, N, D, k,
+        # rows_per_split, splits, bank_is_bf16, q_is_bf16, stream
+        "tvc_bank_topk_partial": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+        # part_vals, part_idx, vals, idx, B, splits, k, cutoff, stream
+        "tvc_bank_topk_merge": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+        # k -> bytes of shared memory a partial block needs
+        "tvc_bank_topk_smem": [_I],
+    },
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

@@ -1,0 +1,190 @@
+"""Exact streaming top-k over an embedding bank (port of
+``tvc/core/pallas/topk_kernel.py``).
+
+    bank_topk(queries [B, D], bank [N, D], k) -> (scores [B, k] f32, idx [B, k] int32)
+
+by descending similarity, without the ``[B, N]`` score matrix in device
+memory. Semantics of the TPU kernel, kept in the kernel and the plain
+version alike:
+
+* equal scores are ordered by the lower row index first;
+* rows at or past ``n_valid`` (an int or a 0-dim tensor) never appear;
+* when fewer than k rows are valid, the surplus slots hold ``(-inf, s)``
+  with ``s`` the TPU kernel's leftover index: its running list starts at
+  ``(-inf, 0)`` and its argmax picks the first column, so ``s`` is the best
+  valid row before the last ``block_n`` tile (rows below
+  ``(ceil(N / block_n) - 1) * block_n``), else 0. With one tile that is
+  ``(-inf, 0)``.
+
+As in the JAX wrapper, ``normalize`` L2-normalizes both operands in f32
+and the ``n_valid`` mask is built with plain tensor ops before the kernel;
+without ``normalize`` the operands keep their dtype (f32 or bf16; bf16
+converts to f32 exactly) and products sum in f32. ``n_valid`` past N is
+taken as N (the TPU wrapper would score its zero pad rows as valid).
+
+For CUDA tensors the wrapper launches the hand-written kernels of
+``tvc_torch/csrc/bank_topk.cu`` (a split-N partial pass keeping sorted
+candidate lists in shared memory, then a merge; 1 <= k <= 128 and D a
+multiple of 8, else ``ValueError``); for CPU tensors it computes the plain
+version :func:`bank_topk_reference` (matmul, then an exact top-k over keys
+that order ties by index). ``bank_topk.launches`` counts the launches.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple, Union
+
+import torch
+from torch import Tensor
+
+from tvc_torch.core.kernels import _build
+from tvc_torch.core.similarity import l2_normalize
+
+MAX_K = 128  # the kernel's sorted candidate lists hold at most 128 entries
+TILE_ROWS = 64  # bank rows of one tile of the partial kernel
+QUERY_BLOCK = 64  # queries of one partial block
+BLOCKS_PER_SM = 4  # partial blocks the split count aims at, per SM
+
+NValid = Optional[Union[int, Tensor]]
+
+
+def _operands(queries: Tensor, bank: Tensor, n_valid: NValid, normalize: bool):
+    """The wrapper's plain steps: f32 L2-normalize of both operands when
+    ``normalize``, and the [N] validity mask (None: every row valid)."""
+    if normalize:
+        queries = l2_normalize(queries.float())
+        bank = l2_normalize(bank.float())
+    valid = None
+    if n_valid is not None:
+        # an int compares as a scalar: no host-to-device copy in the stream
+        nv = n_valid.to(bank.device) if torch.is_tensor(n_valid) else int(n_valid)
+        valid = torch.arange(bank.shape[0], device=bank.device) < nv
+    return queries, bank, valid
+
+
+def _cutoff(N: int, block_n: int) -> int:
+    """The first row of the TPU kernel's last tile."""
+    return (-(-N // block_n) - 1) * block_n
+
+
+def topk_index_order(scores: Tensor, k: int) -> Tuple[Tensor, Tensor]:
+    """Exact top-k of ``scores [B, N]`` (f32) ordered by (score descending,
+    index ascending), as ``lax.top_k`` orders ties; ``torch.topk`` promises
+    no order on ties. Sorts int64 keys: the order-preserving integer of the
+    f32 score above the complement of the index."""
+    N = scores.shape[-1]
+    s = torch.where(scores == 0, torch.zeros((), dtype=scores.dtype, device=scores.device), scores)  # -0.0 ties +0.0
+    bits = s.view(torch.int32)
+    key32 = bits >> 31  # -1 for negative scores: flip their 31 low bits
+    key32 &= 0x7FFFFFFF
+    key32 ^= bits
+    del s, bits
+    key = key32.to(torch.int64)
+    del key32
+    key *= 2**32
+    key += (2**32 - 1) - torch.arange(N, dtype=torch.int64, device=scores.device)
+    top = torch.topk(key, k, dim=-1).values
+    del key
+    idx = (2**32 - 1) - (top & 0xFFFFFFFF)
+    return torch.gather(scores, -1, idx), idx
+
+
+def bank_topk_reference(
+    queries: Tensor,
+    bank: Tensor,
+    k: int,
+    n_valid: NValid = None,
+    block_n: int = 2048,
+    normalize: bool = True,
+) -> Tuple[Tensor, Tensor]:
+    """Plain PyTorch version of :func:`bank_topk`: the full f32 score
+    matrix, invalid rows at -inf, the exact index-ordered top-k, the TPU
+    kernel's surplus slots."""
+    B, N = queries.shape[0], bank.shape[0]
+    q, bk, valid = _operands(queries, bank, n_valid, normalize)
+    scores = q.float() @ bk.float().T
+    if valid is not None:
+        scores.masked_fill_(~valid[None, :], float("-inf"))
+    kk = min(k, N)
+    vals, idx = topk_index_order(scores, kk)
+    del scores
+    if kk < k:
+        vals = torch.cat([vals, vals.new_full((B, k - kk), float("-inf"))], dim=1)
+        idx = torch.cat([idx, idx.new_zeros((B, k - kk))], dim=1)
+    finite = vals > float("-inf")
+    left = finite & (idx < _cutoff(N, block_n))
+    first = torch.gather(idx, 1, left.to(torch.uint8).argmax(dim=1, keepdim=True))
+    leftover = torch.where(left.any(dim=1, keepdim=True), first, torch.zeros_like(first))
+    idx = torch.where(finite, idx, leftover)
+    return vals, idx.to(torch.int32)
+
+
+def _check_operands(q: Tensor, bank: Tensor, k: int) -> None:
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    for name, t in (("queries", q), ("bank", bank)):
+        if t.ndim != 2 or t.dtype not in (torch.float32, torch.bfloat16) or t.device != q.device:
+            raise ValueError(f"{name} must be a float32 or bf16 2-D tensor on {q.device}, got "
+                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    if q.shape[1] != bank.shape[1]:
+        raise ValueError(f"queries [B, {q.shape[1]}] and bank [N, {bank.shape[1]}] differ in width")
+    if q.shape[1] % 8:
+        raise ValueError(f"the top-k kernel takes widths that are a multiple of 8; got D={q.shape[1]}")
+    if not 1 <= k <= MAX_K:
+        raise ValueError(f"the top-k kernel takes 1 <= k <= {MAX_K}; got k={k}")
+
+
+def bank_topk(
+    queries: Tensor,
+    bank: Tensor,
+    k: int,
+    n_valid: NValid = None,
+    block_n: int = 2048,
+    normalize: bool = True,
+) -> Tuple[Tensor, Tensor]:
+    """Exact top-k over a bank: ``queries [B, D]``, ``bank [N, D]``,
+    ``n_valid`` the count of real bank rows (default all). Returns
+    ``(scores [B, k] f32, idx [B, k] int32)`` by descending similarity.
+    ``block_n`` is the TPU kernel's tile, which fixes only the surplus
+    slots' index (see the module docstring)."""
+    k = int(k)
+    if queries.device.type == "cpu":
+        return bank_topk_reference(queries, bank, k, n_valid, block_n, normalize)
+    _check_operands(queries, bank, k)
+    q, bk, valid = _operands(queries, bank, n_valid, normalize)
+    q, bk = q.contiguous(), bk.contiguous()
+    B, D = q.shape
+    N = bk.shape[0]
+    vals = torch.empty((B, k), dtype=torch.float32, device=q.device)
+    idx = torch.empty((B, k), dtype=torch.int32, device=q.device)
+    if B == 0:
+        return vals, idx
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    tiles = max(1, -(-N // TILE_ROWS))
+    splits = max(1, min(tiles, -(-BLOCKS_PER_SM * sms // -(-B // QUERY_BLOCK))))
+    rows_per_split = -(-tiles // splits) * TILE_ROWS
+    splits = max(1, -(-N // rows_per_split))
+    part_vals = torch.empty((B, splits, k), dtype=torch.float32, device=q.device)
+    part_idx = torch.empty((B, splits, k), dtype=torch.int32, device=q.device)
+    lib = _build.load("bank_topk")
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    _build.check(
+        lib.tvc_bank_topk_partial(
+            q.data_ptr(), bk.data_ptr(), None if valid is None else valid.data_ptr(),
+            part_vals.data_ptr(), part_idx.data_ptr(), B, N, D, k, rows_per_split, splits,
+            int(bk.dtype == torch.bfloat16), int(q.dtype == torch.bfloat16), stream,
+        ),
+        "tvc_bank_topk_partial",
+    )
+    _build.check(
+        lib.tvc_bank_topk_merge(
+            part_vals.data_ptr(), part_idx.data_ptr(), vals.data_ptr(), idx.data_ptr(),
+            B, splits, k, _cutoff(N, block_n), stream,
+        ),
+        "tvc_bank_topk_merge",
+    )
+    bank_topk.launches += 1
+    return vals, idx
+
+
+bank_topk.launches = 0

@@ -1,6 +1,8 @@
 """Adversarial detector (port of ``tvc/detector.py``: the primary-stack
 ``AdversarialDetector`` with its fused serving path, the staged path, the
-hub probe and two-sided calibration; the threshold managers).
+hub probe, two-sided and Youden calibration, the single-query
+``detect_adversarial`` with its LRU result cache and the JSON save / load;
+the threshold managers, ``EnsembleDetector`` and ``create_detector``).
 
 ``detect_batch`` routes through one serving step (``make_serving_step``:
 encode + bank top-k + consistency kernel) whenever the inputs allow it;
@@ -9,7 +11,11 @@ host stages remain only for tokenizing the variant texts.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
+import hashlib
+import json
+from pathlib import Path
 from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -18,6 +24,7 @@ import torch
 from tvc_torch._device import resolve_device
 from tvc_torch.core import consistency as C
 from tvc_torch.core.kernels.consistency_kernel import fused_consistency_scores
+from tvc_torch.metrics import DetectionEvaluator
 from tvc_torch.models.clip import CLIPModel, preprocess_images
 
 
@@ -34,6 +41,9 @@ class DetectorConfig:
     methods: Tuple[str, ...] = ("text_variants", "sd_reference", "consistency")
     #: route detect_batch through the fused serving step when inputs allow
     use_fused_step: bool = True
+    #: detect_adversarial keeps its results in an LRU cache of cache_size
+    cache_enabled: bool = True
+    cache_size: int = 1000
     #: fixed text-sequence bucket for the fused step (rounded up to a
     #: multiple of 8; None = per-batch adaptive). Overlong texts truncate
     #: with EOT pinned in-window.
@@ -49,6 +59,18 @@ class DetectionResult:
     aggregated_score: np.ndarray  # [B]
     method_scores: Dict[str, np.ndarray]  # each [B]
     details: Dict[str, Any] = dataclasses.field(default_factory=dict)
+
+
+def _first_row(v):
+    """Batch detail -> single-query detail: scalars pass through, [B]
+    arrays -> float, [B, K] arrays (the fused ref_idx) -> list of K."""
+    if v is None or isinstance(v, (bool, int, float, str)):
+        return v
+    arr = np.asarray(v)
+    if arr.ndim == 0:
+        return float(arr)
+    row = arr[0]
+    return float(row) if row.ndim == 0 else row.tolist()
 
 
 class ThresholdManager:
@@ -115,11 +137,12 @@ class AdversarialDetector:
         self.reference_generator = reference_generator
         self.retriever = retriever
         self.threshold_manager = ThresholdManager(self.config.detection_threshold)
+        self._cache: Dict[str, Dict[str, Any]] = {}  # detect_adversarial results, oldest first
         self._serving = None  # (key, step) lazy cache
         self._probe: Optional[torch.Tensor] = None  # [P, D] hub-probe caption embeddings
         self._probe_top_m = 8
         self._probe_threshold = None
-        self.stats = {"detections": 0, "adversarial_detected": 0}
+        self.stats = {"detections": 0, "adversarial_detected": 0, "cache_hits": 0}
 
     # -- hub probe --------------------------------------------------------------
     def set_hub_probe(self, texts=None, embeddings=None, top_m: int = 8):
@@ -331,6 +354,7 @@ class AdversarialDetector:
             "threshold": float(upper),
             "ref_idx": _np(out["ref_idx"]) if with_bank else None,
             "fused": True,
+            "mesh": False,
         }
         if probe_scores is not None:
             details.update(hub_probe_score=probe_scores, hub_probe_threshold=self._probe_threshold)
@@ -412,6 +436,67 @@ class AdversarialDetector:
             is_adversarial=flags, aggregated_score=agg, method_scores=method_scores, details=details
         )
 
+    # -- single-query result cache -------------------------------------------------
+    def _cache_key(self, image, text: str, methods: Sequence[str]) -> str:
+        """md5 of the text, the methods, the decision parameters (thresholds
+        and weights: a calibration update invalidates stale decisions) and
+        the image bytes, as the JAX package keys it."""
+        h = hashlib.md5()
+        h.update(text.encode("utf-8"))
+        h.update("|".join(methods).encode())
+        cfg = self.config
+        h.update(
+            np.asarray(
+                [self.threshold_manager.get_threshold(), cfg.lower_threshold if cfg.two_sided else -np.inf,
+                 *cfg.weights],
+                np.float64,
+            ).tobytes()
+        )
+        if hasattr(image, "tobytes"):  # PIL image or ndarray
+            h.update(np.asarray(image).tobytes())
+        else:
+            h.update(repr(image).encode())
+        return h.hexdigest()
+
+    def detect_adversarial(self, image, text: str, methods: Optional[Sequence[str]] = None) -> Dict[str, Any]:
+        """Single-query wrapper over :meth:`detect_batch`: ``{"is_adversarial",
+        "aggregated_score", "scores", "threshold", "details"}``.
+
+        With ``config.cache_enabled`` results are cached per (image, text,
+        methods, thresholds, weights), evicting the least recently used past
+        ``config.cache_size``; the cache holds and returns deep copies, so a
+        caller's edits never reach it. ``methods`` overrides
+        ``config.methods`` for this call only."""
+        cfg0 = self.config
+        key = None
+        if cfg0.cache_enabled and not isinstance(image, (list, tuple)):
+            key = self._cache_key(image, text, methods or cfg0.methods)
+            hit = self._cache.pop(key, None)
+            if hit is not None:
+                self._cache[key] = hit  # most recent again
+                self.stats["cache_hits"] += 1
+                return copy.deepcopy(hit)
+        if methods is not None:
+            saved = self.config
+            self.config = dataclasses.replace(saved, methods=tuple(methods))
+        try:
+            res = self.detect_batch(image if isinstance(image, (list, tuple)) else [image], [text])
+        finally:
+            if methods is not None:
+                self.config = saved
+        out = {
+            "is_adversarial": bool(res.is_adversarial[0]),
+            "aggregated_score": float(res.aggregated_score[0]),
+            "scores": {k: float(v[0]) for k, v in res.method_scores.items()},
+            "threshold": res.details["threshold"],
+            "details": {k: _first_row(v) for k, v in res.details.items()},
+        }
+        if key is not None:
+            self._cache[key] = copy.deepcopy(out)
+            while len(self._cache) > cfg0.cache_size:
+                self._cache.pop(next(iter(self._cache)))  # the least recently used
+        return out
+
     # -- calibration ----------------------------------------------------------------
     def calibrate_two_sided(
         self, clean_scores: np.ndarray, quantile: float = 0.995
@@ -424,5 +509,89 @@ class AdversarialDetector:
         self.threshold_manager.update(hi)
         return lo, hi
 
+    def compute_optimal_threshold(self, clean_scores: np.ndarray, adv_scores: np.ndarray) -> float:
+        """Set the threshold to the ROC Youden-J point of known clean (label
+        0) and adversarial (label 1) scores; returns it."""
+        labels = np.concatenate([np.zeros(len(clean_scores)), np.ones(len(adv_scores))])
+        scores = np.concatenate([clean_scores, adv_scores])
+        thr = DetectionEvaluator.optimal_threshold_youden(labels, scores)
+        self.threshold_manager.update(thr)
+        return thr
+
+    # -- persistence: the config, threshold and stats as JSON -------------------------
+    def save_model(self, path: str) -> None:
+        """The JAX package's JSON keys; ``use_pallas`` is written as true
+        (the port always runs its kernels on the card)."""
+        Path(path).parent.mkdir(parents=True, exist_ok=True)
+        data = {
+            "config": {
+                **dataclasses.asdict(self.config),
+                "use_pallas": True,
+                "weights": list(self.config.weights),
+                "methods": list(self.config.methods),
+            },
+            "threshold": self.threshold_manager.get_threshold(),
+            "stats": self.stats,
+        }
+        Path(path).write_text(json.dumps(data))
+
+    def load_model(self, path: str) -> None:
+        """Reads what either package's ``save_model`` wrote (``use_pallas``
+        is ignored)."""
+        data = json.loads(Path(path).read_text())
+        cfg = dict(data["config"])
+        cfg.pop("use_pallas", None)
+        cfg["weights"] = tuple(cfg["weights"])
+        cfg["methods"] = tuple(cfg["methods"])
+        self.config = DetectorConfig(**cfg)
+        self.threshold_manager = ThresholdManager(data["threshold"])
+        self.stats = data["stats"]
+
     def get_stats(self) -> Dict[str, Any]:
         return dict(self.stats)
+
+
+class EnsembleDetector:
+    """Weighted mean or majority vote over several detectors, each with its
+    own threshold: ``mean`` flags where the weighted score exceeds the
+    weighted threshold; ``majority`` flags a weighted majority of votes and
+    scores the weighted mean threshold margin (> 0 means adversarial)."""
+
+    def __init__(
+        self,
+        detectors: Sequence[AdversarialDetector],
+        strategy: str = "mean",
+        weights: Optional[Sequence[float]] = None,
+    ):
+        if not detectors:
+            raise ValueError("need at least one detector")
+        if weights is not None and len(weights) != len(detectors):
+            raise ValueError("weights must match detectors")
+        self.detectors = list(detectors)
+        self.strategy = strategy
+        self.weights = (
+            np.asarray(weights, np.float64) / np.sum(weights)
+            if weights is not None
+            else np.full(len(detectors), 1.0 / len(detectors))
+        )
+
+    def detect_batch(self, images, texts) -> DetectionResult:
+        results = [d.detect_batch(images, texts) for d in self.detectors]
+        scores = np.stack([r.aggregated_score for r in results])  # [M, B]
+        thresholds = np.asarray([d.threshold_manager.get_threshold() for d in self.detectors])
+        w = self.weights[:, None]
+        if self.strategy == "mean":
+            agg = (scores * w).sum(axis=0)
+            flags = agg > float((thresholds * self.weights).sum())
+        else:  # majority: weighted vote; score = mean threshold margin
+            votes = np.stack([r.is_adversarial for r in results]).astype(np.float64)
+            flags = (votes * w).sum(axis=0) > 0.5
+            agg = ((scores - thresholds[:, None]) * w).sum(axis=0)
+        return DetectionResult(
+            is_adversarial=flags, aggregated_score=agg, method_scores={},
+            details={"n_detectors": len(self.detectors)},
+        )
+
+
+def create_detector(model: CLIPModel, config: Optional[DetectorConfig] = None, **kw) -> AdversarialDetector:
+    return AdversarialDetector(model, config, **kw)

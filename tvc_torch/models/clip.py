@@ -30,6 +30,7 @@ import torch
 from torch import Tensor, nn
 
 from tvc_torch._device import resolve_device
+from tvc_torch.core.kernels.attention_kernel import fused_mha
 from tvc_torch.core.kernels.attention_layer_kernel import (
     fused_attention_layer,
     fused_mlp_layer,
@@ -178,19 +179,24 @@ class MLP(nn.Module):
 
 
 class Attention(nn.Module):
-    def __init__(self, width: int, heads: int, dtype, device=None):
+    """``fused``: unmasked calls go through the multi-head attention kernel
+    (:func:`fused_mha`, inference only)."""
+
+    def __init__(self, width: int, heads: int, dtype, device=None, fused: bool = False):
         super().__init__()
-        self.width, self.heads, self.dtype = width, heads, dtype
+        self.width, self.heads, self.dtype, self.fused = width, heads, dtype, fused
         self.qkv = Dense(width, 3 * width, dtype, device)
         self.out = Dense(width, width, dtype, device)
 
     def forward(self, x: Tensor, mask: Optional[Tensor] = None) -> Tensor:
         B, T, _ = x.shape
         D = self.width // self.heads
-        q, k, v = (
-            t.reshape(B, T, self.heads, D).transpose(1, 2)
-            for t in self.qkv(x).split(self.width, dim=-1)
-        )
+        qkv = self.qkv(x).split(self.width, dim=-1)
+        if self.fused and mask is None:
+            # views of the packed projection: the kernel reads them in place
+            q4, k4, v4 = (t.reshape(B, T, self.heads, D) for t in qkv)
+            return self.out(fused_mha(q4, k4, v4).reshape(B, T, self.width))
+        q, k, v = (t.reshape(B, T, self.heads, D).transpose(1, 2) for t in qkv)
         # f32 logits of the dtype operands, f32 softmax
         logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * (1.0 / math.sqrt(D))
         if mask is not None:
@@ -201,10 +207,10 @@ class Attention(nn.Module):
 
 
 class ResidualBlock(nn.Module):
-    def __init__(self, width: int, heads: int, dtype, device=None):
+    def __init__(self, width: int, heads: int, dtype, device=None, fused: bool = False):
         super().__init__()
         self.ln_1 = LayerNorm(width, device)
-        self.attn = Attention(width, heads, dtype, device)
+        self.attn = Attention(width, heads, dtype, device, fused)
         self.ln_2 = LayerNorm(width, device)
         self.mlp = MLP(width, dtype, device)
 
@@ -214,11 +220,11 @@ class ResidualBlock(nn.Module):
 
 
 class Transformer(nn.Module):
-    def __init__(self, width: int, layers: int, heads: int, dtype, device=None):
+    def __init__(self, width: int, layers: int, heads: int, dtype, device=None, fused: bool = False):
         super().__init__()
         self.layers = layers
         for i in range(layers):
-            self.add_module(f"block_{i}", ResidualBlock(width, heads, dtype, device))
+            self.add_module(f"block_{i}", ResidualBlock(width, heads, dtype, device, fused))
 
     def forward(self, x: Tensor, mask: Optional[Tensor] = None) -> Tensor:
         for i in range(self.layers):
@@ -261,7 +267,9 @@ class VisionTower(nn.Module):
         self.class_embedding = _param(W, device=device)
         self.positional_embedding = _param(n_patches + 1, W, device=device)
         self.ln_pre = LayerNorm(W, device)
-        self.transformer = Transformer(W, cfg.vision_layers, cfg.vision_heads, cfg.dtype, device)
+        self.transformer = Transformer(
+            W, cfg.vision_layers, cfg.vision_heads, cfg.dtype, device, fused=cfg.fused_attention
+        )
         self.ln_post = LayerNorm(W, device)
         self.proj = _param(W, cfg.embed_dim, device=device)
 
@@ -307,7 +315,9 @@ class TextTower(nn.Module):
 
 
 class CLIPModule(nn.Module):
-    """Both towers + logit scale."""
+    """Both towers + logit scale. With ``cfg.fused_attention`` the vision
+    tower's attention runs :func:`fused_mha` (the text tower passes a causal
+    mask and keeps the einsum path)."""
 
     def __init__(self, cfg: CLIPConfig, device=None):
         super().__init__()
@@ -317,9 +327,15 @@ class CLIPModule(nn.Module):
             torch.tensor(math.log(1 / 0.07), dtype=torch.float32, device=device)
         )
 
+    def encode_image(self, images: Tensor) -> Tensor:
+        return self.visual(images)
+
+    def encode_text(self, tokens: Tensor) -> Tensor:
+        return self.text(tokens)
+
     def forward(self, images: Tensor, tokens: Tensor):
-        img = l2_normalize(self.visual(images))
-        txt = l2_normalize(self.text(tokens))
+        img = l2_normalize(self.encode_image(images))
+        txt = l2_normalize(self.encode_text(tokens))
         return img, txt, torch.exp(self.logit_scale) * img @ txt.T
 
 
@@ -348,6 +364,15 @@ def _unflatten(flat: Dict[str, Any]) -> Dict:
             node = node.setdefault(p, {})
         node[leaf] = v
     return tree
+
+
+def _tie_parameters(module: nn.Module, source: nn.Module) -> None:
+    """Make each parameter of ``module`` the tensor of the same name in
+    ``source`` (the two share storage from then on)."""
+    params = dict(source.named_parameters())
+    for name, _ in list(module.named_parameters()):
+        owner, _, leaf = name.rpartition(".")
+        setattr(module.get_submodule(owner), leaf, params[name])
 
 
 def params_from_jax(tree, cfg: CLIPConfig) -> Dict:
@@ -551,22 +576,44 @@ def text_features_fused_i8(params: Dict, qparams: Dict, cfg: CLIPConfig, tokens:
 def preprocess_images(
     images: Sequence, image_size: int = 224, normalize: bool = True
 ) -> np.ndarray:
-    """PIL images / arrays already at ``image_size`` -> ``[B, H, W, 3]``
-    float32 (in CLIP stats when ``normalize``). Resizing is not ported yet
-    and raises."""
+    """PIL images / uint8 or [0, 1] float arrays of any size -> ``[B,
+    image_size, image_size, 3]`` float32 (in CLIP stats when ``normalize``).
+
+    The JAX package's branches: with ``normalize`` and every input an
+    ``[h, w, 3]`` image, the native OpenMP resize + normalize
+    (``tvc_torch.native``, a triangle filter as PIL's BILINEAR; float
+    arrays become uint8 as ``clip * 255`` truncated); otherwise, the
+    detector's ``normalize=False`` included, PIL's ``resize((size,
+    size))``. Unlike the JAX package, a native failure raises instead of
+    falling through to PIL."""
+    if normalize:
+        raws = []
+        for im in images:
+            if hasattr(im, "convert"):
+                raws.append(np.asarray(im.convert("RGB"), dtype=np.uint8))
+            else:
+                arr = np.asarray(im)
+                if arr.dtype != np.uint8:
+                    arr = (np.clip(arr, 0.0, 1.0) * 255).astype(np.uint8)
+                raws.append(arr)
+        if all(r.ndim == 3 and r.shape[-1] == 3 for r in raws):
+            from tvc_torch import native
+
+            return native.resize_normalize_varied(raws, image_size)
+    from PIL import Image
+
     out = []
     for im in images:
-        if hasattr(im, "convert"):  # PIL
-            arr = np.asarray(im.convert("RGB"), dtype=np.float32) / 255.0
+        if hasattr(im, "convert"):  # PIL (an ndarray also has .resize)
+            im = im.convert("RGB").resize((image_size, image_size))
+            arr = np.asarray(im, dtype=np.float32) / 255.0
         else:
             arr = np.asarray(im, dtype=np.float32)
             if arr.max() > 1.5:
                 arr = arr / 255.0
-        if arr.shape[:2] != (image_size, image_size):
-            raise NotImplementedError(
-                f"image of shape {arr.shape} needs a resize to {image_size}; "
-                "the port takes images already at image_size"
-            )
+            if arr.shape[:2] != (image_size, image_size):
+                pil = Image.fromarray((arr * 255).astype(np.uint8))
+                arr = np.asarray(pil.resize((image_size, image_size)), dtype=np.float32) / 255.0
         out.append(arr)
     batch = np.stack(out)
     if normalize:
@@ -679,8 +726,15 @@ class CLIPModel:
             # the f32 plain paths are references: full f32, no TF32
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
-        self.module = CLIPModule(self.config, device=self.device)
+        # the differentiable module (einsum attention); the inference module
+        # below runs fused_mha in its vision tower when fused_attention is on
+        self.module = CLIPModule(dataclasses.replace(self.config, fused_attention=False), device=self.device)
         self.module.requires_grad_(False)
+        #: the public handle for custom inference programs: the same
+        #: parameter tensors as ``module`` (no copy; assigning ``params``
+        #: updates both), not differentiable with fused_attention
+        self.inference_module = CLIPModule(self.config, device="meta")
+        _tie_parameters(self.inference_module, self.module)
         self._params: Dict = {}
         self._compute = (None, None)  # (params tree, dtype-cast tree) cache
         self.params = params if params is not None else init_params(self.config, seed)

@@ -1,5 +1,5 @@
-"""The defended serving step on one device (port of ``make_serving_step``,
-``tvc/parallel/steps.py``).
+"""The defended serving step on one device (port of ``make_serving_step``
+and its compat wrapper ``make_defense_step``, ``tvc/parallel/steps.py``).
 
 One call computes the CLIP image encode, one text-tower pass for the
 originals and the variants, the exact bank top-k by the text embedding,
@@ -19,7 +19,9 @@ import torch
 from torch import Tensor
 
 from tvc_torch._device import resolve_device
-from tvc_torch.core.kernels.consistency_kernel import fused_consistency_scores
+from tvc_torch.core import consistency as C
+from tvc_torch.core.kernels.consistency_kernel import consistency_scores_reference, fused_consistency_scores
+from tvc_torch.core.kernels.topk_kernel import topk_index_order
 from tvc_torch.core.similarity import l2_normalize
 from tvc_torch.models.clip import CLIPModel, bucket_text_tokens, normalize_pixels
 
@@ -34,6 +36,7 @@ def make_serving_step(
     mesh=None,
     top_k: int = 5,
     with_bank: bool = True,
+    use_kernel: Optional[bool] = None,
     num_refs: Optional[int] = None,
     qparams=None,
     bucket_short_len: int = 16,
@@ -60,6 +63,10 @@ def make_serving_step(
     ([B, top_k] int32; -1 without a bank), ``img`` (L2-normed image
     features). Scores the first ``num_refs <= top_k`` retrieved rows.
 
+    ``use_kernel=False`` scores with the plain consistency version
+    (``consistency_scores_reference``) on every device; None / True with
+    ``fused_consistency_scores``.
+
     ``qparams``: the int8 serving weights (``CLIPModel.qparams()``) for
     ``config.int8_serving``, used by every tower call of the step; None
     quantizes them from ``params`` in each call.
@@ -85,7 +92,7 @@ def make_serving_step(
             # references are fetched by the TEXT embedding: the text
             # retrieves what the image should look like
             sims = (txt @ bank.T).masked_fill(~_dev(valid, torch.bool)[None, :], float("-inf"))
-            ref_idx = torch.topk(sims, top_k, dim=-1).indices
+            ref_idx = topk_index_order(sims, top_k)[1]  # ties: lower index first
             refs = bank[ref_idx[:, :num_refs].reshape(-1)].reshape(B, num_refs, -1)
             ref_mask = torch.ones((B, num_refs), dtype=torch.bool, device=device)
             ref_idx = ref_idx.to(torch.int32)
@@ -93,7 +100,8 @@ def make_serving_step(
             refs = torch.zeros((B, 1, img.shape[-1]), dtype=torch.float32, device=device)
             ref_mask = torch.zeros((B, 1), dtype=torch.bool, device=device)
             ref_idx = torch.full((B, top_k), -1, dtype=torch.int32, device=device)
-        scores = fused_consistency_scores(
+        score = consistency_scores_reference if use_kernel is False else fused_consistency_scores
+        scores = score(
             img, txt, var, refs,
             variant_mask=_dev(variant_mask, torch.bool).contiguous(),
             ref_mask=ref_mask,
@@ -153,3 +161,40 @@ def make_serving_step(
 
     serve.bucketed_calls = 0
     return serve
+
+
+def make_defense_step(
+    model: CLIPModel,
+    mesh,
+    bank_rows_per_shard: int,  # kept for the JAX signature; rows come from shapes
+    top_k: int = 5,
+    threshold: float = C.DEFAULT_THRESHOLD,
+    device: Optional[Union[str, torch.device]] = None,
+) -> Callable:
+    """Compat wrapper over :func:`make_serving_step` with the plain
+    consistency scoring (``use_kernel=False``), as the JAX package's.
+
+    Returns ``step(params, pixels, tokens, variant_tokens, bank,
+    variant_mask=None) -> (is_adversarial [B], aggregated [B], topk_idx [B,
+    k])``; ``variant_mask=None`` takes every variant slot as real and every
+    bank row as valid. Only ``mesh=None``: the mesh paths belong to the
+    multi-GPU slice and raise ``NotImplementedError``.
+    """
+    if mesh is not None:
+        raise NotImplementedError(
+            "make_defense_step over a mesh is not ported yet (the multi-GPU slice): pass mesh=None"
+        )
+    serving = make_serving_step(model, top_k=top_k, with_bank=True, use_kernel=False, device=device)
+    weights = np.asarray(
+        [C.DEFAULT_WEIGHTS[m] for m in ("text_variants", "sd_reference", "consistency")], np.float32
+    )
+
+    def step(params, pixels, tokens, variant_tokens, bank, variant_mask=None):
+        B, V, _ = variant_tokens.shape
+        vmask = variant_mask if variant_mask is not None else np.ones((B, V), bool)
+        valid = np.ones((bank.shape[0],), bool)
+        out = serving(params, pixels, tokens, variant_tokens, vmask, bank, valid, weights,
+                      np.float32(-np.inf), np.float32(threshold))
+        return out["is_adversarial"], out["aggregated"], out["ref_idx"]
+
+    return step
