@@ -96,8 +96,15 @@ def phase(name: str):
     log(f"== phase {name} ok ({time.perf_counter() - t0:.2f} s)")
 
 
+#: cycles of the spin kernel queued ahead of each timed call (~0.5 ms)
+SPIN_CYCLES = 1_000_000
+
+
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Median of CUDA-event timings of ``fn`` after warm-up, in ms."""
+    """Median of CUDA-event timings of ``fn`` after warm-up, in ms: device
+    time. A spin kernel queued ahead of each call keeps the card busy while
+    the host enqueues the call, so a wrapper's host time is not counted
+    where it exceeds its kernels'."""
     import torch
 
     for _ in range(warmup):
@@ -107,6 +114,7 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     for _ in range(iters):
         s = torch.cuda.Event(enable_timing=True)
         e = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)
         s.record()
         fn()
         e.record()
@@ -303,7 +311,8 @@ def phase_kernels() -> dict:
 
     # -- attention and MLP layers, bf16 and int8: vision B=64 T=50 W=768
     # H=12; text rows=448 at T=16 and T=32, W=512 H=8, causal; and the
-    # attention layers at ViT-L/14's vision shape B=8 T=257 W=1024 H=16
+    # attention layers at ViT-L/14's vision shape B=8 T=257 W=1024 H=16 and
+    # past the old kernel's T <= 257 at B=4 T=300 W=768 H=12
     rows = {k: [] for k in ("fused_attention_layer", "fused_mlp_layer",
                             "fused_attention_layer_i8", "fused_mlp_layer_i8")}
     for tag, B, T, W, H, causal in (
@@ -311,6 +320,7 @@ def phase_kernels() -> dict:
         ("text", 448, 16, 512, 8, True),
         ("text", 448, 32, 512, 8, True),
         ("vit-l/14 vision", 8, 257, 1024, 16, False),
+        ("T=300", 4, 300, 768, 12, False),
     ):
         x, ln, attn_w, mlp_w = _layer_inputs(rng, B, T, W, 4 * W, dev)
         M, Wh = B * T, 4 * W
@@ -328,7 +338,7 @@ def phase_kernels() -> dict:
              bound_ms_of(4 * M * W + 4 * W * W + 4 * 10 * W,
                          2 * M * W * 4 * W / PEAK_INT8_OPS + attn_ops / PEAK_BF16_FLOPS)),
         ]
-        if tag != "vit-l/14 vision":
+        if tag not in ("vit-l/14 vision", "T=300"):
             shape = f"{tag} B={B} T={T} W={W}"
             cases += [
                 ("fused_mlp_layer", fused_mlp_layer, mlp_layer_reference, (x, *ln, *mlp_w), {}, shape,
@@ -529,19 +539,28 @@ def phase_qwen_kernels(rng, dev) -> dict:
 W8_TOL = 1e-2
 
 
-def _w8_bound(M, K, N):
-    """Bytes: bf16 x in, int8 weights and f32 scales in, the bf16 output
-    out; operations: 2 M K N at the bf16 tensor-core rate."""
-    return bound_ms(2 * M * K + K * N + 4 * N + 2 * M * N, 2 * M * K * N, PEAK_BF16_FLOPS)
+# f32 activations: both sides sum f32 products in f32 in another order
+# (~1e-7 relative) and scale in f32; nothing rounds to bf16.
+W8_F32_TOL = 1e-5
+
+
+def _w8_bound(M, K, N, elem=2):
+    """Bytes: x in, int8 weights and f32 scales in, the output out;
+    operations: 2 M K N at the bf16 tensor-core rate (bf16 x) or the f32
+    rate (f32 x, on the CUDA cores)."""
+    return bound_ms(elem * (M * K + M * N) + K * N + 4 * N, 2 * M * K * N,
+                    PEAK_BF16_FLOPS if elem == 2 else PEAK_F32_FLOPS)
 
 
 def phase_w8_kernels(dev) -> dict:
     """The Qwen2-1.5B weight-only GEMM against its plain version: the four
     layer GEMMs of a decode step at M = 960 (192 captions x 5 paraphrases),
-    gate|up at the prefix prefill's M = 15, and the stacked wrapper on a
-    28-layer q|k|v stack, held equal to the flat kernel on the layer's view.
-    Library: cuBLAS x @ w on the weights dequantized to bf16 beforehand
-    (GEMM only)."""
+    the prefix prefill's M = 15 (gate|up; q|k|v and down split K), two
+    calls held bit-equal; f32 activations at QwenConfig.tiny()'s layer
+    shapes; the stacked wrapper on a 28-layer q|k|v stack, held equal to the
+    flat kernel on the layer's view; and the tiny f32 Qwen decode through
+    the kernel (qwen_tiny_f32). Library: cuBLAS x @ w on the weights
+    dequantized to x's dtype beforehand (GEMM only)."""
     import torch
 
     from tvc_torch.core.kernels import quantize_linear, w8_matmul, w8_matmul_plain, w8_matmul_stacked
@@ -552,29 +571,38 @@ def phase_w8_kernels(dev) -> dict:
     out = {"w8_matmul": {"shapes": []}, "w8_matmul_stacked": {"shapes": []}}
     L, H, I = 28, 1536, 8960
 
-    def hold(name, tag, run_k, run_p, run_lib, M, K, N):
+    def hold(name, tag, run_k, run_p, run_lib, M, K, N, tol=W8_TOL, elem=2):
         got, want = run_k(), run_p()
+        again = run_k()
         torch.cuda.synchronize()
         abs_err, rel_err = _layer_error(got, want)
-        if not rel_err <= W8_TOL:
+        if not rel_err <= tol:
             raise AssertionError(f"{name} {tag} disagrees with its plain version: {abs_err:.3e} abs, "
                                  f"{rel_err:.3e} scaled")
+        if not torch.equal(got, again):
+            raise AssertionError(f"{name} {tag}: two calls differ")
         k_ms, p_ms, lib_ms = time_ms(run_k), time_ms(run_p, iters=5, warmup=1), time_ms(run_lib)
-        bms, by = _w8_bound(M, K, N)
+        bms, by = _w8_bound(M, K, N, elem)
         shape = f"{tag} M={M} K={K} N={N}"
         out[name]["shapes"].append({"shape": shape, "ms": k_ms, "plain_ms": p_ms, "bound_ms": bms, "bound_by": by,
                                     "max_abs_err": abs_err, "library_ms": lib_ms})
         log(f"kernel {name} {shape}: kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} bound_ms={bms:.5f} ({by}) "
             f"max_abs_err={abs_err:.3e} scaled_err={rel_err:.3e} library_ms(GEMM only, cuBLAS bf16)={lib_ms:.4f}")
 
-    for tag, M, K, N in (("q|k|v", 960, H, 2048), ("o", 960, H, H), ("gate|up", 960, H, 2 * I),
-                         ("down", 960, I, H), ("gate|up prefix prefill", 15, H, 2 * I)):
-        x = t(M, K).to(bf)
+    for tag, M, K, N, dt in (
+        ("q|k|v", 960, H, 2048, bf), ("o", 960, H, H, bf), ("gate|up", 960, H, 2 * I, bf),
+        ("down", 960, I, H, bf), ("gate|up prefix prefill", 15, H, 2 * I, bf),
+        ("q|k|v prefix prefill", 15, H, 2048, bf), ("down prefix prefill", 15, I, H, bf),
+        ("tiny f32 q|k|v", 64, 64, 128, torch.float32), ("tiny f32 o", 64, 64, 64, torch.float32),
+        ("tiny f32 gate|up", 64, 64, 256, torch.float32), ("tiny f32 down", 64, 128, 64, torch.float32),
+    ):
+        x = t(M, K).to(dt)
         w_q, scale = quantize_linear(t(K, N) / math.sqrt(K))
-        w_bf = w_q.to(bf) * scale.to(bf)
+        w_dq = w_q.to(dt) * scale.to(dt)
+        f32 = dt == torch.float32
         hold("w8_matmul", tag, lambda: w8_matmul(x, w_q, scale), lambda: w8_matmul_plain(x, w_q, scale),
-             lambda: x @ w_bf, M, K, N)
-        del w_q, scale, w_bf
+             lambda: x @ w_dq, M, K, N, tol=W8_F32_TOL if f32 else W8_TOL, elem=4 if f32 else 2)
+        del w_q, scale, w_dq
     M, K, N = 960, H, 2048
     x = t(M, K).to(bf)
     w_q = torch.randint(-127, 128, (L, K, N), dtype=torch.int8, device=dev)
@@ -586,7 +614,81 @@ def phase_w8_kernels(dev) -> dict:
     w_bf = w_q[L - 1].to(bf) * scale[L - 1].to(bf)
     hold("w8_matmul_stacked", f"q|k|v layer {L - 1} of {L}", lambda: w8_matmul_stacked(x, w_q, scale, L - 1),
          lambda: w8_matmul_plain(x, w_q[L - 1], scale[L - 1]), lambda: x @ w_bf, M, K, N)
+    del x, w_q, scale, w_bf
+    qwen_tiny_f32()
     return out
+
+
+class _WordTokenizer:
+    """A word-level tokenizer for QwenConfig.tiny()'s 512-token vocabulary
+    (each word hashed to an id; 0 pads, 511 ends a sequence)."""
+
+    def __init__(self, vocab_size=512, context_length=48):
+        self.vocab_size, self.context_length, self.pad_id, self.eot_id = vocab_size, context_length, 0, vocab_size - 1
+
+    def __call__(self, texts):
+        from tvc_torch.models.qwen import _stable_seed
+
+        out = np.full((len(texts), self.context_length), self.pad_id, np.int32)
+        for i, text in enumerate(texts):
+            words = "".join(c if c.isalnum() else " " for c in text.lower()).split()
+            ids = [1 + _stable_seed(w) % (self.vocab_size - 3) for w in words][: self.context_length]
+            out[i, : len(ids)] = ids
+        return out
+
+    def decode(self, ids):
+        return " ".join(f"w{int(i)}" for i in ids if i not in (self.pad_id, self.eot_id))
+
+
+# The tiny f32 Qwen's teacher-forced logits, kernel route vs the same model
+# on the plain versions: f32 everywhere (the w8 kernel's f32 path, the
+# decode attention in f32), sums in another order only, relative to
+# max(1, |logit|).
+QWEN_TINY_TOL = 1e-4
+
+
+def qwen_tiny_f32() -> dict:
+    """QwenModel(QwenConfig.tiny()) (f32, quant_gemm "w8") with
+    quantize_weights_int8() on the card: 16 COCO captions x 2 samples
+    decoded 8 tokens through the w8 kernel's f32 path and the decode
+    attention at head width 16, then teacher-forced against the same model
+    with the plain versions."""
+    import torch
+
+    import tvc_torch.models.qwen as qwen_mod
+    from tvc_torch.core.kernels import decode_gqa_reference, launch_counts, reset_launch_counts, w8_matmul_plain
+    from tvc_torch.models.qwen import QwenConfig, QwenModel
+
+    cfg = QwenConfig.tiny()
+    model = QwenModel(cfg, seed=0, max_new_tokens=8, tokenizer=_WordTokenizer())
+    model.quantize_weights_int8()
+    if cfg.dtype != torch.float32 or cfg.quant_gemm != "w8" or model.device.type != "cuda":
+        raise AssertionError(f"[qwen tiny] {cfg.dtype} {cfg.quant_gemm} on {model.device}")
+    inp = model.prepare(coco_captions(16), 2)
+    kern, plain = [], []
+    reset_launch_counts()
+    toks = model.decode(inp, 0.8, seed=0, on_logits=lambda i, lg: kern.append(lg.clone()))
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    if counts["w8_matmul"] <= 0 or counts["decode_gqa_attention"] <= 0:
+        raise AssertionError(f"[qwen tiny] the f32 decode missed the kernels: {counts}")
+    patches = [
+        (qwen_mod, "w8_matmul", w8_matmul_plain),
+        (qwen_mod, "w8_matmul_stacked", lambda x, w, s, l: w8_matmul_plain(x, w[l], s[l])),
+        (qwen_mod, "decode_gqa_attention_stacked", lambda q, k, v, m, l: decode_gqa_reference(q, k[l], v[l], m)),
+    ]
+    with ExitStack() as stack:
+        for module, name, fn in patches:
+            stack.enter_context(mock.patch.object(module, name, fn))
+        model.decode(inp, 0.8, seed=0, forced=toks.T, on_logits=lambda i, lg: plain.append(lg))
+    torch.cuda.synchronize()
+    a, b = torch.stack(kern), torch.stack(plain)
+    abs_err, rel_err = _layer_error(a, b)
+    log(f"[qwen tiny] QwenConfig.tiny() f32 w8, {a.shape[1]} rows x {a.shape[0]} steps: launches {counts}; "
+        f"teacher-forced logits vs plain max |d| {abs_err:.3e}, scaled {rel_err:.3e} (tol {QWEN_TINY_TOL})")
+    if not (bool(torch.isfinite(a).all()) and rel_err <= QWEN_TINY_TOL):
+        raise AssertionError("[qwen tiny] the f32 w8 decode disagrees with its plain version")
+    return {"launches": counts, "max_abs_err": abs_err}
 
 
 # The multi-head attention kernel against its plain version, relative to
@@ -642,7 +744,8 @@ def topk_agreement(got, want, q, bank, tol=TOPK_TOL) -> dict:
 
 def phase_mha_topk_kernels(dev) -> dict:
     """fused_mha at ViT-B/32's vision shape, ViT-L/14's (T = 257), the
-    text tower's causal shape and one f32 D = 32 shape; bank_topk at the
+    text tower's causal shape, one f32 D = 32 shape and ViT-L/14 at 336 px
+    (T = 577); bank_topk at the
     serving bank's shape (f32, normalize=True: the wrapper and the kernel
     alone on the normalized operands), with a bf16 bank and
     normalize=False, and with n_valid < N. Library yardsticks:
@@ -661,6 +764,7 @@ def phase_mha_topk_kernels(dev) -> dict:
         ("ViT-L/14 vision", 64, 257, 16, 64, torch.bfloat16, False),
         ("text", 448, 32, 8, 64, torch.bfloat16, True),
         ("W=768 in 24 heads", 256, 50, 24, 32, torch.float32, False),
+        ("ViT-L/14 336 px vision", 16, 577, 16, 64, torch.bfloat16, False),
     ):
         q, k, v = (torch.randn((B, T, H, D), generator=gen, device=dev).to(dtype) for _ in range(3))
         abs_err, rel_err = _layer_error(fused_mha(q, k, v, causal), mha_reference(q, k, v, causal))
@@ -1732,14 +1836,17 @@ PROFILE_NAMES = (
     "i8_gemm_kernel<4>", "ln_quant_rows_kernel", "quant_rows_kernel<float>",
     "quant_rows_kernel<__nv_bfloat16>", "decode_gqa_kernel<__nv_bfloat16, 128>",
     "decode_gqa_kernel<__nv_bfloat16, 64>",
-    "head_attention_kernel<__nv_bfloat16, float, 64>", "head_attention_kernel<__nv_bfloat16, __nv_bfloat16, 64>",
-    "head_attention_kernel<__nv_bfloat16, __nv_bfloat16, 32>", "head_attention_kernel<float, float, 64>",
-    "head_attention_kernel<float, float, 32>", "consistency_kernel", "w8_gemm_kernel",
+    "head_attention_tc_kernel<float, 64>", "head_attention_tc_kernel<__nv_bfloat16, 64>",
+    "head_attention_tc_kernel<__nv_bfloat16, 32>", "head_attention_kernel<64>", "head_attention_kernel<32>",
+    "consistency_kernel", "w8_gemm_kernel<2, 2, 192, 4>", "w8_gemm_kernel<2, 2, 128, 4>",
+    "w8_gemm_kernel<1, 1, 64, 6>", "w8_splitk_reduce_kernel", "w8_gemm_f32_kernel",
     "bank_topk_partial_kernel<float, float>", "bank_topk_partial_kernel<float, __nv_bfloat16>",
     "bank_topk_merge_kernel",
 )
 #: the prefix of the record_function ranges a profile reports by name
 RANGE_PREFIX = "smoke:"
+#: kernel families a profile also sums: (what, name prefix)
+PROFILE_FAMILIES = (("w8 GEMM", "w8_"), ("per-head attention", "head_attention"))
 
 
 def profile_batch(path: str, run) -> None:
@@ -1771,6 +1878,11 @@ def profile_batch(path: str, run) -> None:
         f"idle share {1 - busy / wall_ms:.3f}")
     for name, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:14]:
         log(f"[{path}] profile:   {ms:9.3f} ms {100 * ms / busy:5.1f}% x{n:<4d} {name[:110]}")
+    for family, prefix in PROFILE_FAMILIES:
+        ms, n = (sum(v[i] for k, v in by_name.items() if k.startswith(prefix)) for i in (0, 1))
+        if n:
+            log(f"[{path}] profile: all {family} kernels ({prefix}*): {ms:.3f} ms, {100 * ms / busy:.1f}% of busy, "
+                f"x{n}")
     for avg in prof.key_averages():
         # the host-side range; its device time is that of the kernels it launched
         if avg.key.startswith(RANGE_PREFIX) and avg.device_type == torch.autograd.DeviceType.CPU:

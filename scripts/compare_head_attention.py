@@ -1,21 +1,28 @@
-"""Compare the layer kernels' per-head attention of this tree with another
-tree's, bit for bit and in time, on one NVIDIA GPU.
+"""Time and hold the per-head tensor-core attention (``head_attention.cuh``
+through ``mha.cu``'s ``tvc_mha``) on one NVIDIA GPU.
 
-    python scripts/compare_head_attention.py OTHER_CSRC_DIR
+    python scripts/compare_head_attention.py [--other OTHER_CSRC_DIR] [--ablate]
 
-Builds ``attention_layer.cu`` and ``quantized_layer.cu`` (with the
-``head_attention.cuh`` beside each) from ``tvc_torch/csrc`` and from
-OTHER_CSRC_DIR, runs ``tvc_head_attention`` (bf16 out) and
-``tvc_head_attention_f32`` (f32 out) of both on the same packed q | k | v
-at the serving shapes, and prints for each the number of output elements
-that differ, the largest difference, and both kernels' times (medians of
-CUDA events, taken in turns: this, other, other, this). Exits non-zero if
-any output differs.
+For each bf16 shape below it prints the median CUDA-event time of this
+tree's kernel and of ``scaled_dot_product_attention`` on the same q, k, v,
+and the largest difference of the kernel's output from the plain version
+``mha_reference``, relative to max(1, |y|). ``--other`` adds another tree's
+``tvc_mha`` (built from OTHER_CSRC_DIR), held the same way and timed in
+turns with this one (this, other, other, this). ``--ablate`` adds copies of
+this tree's kernel with one part cut out, as timing probes whose outputs
+are wrong: ``noload`` loads no key or value tile after the first,
+``nosoftmax1`` skips sweep 1's softmax (its Q.K^T stays; P is zero),
+``noexp`` takes x for 2^x.
+Exits non-zero if this tree's or the other tree's kernel is farther than
+1e-2 from the plain version (``chip_smoke.py``'s bf16 tolerance): the two
+trees' outputs need not be equal bit for bit.
 """
 
 from __future__ import annotations
 
+import argparse
 import ctypes
+import shutil
 import statistics
 import subprocess
 import sys
@@ -23,37 +30,62 @@ import tempfile
 from pathlib import Path
 
 import torch
+import torch.nn.functional as F
 
 REPO = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(REPO))
+
+from tvc_torch.core.kernels.attention_kernel import mha_reference  # noqa: E402
+
 NVCC = ["/usr/local/cuda/bin/nvcc", "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
         "-Xcompiler", "-fPIC"]
-SHAPES = (  # (tag, sequences, T, W, heads, causal)
-    ("vision", 64, 50, 768, 12, False),
-    ("text", 448, 16, 512, 8, True),
-    ("text", 448, 32, 512, 8, True),
-    ("vit-l/14 vision", 8, 257, 1024, 16, False),
+SHAPES = (  # (tag, B, T, H, causal), head width 64
+    ("ViT-L/14", 64, 257, 16, False),
+    ("ViT-L/14 336 px", 16, 577, 16, False),
+    ("ViT-B/32", 256, 50, 12, False),
+    ("text", 448, 32, 8, True),
 )
+ABLATIONS = {  # name: [(text of head_attention.cuh, its replacement), ...]
+    "noload": [("    if (tid == 0 && i + 1 < nsteps) load_step(i + 1);\n", ""),
+               ("    mbar_wait(bar_s + 8 * (1 + (i & 1)), (i >> 1) & 1);\n",
+                "    if (i == 0) mbar_wait(bar_s + 8, 0);  // the first tile, so no load is left in flight\n")],
+    "nosoftmax1": [("    if (i < nkt) {\n      if (live) {", "    if (i < nkt) {\n      if (false) {")],
+    "noexp": [('asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));', "y = x;")],
+}
+TOL = 1e-2
 
 
-def _build(csrc: Path, out_dir: Path, tag: str) -> dict:
-    libs = {}
-    for name, fn in (("attention_layer", "tvc_head_attention"), ("quantized_layer", "tvc_head_attention_f32")):
-        so = out_dir / f"{tag}-{name}.so"
-        subprocess.run([*NVCC, "-o", str(so), str(csrc / f"{name}.cu")], check=True)
-        f = getattr(ctypes.CDLL(str(so)), fn)
-        f.argtypes = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-        f.restype = ctypes.c_int
-        libs[fn] = f
-    return libs
+def _build(csrc: Path, out_dir: Path, tag: str, edits=()) -> subprocess.Popen:
+    d = out_dir / tag
+    d.mkdir()
+    for name in ("mha.cu", "head_attention.cuh", "hopper.cuh"):
+        if (csrc / name).exists():
+            shutil.copy(csrc / name, d / name)
+    if edits:
+        src = (d / "head_attention.cuh").read_text()
+        for old, new in edits:
+            if src.count(old) != 1:
+                raise ValueError(f"{tag}: the ablated text is not once in head_attention.cuh")
+            src = src.replace(old, new)
+        (d / "head_attention.cuh").write_text(src)
+    return subprocess.Popen([*NVCC, "-o", str(d / "mha.so"), str(d / "mha.cu")])
 
 
-def _time_ms(run, iters: int = 50) -> float:
+def _load(so: Path):
+    f = ctypes.CDLL(str(so)).tvc_mha
+    f.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
+    f.restype = ctypes.c_int
+    return f
+
+
+def _time_ms(run, iters: int = 30) -> float:
     for _ in range(3):
         run()
     torch.cuda.synchronize()
     events = []
     for _ in range(iters):
         s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(1_000_000)  # the card spins while the host enqueues: device time only
         s.record()
         run()
         e.record()
@@ -62,39 +94,61 @@ def _time_ms(run, iters: int = 50) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in events)
 
 
-def main(other: str) -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--other", help="another tree's tvc_torch/csrc")
+    ap.add_argument("--ablate", action="store_true")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("needs an NVIDIA GPU", file=sys.stderr)
         return 1
+    (REPO / "build").mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=REPO / "build") as tmp:
-        ours = _build(REPO / "tvc_torch" / "csrc", Path(tmp), "this")
-        theirs = _build(Path(other), Path(tmp), "other")
+        tmp = Path(tmp)
+        builds = {"this": _build(REPO / "tvc_torch" / "csrc", tmp, "this")}
+        if args.other:
+            builds["other"] = _build(Path(args.other), tmp, "other")
+        if args.ablate:
+            for name, edits in ABLATIONS.items():
+                builds[name] = _build(REPO / "tvc_torch" / "csrc", tmp, name, edits)
+        for name, proc in builds.items():
+            if proc.wait() != 0:
+                raise RuntimeError(f"nvcc failed for {name}")
+        kernels = {name: _load(tmp / name / "mha.so") for name in builds}
         gen = torch.Generator(device="cuda").manual_seed(0)
         stream = torch.cuda.current_stream().cuda_stream
-        differ = 0
-        for tag, seqs, T, W, H, causal in SHAPES:
-            qkv = torch.randn((seqs * T, 3 * W), generator=gen, device="cuda").to(torch.bfloat16)
-            for fn, dtype in (("tvc_head_attention", torch.bfloat16), ("tvc_head_attention_f32", torch.float32)):
-                a = torch.empty((seqs * T, W), dtype=dtype, device="cuda")
-                b = torch.empty_like(a)
-                for lib, out in ((ours, a), (theirs, b)):
-                    rc = lib[fn](qkv.data_ptr(), out.data_ptr(), seqs, T, W, H, int(causal), stream)
-                    if rc:
-                        raise RuntimeError(f"{fn}: cudaError {rc}")
+        worst = 0.0
+        for tag, B, T, H, causal in SHAPES:
+            q, k, v = (torch.randn((B, T, H, 64), generator=gen, device="cuda").bfloat16() for _ in range(3))
+            qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+            want = mha_reference(q, k, v, causal).float()
+            runs, errs, refused = {}, {}, []
+            for name, f in kernels.items():
+                out = torch.empty_like(q)
+                run = (lambda f=f, out=out: f(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                                              H * 64, B, T, H, 64, 1, int(causal), 0.125, stream))
+                if run():
+                    if name == "other":  # an older kernel may refuse the shape (the CUDA-core one took T <= 257)
+                        refused.append(name)
+                        continue
+                    raise RuntimeError(f"{name} tvc_mha failed at {tag}")
+                runs[name] = run
                 torch.cuda.synchronize()
-                n = int((a != b).sum())
-                differ += n
-                run = {name: (lambda lib=lib, out=out: lib[fn](qkv.data_ptr(), out.data_ptr(), seqs, T, W, H,
-                                                              int(causal), stream))
-                       for name, lib, out in (("this", ours, a), ("other", theirs, b))}
-                times = {"this": [], "other": []}
-                for name in ("this", "other", "other", "this"):
-                    times[name].append(_time_ms(run[name]))
-                print(f"{fn} {tag} seqs={seqs} T={T} W={W} H={H}{' causal' if causal else ''}: "
-                      f"{n} of {a.numel()} outputs differ, max |d| {float((a.float() - b.float()).abs().max()):.3e}; "
-                      f"ms this {times['this']} other {times['other']}")
-    return 1 if differ else 0
+                errs[name] = float(((out.float() - want).abs() / want.abs().clamp(min=1.0)).max())
+                if name in ("this", "other"):
+                    worst = max(worst, errs[name])
+            times = {name: [] for name in runs}
+            order = ["this", "other", "other", "this"] if "other" in runs else ["this"]
+            for name in order + [n for n in runs if n not in ("this", "other")]:
+                times[name].append(_time_ms(runs[name]))
+            sdpa = _time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, is_causal=causal))
+            parts = [f"{name} {'/'.join(f'{t:.4f}' for t in times[name])} ms (err {errs[name]:.2e})"
+                     for name in runs] + [f"{name} refused the shape" for name in refused]
+            print(f"{tag} B={B} T={T} H={H}{' causal' if causal else ''}: sdpa {sdpa:.4f} ms; " + "; ".join(parts),
+                  flush=True)
+    print(f"largest difference from the plain version: {worst:.3e} (tolerance {TOL})")
+    return 0 if worst <= TOL else 1
 
 
 if __name__ == "__main__":
-    sys.exit(main(sys.argv[1]))
+    sys.exit(main())

@@ -105,3 +105,17 @@ def test_wrappers_raise_off_cpu_without_kernel_operands(layer):
     args = [a.to("meta") for a in _args(layer, MLP, "float32", "torch")]
     with pytest.raises(ValueError):
         t_mlp(*args)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_attention_layer_matches_pallas_past_t_257(causal):
+    """T = 300, past the old CUDA kernel's cap (the tensor-core attention
+    has none, like the JAX function): the plain version against the Pallas
+    layer kernel, f32 to 2e-5."""
+    rng = np.random.default_rng(300)
+    f = lambda *shape, scale=1.0: (scale * rng.standard_normal(shape)).astype(np.float32)
+    p = dict(x=f(1, 300, 64), ln_s=f(64), ln_b=f(64), wqkv=f(64, 192, scale=0.05), bqkv=f(192),
+             wout=f(64, 64, scale=0.05), bout=f(64))
+    want = np.asarray(j_attn(*_args(p, ATTN, "float32", "jax"), heads=1, causal=causal, block_b=1))
+    got = attention_layer_reference(*_args(p, ATTN, "float32", "torch"), heads=1, causal=causal).numpy()
+    np.testing.assert_allclose(got, want, atol=2e-5, rtol=0)

@@ -1,6 +1,6 @@
 """The port's CUDA kernels against their plain versions on the card, at
 ragged shapes the main path does not give them (partial tiles, K not a
-multiple of the k-tile, T from 1 to 257, one-token sequences) and at the
+multiple of the k-tile, T from 1 to 577, one-token sequences) and at the
 Qwen2-7B and Qwen2-1.5B decodes' shapes, and the operands they refuse.
 
 Marked ``cuda``: each test skips without a GPU. On the card:
@@ -161,12 +161,20 @@ def test_kernels_refuse_what_they_do_not_take(dev):
         fused_consistency_scores(x.bfloat16(), x.bfloat16(), x[:, None].bfloat16(), x[:, None].bfloat16())
 
 
-def test_layer_kernels_refuse_t_above_257(dev):
-    p = _layer(np.random.default_rng(1), 1, 258, 64, 256, dev)
-    with pytest.raises(ValueError, match="T <= 257"):
-        fused_attention_layer(p["x"], *p["ln"], *p["attn"], heads=1)
-    with pytest.raises(ValueError, match="T <= 257"):
-        fused_attention_layer_i8(p["x"], *p["ln"], *_i8(p["attn"]), heads=1)
+@pytest.mark.parametrize("causal", [False, True])
+def test_layer_kernels_take_t_above_257(dev, causal):
+    """The tensor-core attention has no cap on T: both layer kernels at
+    T = 300 match their plain versions, and two calls give the same bits."""
+    p = _layer(np.random.default_rng(1), 2, 300, 128, 512, dev)
+    for kernel, plain, args in (
+        (fused_attention_layer, attention_layer_reference, (p["x"], *p["ln"], *p["attn"])),
+        (fused_attention_layer_i8, attention_layer_i8_reference, (p["x"], *p["ln"], *_i8(p["attn"]))),
+    ):
+        got = kernel(*args, heads=2, causal=causal)
+        want = plain(*args, heads=2, causal=causal)
+        torch.cuda.synchronize()
+        assert _scaled_err(got, want) <= 3e-2
+        assert torch.equal(got, kernel(*args, heads=2, causal=causal))
 
 
 def test_int8_kernels_refuse_what_they_do_not_take(dev):
@@ -250,6 +258,7 @@ def _decode_err(got, want):
     (3, 2, 7, 1, 64, torch.bfloat16), (5, 4, 7, 63, 128, torch.bfloat16), (2, 1, 8, 512, 128, torch.float32),
     (7, 2, 2, 33, 64, torch.float32), (576, 4, 7, 64, 128, torch.bfloat16), (576, 4, 7, 512, 128, torch.bfloat16),
     (576, 2, 7, 64, 64, torch.bfloat16), (4, 4, 1, 2000, 128, torch.bfloat16), (960, 2, 6, 64, 128, torch.bfloat16),
+    (6, 2, 2, 40, 16, torch.float32), (5, 2, 3, 33, 32, torch.bfloat16),
 ])
 def test_decode_gqa_attention_matches_plain(dev, B, KV, R, S, D, dtype):
     q, k, v, mask = _decode_operands(np.random.default_rng(B * S + D), B, KV, R, S, D, dtype, dev)
@@ -305,6 +314,8 @@ def test_qwen_kernels_refuse_what_they_do_not_take(dev):
 @pytest.mark.parametrize("M,K,N", [
     (1, 16, 16), (37, 208, 144), (130, 64, 272), (15, 1536, 17920), (15, 1536, 2048),
     (960, 1536, 2048), (960, 1536, 1536), (960, 1536, 17920), (960, 8960, 1536), (1024, 1536, 2048),
+    (1, 1536, 2048), (1, 8960, 1536), (15, 8960, 1536), (64, 1536, 17920), (64, 8960, 1536), (200, 1552, 4112),
+    (65, 1536, 2048), (128, 64, 272),
 ])
 def test_w8_matmul_matches_plain(dev, M, K, N):
     x, w_q, s = _w8a8_operands(np.random.default_rng(M + K + N + 1), M, K, N, torch.bfloat16, dev)
@@ -315,7 +326,45 @@ def test_w8_matmul_matches_plain(dev, M, K, N):
     assert w8_matmul.launches == before + 1
     assert got.dtype == torch.bfloat16 and got.shape == (M, N)
     assert _scaled_err(got, want) <= 1e-2
-    assert torch.equal(got, w8_matmul(x, w_q, s))  # no split-K, no atomics: the same bits every run
+    assert torch.equal(got, w8_matmul(x, w_q, s))  # fixed-order sums, no atomics: the same bits every run
+
+
+# f32 activations (the tiny and f32 configurations), at QwenConfig.tiny()'s
+# layer shapes: f32 products summed in f32 in another order than cuBLAS's
+# (~1e-7 relative), then the same f32 scaling: 1e-5 of max(1, |y|).
+@pytest.mark.parametrize("M,K,N", [(7, 64, 128), (7, 64, 64), (7, 64, 256), (7, 128, 64), (130, 64, 128),
+                                   (1, 128, 64), (960, 1536, 2048)])
+def test_w8_matmul_f32_matches_plain(dev, M, K, N):
+    x, w_q, s = _w8a8_operands(np.random.default_rng(M + K + N + 2), M, K, N, torch.float32, dev)
+    before = w8_matmul.launches
+    got = w8_matmul(x, w_q, s)
+    want = w8_matmul_plain(x, w_q, s)
+    torch.cuda.synchronize()
+    assert w8_matmul.launches == before + 1
+    assert got.dtype == torch.float32 and got.shape == (M, N)
+    assert _scaled_err(got, want) <= 1e-5
+    assert torch.equal(got, w8_matmul(x, w_q, s))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_w8_matmul_takes_unaligned_operands(dev, dtype):
+    """x as an [M, K] view one element into a flat buffer, a transposed
+    (non-contiguous) x, and w_q one byte into a flat buffer: the wrapper
+    copies them and matches the plain version."""
+    x, w_q, s = _w8a8_operands(np.random.default_rng(11), 33, 128, 96, dtype, dev)
+    flat = torch.zeros(x.numel() + 1, dtype=dtype, device=dev)
+    flat[1:].copy_(x.reshape(-1))
+    x_off = flat[1:].view(33, 128)
+    wflat = torch.zeros(w_q.numel() + 1, dtype=torch.int8, device=dev)
+    wflat[1:].copy_(w_q.reshape(-1))
+    w_off = wflat[1:].view(128, 96)
+    assert x_off.data_ptr() % 16 and w_off.data_ptr() % 16
+    want = w8_matmul_plain(x, w_q, s)
+    tol = 1e-2 if dtype == torch.bfloat16 else 1e-5
+    for xx, ww in ((x_off, w_q), (x, w_off), (x_off, w_off), (x.t().contiguous().t(), w_q)):
+        got = w8_matmul(xx, ww, s)
+        torch.cuda.synchronize()
+        assert _scaled_err(got, want) <= tol
 
 
 def test_w8_matmul_stacked_is_the_flat_kernel_on_the_layer(dev):
@@ -334,8 +383,6 @@ def test_w8_matmul_stacked_is_the_flat_kernel_on_the_layer(dev):
 
 def test_w8_matmul_refuses_what_it_does_not_take(dev):
     x, w_q, s = _w8a8_operands(np.random.default_rng(7), 4, 64, 32, torch.bfloat16, dev)
-    with pytest.raises(ValueError, match="bf16 activations"):  # f32 activations: not ported
-        w8_matmul(x.float(), w_q, s)
     with pytest.raises(ValueError):  # f16 activations
         w8_matmul(x.half(), w_q, s)
     with pytest.raises(ValueError):  # float weights where int8 are taken
@@ -344,8 +391,8 @@ def test_w8_matmul_refuses_what_it_does_not_take(dev):
         w8_matmul(x, w_q, s[:16])
     with pytest.raises(ValueError):  # K = 72: not a multiple of 16
         w8_matmul(*_w8a8_operands(np.random.default_rng(8), 4, 72, 32, torch.bfloat16, dev))
-    with pytest.raises(ValueError):  # x off a 16-byte boundary
-        w8_matmul(torch.zeros(4 * 64 + 1, dtype=torch.bfloat16, device=dev)[1:].view(4, 64), w_q, s)
+    with pytest.raises(ValueError):  # 3-d x
+        w8_matmul(x[None], w_q, s)
     with pytest.raises(ValueError):  # layer out of range
         w8_matmul_stacked(x, w_q[None], s[None], 1)
 
@@ -357,6 +404,8 @@ def test_w8_matmul_refuses_what_it_does_not_take(dev):
     (256, 50, 12, 64, torch.bfloat16, False), (64, 257, 16, 64, torch.bfloat16, False),
     (448, 32, 8, 64, torch.bfloat16, True), (5, 17, 2, 32, torch.bfloat16, False), (3, 1, 2, 64, torch.bfloat16, True),
     (6, 257, 4, 64, torch.float32, False), (7, 17, 2, 32, torch.float32, True), (2, 77, 3, 32, torch.float32, False),
+    (2, 577, 4, 64, torch.bfloat16, False), (3, 300, 2, 64, torch.bfloat16, True), (2, 129, 3, 32, torch.bfloat16, True),
+    (16, 577, 16, 64, torch.bfloat16, False),
 ])
 def test_fused_mha_matches_plain(dev, B, T, H, D, dtype, causal):
     """bf16: 1e-2 of max(1, |y|) (a softmax weight one f32 ulp apart can
@@ -368,6 +417,7 @@ def test_fused_mha_matches_plain(dev, B, T, H, D, dtype, causal):
     torch.cuda.synchronize()
     assert got.dtype == dtype and got.shape == (B, T, H, D)
     assert _scaled_err(got, want) <= (1e-2 if dtype == torch.bfloat16 else 1e-5)
+    assert torch.equal(got, fused_mha(q, k, v, causal=causal))
 
 
 def test_fused_mha_reads_views_of_a_packed_projection(dev):
@@ -386,8 +436,8 @@ def test_fused_mha_refuses_what_it_does_not_take(dev):
     x = torch.zeros((2, 8, 2, 128), device=dev, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="head dims"):
         fused_mha(x, x, x)
-    y = torch.zeros((1, 258, 2, 64), device=dev, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="T <= 257"):
+    y = torch.zeros((1, 258, 2, 64), device=dev, dtype=torch.float32)
+    with pytest.raises(ValueError, match="T <= 257"):  # f32 keeps the CUDA-core kernel's limit
         fused_mha(y, y, y)
     z = torch.zeros((1, 8, 2, 64), device=dev, dtype=torch.float16)
     with pytest.raises(ValueError, match="bf16 or float32"):

@@ -55,6 +55,18 @@ def test_mha_reference_bf16_matches_pallas():
     assert err.max() <= 1e-2
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mha_reference_matches_pallas_long_sequence(dtype):
+    """T = 577 (ViT-L/14 at 336 px), which the tensor-core kernel takes
+    with no cap on T: f32 to 2e-5, bf16 to 1e-2 of max(1, |y|) (one bf16
+    ulp of a weight or of the output, as above)."""
+    q, k, v = _qkv(577, (1, 577, 2, 64))
+    want = np.asarray(j_fused_mha(*(jnp.asarray(a, getattr(jnp, dtype)) for a in (q, k, v))).astype(jnp.float32))
+    got = fused_mha(*(torch.as_tensor(a).to(getattr(torch, dtype)) for a in (q, k, v))).float().numpy()
+    err = np.abs(got - want) / np.maximum(1.0, np.abs(want))
+    assert err.max() <= (TOL if dtype == "float32" else 1e-2)
+
+
 @pytest.fixture(scope="module")
 def fused_models():
     jcfg = dataclasses.replace(JConfig.tiny_coco(), fused_attention=True)

@@ -21,6 +21,7 @@ from tvc_torch.core.kernels.w8_matmul_kernel import (
     w8_matmul_plain,
     w8_matmul_reference,
     w8_matmul_stacked,
+    w8_plan,
 )
 
 
@@ -115,7 +116,7 @@ def test_w8_wrappers_refuse_off_cpu_and_bad_stacks():
     with pytest.raises(ValueError):
         w8_matmul_stacked(x, w_q[0], scale[0], 0)
     meta = lambda t: t.to("meta")
-    with pytest.raises(ValueError, match="bf16 activations"):
+    with pytest.raises(ValueError, match="unsupported device"):  # f32 activations: the f32 kernel's checks
         w8_matmul(meta(x), meta(w_q[0]), meta(scale[0]))
     with pytest.raises(ValueError, match="unsupported device"):
         w8_matmul(meta(x).bfloat16(), meta(w_q[0]), meta(scale[0]))
@@ -131,3 +132,37 @@ def test_w8_wrappers_count_only_kernel_launches():
     w8_matmul(x, w_q[0], scale[0])
     w8_matmul_stacked(x, w_q, scale, 1)
     assert launch_counts()["w8_matmul"] == 0 and launch_counts()["w8_matmul_stacked"] == 0
+
+
+# Every weight-only GEMM shape of QwenConfig.qwen2_1_5b() and QwenConfig.tiny()
+# (hidden, intermediate, q|k|v width): q|k|v, o, gate|up, down.
+_W8_SHAPES = [(1536, 2048), (1536, 1536), (1536, 17920), (8960, 1536),
+              (64, 128), (64, 64), (64, 256), (128, 64)]
+
+
+@pytest.mark.parametrize("M", [1, 15, 64, 960, 1024])
+@pytest.mark.parametrize("K,N", _W8_SHAPES)
+def test_w8_plan_covers_every_output_once(M, K, N):
+    """The bf16 kernel's plan: a tile the kernel has, output tiles that
+    cover [M, N] exactly once, and K ranges of whole 64-deep k-tiles that
+    cover [0, K) once, each non-empty (the last may end in K's masked
+    tail); a pure function of the shape."""
+    bm, bn, splits, per = w8_plan(M, N, K)
+    assert (bm, bn) in ((256, 192), (256, 128), (64, 64))
+    assert w8_plan(M, N, K) == (bm, bn, splits, per)
+    rows = np.zeros(M, int)
+    cols = np.zeros(N, int)
+    for y in range(-(-M // bm)):
+        rows[y * bm : (y + 1) * bm] += 1
+    for x in range(-(-N // bn)):
+        cols[x * bn : (x + 1) * bn] += 1
+    assert (rows == 1).all() and (cols == 1).all()
+    depth = np.zeros(K, int)
+    for z in range(splits):
+        lo, hi = z * per * 64, min(K, (z + 1) * per * 64)
+        assert lo < hi
+        depth[lo:hi] += 1
+    assert (depth == 1).all()
+    blocks = -(-M // bm) * -(-N // bn) * splits
+    if M <= 64:  # the prefix prefill: two blocks an SM stream the weights, or K is split to single tiles
+        assert blocks >= 264 or per == 1

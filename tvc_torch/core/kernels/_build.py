@@ -63,8 +63,11 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "tvc_decode_gqa_smem": [_I, _I, _I],
     },
     "w8_matmul": {
-        # x (bf16), w (int8), scale (f32), out (bf16), M, N, K, stream
-        "tvc_w8_matmul": [_P, _P, _P, _P, _I, _I, _I, _P],
+        # x (bf16), w (int8), scale (f32), out (bf16), ws (f32 or null), M, N,
+        # K, bm, bn, splits, per, stream
+        "tvc_w8_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+        # x (f32), w (int8), scale (f32), out (f32), M, N, K, stream
+        "tvc_w8_matmul_f32": [_P, _P, _P, _P, _I, _I, _I, _P],
     },
     "mha": {
         # q, k, v, out, ld, B, T, H, D, is_bf16, causal, scale, stream

@@ -10,8 +10,9 @@ dtype.
 
 For CUDA tensors the wrapper launches the hand-written kernel of
 ``tvc_torch/csrc/mha.cu`` (the per-head attention of ``head_attention.cuh``
-on [B, T, H, D] operands; bf16 or f32, head widths 32 and 64, T <= 257;
-other shapes raise ``ValueError``); for CPU tensors it computes the plain
+on [B, T, H, D] operands, head widths 32 and 64: bf16 on the tensor cores
+at any T; f32 on the CUDA cores at T <= 257, since the tensor cores would
+mean TF32; other shapes raise ``ValueError``); for CPU tensors it computes the plain
 version beside it, :func:`mha_reference`. ``fused_mha.launches`` counts the
 launches. Inference only: no gradient, as the TPU kernel defines none.
 """
@@ -26,7 +27,7 @@ from torch import Tensor
 from tvc_torch.core.kernels import _build
 
 HEAD_DIMS = (32, 64)  # the kernel's head widths (tiny configs, every CLIP preset)
-MAX_T = 257  # the kernel's shared memory is sized for T <= 257 (ViT-L/14)
+MAX_T_F32 = 257  # the f32 kernel's shared memory holds T <= 257 (ViT-L/14)
 
 
 def mha_reference(q: Tensor, k: Tensor, v: Tensor, causal: bool = False) -> Tensor:
@@ -56,7 +57,7 @@ def _row_stride(ts, T: int, H: int, D: int, elem: int):
 def fused_mha(q: Tensor, k: Tensor, v: Tensor, causal: bool = False, block_heads: int = 64) -> Tensor:
     """Multi-head attention: q, k, v [B, T, H, D] -> [B, T, H, D] in q's
     dtype. ``block_heads`` is the TPU kernel's heads per grid step, kept for
-    the signature; the CUDA kernel runs one block per (b, h)."""
+    the signature; the CUDA kernels tile (b, h) themselves."""
     if q.device.type == "cpu":
         return mha_reference(q, k, v, causal)
     if q.device.type != "cuda":
@@ -70,8 +71,8 @@ def fused_mha(q: Tensor, k: Tensor, v: Tensor, causal: bool = False, block_heads
     B, T, H, D = q.shape
     if D not in HEAD_DIMS:
         raise ValueError(f"the attention kernel takes head dims {HEAD_DIMS}; got D={D}")
-    if T > MAX_T:
-        raise ValueError(f"the attention kernel takes T <= {MAX_T}; got T={T}")
+    if q.dtype == torch.float32 and T > MAX_T_F32:
+        raise ValueError(f"the f32 attention kernel takes T <= {MAX_T_F32}; got T={T}")
     out = torch.empty((B, T, H, D), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out

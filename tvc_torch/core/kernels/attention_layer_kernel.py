@@ -6,8 +6,9 @@
 
 For CUDA tensors the wrappers launch the hand-written kernels of
 ``tvc_torch/csrc/attention_layer.cu``: a tiled bf16 tensor-core GEMM with a
-LayerNorm prologue and a bias / quick_gelu / residual epilogue, and a
-per-(sequence, head) attention kernel. An attention layer is three launches
+LayerNorm prologue and a bias / quick_gelu / residual epilogue, and the
+per-head attention of ``head_attention.cuh`` (wgmma tiles of 64 query rows,
+any sequence length). An attention layer is three launches
 and an MLP layer two, because the TPU kernel's VMEM-resident weights and
 per-sequence qkv do not fit a Hopper block's shared memory (the source note
 gives the sizes). For CPU tensors they compute the plain PyTorch versions
@@ -31,7 +32,6 @@ from tvc_torch.core.kernels import _build
 
 EPI_BIAS, EPI_GELU, EPI_RESIDUAL = 0, 1, 2
 HEAD_DIM = 64  # the attention kernel's head width
-MAX_T = 257  # the attention kernel's shared memory is sized for T <= 257 (ViT-L/14)
 
 
 def layernorm_f32(x: Tensor, scale: Tensor, bias: Tensor, eps: float = 1e-5) -> Tensor:
@@ -160,8 +160,6 @@ def fused_attention_layer(
     )
     if W != heads * HEAD_DIM:
         raise ValueError(f"the attention kernel takes head width {HEAD_DIM}; got W={W}, heads={heads}")
-    if T > MAX_T:
-        raise ValueError(f"the attention kernel takes T <= {MAX_T}; got T={T}")
     M = B * T
     lib = _build.load("attention_layer")
     stream = torch.cuda.current_stream(x.device).cuda_stream

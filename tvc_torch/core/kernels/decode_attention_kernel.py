@@ -11,8 +11,8 @@ operands scaled by D^-1/2, the mask added, an f32 softmax, the weights
 rounded to q's dtype, AV accumulated in f32 and rounded to q's dtype.
 
 For CUDA tensors the wrapper launches the hand-written kernel of
-``tvc_torch/csrc/decode_attention.cu`` (one block per (b, kv); D 64 or 128,
-R <= 8); for CPU tensors it computes the plain version beside it, which is
+``tvc_torch/csrc/decode_attention.cu`` (one block per (b, kv); D 16, 32,
+64 or 128, R <= 8); for CPU tensors it computes the plain version beside it, which is
 the JAX package's oracle ``decode_gqa_reference``.
 
 ``decode_gqa_attention_stacked(q, k, v [L, B, KV, S, D], mask, layer)`` is
@@ -33,7 +33,7 @@ from torch import Tensor
 
 from tvc_torch.core.kernels import _build
 
-HEAD_DIMS = (64, 128)  # the kernel's head widths
+HEAD_DIMS = (16, 32, 64, 128)  # the kernel's head widths (16: QwenConfig.tiny())
 MAX_R = 8  # query heads per KV head the kernel takes
 MAX_SMEM = 227 * 1024  # shared memory a Hopper block can use
 

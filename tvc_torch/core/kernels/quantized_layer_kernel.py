@@ -37,7 +37,6 @@ from torch import Tensor
 from tvc_torch.core.kernels import _build
 from tvc_torch.core.kernels.attention_layer_kernel import (
     HEAD_DIM,
-    MAX_T,
     _check_cuda_operands,
     _mm_f32,
     layernorm_f32,
@@ -203,8 +202,6 @@ def fused_attention_layer_i8(
     _check_widths(width=W)
     if W != heads * HEAD_DIM:
         raise ValueError(f"the attention kernel takes head width {HEAD_DIM}; got W={W}, heads={heads}")
-    if T > MAX_T:
-        raise ValueError(f"the attention kernel takes T <= {MAX_T}; got T={T}")
     M = B * T
     lib = _build.load("quantized_layer")
     stream = torch.cuda.current_stream(x.device).cuda_stream

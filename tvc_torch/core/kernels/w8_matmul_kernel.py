@@ -25,9 +25,12 @@ is the weight-only GEMM (the JAX package's default ``quant_gemm="w8"``):
 the activations stay in the model dtype, the int8 weights convert exactly
 to it, the products are summed in f32 and scaled per output channel in
 f32, then rounded once to x's dtype. For CUDA tensors the wrapper launches
-the kernel of ``tvc_torch/csrc/w8_matmul.cu`` (bf16 activations only: the
-card's path; f32 activations raise); for CPU tensors it computes the plain
-version :func:`w8_matmul_plain`. :func:`w8_matmul_reference` is another
+the kernels of ``tvc_torch/csrc/w8_matmul.cu``: bf16 activations on the
+tensor cores (the card's path; tile and split of K from :func:`w8_plan`),
+f32 activations on the CUDA cores (the tiny and f32 configurations: f32
+products summed in f32, no TF32). An operand that does not start on a
+16-byte boundary, or an x that is not contiguous, is copied first. For
+CPU tensors it computes the plain version :func:`w8_matmul_plain`. :func:`w8_matmul_reference` is another
 function: the JAX package's dequantize-then-matmul oracle, which rounds
 every dequantized weight to x's dtype first; the decode takes it for
 activation blocks above the kernels' row limit, as the JAX package does.
@@ -152,25 +155,76 @@ def w8_matmul_reference(x: Tensor, w_q: Tensor, scale: Tensor) -> Tensor:
     return torch.matmul(x, w)
 
 
+SMS = 132  # streaming multiprocessors of an H100 SXM
+W8_BK = 64  # the kernel's k-tile
+
+
+def w8_plan(M: int, N: int, K: int):
+    """The bf16 kernel's tiling for an [M, K] x [K, N] product: ``(bm, bn,
+    splits, per)``: bm x bn output tiles (256 x 192, 256 x 128 or 64 x 64)
+    and ``splits`` ranges of ``per`` 64-deep k-tiles each (the last range
+    may hold fewer; the kernel masks K's tail). A pure function of the
+    shape.
+
+    Above 64 rows a block converts each weight tile once for 256 rows (one
+    block an SM). Where the 256 x 128 tiles fill the card, 192 columns are
+    taken instead when that needs fewer waves' worth of columns (gate|up:
+    3 waves of 192 against 5 of 128, the last nearly empty). Where the
+    tiles are fewer than the SMs, K is split into as many ranges as fit
+    beside them in one wave (each range costs a pass over the [M, N] f32
+    sums). At M <= 64 (the prefix prefill) the weights dominate: 64 x 64
+    tiles (two blocks an SM) with K split until every SM streams weights
+    twice over."""
+    nk = -(-K // W8_BK)
+    cdiv = lambda a, b: -(-a // b)
+    if M <= 64:
+        blocks = cdiv(N, 64)
+        per = nk if blocks >= 2 * SMS else max(1, nk // cdiv(2 * SMS, blocks))
+        return 64, 64, cdiv(nk, per), per
+    bm = 256
+    blocks = cdiv(M, bm) * cdiv(N, 128)
+    if blocks >= SMS:
+        wide = cdiv(M, bm) * cdiv(N, 192)
+        if wide >= SMS and cdiv(wide, SMS) * 192 < cdiv(blocks, SMS) * 128:
+            return bm, 192, 1, nk
+    per = cdiv(nk, max(1, min(nk, SMS // blocks)))
+    return bm, 128, cdiv(nk, per), per
+
+
+def _aligned(t: Tensor) -> Tensor:
+    """``t`` itself when it is contiguous and starts on a 16-byte boundary
+    (the kernels' 16-byte loads), else a fresh contiguous copy (which
+    ``torch.empty`` aligns)."""
+    if t.is_contiguous() and t.data_ptr() % 16 == 0:
+        return t
+    out = torch.empty(t.shape, dtype=t.dtype, device=t.device)
+    out.copy_(t)
+    return out
+
+
 def w8_matmul(x: Tensor, w_q: Tensor, scale: Tensor) -> Tensor:
-    """x [M, K] @ (w_q int8 [K, N] * scale f32 [N]) with bf16 activations
-    (f32 too on the CPU); returns [M, N] in x's dtype."""
+    """x [M, K] (bf16 or f32) @ (w_q int8 [K, N] * scale f32 [N]); returns
+    [M, N] in x's dtype."""
     if x.device.type == "cpu":
         return w8_matmul_plain(x, w_q, scale)
-    if x.dtype == torch.float32:
-        raise ValueError("w8_matmul: the CUDA kernel takes bf16 activations; f32 activations are not ported")
-    _check_operands(x, w_q, scale, dtypes=(torch.bfloat16,))
-    if x.data_ptr() % 16 or w_q.data_ptr() % 16:
-        raise ValueError("w8_matmul: x and w_q must start on 16-byte boundaries (16-byte loads)")
+    if x.device.type == "cuda" and x.ndim == 2 and w_q.ndim == 2:
+        x, w_q = _aligned(x), _aligned(w_q)
+    _check_operands(x, w_q, scale)
     M, K = x.shape
     N = w_q.shape[1]
     lib = _build.load("w8_matmul")
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    _build.check(
-        lib.tvc_w8_matmul(x.data_ptr(), w_q.data_ptr(), scale.data_ptr(), out.data_ptr(), M, N, K, stream),
-        "tvc_w8_matmul",
-    )
+    if x.dtype == torch.float32:
+        code = lib.tvc_w8_matmul_f32(x.data_ptr(), w_q.data_ptr(), scale.data_ptr(), out.data_ptr(), M, N, K, stream)
+    else:
+        bm, bn, splits, per = w8_plan(M, N, K)
+        ws = torch.empty((splits, M, N), dtype=torch.float32, device=x.device) if splits > 1 else None
+        code = lib.tvc_w8_matmul(
+            x.data_ptr(), w_q.data_ptr(), scale.data_ptr(), out.data_ptr(), None if ws is None else ws.data_ptr(),
+            M, N, K, bm, bn, splits, per, stream,
+        )
+    _build.check(code, "tvc_w8_matmul")
     w8_matmul.launches += 1
     return out
 

@@ -19,10 +19,10 @@
 //    8 warps each holding a 32x64 block of 16x16x16 bf16 WMMA accumulators
 //    in f32; the next k-tile is loaded into registers while the tensor
 //    cores work on the current one.
-//  * head_attention_kernel<bf16> (head_attention.cuh): one block per
-//    (sequence, head), T <= 257, the T x 64 q, k and v slices in dynamic
-//    shared memory; f32 softmax, weights rounded to bf16, P.V accumulated
-//    in f32 and rounded to bf16.
+//  * head_attention_tc_kernel<bf16> (head_attention.cuh): 64 query rows
+//    of one (sequence, head) a block, any T, Q.K^T and P.V by wgmma on the
+//    tensor cores; f32 softmax, weights rounded to bf16, P.V accumulated in
+//    f32 and rounded to bf16.
 //
 // Bound: operations. A layer's GEMMs do 2 M K N flops on 2 (M K + K N + M N)
 // bytes: at ViT-B/32 (M = 64 x 50, K = 768) that is ~600 flops per byte,

@@ -140,7 +140,7 @@ __global__ void __launch_bounds__(kThreads)
   __syncthreads();
 
   // pass 2: out[r, d] = sum_s w[r, s] v[s, d], ascending s
-  constexpr int kGroups = kThreads / D;  // 1 at D = 128, 2 at D = 64
+  constexpr int kGroups = kThreads / D;  // 1 at D = 128, 2 at D = 64, ... 8 at D = 16
   const int d = tid % D, g0 = tid / D;
   float acc[kMaxR];
 #pragma unroll
@@ -197,16 +197,21 @@ extern "C" int tvc_decode_gqa_smem(int R, int S, int D) { return (int)decode_sme
 
 // out [B, KV, R, D] = attention of q [B, KV, R, D] over k, v [B, KV, S, D]
 // with the additive f32 mask [B, S]; is_bf16 != 0: q, k, v, out bf16, else f32.
-// D is 64 or 128, 1 <= R <= 8.
+// D is 16, 32, 64 or 128 (16: QwenConfig.tiny()), 1 <= R <= 8.
 extern "C" int tvc_decode_gqa(const void* q, const void* k, const void* v, const void* mask,
                               void* out, int B, int KV, int R, int S, int D, int is_bf16,
                               void* stream) {
-  if (R < 1 || R > kMaxR || (D != 64 && D != 128) || S < 1) return (int)cudaErrorInvalidValue;
+  if (R < 1 || R > kMaxR || S < 1) return (int)cudaErrorInvalidValue;
   if (B < 1 || KV < 1) return (int)cudaGetLastError();
   cudaStream_t st = (cudaStream_t)stream;
-  if (is_bf16)
-    return D == 128 ? launch_decode<bf16, 128>(q, k, v, mask, out, B, KV, R, S, st)
-                    : launch_decode<bf16, 64>(q, k, v, mask, out, B, KV, R, S, st);
-  return D == 128 ? launch_decode<float, 128>(q, k, v, mask, out, B, KV, R, S, st)
-                  : launch_decode<float, 64>(q, k, v, mask, out, B, KV, R, S, st);
+#define TVC_DECODE_D(DD)                                                                     \
+  if (D == DD)                                                                               \
+    return is_bf16 ? launch_decode<bf16, DD>(q, k, v, mask, out, B, KV, R, S, st)            \
+                   : launch_decode<float, DD>(q, k, v, mask, out, B, KV, R, S, st);
+  TVC_DECODE_D(128)
+  TVC_DECODE_D(64)
+  TVC_DECODE_D(32)
+  TVC_DECODE_D(16)
+#undef TVC_DECODE_D
+  return (int)cudaErrorInvalidValue;
 }

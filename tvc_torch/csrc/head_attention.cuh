@@ -4,20 +4,49 @@
 // standalone multi-head attention on [B, T, H, D] q, k, v), each of which
 // compiles its own copy.
 //
-// The kernel reads q, k and v through three base pointers and one row
+// The kernels read q, k and v through three base pointers and one row
 // stride `ld` (elements): row t of sequence s, head h starts at
 // base + (s * T + t) * ld + h * D. The layer kernels pass the packed
 // [seqs * T, 3W] q | k | v activation (bases qkv, qkv + W, qkv + 2W,
 // ld = 3W); mha.cu passes three [B, T, H, D] tensors (ld = H * D, or the
 // row stride of q | k | v views of a packed projection). out is
-// [seqs * T, H * D]. One block per (sequence, head): the T x D q, k and v
-// slices go to dynamic shared memory sized by T (~104 KB at T = 257 in
-// bf16, ~202 KB in f32, above the 48 KB static limit, so the launcher
-// raises the block's limit first). Each warp takes a query row at a time:
-// logits of the operands in f32, the causal mask, the f32 softmax with
-// warp shuffles, the weights rounded to bf16 as the TPU kernels do (bf16
-// operands only; f32 operands keep f32 weights), then P.V accumulated in
-// f32. Head widths 32 and 64, T <= 257.
+// [seqs * T, H * D]. Head widths 32 and 64.
+//
+// What every path computes (the TPU kernels' function and rounding
+// points): logits = (q . k summed in f32) * scale, the scale applied after
+// the dot; the optional causal mask (key <= query); an f32 softmax whose
+// normalizer is the row's sum of exp(s - m) with m the row's max; the
+// normalized weights rounded to bf16 for bf16 operands (f32 operands keep
+// f32 weights); P.V summed in f32, rounded once to the output type.
+//
+// bf16 operands: head_attention_tc_kernel, on the tensor cores, any T.
+//   A block (one warpgroup) takes 64 query rows of one (sequence, head),
+//   with the q tile in shared memory, and walks the 64-row key tiles twice
+//   through a 2-stage ring that one thread fills by TMA. Sweep 1: S = Q.K^T by wgmma
+//   (m64n64k16, f32 accumulators in registers), scaled and masked; the
+//   row max and the normalizer kept by online rescaling (l = l e^(m - m')
+//   + sum e^(s - m')), so sweep 1 reads only k. Sweep 2: S recomputed tile
+//   by tile, P = bf16(e^(s - m) * (1 / l)) formed in the accumulator
+//   registers, which are already wgmma's A-operand layout, and O += P.V by
+//   wgmma with A from registers and v read MN-major from shared memory.
+//   Flash attention's unnormalized rescaled accumulator is not used: the
+//   TPU kernels round the normalized weights to bf16, and so does this.
+//   Against a softmax with the exact max and an exact division, the online
+//   normalizer and the reciprocal differ by a few f32 ulps, which moves a
+//   weight across a bf16 rounding boundary now and then (an output moves
+//   by at most 2^-8 |w v|): the tolerance of the bf16 outputs, 1e-2 of
+//   max(1, |y|), holds it. Work: 6 T^2 D flops per (b, h) (Q.K^T twice).
+//   e^x is taken as 2^(x log2 e) on the special-function unit, with the
+//   subtraction of the max folded into the multiply (one FFMA), and it is
+//   skipped for warps that hold no query row and for key columns past T
+//   (it would be 0). What holds it back: the tile loads (the `noload`
+//   ablation of scripts/compare_head_attention.py runs ~25 % faster at
+//   ViT-L/14) and the second Q.K^T.
+// f32 operands: head_attention_kernel, on the CUDA cores (tensor cores
+//   would mean TF32, which the f32 function excludes), T <= 257: one block
+//   per (sequence, head), the T x D slices in dynamic shared memory (~202
+//   KB at T = 257), each warp a query row at a time: logits, the causal
+//   mask, the f32 softmax with warp shuffles, P.V accumulated in f32.
 
 #pragma once
 
@@ -25,6 +54,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -42,62 +73,47 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-constexpr int kMaxT = 257;  // ViT-L/14 at 224 px: 16 x 16 patches + class token
+constexpr int kMaxT = 257;  // the f32 kernel's limit: ViT-L/14 at 224 px, 16 x 16 patches + class token
 constexpr int kAttnWarps = 4;
 
-// The operands are read as pairs of adjacent values: __nv_bfloat162 for
-// bf16, float2 for f32.
-template <typename InT> struct PairOf;
-template <> struct PairOf<bf16> { using type = __nv_bfloat162; };
-template <> struct PairOf<float> { using type = float2; };
-
-__device__ __forceinline__ float2 to_float2(__nv_bfloat162 p) { return __bfloat1622float2(p); }
-__device__ __forceinline__ float2 to_float2(float2 p) { return p; }
-__device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ float to_f32(float x) { return x; }
-
-// Dynamic shared memory for T rows of head width D in InT: q, k (rows of
-// pairs padded by one pair, so that lane j reading row j hits bank
-// (j + d) % 32 for bf16 and a half warp's 16 rows spread over all 32
-// banks for f32), v, and one row of logits per warp; each part starts on
-// a 16-byte boundary.
-template <typename InT, int D>
+// Dynamic shared memory of the f32 kernel for T rows of head width D: q,
+// k (rows of float2 pairs padded by one pair, so that a half warp's 16
+// rows spread over all 32 banks), v, and one row of logits per warp; each
+// part starts on a 16-byte boundary.
+template <int D>
 struct AttnSmem {
-  using Pair = typename PairOf<InT>::type;
   static constexpr int kKLd = D / 2 + 1;  // pairs of a padded k row
-  __host__ __device__ static size_t q_bytes(int T) { return (size_t)T * D * sizeof(InT); }
-  __host__ __device__ static size_t k_bytes(int T) { return ((size_t)T * kKLd * sizeof(Pair) + 15) / 16 * 16; }
+  __host__ __device__ static size_t q_bytes(int T) { return (size_t)T * D * sizeof(float); }
+  __host__ __device__ static size_t k_bytes(int T) { return ((size_t)T * kKLd * sizeof(float2) + 15) / 16 * 16; }
   __host__ __device__ static size_t bytes(int T) {
     return 2 * q_bytes(T) + k_bytes(T) + (size_t)kAttnWarps * T * 4;
   }
 };
 
-__device__ __forceinline__ void store_out(bf16* o, int lane, float o0, float o1) {
-  reinterpret_cast<__nv_bfloat162*>(o)[lane] = __floats2bfloat162_rn(o0, o1);
+__device__ __forceinline__ void store_pair(bf16* o, float o0, float o1) {
+  *reinterpret_cast<__nv_bfloat162*>(o) = __floats2bfloat162_rn(o0, o1);
 }
-__device__ __forceinline__ void store_out(float* o, int lane, float o0, float o1) {
-  reinterpret_cast<float2*>(o)[lane] = make_float2(o0, o1);
+__device__ __forceinline__ void store_pair(float* o, float o0, float o1) {
+  *reinterpret_cast<float2*>(o) = make_float2(o0, o1);
 }
 
-// Lane l computes logit columns l, l + 32, ... in ascending order, so its
-// partial softmax sum is taken in the same order at every T.
-template <typename InT, typename OutT, int D>
+// The f32 kernel. Lane l computes logit columns l, l + 32, ... in
+// ascending order, so its partial softmax sum is taken in the same order
+// at every T.
+template <int D>
 __global__ void __launch_bounds__(32 * kAttnWarps)
-    head_attention_kernel(const InT* __restrict__ qg, const InT* __restrict__ kg,
-                          const InT* __restrict__ vg, OutT* __restrict__ out, int ld,
+    head_attention_kernel(const float* __restrict__ qg, const float* __restrict__ kg,
+                          const float* __restrict__ vg, float* __restrict__ out, int ld,
                           int T, int H, int causal, float scale) {
   static_assert(D == 32 || D == 64, "head width 32 or 64");
-  using S = AttnSmem<InT, D>;
-  using Pair = typename S::Pair;
-  constexpr int kVec = 16 / (int)sizeof(InT);   // elements of a 16-byte load
-  constexpr int kChunks = D / kVec;             // 16-byte loads of a row
-  constexpr int kChunkShift = kChunks == 8 ? 3 : kChunks == 4 ? 2 : 4;
-  static_assert(1 << kChunkShift == kChunks, "16-byte loads of a row: 4, 8 or 16");
-  constexpr bool kRoundP = sizeof(InT) == 2;    // bf16 operands: bf16 weights
+  using S = AttnSmem<D>;
+  constexpr int kChunks = D / 4;  // 16-byte loads of a row
+  constexpr int kChunkShift = kChunks == 16 ? 4 : 3;
+  static_assert(1 << kChunkShift == kChunks, "16-byte loads of a row: 8 or 16");
   extern __shared__ __align__(16) unsigned char smem[];
-  InT* qs = reinterpret_cast<InT*>(smem);
-  Pair* ks = reinterpret_cast<Pair*>(smem + S::q_bytes(T));
-  InT* vs = reinterpret_cast<InT*>(smem + S::q_bytes(T) + S::k_bytes(T));
+  float* qs = reinterpret_cast<float*>(smem);
+  float2* ks = reinterpret_cast<float2*>(smem + S::q_bytes(T));
+  float* vs = reinterpret_cast<float*>(smem + S::q_bytes(T) + S::k_bytes(T));
   float* ps_all = reinterpret_cast<float*>(smem + 2 * S::q_bytes(T) + S::k_bytes(T));
 
   const int seq = blockIdx.x / H, h = blockIdx.x % H;
@@ -107,27 +123,26 @@ __global__ void __launch_bounds__(32 * kAttnWarps)
   float* ps = ps_all + (size_t)warp * T;
 
   for (int c = tid; c < T * kChunks; c += blockDim.x) {
-    const int t = c >> kChunkShift, part = (c & (kChunks - 1)) * kVec;
+    const int t = c >> kChunkShift, part = (c & (kChunks - 1)) * 4;
     const size_t off = (row0 + t) * (size_t)ld + (size_t)h * D + part;
     *reinterpret_cast<uint4*>(qs + t * D + part) = *reinterpret_cast<const uint4*>(qg + off);
-    const uint4 kv = *reinterpret_cast<const uint4*>(kg + off);
-    const Pair* k2 = reinterpret_cast<const Pair*>(&kv);
-#pragma unroll
-    for (int q = 0; q < (int)(16 / sizeof(Pair)); ++q) ks[t * S::kKLd + part / 2 + q] = k2[q];
+    const float4 kv = *reinterpret_cast<const float4*>(kg + off);
+    ks[t * S::kKLd + part / 2] = make_float2(kv.x, kv.y);
+    ks[t * S::kKLd + part / 2 + 1] = make_float2(kv.z, kv.w);
     *reinterpret_cast<uint4*>(vs + t * D + part) = *reinterpret_cast<const uint4*>(vg + off);
   }
   __syncthreads();
 
   for (int i = warp; i < T; i += kAttnWarps) {
-    const Pair* q2 = reinterpret_cast<const Pair*>(qs + i * D);
+    const float2* q2 = reinterpret_cast<const float2*>(qs + i * D);
     const int jend = causal ? i + 1 : T;
     float mx = -INFINITY;
     for (int j = lane; j < jend; j += 32) {
       float acc = 0.f;
 #pragma unroll 8
       for (int d = 0; d < D / 2; ++d) {
-        const float2 a = to_float2(q2[d]);
-        const float2 b = to_float2(ks[j * S::kKLd + d]);
+        const float2 a = q2[d];
+        const float2 b = ks[j * S::kKLd + d];
         acc += a.x * b.x + a.y * b.y;
       }
       const float s = acc * scale;
@@ -142,53 +157,257 @@ __global__ void __launch_bounds__(32 * kAttnWarps)
       sum += e;
     }
     sum = warp_sum(sum);
-    for (int j = lane; j < jend; j += 32) {
-      // softmax weights rounded to bf16 before P.V, as the TPU kernels do
-      ps[j] = kRoundP ? __bfloat162float(__float2bfloat16(ps[j] / sum)) : ps[j] / sum;
-    }
+    for (int j = lane; j < jend; j += 32) ps[j] = ps[j] / sum;
     __syncwarp();
     if constexpr (D == 64) {
       float o0 = 0.f, o1 = 0.f;
       for (int j = 0; j < jend; ++j) {
         const float p = ps[j];
-        const float2 v = to_float2(reinterpret_cast<const Pair*>(vs + j * D)[lane]);
+        const float2 v = reinterpret_cast<const float2*>(vs + j * D)[lane];
         o0 += p * v.x;
         o1 += p * v.y;
       }
       // out's address is taken after the loop: taken before it, it holds
       // registers that the unrolled loop's loads in flight need
-      OutT* o = out + (row0 + i) * W + (size_t)h * D;
-      store_out(o, lane, o0, o1);
+      store_pair(out + (row0 + i) * W + (size_t)h * D + 2 * lane, o0, o1);
     } else {
       float o0 = 0.f;
-      for (int j = 0; j < jend; ++j) o0 += ps[j] * to_f32(vs[j * D + lane]);
-      OutT* o = out + (row0 + i) * W + (size_t)h * D;
-      if constexpr (sizeof(OutT) == 2) {
-        o[lane] = __float2bfloat16(o0);
-      } else {
-        o[lane] = o0;
-      }
+      for (int j = 0; j < jend; ++j) o0 += ps[j] * vs[j * D + lane];
+      out[(row0 + i) * W + (size_t)h * D + lane] = o0;
     }
     __syncwarp();
   }
 }
 
+// The tensor-core kernel: 64 query rows a block, 64-row key tiles.
+constexpr int kTcRows = 64;
+constexpr float kLog2e = 1.4426950408889634f;
+
+// 2^x on the special-function unit (what __expf runs after its multiply)
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+constexpr int kTcTile = kTcRows * 128;                        // bytes of one swizzled tile
+constexpr size_t kTcSmem = 5 * (size_t)kTcTile + 1024 + 3 * 8;  // q, k x 2, v x 2, alignment, barriers
+
+// q, k and v arrive through 3-d tensor maps (columns of a row, rows of a
+// sequence, sequences) in 64 x 64 x 1 boxes with the 128-byte swizzle: the
+// box at (h D, t0, seq) is the tile of rows t0.. of head h, rows past T
+// arriving as zeros. At D = 32 its right half holds the next head's
+// columns (zeros past the last head), which no wgmma reads.
+template <typename OutT, int D>
+__global__ void __launch_bounds__(128)
+    head_attention_tc_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mk,
+                             const __grid_constant__ CUtensorMap mv, OutT* __restrict__ out, int T, int H,
+                             int causal, float scale) {
+  static_assert(D == 32 || D == 64, "head width 32 or 64");
+  using namespace hopper;
+  constexpr int kO = D / 2;  // accumulator floats of P.V a thread
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t q_s = (raw + 1023) & ~1023u;  // 128-byte swizzle needs 1024-byte tiles
+  const uint32_t bar_s = q_s + 5 * kTcTile;     // mbarriers: q, then ring slots 0 and 1
+  auto k_slot = [&](int i) { return q_s + (uint32_t)kTcTile * (1 + (i & 1)); };
+  auto v_slot = [&](int i) { return q_s + (uint32_t)kTcTile * (3 + (i & 1)); };
+
+  const int ntiles = (T + kTcRows - 1) / kTcRows;
+  const int qt = blockIdx.y, seq = blockIdx.x / H, h = blockIdx.x % H;
+  const int q0 = qt * kTcRows;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const size_t row0 = (size_t)seq * T;
+  const int nkt = causal ? qt + 1 : ntiles;  // key tiles this block needs
+  const int nsteps = 2 * nkt;                // sweep 1, then sweep 2
+  // warp-uniform: the warp holds a query row (else its softmax is skipped
+  // and its P rows are zeros), and the 8-column groups of a key tile that
+  // hold a key (exp(-inf) = 0 is not computed)
+  const bool live = q0 + warp * 16 < T;
+
+  // one thread: step i's k tile (and in sweep 2 its v tile) into slot i % 2
+  auto load_step = [&](int i) {
+    const int kt = i < nkt ? i : i - nkt;
+    const uint32_t bar = bar_s + 8 * (1 + (i & 1));
+    mbar_expect_tx(bar, i < nkt ? kTcTile : 2 * kTcTile);
+    tma_load_3d(k_slot(i), &mk, h * D, kt * kTcRows, seq, bar);
+    if (i >= nkt) tma_load_3d(v_slot(i), &mv, h * D, kt * kTcRows, seq, bar);
+  };
+  if (tid == 0) {
+#pragma unroll
+    for (int b = 0; b < 3; ++b) mbar_init(bar_s + 8 * b, 1);
+    fence_mbar_init();
+    mbar_expect_tx(bar_s, kTcTile);
+    tma_load_3d(q_s, &mq, h * D, q0, seq, bar_s);
+    load_step(0);
+  }
+  __syncthreads();  // the barriers are initialized before anyone waits on them
+
+  const int rA = q0 + warp * 16 + (lane >> 2), rB = rA + 8;  // this thread's two query rows
+  const int cq = 2 * (lane & 3);
+  float mA = -INFINITY, mB = -INFINITY, lA = 0.f, lB = 0.f, invA = 0.f, invB = 0.f;
+  float o[kO];
+#pragma unroll
+  for (int i = 0; i < kO; ++i) o[i] = 0.f;
+
+  mbar_wait(bar_s, 0);
+  for (int i = 0; i < nsteps; ++i) {
+    // slot (i + 1) % 2 was freed by step i - 1's closing barrier
+    if (tid == 0 && i + 1 < nsteps) load_step(i + 1);
+    mbar_wait(bar_s + 8 * (1 + (i & 1)), (i >> 1) & 1);
+
+    const int kt = i < nkt ? i : i - nkt;
+    const int groups = min(8, (T - kt * kTcRows + 7) / 8);
+    float s[32];
+#pragma unroll
+    for (int j = 0; j < 32; ++j) s[j] = 0.f;
+    fence_regs(s);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      wgmma_m64n64_ss<0>(s, desc_sw128(q_s + kk * 32, 16, kSbo), desc_sw128(k_slot(i) + kk * 32, 16, kSbo),
+                         kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+
+    // logits: the f32 dot times the scale; masked keys -inf (only the last
+    // key tile and, causal, the diagonal tile hold masked keys)
+    if (live) {
+      if ((kt + 1) * kTcRows > T || (causal && kt == qt)) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int col = kt * kTcRows + 8 * j + cq + e;
+            const bool in = col < T;
+            s[4 * j + e] = (in && (!causal || col <= rA)) ? s[4 * j + e] * scale : -INFINITY;
+            s[4 * j + 2 + e] = (in && (!causal || col <= rB)) ? s[4 * j + 2 + e] * scale : -INFINITY;
+          }
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < 32; ++j) s[j] *= scale;
+      }
+    }
+
+    if (i < nkt) {
+      if (live) {
+        // sweep 1: the row max and the normalizer, by online rescaling
+        float xA = -INFINITY, xB = -INFINITY;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          xA = fmaxf(xA, fmaxf(s[4 * j], s[4 * j + 1]));
+          xB = fmaxf(xB, fmaxf(s[4 * j + 2], s[4 * j + 3]));
+        }
+#pragma unroll
+        for (int o2 = 1; o2 <= 2; o2 <<= 1) {
+          xA = fmaxf(xA, __shfl_xor_sync(0xffffffffu, xA, o2));
+          xB = fmaxf(xB, __shfl_xor_sync(0xffffffffu, xB, o2));
+        }
+        const float nA = fmaxf(mA, xA), nB = fmaxf(mB, xB);  // finite: key 0 is in every row's first tile
+        const float cA = -nA * kLog2e, cB = -nB * kLog2e;
+        float sA = 0.f, sB = 0.f;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          if (j < groups) {
+            sA += exp2_approx(fmaf(s[4 * j], kLog2e, cA)) + exp2_approx(fmaf(s[4 * j + 1], kLog2e, cA));
+            sB += exp2_approx(fmaf(s[4 * j + 2], kLog2e, cB)) + exp2_approx(fmaf(s[4 * j + 3], kLog2e, cB));
+          }
+        }
+#pragma unroll
+        for (int o2 = 1; o2 <= 2; o2 <<= 1) {
+          sA += __shfl_xor_sync(0xffffffffu, sA, o2);
+          sB += __shfl_xor_sync(0xffffffffu, sB, o2);
+        }
+        lA = lA * exp2_approx((mA - nA) * kLog2e) + sA;
+        lB = lB * exp2_approx((mB - nB) * kLog2e) + sB;
+        mA = nA;
+        mB = nB;
+        if (i + 1 == nkt) {
+          invA = 1.f / lA;
+          invB = 1.f / lB;
+          mA = -mA * kLog2e;  // sweep 2 takes e^(s - m) as 2^(s log2(e) - m log2(e))
+          mB = -mB * kLog2e;
+        }
+      }
+    } else {
+      // sweep 2: normalized weights rounded to bf16, straight into wgmma's
+      // A registers, then O += P.V
+      uint32_t a[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int x = 8 * kk + 2 * q;
+          const float c = (q & 1) ? mB : mA, inv = (q & 1) ? invB : invA;
+          a[kk][q] = live && 2 * kk + (q >> 1) < groups
+                         ? pack_bf16(exp2_approx(fmaf(s[x], kLog2e, c)) * inv,
+                                     exp2_approx(fmaf(s[x + 1], kLog2e, c)) * inv)
+                         : 0u;
+        }
+      }
+      fence_regs(o);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint64_t db = desc_sw128(v_slot(i) + kk * 2048, 8 * kTcTile, kSbo);
+        if constexpr (D == 64) {
+          wgmma_m64n64_rs<1>(o, a[kk], db);
+        } else {
+          wgmma_m64n32_rs<1>(o, a[kk], db);
+        }
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(o);
+    }
+    __syncthreads();  // every warp is done with slot i before step i + 1 refills it
+  }
+
+  const size_t W = (size_t)H * D;
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    const size_t col = (size_t)h * D + 8 * j + cq;
+    if (rA < T) store_pair(out + (row0 + rA) * W + col, o[4 * j], o[4 * j + 1]);
+    if (rB < T) store_pair(out + (row0 + rB) * W + col, o[4 * j + 2], o[4 * j + 3]);
+  }
+}
+
 // Launch on `stream` over `seqs` sequences of T rows and `heads` heads;
-// returns cudaErrorInvalidValue for T > kMaxT, else cudaGetLastError().
+// returns cudaErrorInvalidValue for f32 operands with T > kMaxT, else
+// cudaGetLastError().
 template <typename InT, typename OutT, int D>
 int launch_head_attention_strided(const void* q, const void* k, const void* v, void* out, int ld,
                                   int seqs, int T, int heads, int causal, float scale,
                                   cudaStream_t stream) {
-  if (T > kMaxT) return (int)cudaErrorInvalidValue;
-  if (seqs > 0 && T > 0) {
-    const size_t smem = AttnSmem<InT, D>::bytes(T);
+  if (seqs <= 0 || T <= 0) return (int)cudaGetLastError();
+  if constexpr (sizeof(InT) == 2) {
+    // [seqs, T, heads * D] views with row stride ld; ld * 2 bytes and the
+    // bases 16-byte aligned, as the maps need
+    const cuuint64_t dims[3] = {(cuuint64_t)heads * D, (cuuint64_t)T, (cuuint64_t)seqs};
+    const cuuint64_t strides[2] = {(cuuint64_t)ld * 2, (cuuint64_t)T * ld * 2};
+    const cuuint32_t box[3] = {64, kTcRows, 1};
+    CUtensorMap maps[3];
+    const void* bases[3] = {q, k, v};
+    for (int i = 0; i < 3; ++i)
+      if (!hopper::make_tensor_map(&maps[i], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, bases[i], dims, strides, box,
+                                   CU_TENSOR_MAP_SWIZZLE_128B))
+        return (int)cudaErrorInvalidValue;
+    const dim3 grid(seqs * heads, (T + kTcRows - 1) / kTcRows);
+    head_attention_tc_kernel<OutT, D><<<grid, 128, kTcSmem, stream>>>(maps[0], maps[1], maps[2], (OutT*)out, T,
+                                                                       heads, causal, scale);
+  } else {
+    if (T > kMaxT) return (int)cudaErrorInvalidValue;
+    static_assert(sizeof(OutT) == 4, "f32 operands give an f32 output");
+    const size_t smem = AttnSmem<D>::bytes(T);
     if (smem > 48 * 1024) {
       const cudaError_t e = cudaFuncSetAttribute(
-          head_attention_kernel<InT, OutT, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+          head_attention_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
       if (e != cudaSuccess) return (int)e;
     }
-    head_attention_kernel<InT, OutT, D><<<seqs * heads, 32 * kAttnWarps, smem, stream>>>(
-        (const InT*)q, (const InT*)k, (const InT*)v, (OutT*)out, ld, T, heads, causal, scale);
+    head_attention_kernel<D><<<seqs * heads, 32 * kAttnWarps, smem, stream>>>(
+        (const float*)q, (const float*)k, (const float*)v, (float*)out, ld, T, heads, causal, scale);
   }
   return (int)cudaGetLastError();
 }

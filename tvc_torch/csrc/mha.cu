@@ -6,26 +6,26 @@
 // What it computes, per (b, h): f32 logits of the operands times 1/sqrt(D),
 // the optional causal mask (column <= row), an f32 softmax, the weights
 // cast to the operands' type, P.V accumulated in f32, the output in the
-// operands' type. That is the per-head attention the layer kernels already
-// run (head_attention.cuh); only the layout differs, so this file
-// instantiates the same kernel on three base pointers with the row stride
-// of the [B, T, H, D] tensors (H * D, or 3W for q | k | v views of one
-// packed projection, which then needs no copy).
+// operands' type. That is the per-head attention the layer kernels run
+// (head_attention.cuh); only the layout differs, so this file instantiates
+// the same kernels on three base pointers with the row stride of the
+// [B, T, H, D] tensors (H * D, or 3W for q | k | v views of one packed
+// projection, which then needs no copy).
 //
-// What bounds it: at ViT-B/32 (T = 50, D = 64) the work is 4 T^2 D flops
-// per (b, h) against 4 T D bf16 bytes moved, ~25 flops a byte, so device
-// memory bounds it (the bytes bound of q, k, v in and the output out); a
-// block stages one (b, h) slice in shared memory, reads it from device
-// memory once and writes its output once. The logits stay in shared
-// memory, as the TPU kernel keeps them in VMEM.
-//
-// Instantiations: bf16 and f32 operands, head widths 32 and 64, T <= 257.
+// What bounds it: 4 T^2 D flops per (b, h) against 4 T D bytes moved
+// (bf16: T flops a byte). At ViT-B/32 (T = 50) device memory bounds it, at
+// ViT-L/14 (T = 257, 577) the work nears the bf16 ridge. bf16 operands run
+// on the tensor cores (head_attention_tc_kernel: 64 query rows a block,
+// wgmma for Q.K^T and P.V, k and v tiles streamed by TMA through a
+// 2-stage ring, the output written once; no limit on T). f32 operands
+// keep the CUDA-core kernel (T <= 257).
 
 #include "head_attention.cuh"
 
 // q, k, v: [B, T, H, D] with row stride `ld` elements (the batch stride is
 // T * ld); out: contiguous [B, T, H, D] of the operands' type. Returns
-// cudaErrorInvalidValue for a head width other than 32 / 64 or T > 257.
+// cudaErrorInvalidValue for a head width other than 32 / 64, or for f32
+// with T > 257.
 extern "C" int tvc_mha(const void* q, const void* k, const void* v, void* out, int ld, int B, int T,
                        int H, int D, int is_bf16, int causal, float scale, void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;

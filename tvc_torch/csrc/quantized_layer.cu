@@ -50,8 +50,8 @@
 // gate|up GEMM (K = 3584, N = 37888) does 2 M K N = 156 G operations on
 // 136 MB of int8 weights, ~1,150 operations per byte, above the ridge:
 // bound by operations (~79 us at 1,979 TOP/s).
-//  * head_attention_kernel<float> (head_attention.cuh): the bf16 layer's
-//    per-(sequence, head) attention with an f32 output.
+//  * head_attention_tc_kernel<float> (head_attention.cuh): the bf16
+//    layer's per-(sequence, head) tensor-core attention with an f32 output.
 // An attention layer is 5 launches (LN-quantize, QKV GEMM, attention,
 // quantize, out-proj GEMM) and an MLP layer 4 (LN-quantize, fc GEMM,
 // quantize, proj GEMM).
