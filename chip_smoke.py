@@ -46,7 +46,8 @@ Phases (each raises on failure; the script then exits non-zero):
      detect_adversarial twice (a cache hit), and the order of exact ties
      (raw torch.topk, EmbeddingBank.search, the serving step's top-k);
   large bank: bank_topk at B=256 over a 4,194,304 x 512 f32 bank against
-     its plain version, peak memory, a profile;
+     its plain version, the wrapper's and the phase's peak memory, a
+     profile;
   6. summary: one JSON line of per-kernel numbers, the card's nvidia-smi
      line, then the last line {"ok": true, "device": {...}}.
 
@@ -411,7 +412,9 @@ def phase_qwen_kernels(rng, dev) -> dict:
     GEMM at the five GEMM shapes of a decode step (M = 576) and at q|k|v
     of the suffix prefill (M = 192 x 24), held to equality; the decode
     attention at B = 576 (Qwen2-7B: KV = 4, R = 7, D = 128, S = 64 and
-    512; Qwen2-0.5B: KV = 2, R = 7, D = 64), held to DECODE_TOL; each
+    512; Qwen2-0.5B: KV = 2, R = 7, D = 64), at Qwen2-1.5B's B = 960, at
+    one caption's 5 rows (B = 5) and over a long cache (B = 4, S = 16,384:
+    S split across blocks), held to DECODE_TOL, two calls bit-equal; each
     stacked wrapper on a 28-layer stack, held equal to the flat kernel on
     the layer's view."""
     import torch
@@ -426,9 +429,11 @@ def phase_qwen_kernels(rng, dev) -> dict:
         w8a8_matmul_reference,
         w8a8_matmul_stacked,
     )
+    from tvc_torch.core.kernels.decode_attention_kernel import decode_splits
     from tvc_torch.core.kernels.quantized_layer_kernel import _quant_rows
 
     bf = torch.bfloat16
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     gen = torch.Generator(device=dev).manual_seed(3)
     t = lambda *shape: torch.randn(shape, generator=gen, device=dev)
     out = {k: {"shapes": []} for k in ("w8a8_matmul", "w8a8_matmul_stacked",
@@ -494,13 +499,18 @@ def phase_qwen_kernels(rng, dev) -> dict:
             return None
 
     for tag, B, KV, R, S, D in (("Qwen2-7B", 576, 4, 7, 64, 128), ("Qwen2-7B", 576, 4, 7, 512, 128),
-                                ("Qwen2-0.5B", 576, 2, 7, 64, 64), ("Qwen2-1.5B", 960, 2, 6, 64, 128)):
+                                ("Qwen2-0.5B", 576, 2, 7, 64, 64), ("Qwen2-1.5B", 960, 2, 6, 64, 128),
+                                ("one caption's rows, Qwen2-1.5B", 5, 2, 6, 64, 128),
+                                ("long cache", 4, 4, 7, 16384, 128)):
         q, k, v, mask = decode_inputs(B, KV, R, S, D)
         got, want = decode_gqa_attention(q, k, v, mask), decode_gqa_reference(q, k, v, mask)
+        again = decode_gqa_attention(q, k, v, mask)
         torch.cuda.synchronize()
         abs_err, rel_err = _layer_error(got, want)
         if not rel_err <= DECODE_TOL:
             raise AssertionError(f"decode_gqa_attention {tag} S={S} disagrees: {abs_err:.3e} abs, {rel_err:.3e} scaled")
+        if not torch.equal(got, again):
+            raise AssertionError(f"decode_gqa_attention {tag} S={S}: two calls differ")
         k_ms = time_ms(lambda: decode_gqa_attention(q, k, v, mask))
         p_ms = time_ms(lambda: decode_gqa_reference(q, k, v, mask))
         lib_ms = sdpa_ms(q, k, v, mask)
@@ -509,7 +519,9 @@ def phase_qwen_kernels(rng, dev) -> dict:
         out["decode_gqa_attention"]["shapes"].append({"shape": shape, "ms": k_ms, "plain_ms": p_ms, "bound_ms": bms,
                                                       "bound_by": by, "max_abs_err": abs_err, "library_ms": lib_ms})
         log(f"kernel decode_gqa_attention {shape}: kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} bound_ms={bms:.5f} "
-            f"({by}) max_abs_err={abs_err:.3e} scaled_err={rel_err:.3e} library_ms(sdpa)={lib_ms}")
+            f"({by}) max_abs_err={abs_err:.3e} scaled_err={rel_err:.3e} library_ms(sdpa)={lib_ms} "
+            f"splits={decode_splits(B * KV, S, sms)} two calls bit-equal")
+        del q, k, v, mask, got, want, again
     B, KV, R, S, D = 576, 4, 7, 64, 128
     q, k, v, mask = decode_inputs(B, KV, R, S, D, L=L)
     got, flat = decode_gqa_attention_stacked(q, k, v, mask, L - 1), decode_gqa_attention(q, k[L - 1], v[L - 1], mask)
@@ -745,10 +757,11 @@ def topk_agreement(got, want, q, bank, tol=TOPK_TOL) -> dict:
 def phase_mha_topk_kernels(dev) -> dict:
     """fused_mha at ViT-B/32's vision shape, ViT-L/14's (T = 257), the
     text tower's causal shape, one f32 D = 32 shape and ViT-L/14 at 336 px
-    (T = 577); bank_topk at the
+    (T = 577, bf16 and f32), and f32 at T = 300 causal; bank_topk at the
     serving bank's shape (f32, normalize=True: the wrapper and the kernel
     alone on the normalized operands), with a bf16 bank and
-    normalize=False, and with n_valid < N. Library yardsticks:
+    normalize=False, a bf16 bank with normalize=True (the kernel divides
+    by the bf16 rows' norms), and with n_valid < N. Library yardsticks:
     scaled_dot_product_attention, and torch.topk(q @ bank.T, k) in f32
     without TF32."""
     import torch
@@ -765,6 +778,8 @@ def phase_mha_topk_kernels(dev) -> dict:
         ("text", 448, 32, 8, 64, torch.bfloat16, True),
         ("W=768 in 24 heads", 256, 50, 24, 32, torch.float32, False),
         ("ViT-L/14 336 px vision", 16, 577, 16, 64, torch.bfloat16, False),
+        ("ViT-L/14 336 px vision", 16, 577, 16, 64, torch.float32, False),
+        ("T=300", 4, 300, 12, 64, torch.float32, True),
     ):
         q, k, v = (torch.randn((B, T, H, D), generator=gen, device=dev).to(dtype) for _ in range(3))
         abs_err, rel_err = _layer_error(fused_mha(q, k, v, causal), mha_reference(q, k, v, causal))
@@ -792,31 +807,39 @@ def phase_mha_topk_kernels(dev) -> dict:
         v, i = bank_topk_reference(qq, bb, K + 1, **kw)
         return v[:, :K], i[:, :K], v[:, K]
 
+    bank_bf = bank.to(torch.bfloat16)
+    # (tag, wrapper operands, keywords, the kernel alone, exact operands, bound): "the kernel alone" is the
+    # same call without the wrapper's query normalize (normalize=True on a bf16 bank normalizes inside)
     cases = [
-        ("f32 normalize=True", (q, bank), {}, (qn, bn), _topk_bound(B, N, D, K)),
-        ("bf16 bank normalize=False", (qn, bn.to(torch.bfloat16)), {"normalize": False},
+        ("f32 normalize=True", (q, bank), {}, lambda: bank_topk(qn, bn, K, normalize=False), (qn, bn),
+         _topk_bound(B, N, D, K)),
+        ("bf16 bank normalize=False", (qn, bn.to(torch.bfloat16)), {"normalize": False}, None,
          (qn, bn.to(torch.bfloat16).float()), _topk_bound(B, N, D, K, bank_elem=2)),
-        ("f32 n_valid=100000 normalize=False", (qn, bn), {"normalize": False, "n_valid": 100000},
+        ("bf16 bank normalize=True", (q, bank_bf), {}, None, (qn, l2_normalize(bank_bf.float())),
+         _topk_bound(B, N, D, K, bank_elem=2)),
+        ("f32 n_valid=100000 normalize=False", (qn, bn), {"normalize": False, "n_valid": 100000}, None,
          (qn, bn[:100000]), _topk_bound(B, 100000, D, K)),
     ]
-    for tag, (qq, bb), kw, (q_exact, b_exact), (bms, by) in cases:
+    for tag, (qq, bb), kw, alone, (q_exact, b_exact), (bms, by) in cases:
         got = bank_topk(qq, bb, K, **kw)
+        again = bank_topk(qq, bb, K, **kw)
         want = plain_next(qq, bb, **kw)
         agree = topk_agreement(got, want, q_exact, b_exact)
-        nkw = {**kw, "normalize": False}
-        qk, bk = (qn, bn) if not kw else (qq, bb)
-        k_ms = time_ms(lambda: bank_topk(qk, bk, K, **nkw), iters=10)  # the kernel alone
-        w_ms = time_ms(lambda: bank_topk(qq, bb, K, **kw), iters=10)  # with the wrapper's normalize
-        p_ms = time_ms(lambda: bank_topk_reference(qk, bk, K, **nkw), iters=5, warmup=1)
-        bf = bk.float() if bk.dtype != torch.float32 else bk
-        lib_ms = time_ms(lambda: torch.topk(qk @ bf.T, K), iters=10)
+        if not (torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])):
+            raise AssertionError(f"bank_topk {tag}: two calls differ")
+        run = lambda: bank_topk(qq, bb, K, **kw)
+        k_ms = time_ms(alone or run, iters=10)
+        w_ms = time_ms(run, iters=10)  # with the wrapper's query normalize
+        p_ms = time_ms(lambda: bank_topk_reference(qq, bb, K, **kw), iters=5, warmup=1)
+        qk, bk = q_exact, (b_exact if "n_valid" not in kw else bn)
+        lib_ms = time_ms(lambda: torch.topk(qk @ bk.T, K), iters=10)
         shape = f"{tag} B={B} N={N} D={D} k={K}"
         out["bank_topk"]["shapes"].append({"shape": shape, "ms": k_ms, "wrapper_ms": w_ms, "plain_ms": p_ms,
                                            "bound_ms": bms, "bound_by": by, "max_abs_err": agree["max_abs_err"],
                                            "library_ms": lib_ms})
         log(f"kernel bank_topk {shape}: kernel_ms={k_ms:.4f} wrapper_ms(with normalize)={w_ms:.4f} "
             f"plain_ms={p_ms:.4f} bound_ms={bms:.5f} ({by}) library_ms(torch.topk(q @ bank.T), f32)={lib_ms:.4f} "
-            f"agreement {agree}")
+            f"agreement {agree}; two calls bit-equal")
     return out
 
 
@@ -1785,8 +1808,10 @@ N_LARGE = 4_194_304
 
 def phase_large_bank(card: dict) -> dict:
     """bank_topk at B=256 over a 4,194,304 x 512 f32 bank (8 GiB; the
-    wrapper's normalized copy another 8 GiB, the plain version's [B, N]
-    scores 4 GiB) against its plain version, with a profile."""
+    plain version's normalized copy another 8 GiB and its [B, N] scores 4
+    GiB; the wrapper normalizes the bank rows inside the kernel and copies
+    nothing) against its plain version: the wrapper's own peak memory, the
+    phase's peak, a profile (partial and merge kernels)."""
     import gc
 
     import torch
@@ -1801,10 +1826,15 @@ def phase_large_bank(card: dict) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(51)
     q = torch.randn((B, D), generator=gen, device="cuda")
     bank = torch.randn((N_LARGE, D), generator=gen, device="cuda")
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
     got = bank_topk(q, bank, K)
     torch.cuda.synchronize()
     counts = launch_counts()
+    wrapper_extra = (torch.cuda.max_memory_allocated() - before) / 2**30  # beyond q and the bank
+    wrapper_peak = torch.cuda.max_memory_allocated() / 2**30
     if counts["bank_topk"] != 1:
         raise AssertionError(f"[large bank] launches {counts}")
     v, i = bank_topk_reference(q, bank, K + 1)
@@ -1819,13 +1849,42 @@ def phase_large_bank(card: dict) -> dict:
     bms, by = _topk_bound(B, N_LARGE, D, K)
     log(f"[large bank] bank_topk B={B} N={N_LARGE} D={D} k={K} f32: kernel_ms={k_ms:.4f} "
         f"wrapper_ms(with normalize)={w_ms:.4f} plain_ms={p_ms:.4f} library_ms(torch.topk(q @ bank.T))={lib_ms:.4f} "
-        f"bound_ms={bms:.5f} ({by}); {agree}; peak memory {peak:.2f} GiB on {card['smi']}")
-    profile_batch("large bank", lambda: bank_topk(q, bank, K))  # the wrapper: normalize, then the kernels
+        f"bound_ms={bms:.5f} ({by}); {agree}; the wrapper's peak memory {wrapper_peak:.2f} GiB ({wrapper_extra:.3f} "
+        f"GiB beyond q and the bank), the phase's {peak:.2f} GiB (the plain version's copies) on {card['smi']}")
+    merge_ms = _topk_merge_ms(qn, bn, K)
+    log(f"[large bank] of the kernel's {k_ms:.4f} ms the merge kernel takes {merge_ms:.4f} ms "
+        f"({100 * merge_ms / k_ms:.2f} %)")
+    profile_batch("large bank", lambda: bank_topk(q, bank, K))  # the wrapper: the query normalize, then the kernels
     del bank, bn
     return {"launches": counts, "shape": {
         "shape": f"large bank B={B} N={N_LARGE} D={D} k={K} f32", "ms": k_ms, "wrapper_ms": w_ms, "plain_ms": p_ms,
         "bound_ms": bms, "bound_by": by, "max_abs_err": agree["max_abs_err"], "library_ms": lib_ms},
-        "peak_gib": peak}
+        "peak_gib": peak, "wrapper_peak_gib": wrapper_peak, "merge_ms": merge_ms}
+
+
+def _topk_merge_ms(q, bank, k: int) -> float:
+    """Device time of bank_topk's merge kernel alone, on the partial lists
+    the partial kernel leaves for (q, bank) (the wrapper's split plan; the
+    library's own calls, which count no launch)."""
+    import torch
+
+    from tvc_torch.core.kernels import _build
+    from tvc_torch.core.kernels.topk_kernel import split_plan
+
+    B, D = q.shape
+    N = bank.shape[0]
+    splits, rows = split_plan(B, N, torch.cuda.get_device_properties(q.device).multi_processor_count)
+    pv = torch.empty((B, splits, k), dtype=torch.float32, device=q.device)
+    pi = torch.empty((B, splits, k), dtype=torch.int32, device=q.device)
+    vals = torch.empty((B, k), dtype=torch.float32, device=q.device)
+    idx = torch.empty((B, k), dtype=torch.int32, device=q.device)
+    lib = _build.load("bank_topk")
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    _build.check(lib.tvc_bank_topk_partial(q.data_ptr(), bank.data_ptr(), None, pv.data_ptr(), pi.data_ptr(), B, N, D,
+                                           k, rows, splits, 0, 0, 0, stream), "tvc_bank_topk_partial")
+    return time_ms(lambda: _build.check(lib.tvc_bank_topk_merge(pv.data_ptr(), pi.data_ptr(), vals.data_ptr(),
+                                                                 idx.data_ptr(), B, splits, k, 0, stream),
+                                        "tvc_bank_topk_merge"), iters=20)
 
 
 #: profiler names shortened to the kernel and its template arguments
@@ -1835,7 +1894,7 @@ PROFILE_NAMES = (
     "i8_gemm_kernel<0>", "i8_gemm_kernel<1>", "i8_gemm_kernel<2>", "i8_gemm_kernel<3>",
     "i8_gemm_kernel<4>", "ln_quant_rows_kernel", "quant_rows_kernel<float>",
     "quant_rows_kernel<__nv_bfloat16>", "decode_gqa_kernel<__nv_bfloat16, 128>",
-    "decode_gqa_kernel<__nv_bfloat16, 64>",
+    "decode_gqa_kernel<__nv_bfloat16, 64>", "decode_reduce_kernel",
     "head_attention_tc_kernel<float, 64>", "head_attention_tc_kernel<__nv_bfloat16, 64>",
     "head_attention_tc_kernel<__nv_bfloat16, 32>", "head_attention_kernel<64>", "head_attention_kernel<32>",
     "consistency_kernel", "w8_gemm_kernel<2, 2, 192, 4>", "w8_gemm_kernel<2, 2, 128, 4>",
@@ -1946,8 +2005,8 @@ def main() -> int:
     log(f"ViT-B/32 vision images/s at B={B_MHA}: " + ", ".join(f"{k} {v:.1f}" for k, v in mha["images_per_s"].items())
         + f"; ViT-L/14 with fused_mha at B={B_MHA_L14}: {mha['l14_images_per_s']:.1f} on {card['smi']}")
     log(f"retrieval: native resize {retrieval['host_ms_per_image']:.3f} host ms per image; text index "
-        f"{retrieval['text_index_s']:.2f} s; tie order {retrieval['ties']}; large bank_topk peak memory "
-        f"{large['peak_gib']:.2f} GiB")
+        f"{retrieval['text_index_s']:.2f} s; tie order {retrieval['ties']}; large bank_topk peak memory: the "
+        f"wrapper's {large['wrapper_peak_gib']:.2f} GiB, the phase's {large['peak_gib']:.2f} GiB")
     print(json.dumps({"kernels": kernels}))
     print(card["smi"])
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card["name"], "count": card["count"]}}))

@@ -259,6 +259,10 @@ def _decode_err(got, want):
     (7, 2, 2, 33, 64, torch.float32), (576, 4, 7, 64, 128, torch.bfloat16), (576, 4, 7, 512, 128, torch.bfloat16),
     (576, 2, 7, 64, 64, torch.bfloat16), (4, 4, 1, 2000, 128, torch.bfloat16), (960, 2, 6, 64, 128, torch.bfloat16),
     (6, 2, 2, 40, 16, torch.float32), (5, 2, 3, 33, 32, torch.bfloat16),
+    # one caption's 5 rows, a cache above the old shared-memory cap (S split
+    # across blocks), R = 1 in f32, S % 16 != 0 on the split path
+    (5, 2, 6, 64, 128, torch.bfloat16), (1, 4, 8, 8192, 128, torch.bfloat16), (2, 2, 1, 3, 16, torch.float32),
+    (3, 2, 5, 1001, 64, torch.bfloat16),
 ])
 def test_decode_gqa_attention_matches_plain(dev, B, KV, R, S, D, dtype):
     q, k, v, mask = _decode_operands(np.random.default_rng(B * S + D), B, KV, R, S, D, dtype, dev)
@@ -269,6 +273,29 @@ def test_decode_gqa_attention_matches_plain(dev, B, KV, R, S, D, dtype):
     assert decode_gqa_attention.launches == before + 1
     assert got.dtype == dtype and got.shape == q.shape
     assert _decode_err(got, want) <= (1e-5 if dtype == torch.float32 else 1e-2)
+
+
+@pytest.mark.parametrize("B,KV,R,S,D,dtype", [
+    (576, 4, 7, 64, 128, torch.bfloat16), (5, 2, 6, 64, 128, torch.bfloat16), (1, 4, 8, 8192, 128, torch.bfloat16),
+    (6, 2, 2, 40, 16, torch.float32),
+])
+def test_decode_gqa_attention_two_calls_are_bit_equal(dev, B, KV, R, S, D, dtype):
+    """Every sum in a fixed order, on one block or split across blocks."""
+    q, k, v, mask = _decode_operands(np.random.default_rng(S), B, KV, R, S, D, dtype, dev)
+    assert torch.equal(decode_gqa_attention(q, k, v, mask), decode_gqa_attention(q, k, v, mask))
+
+
+@pytest.mark.parametrize("S,slot", [(64, 37), (3000, 2999)])
+def test_decode_gqa_attention_one_unmasked_slot(dev, S, slot):
+    """Every slot but one masked: the weight is exactly 1 and the output
+    that slot's value row, as in the plain version."""
+    q, k, v, mask = _decode_operands(np.random.default_rng(7), 3, 2, 7, S, 128, torch.bfloat16, dev)
+    mask = torch.full_like(mask, float("-inf"))
+    mask[:, slot] = 0.0
+    got, want = decode_gqa_attention(q, k, v, mask), decode_gqa_reference(q, k, v, mask)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(got, v[:, :, slot : slot + 1].expand_as(got))
 
 
 def test_decode_gqa_attention_stacked_is_the_flat_kernel_on_the_layer(dev):
@@ -405,7 +432,8 @@ def test_w8_matmul_refuses_what_it_does_not_take(dev):
     (448, 32, 8, 64, torch.bfloat16, True), (5, 17, 2, 32, torch.bfloat16, False), (3, 1, 2, 64, torch.bfloat16, True),
     (6, 257, 4, 64, torch.float32, False), (7, 17, 2, 32, torch.float32, True), (2, 77, 3, 32, torch.float32, False),
     (2, 577, 4, 64, torch.bfloat16, False), (3, 300, 2, 64, torch.bfloat16, True), (2, 129, 3, 32, torch.bfloat16, True),
-    (16, 577, 16, 64, torch.bfloat16, False),
+    (16, 577, 16, 64, torch.bfloat16, False), (4, 300, 12, 64, torch.float32, True),
+    (2, 577, 4, 64, torch.float32, False), (3, 130, 5, 32, torch.float32, False),
 ])
 def test_fused_mha_matches_plain(dev, B, T, H, D, dtype, causal):
     """bf16: 1e-2 of max(1, |y|) (a softmax weight one f32 ulp apart can
@@ -436,9 +464,8 @@ def test_fused_mha_refuses_what_it_does_not_take(dev):
     x = torch.zeros((2, 8, 2, 128), device=dev, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="head dims"):
         fused_mha(x, x, x)
-    y = torch.zeros((1, 258, 2, 64), device=dev, dtype=torch.float32)
-    with pytest.raises(ValueError, match="T <= 257"):  # f32 keeps the CUDA-core kernel's limit
-        fused_mha(y, y, y)
+    y = torch.randn((1, 258, 2, 64), device=dev, dtype=torch.float32)
+    assert _scaled_err(fused_mha(y, y, y), mha_reference(y, y, y)) <= 1e-5  # f32 takes any T
     z = torch.zeros((1, 8, 2, 64), device=dev, dtype=torch.float16)
     with pytest.raises(ValueError, match="bf16 or float32"):
         fused_mha(z, z, z)
@@ -512,6 +539,35 @@ def test_bank_topk_orders_exact_ties_by_index(dev):
         gv, gi = bank_topk(q, bank, k)
         wv, wi = bank_topk_reference(q, bank, k)
         assert torch.equal(gi, wi) and torch.equal(gv, wv)
+
+
+@pytest.mark.parametrize("normalize,bank_dtype", [(True, torch.float32), (True, torch.bfloat16),
+                                                  (False, torch.bfloat16)])
+def test_bank_topk_two_calls_are_bit_equal(dev, normalize, bank_dtype):
+    g = torch.Generator(device=dev).manual_seed(13)
+    q = torch.randn((200, 256), generator=g, device=dev)
+    bank = torch.randn((50000, 256), generator=g, device=dev).to(bank_dtype)
+    a, b = bank_topk(q, bank, 10, normalize=normalize), bank_topk(q, bank, 10, normalize=normalize)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+def test_bank_topk_normalize_bf16_bank(dev):
+    """normalize=True on a bf16 bank: the kernel divides by the norms of
+    the bf16 rows (converted exactly), no normalized f32 copy."""
+    g = torch.Generator(device=dev).manual_seed(17)
+    q = torch.randn((70, 128), generator=g, device=dev)
+    bank = torch.randn((20000, 128), generator=g, device=dev).to(torch.bfloat16)
+    _topk_check(bank_topk(q, bank, 16), bank_topk_reference(q, bank, 16), q, bank)
+
+
+def test_bank_topk_normalize_rows_of_very_different_norms(dev):
+    """Rows scaled from 1e-3 to 1e3: the scores are cosines, so the row's
+    norm must divide its score (a large row would win otherwise)."""
+    g = torch.Generator(device=dev).manual_seed(19)
+    q = torch.randn((33, 64), generator=g, device=dev)
+    bank = torch.randn((9000, 64), generator=g, device=dev)
+    bank *= torch.logspace(-3, 3, 9000, device=dev)[torch.randperm(9000, generator=g, device=dev)][:, None]
+    _topk_check(bank_topk(q, bank, 10), bank_topk_reference(q, bank, 10), q, bank)
 
 
 def test_bank_topk_refuses_what_it_does_not_take(dev):

@@ -67,6 +67,15 @@ def test_mha_reference_matches_pallas_long_sequence(dtype):
     assert err.max() <= (TOL if dtype == "float32" else 1e-2)
 
 
+def test_mha_reference_matches_pallas_long_causal_f32():
+    """f32 at T = 300 with the causal mask, which the CUDA route's f32
+    kernel now takes (it used to stop at T = 257): 2e-5."""
+    q, k, v = _qkv(300, (1, 300, 2, 32))
+    want = np.asarray(j_fused_mha(*map(jnp.asarray, (q, k, v)), causal=True))
+    got = fused_mha(*map(torch.as_tensor, (q, k, v)), causal=True)
+    np.testing.assert_allclose(got.numpy(), want, atol=TOL, rtol=0)
+
+
 @pytest.fixture(scope="module")
 def fused_models():
     jcfg = dataclasses.replace(JConfig.tiny_coco(), fused_attention=True)

@@ -16,9 +16,12 @@ from tvc.core.pallas.decode_attention_kernel import (
 from tvc.core.pallas.quantized_layer_kernel import quantize_linear as j_quantize
 from tvc.core.pallas.w8_matmul_kernel import w8a8_matmul as j_w8a8, w8a8_matmul_stacked as j_w8a8_stacked
 from tvc_torch.core.kernels.decode_attention_kernel import (
+    MAX_CHUNK,
+    MIN_SPLIT,
     decode_gqa_attention,
     decode_gqa_attention_stacked,
     decode_gqa_reference,
+    decode_splits,
 )
 from tvc_torch.core.kernels.quantized_layer_kernel import _quant_rows
 from tvc_torch.core.kernels.w8_matmul_kernel import (
@@ -149,6 +152,42 @@ def test_decode_gqa_stacked_matches_pallas(attn, layer):
     assert _err(got.numpy(), want) <= 2e-5
     flat = decode_gqa_attention(*(torch.as_tensor(a) for a in (q, k[layer], v[layer], mask)))
     assert torch.equal(got, flat)
+
+
+@pytest.mark.parametrize("B,KV,R,S,D", [(1, 1, 8, 7000, 16), (3, 2, 1, 50, 32)])
+@pytest.mark.parametrize("port_fn", [decode_gqa_attention, decode_gqa_reference], ids=["wrapper", "plain"])
+def test_decode_gqa_matches_pallas_long_cache_and_one_head(port_fn, B, KV, R, S, D):
+    """Shapes the CUDA kernel now takes: S = 7,000 (past the 6,600 slots
+    whose R = 8 logits used to fit one block's shared memory; split across
+    blocks now) and R = 1, f32 to 2e-5."""
+    rng = np.random.default_rng(S)
+    q = rng.standard_normal((B, KV, R, D)).astype(np.float32)
+    k, v = (rng.standard_normal((B, KV, S, D)).astype(np.float32) for _ in range(2))
+    mask = np.where(rng.random((B, S)) < 0.3, -np.inf, 0.0).astype(np.float32)
+    mask[:, 0] = 0.0
+    want = np.asarray(j_decode(*(jnp.asarray(a) for a in (q, k, v, mask)), block_b=8, interpret=True))
+    got = port_fn(*(torch.as_tensor(a) for a in (q, k, v, mask))).numpy()
+    assert _err(got, want) <= 2e-5
+
+
+@pytest.mark.parametrize("bkv,S", [(2304, 64), (2304, 512), (1920, 64), (10, 64), (16, 16384), (4, 8192), (1, 3),
+                                   (1, 7000), (264, 5000)])
+def test_decode_splits_cover_the_cache(bkv, S):
+    """The CUDA wrapper's cut of S across blocks: chunks of a multiple of
+    16 slots, at most MAX_CHUNK, covering S with no empty split; one split
+    when B * KV gives two blocks a SM of 132 and S fits a block, or when S
+    is too short to cut (<= MIN_SPLIT); else the blocks fill at least half
+    of the two a SM, or give each split about MIN_SPLIT slots."""
+    splits, chunk = decode_splits(bkv, S)
+    assert chunk % 16 == 0 and 16 <= chunk <= MAX_CHUNK
+    assert (splits - 1) * chunk < S <= splits * chunk
+    if bkv >= 264 and S <= MAX_CHUNK:
+        assert splits == 1
+    if S <= MIN_SPLIT:
+        assert splits == 1
+    if bkv < 264:
+        assert bkv * splits >= min(132, bkv * (S // MIN_SPLIT))
+    assert bkv * splits <= max(264, bkv * -(-S // MAX_CHUNK))
 
 
 def test_decode_gqa_wrappers_raise_off_cpu(attn):

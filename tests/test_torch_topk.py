@@ -81,6 +81,22 @@ def test_bank_topk_bf16_bank_without_normalize(q_bf16):
     _check(tq, tb, jq, jb, 7, block_n=128, normalize=False)
 
 
+def test_bank_topk_normalize_bf16_bank():
+    """normalize=True on a bf16 bank: the CUDA route divides by the bf16
+    rows' norms in the kernel; the CPU route is the plain version."""
+    q, bank = _f32(23, (5, 64), (512, 64))
+    _check(torch.as_tensor(q), torch.as_tensor(bank).bfloat16(), jnp.asarray(q), jnp.asarray(bank, jnp.bfloat16), 9,
+           block_n=128)
+
+
+def test_bank_topk_normalize_rows_of_very_different_norms():
+    """Rows scaled from 1e-3 to 1e3: with normalize the scores are cosines,
+    so a large row must not win by its norm."""
+    q, bank = _f32(29, (4, 32), (600, 32))
+    bank *= np.logspace(-3, 3, 600, dtype=np.float32)[np.random.default_rng(29).permutation(600)][:, None]
+    _check(torch.as_tensor(q), torch.as_tensor(bank), jnp.asarray(q), jnp.asarray(bank), 12, block_n=128)
+
+
 def _tied_bank(seed, N, D=16):
     """Rows drawn from six unit vectors of +-0.5 on four coordinates, and
     queries of the same kind: every score is a multiple of 0.25 computed

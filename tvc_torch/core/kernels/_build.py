@@ -57,10 +57,11 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "tvc_quant_rows_bf16": [_P, _P, _P, _I, _I, _P],
     },
     "decode_attention": {
-        # q, k, v, mask, out, B, KV, R, S, D, is_bf16, stream
-        "tvc_decode_gqa": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-        # R, S, D -> bytes of shared memory a block needs
-        "tvc_decode_gqa_smem": [_I, _I, _I],
+        # q, k, v, mask, out, ws (f32 or null), B, KV, R, S, D, is_bf16,
+        # splits, chunk, stream
+        "tvc_decode_gqa": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+        # B, KV, R, D, splits -> f32 words of workspace the split path needs
+        "tvc_decode_gqa_workspace": [_I, _I, _I, _I, _I],
     },
     "w8_matmul": {
         # x (bf16), w (int8), scale (f32), out (bf16), ws (f32 or null), M, N,
@@ -75,12 +76,10 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     },
     "bank_topk": {
         # q, bank, valid (u8 or null), part_vals, part_idx, B, N, D, k,
-        # rows_per_split, splits, bank_is_bf16, q_is_bf16, stream
-        "tvc_bank_topk_partial": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+        # rows_per_split, splits, bank_is_bf16, q_is_bf16, normalize, stream
+        "tvc_bank_topk_partial": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
         # part_vals, part_idx, vals, idx, B, splits, k, cutoff, stream
         "tvc_bank_topk_merge": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
-        # k -> bytes of shared memory a partial block needs
-        "tvc_bank_topk_smem": [_I],
     },
 }
 

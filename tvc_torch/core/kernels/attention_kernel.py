@@ -10,9 +10,9 @@ dtype.
 
 For CUDA tensors the wrapper launches the hand-written kernel of
 ``tvc_torch/csrc/mha.cu`` (the per-head attention of ``head_attention.cuh``
-on [B, T, H, D] operands, head widths 32 and 64: bf16 on the tensor cores
-at any T; f32 on the CUDA cores at T <= 257, since the tensor cores would
-mean TF32; other shapes raise ``ValueError``); for CPU tensors it computes the plain
+on [B, T, H, D] operands, head widths 32 and 64, any T: bf16 on the tensor
+cores; f32 on the CUDA cores, since the tensor cores would mean TF32; other
+head widths raise ``ValueError``); for CPU tensors it computes the plain
 version beside it, :func:`mha_reference`. ``fused_mha.launches`` counts the
 launches. Inference only: no gradient, as the TPU kernel defines none.
 """
@@ -27,7 +27,6 @@ from torch import Tensor
 from tvc_torch.core.kernels import _build
 
 HEAD_DIMS = (32, 64)  # the kernel's head widths (tiny configs, every CLIP preset)
-MAX_T_F32 = 257  # the f32 kernel's shared memory holds T <= 257 (ViT-L/14)
 
 
 def mha_reference(q: Tensor, k: Tensor, v: Tensor, causal: bool = False) -> Tensor:
@@ -71,8 +70,6 @@ def fused_mha(q: Tensor, k: Tensor, v: Tensor, causal: bool = False, block_heads
     B, T, H, D = q.shape
     if D not in HEAD_DIMS:
         raise ValueError(f"the attention kernel takes head dims {HEAD_DIMS}; got D={D}")
-    if q.dtype == torch.float32 and T > MAX_T_F32:
-        raise ValueError(f"the f32 attention kernel takes T <= {MAX_T_F32}; got T={T}")
     out = torch.empty((B, T, H, D), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out

@@ -11,9 +11,15 @@ operands scaled by D^-1/2, the mask added, an f32 softmax, the weights
 rounded to q's dtype, AV accumulated in f32 and rounded to q's dtype.
 
 For CUDA tensors the wrapper launches the hand-written kernel of
-``tvc_torch/csrc/decode_attention.cu`` (one block per (b, kv); D 16, 32,
-64 or 128, R <= 8); for CPU tensors it computes the plain version beside it, which is
-the JAX package's oracle ``decode_gqa_reference``.
+``tvc_torch/csrc/decode_attention.cu`` (bf16 products on the tensor cores,
+f32 on the CUDA cores; D 16, 32, 64 or 128, R <= 8, any S); for CPU tensors
+it computes the plain version beside it, which is the JAX package's oracle
+``decode_gqa_reference``. :func:`decode_splits` cuts S across blocks when
+B * KV would leave the card short of two blocks an SM and S is long, or S
+exceeds the 1,024 slots whose logits a block keeps in shared memory; every
+split then forms the weights against the row's combined max and sum, and
+the partials are added in split order, so the result does not depend on
+the split but for sums taken in another order.
 
 ``decode_gqa_attention_stacked(q, k, v [L, B, KV, S, D], mask, layer)`` is
 the same function over layer ``layer`` of the stacked all-layer cache: the
@@ -35,7 +41,9 @@ from tvc_torch.core.kernels import _build
 
 HEAD_DIMS = (16, 32, 64, 128)  # the kernel's head widths (16: QwenConfig.tiny())
 MAX_R = 8  # query heads per KV head the kernel takes
-MAX_SMEM = 227 * 1024  # shared memory a Hopper block can use
+MAX_CHUNK = 1024  # cache slots one block takes: its R x chunk f32 logits live in shared memory
+SPLIT_GRAIN = 16  # a split's slots are a multiple of 16 (the tensor-core product's M)
+MIN_SPLIT = 256  # slots a split takes at least when S is cut only to fill the card
 
 
 def decode_gqa_reference(q: Tensor, k: Tensor, v: Tensor, mask: Tensor) -> Tensor:
@@ -72,6 +80,20 @@ def _check_operands(q: Tensor, k: Tensor, v: Tensor, mask: Tensor) -> None:
         raise ValueError("the cache has no slots")
 
 
+def decode_splits(bkv: int, S: int, sms: int = 132):
+    """(splits, chunk): S cut into ``splits`` ranges of ``chunk`` slots (a
+    multiple of 16, at most 1,024). When the ``bkv`` = B * KV blocks give
+    fewer than two an SM, S is cut further, up to two blocks an SM in all,
+    but into no more splits than S / 256 rounded up: a cache of 256 slots
+    or fewer is read faster by one launch than by the three a split
+    takes."""
+    splits = -(-S // MAX_CHUNK)
+    if bkv < 2 * sms:
+        splits = max(splits, min(2 * sms // bkv, -(-S // MIN_SPLIT)))
+    chunk = -(-(-(-S // splits)) // SPLIT_GRAIN) * SPLIT_GRAIN
+    return -(-S // chunk), chunk
+
+
 def decode_gqa_attention(q: Tensor, k: Tensor, v: Tensor, mask: Tensor) -> Tensor:
     """Single-position GQA attention: q [B, KV, R, D], k / v [B, KV, S, D]
     (KV-major), mask [B, S] additive f32; returns [B, KV, R, D] in q's
@@ -82,14 +104,16 @@ def decode_gqa_attention(q: Tensor, k: Tensor, v: Tensor, mask: Tensor) -> Tenso
     B, KV, R, D = q.shape
     S = k.shape[2]
     lib = _build.load("decode_attention")
-    if lib.tvc_decode_gqa_smem(R, S, D) > MAX_SMEM:
-        raise ValueError(f"S={S} needs more shared memory than a block has (R={R}, D={D})")
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    splits, chunk = decode_splits(B * KV, S, sms)
     out = torch.empty_like(q)
+    words = lib.tvc_decode_gqa_workspace(B, KV, R, D, splits)
+    ws = torch.empty(words, dtype=torch.float32, device=q.device) if words else None
     _build.check(
         lib.tvc_decode_gqa(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), out.data_ptr(),
-            B, KV, R, S, D, int(q.dtype == torch.bfloat16),
-            torch.cuda.current_stream(q.device).cuda_stream,
+            None if ws is None else ws.data_ptr(), B, KV, R, S, D, int(q.dtype == torch.bfloat16),
+            splits, chunk, torch.cuda.current_stream(q.device).cuda_stream,
         ),
         "tvc_decode_gqa",
     )

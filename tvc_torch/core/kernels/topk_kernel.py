@@ -17,17 +17,28 @@ version alike:
   ``(-inf, 0)``.
 
 As in the JAX wrapper, ``normalize`` L2-normalizes both operands in f32
-and the ``n_valid`` mask is built with plain tensor ops before the kernel;
-without ``normalize`` the operands keep their dtype (f32 or bf16; bf16
-converts to f32 exactly) and products sum in f32. ``n_valid`` past N is
-taken as N (the TPU wrapper would score its zero pad rows as valid).
+in the plain version, and the ``n_valid`` mask is built with plain tensor
+ops before the kernel; without ``normalize`` the operands keep their
+dtype (f32 or bf16; bf16 converts to f32 exactly) and products sum in
+f32. ``n_valid`` past N is taken as N (the TPU wrapper would score its
+zero pad rows as valid).
 
 For CUDA tensors the wrapper launches the hand-written kernels of
-``tvc_torch/csrc/bank_topk.cu`` (a split-N partial pass keeping sorted
-candidate lists in shared memory, then a merge; 1 <= k <= 128 and D a
-multiple of 8, else ``ValueError``); for CPU tensors it computes the plain
-version :func:`bank_topk_reference` (matmul, then an exact top-k over keys
-that order ties by index). ``bank_topk.launches`` counts the launches.
+``tvc_torch/csrc/bank_topk.cu`` (a split-N partial pass on the CUDA cores,
+8 x 16 scores a thread on 128-query x 256-row tiles fed by a 3-stage
+cp.async ring, threshold filters ahead of the sorted candidate lists in
+shared memory, then a merge; 1 <= k <= 128 and D a multiple of 8, else
+``ValueError``); for CPU tensors it computes the plain version
+:func:`bank_topk_reference` (matmul, then an exact top-k over keys that
+order ties by index). ``bank_topk.launches`` counts the launches.
+
+The kernel route's rounding point with ``normalize``: the wrapper
+normalizes only the ``[B, D]`` queries in f32, and the kernel divides each
+score by its bank row's norm ``max(sqrt(sum b^2), eps)``, summed in f32
+from the tiles it already streams: ``(q^ . b) / |b|`` where the plain
+version computes ``q^ . (b / |b|)``. The two differ by a few f32 ulps
+(well inside the 1e-5 the card's checks hold the kernel to), and no
+normalized ``[N, D]`` copy of the bank is made: a bf16 bank stays bf16.
 """
 
 from __future__ import annotations
@@ -41,25 +52,36 @@ from tvc_torch.core.kernels import _build
 from tvc_torch.core.similarity import l2_normalize
 
 MAX_K = 128  # the kernel's sorted candidate lists hold at most 128 entries
-TILE_ROWS = 64  # bank rows of one tile of the partial kernel
-QUERY_BLOCK = 64  # queries of one partial block
-BLOCKS_PER_SM = 4  # partial blocks the split count aims at, per SM
+TILE_ROWS = 256  # bank rows of one tile of the partial kernel
+QUERY_BLOCK = 128  # queries of one partial block
+BLOCKS_PER_SM = 1  # partial blocks an SM holds (~255 registers a thread): the splits fill one wave
 
 NValid = Optional[Union[int, Tensor]]
 
 
 def _operands(queries: Tensor, bank: Tensor, n_valid: NValid, normalize: bool):
-    """The wrapper's plain steps: f32 L2-normalize of both operands when
+    """The plain version's steps: f32 L2-normalize of both operands when
     ``normalize``, and the [N] validity mask (None: every row valid)."""
     if normalize:
         queries = l2_normalize(queries.float())
         bank = l2_normalize(bank.float())
-    valid = None
-    if n_valid is not None:
-        # an int compares as a scalar: no host-to-device copy in the stream
-        nv = n_valid.to(bank.device) if torch.is_tensor(n_valid) else int(n_valid)
-        valid = torch.arange(bank.shape[0], device=bank.device) < nv
-    return queries, bank, valid
+    return queries, bank, _valid_rows(bank, n_valid)
+
+
+def _valid_rows(bank: Tensor, n_valid: NValid) -> Optional[Tensor]:
+    """The [N] validity mask of ``n_valid`` (None: every row valid)."""
+    if n_valid is None:
+        return None
+    # an int compares as a scalar: no host-to-device copy in the stream
+    nv = n_valid.to(bank.device) if torch.is_tensor(n_valid) else int(n_valid)
+    return torch.arange(bank.shape[0], device=bank.device) < nv
+
+
+def _aligned(t: Tensor) -> Tensor:
+    """``t`` contiguous with a 16-byte aligned base (the kernel's cp.async
+    loads), copied only if it is not."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def _cutoff(N: int, block_n: int) -> int:
@@ -119,6 +141,15 @@ def bank_topk_reference(
     return vals, idx.to(torch.int32)
 
 
+def split_plan(B: int, N: int, sms: int) -> Tuple[int, int]:
+    """(splits, rows_per_split) of the partial kernel: whole tiles a split,
+    about BLOCKS_PER_SM blocks an SM over the query blocks and splits."""
+    tiles = max(1, -(-N // TILE_ROWS))
+    splits = max(1, min(tiles, -(-BLOCKS_PER_SM * sms // -(-B // QUERY_BLOCK))))
+    rows_per_split = -(-tiles // splits) * TILE_ROWS
+    return max(1, -(-N // rows_per_split)), rows_per_split
+
+
 def _check_operands(q: Tensor, bank: Tensor, k: int) -> None:
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
@@ -151,19 +182,17 @@ def bank_topk(
     if queries.device.type == "cpu":
         return bank_topk_reference(queries, bank, k, n_valid, block_n, normalize)
     _check_operands(queries, bank, k)
-    q, bk, valid = _operands(queries, bank, n_valid, normalize)
-    q, bk = q.contiguous(), bk.contiguous()
+    # normalize: the queries here in f32, the bank rows' norms in the kernel
+    q = _aligned(l2_normalize(queries.float()) if normalize else queries)
+    bk = _aligned(bank)
+    valid = _valid_rows(bank, n_valid)
     B, D = q.shape
     N = bk.shape[0]
     vals = torch.empty((B, k), dtype=torch.float32, device=q.device)
     idx = torch.empty((B, k), dtype=torch.int32, device=q.device)
     if B == 0:
         return vals, idx
-    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
-    tiles = max(1, -(-N // TILE_ROWS))
-    splits = max(1, min(tiles, -(-BLOCKS_PER_SM * sms // -(-B // QUERY_BLOCK))))
-    rows_per_split = -(-tiles // splits) * TILE_ROWS
-    splits = max(1, -(-N // rows_per_split))
+    splits, rows_per_split = split_plan(B, N, torch.cuda.get_device_properties(q.device).multi_processor_count)
     part_vals = torch.empty((B, splits, k), dtype=torch.float32, device=q.device)
     part_idx = torch.empty((B, splits, k), dtype=torch.int32, device=q.device)
     lib = _build.load("bank_topk")
@@ -172,7 +201,7 @@ def bank_topk(
         lib.tvc_bank_topk_partial(
             q.data_ptr(), bk.data_ptr(), None if valid is None else valid.data_ptr(),
             part_vals.data_ptr(), part_idx.data_ptr(), B, N, D, k, rows_per_split, splits,
-            int(bk.dtype == torch.bfloat16), int(q.dtype == torch.bfloat16), stream,
+            int(bk.dtype == torch.bfloat16), int(q.dtype == torch.bfloat16), int(normalize), stream,
         ),
         "tvc_bank_topk_partial",
     )

@@ -7,31 +7,53 @@
 // row index ascending) -- the TPU kernel's order, whose running list merges
 // each tile by first-argmax with the running entries (lower indices) first.
 // Scores are f32 sums of f32 products; bf16 operands are converted to f32
-// exactly first (no TF32: it would change which rows win).
+// exactly first (no TF32 or split-TF32: another rounding, and it would
+// change which rows win). With `normalize`, the kernel divides each score
+// by the bank row's norm, max(sqrt(sum of its squares), eps), which it sums
+// in f32 from the tiles it streams: (q^ . b) / |b| rather than the plain
+// version's q^ . (b / |b|), a few f32 ulps apart.
+//
+// What bounds it: 2 B N D flops of f32 FMA against 4 N D bytes of bank, ~2
+// flops a byte at B = 1 and 128 at B = 256, so at serving batch sizes the
+// card's f32 rate (67 TF/s, no tensor cores) bounds it -- and, right behind
+// it, shared memory: an SM issues 128 FMA a clock and its shared memory
+// delivers 128 bytes a clock (4 bytes a lane), so a thread must take at
+// least 4 FMA from every float it loads.
 //
 // Two launches:
-//  * bank_topk_partial_kernel: a block takes 64 queries and one contiguous
-//    range ("split") of bank rows, streams the range through shared memory
-//    in 64-row x 32-column tiles (register-prefetched, the two operand tiles
-//    stored transposed with an XOR swizzle of 4-row groups so that both the
-//    transposing stores and the 16-byte reads of the product loop are free
-//    of bank conflicts), computes the 64 x 64 score tile with 4 x 4 outputs
-//    a thread, then each warp folds the tile into the sorted candidate lists
-//    of its 8 queries (shared memory, k <= 128 entries each; a row enters
-//    only if it beats the k-th entry, and rows arrive in ascending index
-//    order, so equal scores keep the lower index first). Each block writes
+//  * bank_topk_partial_kernel: a block of 256 threads (one an SM: ~255
+//    registers) takes 128 queries and one contiguous range ("split") of
+//    bank rows and streams the range in 256-row tiles, 16 columns a stage
+//    (8 when k is so large that the sorted lists leave too little shared
+//    memory for three 16-column stages), through a 3-stage shared-memory
+//    ring filled by 16-byte cp.async (one barrier a stage). Both operand
+//    tiles lie as in device memory, each row stride an odd number of
+//    16-byte words (80 bytes at 16 f32 columns, 48 at 16 bf16 or 8 f32, 16
+//    at 8 bf16): a thread's 8 queries are rows ty + 16a and its 16 bank
+//    rows tx + 16b, so at each 4-column step it reads 8 + 16 four-value
+//    words (the 8 bank rows of a warp's lanes hit 8 distinct bank groups,
+//    its 4 query rows 4; the rest are broadcasts) for 512 FMAs: 0.75 bytes
+//    of shared memory a FMA. At the tile's end each thread holds its 8 x 16
+//    scores in registers. A query's candidates must beat two filters: its
+//    k-th score as the tile started (it only rises, so a stale copy is
+//    safe; strictly greater, since the rows of a split arrive in ascending
+//    order and an equal score loses to the lower index already held), and,
+//    while its list is not full and k <= 16, the k-th largest of the 16
+//    maxima its 16 threads hold in this tile (k of the tile's scores are at
+//    least that, so a lower score cannot be in the top k; an equal one may,
+//    and passes) -- so the first tile of a split sends ~k candidates a
+//    query to the lists, not 256. Only when some score passes (a block
+//    vote) do the passing (score, row) pairs go to per-query buckets in
+//    shared memory, and one warp a query merges them into its sorted list
+//    (k <= 128 entries) by rank: every entry's and candidate's new place is
+//    the count of those before it in the full (score, row) order, so the
+//    order in which candidates arrive does not matter. Each block writes
 //    its lists to [B, splits, k] (unfilled slots (-inf, INT_MAX)).
 //  * bank_topk_merge_kernel: a warp per query merges the split lists by
 //    their heads in the same order and writes [B, k]; when fewer than k rows
 //    are valid, the surplus slots hold (-inf, s) with s the TPU kernel's
 //    leftover index: the best valid row below `cutoff` (the first row of the
 //    TPU kernel's last tile), else 0.
-//
-// What bounds it: 2 B N D flops of f32 FMA against 4 N D bytes of bank, ~2
-// flops a byte at B = 1 and 128 at B = 256, so at serving batch sizes the
-// card's f32 rate (67 TF/s, no tensor cores) bounds it. The product loop
-// keeps 16 accumulators a thread and reads 2 x 16 bytes of shared memory
-// per 16 FMAs; the top-k bookkeeping runs once per 64 x 64 tile.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -42,212 +64,304 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kQB = 64;        // queries a block
-constexpr int kNB = 64;        // bank rows a tile
-constexpr int kDK = 32;        // columns a stage
-constexpr int kThreads = 256;  // 16 x 16 threads, 4 x 4 outputs each
-constexpr int kSLd = kNB + 1;  // score tile row
+constexpr int kQB = 128;       // queries a block (8 a thread)
+constexpr int kNB = 256;       // bank rows a tile (16 a thread)
+constexpr int kStages = 3;     // ring stages
+constexpr int kThreads = 256;  // 16 x 16 threads, 8 x 16 scores each
+constexpr int kBucket = 32;    // candidates a query per fold round (a warp's lanes)
 constexpr int kMaxK = 128;
 constexpr int kNoIdx = 0x7fffffff;
 constexpr int kMergeWarps = 4;
+constexpr float kEps = 1e-8f;  // tvc_torch.core.similarity.EPS
 
 __device__ __forceinline__ bool better(float s, int i, float t, int j) {
   return s > t || (s == t && i < j);
 }
 
-// Offset of (column d, row r) in a [kDK][64] transposed tile: 4-row groups
-// XOR-swizzled by column so that the transposing stores hit 32 banks.
-__device__ __forceinline__ int swz(int d, int r) {
-  return d * 64 + ((((r >> 2) ^ ((d >> 2) & 7)) << 2) | (r & 3));
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// 16-byte loads of one row chunk as f32 (bf16 converted exactly).
-__device__ __forceinline__ void load16(const float* p, float* out) {
-  const float4 v = *reinterpret_cast<const float4*>(p);
-  out[0] = v.x; out[1] = v.y; out[2] = v.z; out[3] = v.w;
+// four consecutive values of a shared-memory row as f32 (bf16 exactly)
+__device__ __forceinline__ float4 lds4(const float* p) { return *reinterpret_cast<const float4*>(p); }
+__device__ __forceinline__ float4 lds4(const bf16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(a.x, a.y, b.x, b.y);
 }
-__device__ __forceinline__ void load16(const bf16* p, float* out) {
-  const uint4 u = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    out[2 * i] = f.x;
-    out[2 * i + 1] = f.y;
+
+// One operand's tile of a stage: `Rows` rows of DK columns, the row
+// stride an odd number of 16-byte words (conflict-free 16-byte reads of 8
+// consecutive rows).
+template <typename T, int Rows, int DK>
+struct OpTile {
+  static constexpr int kData = DK * (int)sizeof(T);
+  static constexpr int kRow = (kData / 16) % 2 ? kData : kData + 16;
+  static constexpr int kBytes = Rows * kRow;
+  static constexpr int kChunks = kData / 16;  // 16-byte pieces a row
+};
+
+// Shared memory: the ring (kStages x (q tile, bank tile)), the sorted
+// lists [kQB][k] (scores, rows), the buckets [kQB][kBucket] (scores,
+// rows), per query its list length, k-th score (-inf until full), bucket
+// fill and the tile's seed threshold, per query and thread column its
+// tile maximum, and per tile row its norm.
+template <typename QT, typename BT, int DK>
+struct Layout {
+  static constexpr int kStage = OpTile<QT, kQB, DK>::kBytes + OpTile<BT, kNB, DK>::kBytes;
+  static constexpr int kLists = kStages * kStage;
+  __host__ __device__ static size_t bytes(int k) {
+    return kLists + (size_t)kQB * k * 8 + (size_t)kQB * kBucket * 8 + (size_t)kQB * 16 + kQB * 16 * 4 + kNB * 4;
   }
-}
+};
 
-// A 64-row x kDK-column tile of the row-major [rows, D] matrix `src` from
-// (row0, d0) into 8 registers a thread; rows at or past `limit` and columns
-// past D read as 0.
-template <typename T>
-__device__ __forceinline__ void fetch_tile(const T* __restrict__ src, int limit, int D, int row0, int d0,
-                                           float* reg) {
-  constexpr int kVec = 16 / (int)sizeof(T);
-  constexpr int kPer = 64 * kDK / kVec / kThreads;  // 16-byte loads a thread
-#pragma unroll
-  for (int p = 0; p < kPer; ++p) {
-    const int v = threadIdx.x + p * kThreads;
-    const int row = v / (kDK / kVec), d = d0 + (v % (kDK / kVec)) * kVec;
-    if (row0 + row < limit && d < D) {
-      load16(src + (size_t)(row0 + row) * D + d, reg + p * kVec);
-    } else {
-#pragma unroll
-      for (int e = 0; e < kVec; ++e) reg[p * kVec + e] = 0.f;
-    }
-  }
-}
-
-template <typename T>
-__device__ __forceinline__ void store_tile(float* tile, const float* reg) {
-  constexpr int kVec = 16 / (int)sizeof(T);
-  constexpr int kPer = 64 * kDK / kVec / kThreads;
-#pragma unroll
-  for (int p = 0; p < kPer; ++p) {
-    const int v = threadIdx.x + p * kThreads;
-    const int row = v / (kDK / kVec), d = (v % (kDK / kVec)) * kVec;
-#pragma unroll
-    for (int e = 0; e < kVec; ++e) tile[swz(d + e, row)] = reg[p * kVec + e];
-  }
-}
-
-__host__ __device__ inline size_t partial_smem_bytes(int k) {
-  return (size_t)(2 * kDK * 64 + kQB * kSLd + kQB * k) * 4 + (size_t)kQB * k * 4 + kQB * 4;
-}
-
-// Fold one 64 x 64 score tile into the sorted lists of this warp's queries.
-__device__ void fold_tile(const float* ss, float* lv, int* li, int* cnt, int q0, int B, int k, int tile_row0) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int qq = warp; qq < kQB; qq += kThreads / 32) {
-    if (q0 + qq >= B) break;
-    float* v = lv + qq * k;
-    int* ix = li + qq * k;
-    int c = cnt[qq];
-#pragma unroll 1
-    for (int half = 0; half < 2; ++half) {
-      const float s = ss[qq * kSLd + half * 32 + lane];
-      const float kth = c == k ? v[k - 1] : -INFINITY;
-      unsigned m = __ballot_sync(0xffffffffu, s > -INFINITY && (c < k || s > kth));
-      while (m) {
-        const int src = __ffs(m) - 1;
-        m &= m - 1;
-        const float cs = __shfl_sync(0xffffffffu, s, src);
-        const int cidx = tile_row0 + half * 32 + src;
-        if (c == k && !(cs > v[k - 1])) continue;
-        // entries with score >= cs come first: their rows are lower
-        int p = 0;
-        for (int j0 = 0; j0 < c; j0 += 32) {
-          const int j = j0 + lane;
-          p += __popc(__ballot_sync(0xffffffffu, j < c && v[j] >= cs));
-        }
-        const int nc = c < k ? c + 1 : k;
-        // shift [p, nc - 2] up to [p + 1, nc - 1]
-        float sv[kMaxK / 32];
-        int si[kMaxK / 32];
-#pragma unroll
-        for (int t = 0; t < kMaxK / 32; ++t) {
-          const int j = p + 1 + lane + 32 * t;
-          if (j < nc) {
-            sv[t] = v[j - 1];
-            si[t] = ix[j - 1];
-          }
-        }
-        __syncwarp();
-#pragma unroll
-        for (int t = 0; t < kMaxK / 32; ++t) {
-          const int j = p + 1 + lane + 32 * t;
-          if (j < nc) {
-            v[j] = sv[t];
-            ix[j] = si[t];
-          }
-        }
-        __syncwarp();
-        if (lane == 0) {
-          v[p] = cs;
-          ix[p] = cidx;
-        }
-        __syncwarp();
-        c = nc;
-      }
-    }
-    if (lane == 0) cnt[qq] = c;
-    __syncwarp();
-  }
-}
-
-template <typename QT, typename BT>
-__global__ void __launch_bounds__(kThreads)
+template <typename QT, typename BT, int DK>
+__global__ void __launch_bounds__(kThreads, 1)
     bank_topk_partial_kernel(const QT* __restrict__ q, const BT* __restrict__ bank,
                              const uint8_t* __restrict__ valid, float* __restrict__ part_vals,
-                             int* __restrict__ part_idx, int B, int N, int D, int k, int rows_per_split) {
+                             int* __restrict__ part_idx, int B, int N, int D, int k, int rows_per_split,
+                             int normalize) {
+  using L = Layout<QT, BT, DK>;
+  using QTile = OpTile<QT, kQB, DK>;
+  using BTile = OpTile<BT, kNB, DK>;
   extern __shared__ __align__(16) unsigned char smem[];
-  float* qs = reinterpret_cast<float*>(smem);  // [kDK][64] swizzled
-  float* bs = qs + kDK * 64;                   // [kDK][64] swizzled
-  float* ss = bs + kDK * 64;                   // [64][kSLd] scores
-  float* lv = ss + kQB * kSLd;                 // [64][k] sorted list scores
-  int* li = reinterpret_cast<int*>(lv + kQB * k);  // [64][k] their rows
-  int* cnt = li + kQB * k;                     // [64] entries held
+  float* lv = reinterpret_cast<float*>(smem + L::kLists);  // [kQB][k]
+  int* li = reinterpret_cast<int*>(lv + kQB * k);           // [kQB][k]
+  float* bval = reinterpret_cast<float*>(li + kQB * k);     // [kQB][kBucket]
+  int* bidx = reinterpret_cast<int*>(bval + kQB * kBucket); // [kQB][kBucket]
+  int* cnt = bidx + kQB * kBucket;                          // [kQB]
+  float* thr = reinterpret_cast<float*>(cnt + kQB);         // [kQB]
+  int* bcnt = reinterpret_cast<int*>(thr + kQB);            // [kQB]
+  float* seed = reinterpret_cast<float*>(bcnt + kQB);       // [kQB]
+  float* tmax = seed + kQB;                                 // [kQB][16]
+  float* rnorm = tmax + kQB * 16;                           // [kNB] 1 / the tile rows' norms
 
   const int split = blockIdx.x, splits = gridDim.x;
   const int q0 = blockIdx.y * kQB;
   const int r_begin = split * rows_per_split;
   const int r_end = min(N, r_begin + rows_per_split);
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  for (int i = tid; i < kQB; i += kThreads) cnt[i] = 0;
-
-  const int stages = (D + kDK - 1) / kDK;
-  const int tiles = r_end > r_begin ? (r_end - r_begin + kNB - 1) / kNB : 0;
-  const int steps = tiles * stages;
-  float qreg[8], breg[8];
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  if (steps > 0) {
-    fetch_tile(q, B, D, q0, 0, qreg);
-    fetch_tile(bank, r_end, D, r_begin, 0, breg);
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  // a warp: 8 bank-row columns x 4 query rows
+  const int tx = (warp & 1) * 8 + (lane & 7), ty = (warp >> 1) * 4 + (lane >> 3);
+  for (int i = tid; i < kQB; i += kThreads) {
+    cnt[i] = 0;
+    thr[i] = -INFINITY;
+    bcnt[i] = 0;
   }
-  for (int step = 0; step < steps; ++step) {
-    const int t = step / stages, st = step % stages;
-    store_tile<QT>(qs, qreg);
-    store_tile<BT>(bs, breg);
-    __syncthreads();
-    if (step + 1 < steps) {
-      const int nt = (step + 1) / stages, nst = (step + 1) % stages;
-      fetch_tile(q, B, D, q0, nst * kDK, qreg);
-      fetch_tile(bank, r_end, D, r_begin + nt * kNB, nst * kDK, breg);
+
+  const int nst = (D + DK - 1) / DK;  // stages a tile
+  const int tiles = r_end > r_begin ? (r_end - r_begin + kNB - 1) / kNB : 0;
+  const int steps = tiles * nst;
+  const uint32_t ring = smem_u32(smem);
+
+  // stage `step` into ring slot step % kStages (one commit group each,
+  // empty past the last); rows past B / r_end and columns past D are zeros
+  auto issue = [&](int step) {
+    if (step < steps) {
+      const int t = step / nst, d0 = (step % nst) * DK;
+      const uint32_t qdst = ring + (uint32_t)((step % kStages) * L::kStage);
+      const uint32_t bdst = qdst + QTile::kBytes;
+      for (int i = tid; i < kQB * QTile::kChunks; i += kThreads) {
+        const int row = i / QTile::kChunks, piece = i % QTile::kChunks;
+        const int d = d0 + piece * (16 / (int)sizeof(QT));
+        const bool ok = q0 + row < B && d < D;
+        cp_async16(qdst + row * QTile::kRow + piece * 16, ok ? (const void*)(q + (size_t)(q0 + row) * D + d) : q, ok);
+      }
+      const int rb = r_begin + t * kNB;
+      for (int i = tid; i < kNB * BTile::kChunks; i += kThreads) {
+        const int row = i / BTile::kChunks, piece = i % BTile::kChunks;
+        const int d = d0 + piece * (16 / (int)sizeof(BT));
+        const bool ok = rb + row < r_end && d < D;
+        cp_async16(bdst + row * BTile::kRow + piece * 16,
+                   ok ? (const void*)(bank + (size_t)(rb + row) * D + d) : bank, ok);
+      }
     }
+    cp_async_commit();
+  };
+
+  // merge the buckets' candidates into the lists, one warp a query: each
+  // entry's new place is its old place plus the candidates before it, each
+  // candidate's the list entries and the other candidates before it (the
+  // (score, row) order is strict: rows are distinct), so the result is the
+  // top k of the union whatever order the candidates came in
+  auto fold = [&]() {
+    for (int qq = warp; qq < kQB; qq += kThreads / 32) {
+      const int n = min(bcnt[qq], kBucket);
+      if (n == 0) continue;
+      float* v = lv + qq * k;
+      int* ix = li + qq * k;
+      const int c = cnt[qq];
+      const float cs = lane < n ? bval[qq * kBucket + lane] : -INFINITY;
+      const int ci = lane < n ? bidx[qq * kBucket + lane] : kNoIdx;
+      float ev[kMaxK / 32];
+      int ei[kMaxK / 32], ep[kMaxK / 32];
 #pragma unroll
-    for (int d = 0; d < kDK; ++d) {
-      const float4 a = *reinterpret_cast<const float4*>(qs + swz(d, ty * 4));
-      const float4 b = *reinterpret_cast<const float4*>(bs + swz(d, tx * 4));
-      const float av[4] = {a.x, a.y, a.z, a.w}, bv[4] = {b.x, b.y, b.z, b.w};
+      for (int t = 0; t < kMaxK / 32; ++t) {
+        const int j = lane + 32 * t;
+        ev[t] = j < c ? v[j] : -INFINITY;
+        ei[t] = j < c ? ix[j] : kNoIdx;
+        ep[t] = j;
+      }
+      int pos = 0;
+      for (int j = 0; j < n; ++j) {
+        const float s2 = __shfl_sync(0xffffffffu, cs, j);
+        const int i2 = __shfl_sync(0xffffffffu, ci, j);
+        pos += better(s2, i2, cs, ci);
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+        for (int t = 0; t < kMaxK / 32; ++t) ep[t] += better(s2, i2, ev[t], ei[t]);
+      }
+      for (int j = 0; j < c; ++j) pos += better(v[j], ix[j], cs, ci);
+      __syncwarp();  // every lane has read the old list
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
-    if (st == stages - 1) {
-      const int tile_row0 = r_begin + t * kNB;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int row = tile_row0 + tx * 4 + j;
-        const bool ok = row < r_end && (valid == nullptr || valid[row]);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          ss[(ty * 4 + i) * kSLd + tx * 4 + j] = ok ? acc[i][j] : -INFINITY;
-          acc[i][j] = 0.f;
+      for (int t = 0; t < kMaxK / 32; ++t) {
+        if (lane + 32 * t < c && ep[t] < k) {
+          v[ep[t]] = ev[t];
+          ix[ep[t]] = ei[t];
         }
       }
-      __syncthreads();
-      fold_tile(ss, lv, li, cnt, q0, B, k, tile_row0);
+      if (lane < n && pos < k) {
+        v[pos] = cs;
+        ix[pos] = ci;
+      }
+      __syncwarp();
+      if (lane == 0) {
+        const int nc = min(k, c + n);
+        cnt[qq] = nc;
+        thr[qq] = nc == k ? v[k - 1] : -INFINITY;
+        bcnt[qq] = 0;
+      }
+      __syncwarp();
     }
+  };
+
+  float acc[8][16];
+#pragma unroll
+  for (int a = 0; a < 8; ++a)
+#pragma unroll
+    for (int b = 0; b < 16; ++b) acc[a][b] = 0.f;
+  float ss = 0.f;  // normalize: tile row tid's sum of squares
+
+#pragma unroll 1
+  for (int i = 0; i < kStages - 1; ++i) issue(i);
+#pragma unroll 1
+  for (int step = 0; step < steps; ++step) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();  // stage `step` landed for every thread; slot (step - 1) % kStages is free
+    issue(step + kStages - 1);
+    const unsigned char* qsl = smem + (step % kStages) * L::kStage;
+    const unsigned char* bsl = qsl + QTile::kBytes;
+#pragma unroll
+    for (int d4 = 0; d4 < DK; d4 += 4) {
+      float4 qa[8];
+#pragma unroll
+      for (int a = 0; a < 8; ++a) qa[a] = lds4(reinterpret_cast<const QT*>(qsl + (ty + 16 * a) * QTile::kRow) + d4);
+#pragma unroll
+      for (int b = 0; b < 16; ++b) {
+        const float4 x = lds4(reinterpret_cast<const BT*>(bsl + (tx + 16 * b) * BTile::kRow) + d4);
+#pragma unroll
+        for (int a = 0; a < 8; ++a) {
+          acc[a][b] = fmaf(qa[a].x, x.x, acc[a][b]);
+          acc[a][b] = fmaf(qa[a].y, x.y, acc[a][b]);
+          acc[a][b] = fmaf(qa[a].z, x.z, acc[a][b]);
+          acc[a][b] = fmaf(qa[a].w, x.w, acc[a][b]);
+        }
+      }
+    }
+    if (normalize) {
+      const BT* p = reinterpret_cast<const BT*>(bsl + tid * BTile::kRow);
+#pragma unroll
+      for (int d = 0; d < DK; d += 4) {
+        const float4 x = lds4(p + d);
+        ss = fmaf(x.x, x.x, ss), ss = fmaf(x.y, x.y, ss), ss = fmaf(x.z, x.z, ss), ss = fmaf(x.w, x.w, ss);
+      }
+    }
+    if (step % nst != nst - 1) continue;
+
+    // the tile's end: scores, each query's tile maximum of this thread
+    const int tile_row0 = r_begin + (step / nst) * kNB;
+    if (normalize) {
+      rnorm[tid] = __frcp_rn(fmaxf(sqrtf(ss), kEps));
+      ss = 0.f;
+    }
+    __syncthreads();  // rnorm written; thr stable since the last fold
+#pragma unroll
+    for (int a = 0; a < 8; ++a) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int b = 0; b < 16; ++b) {
+        const int row = tile_row0 + tx + 16 * b;
+        const bool ok = row < r_end && (valid == nullptr || valid[row]) && q0 + ty + 16 * a < B;
+        const float s = ok ? (normalize ? __fmul_rn(acc[a][b], rnorm[tx + 16 * b]) : acc[a][b]) : -INFINITY;
+        acc[a][b] = s;
+        mx = fmaxf(mx, s);
+      }
+      tmax[(ty + 16 * a) * 16 + tx] = mx;
+    }
+    __syncthreads();
+    // a query's seed while its list is not full: the k-th largest of its 16
+    // thread maxima (k <= 16), at most the k-th largest score of the tile
+    if (tid < kQB) {
+      float sd = -INFINITY;
+      if (k <= 16 && cnt[tid] < k) {
+        const float* m = tmax + tid * 16;
+#pragma unroll 1
+        for (int i = 0; i < 16; ++i) {
+          int above = 0;
+#pragma unroll
+          for (int j = 0; j < 16; ++j) above += m[j] > m[i] || (m[j] == m[i] && j < i);
+          if (above == k - 1) sd = m[i];
+        }
+      }
+      seed[tid] = sd;
+    }
+    __syncthreads();
+    uint64_t pass[2] = {0, 0};
+#pragma unroll
+    for (int a = 0; a < 8; ++a) {
+      const float th = thr[ty + 16 * a], sd = seed[ty + 16 * a];
+#pragma unroll
+      for (int b = 0; b < 16; ++b)
+        if (acc[a][b] > th && acc[a][b] >= sd) pass[a >> 2] |= 1ull << ((a & 3) * 16 + b);
+    }
+    while (__syncthreads_or((pass[0] | pass[1]) != 0)) {
+#pragma unroll
+      for (int a = 0; a < 8; ++a)
+#pragma unroll
+        for (int b = 0; b < 16; ++b) {
+          const uint64_t bit = 1ull << ((a & 3) * 16 + b);
+          if (pass[a >> 2] & bit) {
+            const int qq = ty + 16 * a;
+            // a fold of this tile may have raised the query's k-th score
+            const int slot = acc[a][b] > thr[qq] ? atomicAdd(&bcnt[qq], 1) : -1;
+            if (slot < 0) pass[a >> 2] &= ~bit;
+            if (slot >= 0 && slot < kBucket) {
+              bval[qq * kBucket + slot] = acc[a][b];
+              bidx[qq * kBucket + slot] = tile_row0 + tx + 16 * b;
+              pass[a >> 2] &= ~bit;
+            }
+          }
+        }
+      __syncthreads();
+      fold();
+    }
+#pragma unroll
+    for (int a = 0; a < 8; ++a)
+#pragma unroll
+      for (int b = 0; b < 16; ++b) acc[a][b] = 0.f;
   }
+  cp_async_wait<0>();
   __syncthreads();
-  const int warp = tid >> 5, lane = tid & 31;
   for (int qq = warp; qq < kQB; qq += kThreads / 32) {
     if (q0 + qq >= B) break;
     const int c = cnt[qq];
@@ -314,44 +428,64 @@ __global__ void __launch_bounds__(32 * kMergeWarps)
   }
 }
 
-template <typename QT, typename BT>
-int launch_partial(const void* q, const void* bank, const uint8_t* valid, float* pv, int* pi, int B, int N,
-                   int D, int k, int rows_per_split, int splits, cudaStream_t stream) {
-  const size_t smem = partial_smem_bytes(k);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(bank_topk_partial_kernel<QT, BT>,
+template <typename QT, typename BT, int DK>
+int launch_partial_dk(const void* q, const void* bank, const uint8_t* valid, float* pv, int* pi, int B, int N,
+                      int D, int k, int rows_per_split, int splits, int normalize, cudaStream_t stream) {
+  const size_t smem = Layout<QT, BT, DK>::bytes(k);
+  static size_t allowed = 0;  // the kernel's shared-memory limit, raised as larger k come
+  if (smem > allowed) {
+    const cudaError_t e = cudaFuncSetAttribute(bank_topk_partial_kernel<QT, BT, DK>,
                                                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
+    allowed = smem;
   }
   const dim3 grid(splits, (B + kQB - 1) / kQB);
-  bank_topk_partial_kernel<QT, BT><<<grid, kThreads, smem, stream>>>(
-      (const QT*)q, (const BT*)bank, valid, pv, pi, B, N, D, k, rows_per_split);
+  bank_topk_partial_kernel<QT, BT, DK><<<grid, kThreads, smem, stream>>>(
+      (const QT*)q, (const BT*)bank, valid, pv, pi, B, N, D, k, rows_per_split, normalize);
   return (int)cudaGetLastError();
+}
+
+// 16 columns a stage where the ring and the lists of k entries fit a
+// block's shared memory, else 8
+template <typename QT, typename BT>
+int launch_partial(const void* q, const void* bank, const uint8_t* valid, float* pv, int* pi, int B, int N,
+                   int D, int k, int rows_per_split, int splits, int normalize, cudaStream_t stream) {
+  int dev = 0, optin = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (e != cudaSuccess) return (int)e;
+  if (Layout<QT, BT, 16>::bytes(k) <= (size_t)optin)
+    return launch_partial_dk<QT, BT, 16>(q, bank, valid, pv, pi, B, N, D, k, rows_per_split, splits, normalize,
+                                         stream);
+  return launch_partial_dk<QT, BT, 8>(q, bank, valid, pv, pi, B, N, D, k, rows_per_split, splits, normalize, stream);
 }
 
 }  // namespace
 
-// q [B, D] and bank [N, D] row-major (f32 or bf16 each), valid [N] u8 or
-// null (every row valid); part_vals / part_idx [B, splits, k]. Split s
-// takes rows [s * rows_per_split, (s + 1) * rows_per_split). Returns
+// q [B, D] and bank [N, D] row-major (f32 or bf16 each, 16-byte aligned),
+// valid [N] u8 or null (every row valid); part_vals / part_idx [B, splits,
+// k]. Split s takes rows [s * rows_per_split, (s + 1) * rows_per_split).
+// normalize != 0: each score divided by its bank row's norm. Returns
 // cudaErrorInvalidValue unless 1 <= k <= 128, D % 8 == 0 and the splits
 // cover N.
 extern "C" int tvc_bank_topk_partial(const void* q, const void* bank, const void* valid, void* part_vals,
                                      void* part_idx, int B, int N, int D, int k, int rows_per_split, int splits,
-                                     int bank_is_bf16, int q_is_bf16, void* stream) {
+                                     int bank_is_bf16, int q_is_bf16, int normalize, void* stream) {
   if (k < 1 || k > kMaxK || D < 8 || D % 8 || rows_per_split < 1 || splits < 1 ||
-      (long long)rows_per_split * splits < N || B < 1)
+      (long long)rows_per_split * splits < N || B < 1 || ((uintptr_t)q | (uintptr_t)bank) % 16)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
   const uint8_t* v = (const uint8_t*)valid;
   float* pv = (float*)part_vals;
   int* pi = (int*)part_idx;
   if (q_is_bf16) {
-    return bank_is_bf16 ? launch_partial<bf16, bf16>(q, bank, v, pv, pi, B, N, D, k, rows_per_split, splits, s)
-                        : launch_partial<bf16, float>(q, bank, v, pv, pi, B, N, D, k, rows_per_split, splits, s);
+    return bank_is_bf16
+               ? launch_partial<bf16, bf16>(q, bank, v, pv, pi, B, N, D, k, rows_per_split, splits, normalize, s)
+               : launch_partial<bf16, float>(q, bank, v, pv, pi, B, N, D, k, rows_per_split, splits, normalize, s);
   }
-  return bank_is_bf16 ? launch_partial<float, bf16>(q, bank, v, pv, pi, B, N, D, k, rows_per_split, splits, s)
-                      : launch_partial<float, float>(q, bank, v, pv, pi, B, N, D, k, rows_per_split, splits, s);
+  return bank_is_bf16
+             ? launch_partial<float, bf16>(q, bank, v, pv, pi, B, N, D, k, rows_per_split, splits, normalize, s)
+             : launch_partial<float, float>(q, bank, v, pv, pi, B, N, D, k, rows_per_split, splits, normalize, s);
 }
 
 // part_vals / part_idx [B, splits, k] -> vals [B, k] f32, idx [B, k] i32.
@@ -368,6 +502,3 @@ extern "C" int tvc_bank_topk_merge(const void* part_vals, const void* part_idx, 
       (const float*)part_vals, (const int*)part_idx, (float*)vals, (int*)idx, B, splits, k, cutoff);
   return (int)cudaGetLastError();
 }
-
-// Bytes of shared memory a partial block needs for lists of k entries.
-extern "C" int tvc_bank_topk_smem(int k) { return (int)partial_smem_bytes(k); }

@@ -43,10 +43,11 @@
 //   ablation of scripts/compare_head_attention.py runs ~25 % faster at
 //   ViT-L/14) and the second Q.K^T.
 // f32 operands: head_attention_kernel, on the CUDA cores (tensor cores
-//   would mean TF32, which the f32 function excludes), T <= 257: one block
-//   per (sequence, head), the T x D slices in dynamic shared memory (~202
-//   KB at T = 257), each warp a query row at a time: logits, the causal
-//   mask, the f32 softmax with warp shuffles, P.V accumulated in f32.
+//   would mean TF32, which the f32 function excludes), any T: 64 query rows
+//   a block of 256 threads, 4 x 4 logits a thread, 64-row key tiles in
+//   ~66 KB of shared memory at D = 64 whatever T is, and the same two
+//   sweeps as the bf16 kernel (online max and sum, then the logits again,
+//   the f32 weights e^(s - m) / l by a division, P.V in f32). e^x is expf.
 
 #pragma once
 
@@ -73,21 +74,19 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-constexpr int kMaxT = 257;  // the f32 kernel's limit: ViT-L/14 at 224 px, 16 x 16 patches + class token
-constexpr int kAttnWarps = 4;
+// The f32 kernel: 64 query rows of one (sequence, head) a block of 256
+// threads (16 x 16, each a 4 x 4 tile of logits: rows 4 ty + a, keys
+// 4 tx + b), 64-row key tiles in shared memory whose size does not depend
+// on T: q and k transposed ([d][row], so that a thread's four rows or keys
+// at one d are one 16-byte read), v as it lies ([key][d]), and the weights
+// P ([row][key], rows padded by 4 floats).
+constexpr int kF32Rows = 64;
+constexpr int kF32Threads = 256;
+constexpr int kF32PLd = kF32Rows + 4;
 
-// Dynamic shared memory of the f32 kernel for T rows of head width D: q,
-// k (rows of float2 pairs padded by one pair, so that a half warp's 16
-// rows spread over all 32 banks), v, and one row of logits per warp; each
-// part starts on a 16-byte boundary.
 template <int D>
-struct AttnSmem {
-  static constexpr int kKLd = D / 2 + 1;  // pairs of a padded k row
-  __host__ __device__ static size_t q_bytes(int T) { return (size_t)T * D * sizeof(float); }
-  __host__ __device__ static size_t k_bytes(int T) { return ((size_t)T * kKLd * sizeof(float2) + 15) / 16 * 16; }
-  __host__ __device__ static size_t bytes(int T) {
-    return 2 * q_bytes(T) + k_bytes(T) + (size_t)kAttnWarps * T * 4;
-  }
+struct F32AttnSmem {
+  static constexpr size_t kBytes = (size_t)(3 * D * kF32Rows + kF32Rows * kF32PLd) * sizeof(float);
 };
 
 __device__ __forceinline__ void store_pair(bf16* o, float o0, float o1) {
@@ -97,85 +96,166 @@ __device__ __forceinline__ void store_pair(float* o, float o0, float o1) {
   *reinterpret_cast<float2*>(o) = make_float2(o0, o1);
 }
 
-// The f32 kernel. Lane l computes logit columns l, l + 32, ... in
-// ascending order, so its partial softmax sum is taken in the same order
-// at every T.
+// Rows t0.. of head h of one sequence (row stride ld) into [D][64]
+// (transposed) or [64][D]; rows at or past T are zeros.
+template <int D, bool kTransposed>
+__device__ __forceinline__ void f32_tile(float* dst, const float* __restrict__ src, size_t row0, int t0, int T,
+                                         int ld, int h) {
+  constexpr int kParts = D / 4;  // 16-byte pieces of a row
+  for (int c = threadIdx.x; c < kF32Rows * kParts; c += kF32Threads) {
+    // transposed: neighbouring threads take neighbouring rows (the
+    // scattered stores then hit 32 banks); else neighbouring pieces
+    const int t = kTransposed ? c % kF32Rows : c / kParts;
+    const int part = kTransposed ? c / kF32Rows : c % kParts;
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (t0 + t < T) x = *reinterpret_cast<const float4*>(src + (row0 + t0 + t) * (size_t)ld + (size_t)h * D + 4 * part);
+    if constexpr (kTransposed) {
+      dst[(4 * part + 0) * kF32Rows + t] = x.x;
+      dst[(4 * part + 1) * kF32Rows + t] = x.y;
+      dst[(4 * part + 2) * kF32Rows + t] = x.z;
+      dst[(4 * part + 3) * kF32Rows + t] = x.w;
+    } else {
+      *reinterpret_cast<float4*>(dst + t * D + 4 * part) = x;
+    }
+  }
+}
+
+// Sweep 1: the row max and the sum of exp(s - m), by online rescaling
+// (l = l e^(m - m') + sum e^(s - m')); sweep 2: the logits again, the f32
+// weights e^(s - m) / l (not rounded: f32 operands keep f32 weights) and
+// O += P.V in f32. Each thread sums its keys and dot products in
+// ascending order and the 16 threads of a row combine by a fixed shuffle
+// tree, so two calls give the same bits.
 template <int D>
-__global__ void __launch_bounds__(32 * kAttnWarps)
+__global__ void __launch_bounds__(kF32Threads)
     head_attention_kernel(const float* __restrict__ qg, const float* __restrict__ kg,
                           const float* __restrict__ vg, float* __restrict__ out, int ld,
                           int T, int H, int causal, float scale) {
   static_assert(D == 32 || D == 64, "head width 32 or 64");
-  using S = AttnSmem<D>;
-  constexpr int kChunks = D / 4;  // 16-byte loads of a row
-  constexpr int kChunkShift = kChunks == 16 ? 4 : 3;
-  static_assert(1 << kChunkShift == kChunks, "16-byte loads of a row: 8 or 16");
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* qs = reinterpret_cast<float*>(smem);
-  float2* ks = reinterpret_cast<float2*>(smem + S::q_bytes(T));
-  float* vs = reinterpret_cast<float*>(smem + S::q_bytes(T) + S::k_bytes(T));
-  float* ps_all = reinterpret_cast<float*>(smem + 2 * S::q_bytes(T) + S::k_bytes(T));
+  constexpr int kCB = D / 16;  // output columns a thread
+  extern __shared__ __align__(16) float fsm[];
+  float* qs = fsm;                       // [D][64]
+  float* ks = qs + D * kF32Rows;         // [D][64]
+  float* vs = ks + D * kF32Rows;         // [64][D]
+  float* ps = vs + kF32Rows * D;         // [64][kF32PLd]
 
-  const int seq = blockIdx.x / H, h = blockIdx.x % H;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int qt = blockIdx.y, seq = blockIdx.x / H, h = blockIdx.x % H;
+  const int q0 = qt * kF32Rows;
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const size_t row0 = (size_t)seq * T;
-  const int W = H * D;
-  float* ps = ps_all + (size_t)warp * T;
+  const int nkt = causal ? qt + 1 : (T + kF32Rows - 1) / kF32Rows;
 
-  for (int c = tid; c < T * kChunks; c += blockDim.x) {
-    const int t = c >> kChunkShift, part = (c & (kChunks - 1)) * 4;
-    const size_t off = (row0 + t) * (size_t)ld + (size_t)h * D + part;
-    *reinterpret_cast<uint4*>(qs + t * D + part) = *reinterpret_cast<const uint4*>(qg + off);
-    const float4 kv = *reinterpret_cast<const float4*>(kg + off);
-    ks[t * S::kKLd + part / 2] = make_float2(kv.x, kv.y);
-    ks[t * S::kKLd + part / 2 + 1] = make_float2(kv.z, kv.w);
-    *reinterpret_cast<uint4*>(vs + t * D + part) = *reinterpret_cast<const uint4*>(vg + off);
+  f32_tile<D, true>(qs, qg, row0, q0, T, ld, h);
+
+  float m[4], l[4], o[4][kCB];
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    m[a] = -INFINITY;
+    l[a] = 0.f;
+#pragma unroll
+    for (int j = 0; j < kCB; ++j) o[a][j] = 0.f;
   }
-  __syncthreads();
 
-  for (int i = warp; i < T; i += kAttnWarps) {
-    const float2* q2 = reinterpret_cast<const float2*>(qs + i * D);
-    const int jend = causal ? i + 1 : T;
-    float mx = -INFINITY;
-    for (int j = lane; j < jend; j += 32) {
-      float acc = 0.f;
+  // s = the logits of this thread's 4 x 4 tile of key tile kt: masked keys
+  // (past T; causal: after the row) -inf
+  auto logits = [&](int kt, float (&s)[4][4]) {
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int b = 0; b < 4; ++b) s[a][b] = 0.f;
 #pragma unroll 8
-      for (int d = 0; d < D / 2; ++d) {
-        const float2 a = q2[d];
-        const float2 b = ks[j * S::kKLd + d];
-        acc += a.x * b.x + a.y * b.y;
+    for (int d = 0; d < D; ++d) {
+      const float4 x = *reinterpret_cast<const float4*>(qs + d * kF32Rows + 4 * ty);
+      const float4 y = *reinterpret_cast<const float4*>(ks + d * kF32Rows + 4 * tx);
+      const float xa[4] = {x.x, x.y, x.z, x.w}, yb[4] = {y.x, y.y, y.z, y.w};
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int b = 0; b < 4; ++b) s[a][b] = fmaf(xa[a], yb[b], s[a][b]);
+    }
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        const int row = q0 + 4 * ty + a, col = kt * kF32Rows + 4 * tx + b;
+        s[a][b] = (col < T && (!causal || col <= row)) ? __fmul_rn(s[a][b], scale) : -INFINITY;
       }
-      const float s = acc * scale;
-      ps[j] = s;
-      mx = fmaxf(mx, s);
+  };
+
+  for (int kt = 0; kt < nkt; ++kt) {
+    __syncthreads();  // the previous tile's readers are done (and q is written)
+    f32_tile<D, true>(ks, kg, row0, kt * kF32Rows, T, ld, h);
+    __syncthreads();
+    float s[4][4];
+    logits(kt, s);
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      float x = fmaxf(fmaxf(s[a][0], s[a][1]), fmaxf(s[a][2], s[a][3]));
+#pragma unroll
+      for (int off = 1; off < 16; off <<= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
+      const float mn = fmaxf(m[a], x);  // finite: every key tile holds a key of every row
+      float e = 0.f;
+#pragma unroll
+      for (int b = 0; b < 4; ++b) e += expf(s[a][b] - mn);
+#pragma unroll
+      for (int off = 1; off < 16; off <<= 1) e += __shfl_xor_sync(0xffffffffu, e, off);
+      l[a] = l[a] * expf(m[a] - mn) + e;
+      m[a] = mn;
     }
-    mx = warp_max(mx);
-    float sum = 0.f;
-    for (int j = lane; j < jend; j += 32) {
-      const float e = expf(ps[j] - mx);
-      ps[j] = e;
-      sum += e;
+  }
+
+  for (int kt = 0; kt < nkt; ++kt) {
+    __syncthreads();
+    f32_tile<D, true>(ks, kg, row0, kt * kF32Rows, T, ld, h);
+    f32_tile<D, false>(vs, vg, row0, kt * kF32Rows, T, ld, h);
+    __syncthreads();
+    float s[4][4];
+    logits(kt, s);
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      float4 p;
+      p.x = __fdiv_rn(expf(s[a][0] - m[a]), l[a]);
+      p.y = __fdiv_rn(expf(s[a][1] - m[a]), l[a]);
+      p.z = __fdiv_rn(expf(s[a][2] - m[a]), l[a]);
+      p.w = __fdiv_rn(expf(s[a][3] - m[a]), l[a]);
+      *reinterpret_cast<float4*>(ps + (4 * ty + a) * kF32PLd + 4 * tx) = p;
     }
-    sum = warp_sum(sum);
-    for (int j = lane; j < jend; j += 32) ps[j] = ps[j] / sum;
-    __syncwarp();
-    if constexpr (D == 64) {
-      float o0 = 0.f, o1 = 0.f;
-      for (int j = 0; j < jend; ++j) {
-        const float p = ps[j];
-        const float2 v = reinterpret_cast<const float2*>(vs + j * D)[lane];
-        o0 += p * v.x;
-        o1 += p * v.y;
+    __syncthreads();
+#pragma unroll 2
+    for (int j = 0; j < kF32Rows; j += 4) {
+      float p[4][4];
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {
+        const float4 x = *reinterpret_cast<const float4*>(ps + (4 * ty + a) * kF32PLd + j);
+        p[a][0] = x.x, p[a][1] = x.y, p[a][2] = x.z, p[a][3] = x.w;
       }
-      // out's address is taken after the loop: taken before it, it holds
-      // registers that the unrolled loop's loads in flight need
-      store_pair(out + (row0 + i) * W + (size_t)h * D + 2 * lane, o0, o1);
-    } else {
-      float o0 = 0.f;
-      for (int j = 0; j < jend; ++j) o0 += ps[j] * vs[j * D + lane];
-      out[(row0 + i) * W + (size_t)h * D + lane] = o0;
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        float vv[kCB];
+        if constexpr (kCB == 4) {
+          const float4 y = *reinterpret_cast<const float4*>(vs + (j + jj) * D + 4 * tx);
+          vv[0] = y.x, vv[1] = y.y, vv[2] = y.z, vv[3] = y.w;
+        } else {
+          const float2 y = *reinterpret_cast<const float2*>(vs + (j + jj) * D + 2 * tx);
+          vv[0] = y.x, vv[1] = y.y;
+        }
+#pragma unroll
+        for (int a = 0; a < 4; ++a)
+#pragma unroll
+          for (int cb = 0; cb < kCB; ++cb) o[a][cb] = fmaf(p[a][jj], vv[cb], o[a][cb]);
+      }
     }
-    __syncwarp();
+  }
+
+  const int W = H * D;
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    const int row = q0 + 4 * ty + a;
+    if (row < T) {
+#pragma unroll
+      for (int cb = 0; cb < kCB; cb += 2)
+        store_pair(out + (row0 + row) * W + (size_t)h * D + kCB * tx + cb, o[a][cb], o[a][cb + 1]);
+    }
   }
 }
 
@@ -375,8 +455,8 @@ __global__ void __launch_bounds__(128)
 }
 
 // Launch on `stream` over `seqs` sequences of T rows and `heads` heads;
-// returns cudaErrorInvalidValue for f32 operands with T > kMaxT, else
-// cudaGetLastError().
+// returns cudaGetLastError() (cudaErrorInvalidValue if a tensor map cannot
+// be made).
 template <typename InT, typename OutT, int D>
 int launch_head_attention_strided(const void* q, const void* k, const void* v, void* out, int ld,
                                   int seqs, int T, int heads, int causal, float scale,
@@ -398,15 +478,17 @@ int launch_head_attention_strided(const void* q, const void* k, const void* v, v
     head_attention_tc_kernel<OutT, D><<<grid, 128, kTcSmem, stream>>>(maps[0], maps[1], maps[2], (OutT*)out, T,
                                                                        heads, causal, scale);
   } else {
-    if (T > kMaxT) return (int)cudaErrorInvalidValue;
     static_assert(sizeof(OutT) == 4, "f32 operands give an f32 output");
-    const size_t smem = AttnSmem<D>::bytes(T);
-    if (smem > 48 * 1024) {
-      const cudaError_t e = cudaFuncSetAttribute(
-          head_attention_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    constexpr size_t smem = F32AttnSmem<D>::kBytes;
+    static bool attr_set = false;
+    if (!attr_set) {
+      const cudaError_t e = cudaFuncSetAttribute(head_attention_kernel<D>,
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
       if (e != cudaSuccess) return (int)e;
+      attr_set = true;
     }
-    head_attention_kernel<D><<<seqs * heads, 32 * kAttnWarps, smem, stream>>>(
+    const dim3 grid(seqs * heads, (T + kF32Rows - 1) / kF32Rows);
+    head_attention_kernel<D><<<grid, kF32Threads, smem, stream>>>(
         (const float*)q, (const float*)k, (const float*)v, (float*)out, ld, T, heads, causal, scale);
   }
   return (int)cudaGetLastError();

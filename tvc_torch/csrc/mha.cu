@@ -17,15 +17,15 @@
 // ViT-L/14 (T = 257, 577) the work nears the bf16 ridge. bf16 operands run
 // on the tensor cores (head_attention_tc_kernel: 64 query rows a block,
 // wgmma for Q.K^T and P.V, k and v tiles streamed by TMA through a
-// 2-stage ring, the output written once; no limit on T). f32 operands
-// keep the CUDA-core kernel (T <= 257).
+// 2-stage ring, the output written once). f32 operands run on the CUDA
+// cores (head_attention_kernel: 64 query rows a block, 64-row key tiles,
+// the same two sweeps, f32 weights). Neither has a limit on T.
 
 #include "head_attention.cuh"
 
 // q, k, v: [B, T, H, D] with row stride `ld` elements (the batch stride is
 // T * ld); out: contiguous [B, T, H, D] of the operands' type. Returns
-// cudaErrorInvalidValue for a head width other than 32 / 64, or for f32
-// with T > 257.
+// cudaErrorInvalidValue for a head width other than 32 / 64.
 extern "C" int tvc_mha(const void* q, const void* k, const void* v, void* out, int ld, int B, int T,
                        int H, int D, int is_bf16, int causal, float scale, void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
