@@ -355,12 +355,20 @@ def phase_kernels() -> dict:
             if not rel_err <= LAYER_TOL:
                 raise AssertionError(f"{name} {shape} disagrees: {abs_err:.3e} abs, {rel_err:.3e} scaled")
             k_ms, p_ms = time_ms(run_k), time_ms(run_p)
-            lib_ms = _int_mm_ms(M, args) if name.endswith("_i8") else _bf16_mm_ms(M, args)
-            rows[name].append({"shape": shape, "ms": k_ms, "plain_ms": p_ms, "bound_ms": bms,
-                               "bound_by": by, "max_abs_err": abs_err, "library_ms": lib_ms})
+            row = {"shape": shape, "ms": k_ms, "plain_ms": p_ms, "bound_ms": bms, "bound_by": by,
+                   "max_abs_err": abs_err}
+            if name.endswith("_i8"):
+                lib_ms, layout, both = _int_mm_ms(M, args)
+                row.update(library_ms=lib_ms, library_layout=layout, library_ms_by_layout=both,
+                           plans=_i8_plans(M, args))
+                lib = (f"library_ms(GEMM only, torch._int_mm, weight {layout})={lib_ms:.4f} "
+                       f"[by layout {both}] plans(int8 GEMMs)={row['plans']}")
+            else:
+                lib_ms = row["library_ms"] = _bf16_mm_ms(M, args)
+                lib = f"library_ms(GEMM only, cuBLAS bf16)={lib_ms:.4f}"
+            rows[name].append(row)
             log(f"kernel {name} {shape}: kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
-                f"bound_ms={bms:.5f} ({by}) max_abs_err={abs_err:.3e} scaled_err={rel_err:.3e}"
-                + f" library_ms(GEMM only, {'torch._int_mm' if name.endswith('_i8') else 'cuBLAS bf16'})={lib_ms:.4f}")
+                f"bound_ms={bms:.5f} ({by}) max_abs_err={abs_err:.3e} scaled_err={rel_err:.3e} " + lib)
     for name, shapes in rows.items():
         results[name] = {"shapes": shapes}
     results.update(phase_qwen_kernels(rng, dev))
@@ -369,16 +377,49 @@ def phase_kernels() -> dict:
     return results
 
 
-def _int_mm_ms(M: int, args) -> float:
+def _int_mm_layouts_ms(pairs) -> tuple:
+    """``torch._int_mm`` on each (a [M, K], w [K, N] row-major) pair, one
+    after the other, with w as it lies and with w K-major (a column-major
+    view of an [N, K] contiguous copy, made outside the timed call: the
+    layout cuBLASLt's int8 kernels take). Returns (the faster ms, its
+    layout's name, {layout: ms}); a layout PyTorch refuses counts as None."""
+    import torch
+
+    kmajor = [(a, w.t().contiguous().t()) for a, w in pairs]
+    times = {}
+    for layout, ops in (("row-major", pairs), ("K-major", kmajor)):
+        try:
+            times[layout] = time_ms(lambda: [torch._int_mm(a, w) for a, w in ops])
+        except RuntimeError:
+            times[layout] = None
+    best = min((t, layout) for layout, t in times.items() if t is not None)
+    return best[0], best[1], times
+
+
+def _int_mm_ms(M: int, args) -> tuple:
     """GEMM-only yardstick of an int8 layer: torch._int_mm on int8
     operands of its two GEMMs' shapes (the layer's int8 weights and
-    random int8 activations), one after the other."""
+    random int8 activations), one after the other, in both weight
+    layouts (:func:`_int_mm_layouts_ms`)."""
     import torch
 
     w1, w2 = args[3], args[6]
     a1 = torch.randint(-127, 128, (M, w1.shape[0]), dtype=torch.int8, device=w1.device)
     a2 = torch.randint(-127, 128, (M, w2.shape[0]), dtype=torch.int8, device=w2.device)
-    return time_ms(lambda: (torch._int_mm(a1, w1), torch._int_mm(a2, w2)))
+    return _int_mm_layouts_ms([(a1, w1), (a2, w2)])
+
+
+def _i8_plans(M: int, args) -> str:
+    """The int8 GEMM's plan for each of an int8 layer's two GEMMs."""
+    from tvc_torch.core.kernels.w8_matmul_kernel import i8_plan
+
+    w1, w2 = args[3], args[6]
+    return " / ".join(_plan_str(i8_plan(M, w.shape[1], w.shape[0])) for w in (w1, w2))
+
+
+def _plan_str(plan) -> str:
+    bm, bn, splits, per = plan
+    return f"{bm}x{bn} tiles, {splits} split{'s' if splits > 1 else ''} of {per} k-tiles"
 
 
 def _bf16_mm_ms(M: int, args) -> float:
@@ -410,7 +451,9 @@ def _decode_bound(B, KV, R, S, D, dtype_bytes=2):
 def phase_qwen_kernels(rng, dev) -> dict:
     """The Qwen2-7B decode's kernels against their plain versions: the W8A8
     GEMM at the five GEMM shapes of a decode step (M = 576) and at q|k|v
-    of the suffix prefill (M = 192 x 24), held to equality; the decode
+    of the suffix prefill (M = 192 x 24), held to equality (two calls
+    bit-equal), each printed with its i8_plan tile and split and timed
+    beside torch._int_mm in both weight layouts; the decode
     attention at B = 576 (Qwen2-7B: KV = 4, R = 7, D = 128, S = 64 and
     512; Qwen2-0.5B: KV = 2, R = 7, D = 64), at Qwen2-1.5B's B = 960, at
     one caption's 5 rows (B = 5) and over a long cache (B = 4, S = 16,384:
@@ -431,6 +474,7 @@ def phase_qwen_kernels(rng, dev) -> dict:
     )
     from tvc_torch.core.kernels.decode_attention_kernel import decode_splits
     from tvc_torch.core.kernels.quantized_layer_kernel import _quant_rows
+    from tvc_torch.core.kernels.w8_matmul_kernel import i8_plan
 
     bf = torch.bfloat16
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -445,20 +489,27 @@ def phase_qwen_kernels(rng, dev) -> dict:
         x = t(M, K).to(bf)
         w_q, scale = quantize_linear(t(K, N) / math.sqrt(K))
         got, want = w8a8_matmul(x, w_q, scale), w8a8_matmul_reference(x, w_q, scale)
+        again = w8a8_matmul(x, w_q, scale)
         torch.cuda.synchronize()
         err = float((got.float() - want.float()).abs().max())
         if err != 0.0:
             raise AssertionError(f"w8a8_matmul {tag} M={M} K={K} N={N} differs from its plain version by {err}")
+        if not torch.equal(got, again):
+            raise AssertionError(f"w8a8_matmul {tag} M={M} K={K} N={N}: two calls differ")
         xq = _quant_rows(x.float())[0]  # the kernel's int8 operand
         k_ms = time_ms(lambda: w8a8_matmul(x, w_q, scale))
         p_ms = time_ms(lambda: w8a8_matmul_reference(x, w_q, scale), iters=5, warmup=1)
-        lib_ms = time_ms(lambda: torch._int_mm(xq, w_q))
+        lib_ms, layout, both = _int_mm_layouts_ms([(xq, w_q)])
         bms, by = _w8a8_bound(M, K, N)
         shape = f"{tag} M={M} K={K} N={N}"
+        plan = _plan_str(i8_plan(M, N, K))
         out["w8a8_matmul"]["shapes"].append({"shape": shape, "ms": k_ms, "plain_ms": p_ms, "bound_ms": bms,
-                                             "bound_by": by, "max_abs_err": err, "library_ms": lib_ms})
+                                             "bound_by": by, "max_abs_err": err, "library_ms": lib_ms,
+                                             "library_layout": layout, "library_ms_by_layout": both,
+                                             "plan": plan})
         log(f"kernel w8a8_matmul {shape}: kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} bound_ms={bms:.5f} ({by}) "
-            f"max_abs_err={err:.3e} library_ms(GEMM only, torch._int_mm)={lib_ms:.4f}")
+            f"max_abs_err={err:.3e} library_ms(GEMM only, torch._int_mm, weight {layout})={lib_ms:.4f} "
+            f"[by layout {both}] plan={plan}")
         del w_q, scale, want
     # stacked: q|k|v of all 28 layers, layer 27
     M, K, N = 576, H, 4608
@@ -474,13 +525,17 @@ def phase_qwen_kernels(rng, dev) -> dict:
     xq = _quant_rows(x.float())[0]
     k_ms = time_ms(lambda: w8a8_matmul_stacked(x, w_q, scale, L - 1))
     p_ms = time_ms(lambda: w8a8_matmul_reference(x, w_q[L - 1], scale[L - 1]), iters=5, warmup=1)
-    lib_ms = time_ms(lambda: torch._int_mm(xq, w_q[L - 1]))
+    lib_ms, layout, both = _int_mm_layouts_ms([(xq, w_q[L - 1])])
     bms, by = _w8a8_bound(M, K, N)
     shape = f"q|k|v layer {L - 1} of {L} M={M} K={K} N={N}"
+    plan = _plan_str(i8_plan(M, N, K))
     out["w8a8_matmul_stacked"]["shapes"].append({"shape": shape, "ms": k_ms, "plain_ms": p_ms, "bound_ms": bms,
-                                                 "bound_by": by, "max_abs_err": err, "library_ms": lib_ms})
+                                                 "bound_by": by, "max_abs_err": err, "library_ms": lib_ms,
+                                                 "library_layout": layout, "library_ms_by_layout": both,
+                                                 "plan": plan})
     log(f"kernel w8a8_matmul_stacked {shape}: kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} bound_ms={bms:.5f} "
-        f"({by}) max_abs_err={err:.3e} library_ms(GEMM only, torch._int_mm)={lib_ms:.4f}")
+        f"({by}) max_abs_err={err:.3e} library_ms(GEMM only, torch._int_mm, weight {layout})={lib_ms:.4f} "
+        f"[by layout {both}] plan={plan}")
     del w_q, scale
 
     def decode_inputs(B, KV, R, S, D, L=None):

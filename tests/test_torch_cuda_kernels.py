@@ -39,6 +39,8 @@ from tvc_torch.core.kernels import (
     w8a8_matmul_reference,
     w8a8_matmul_stacked,
 )
+from tvc_torch.core.kernels import _build, w8_matmul_kernel
+from tvc_torch.core.kernels.quantized_layer_kernel import _i8_gemm, _mm_i32
 from tvc_torch.core.similarity import l2_normalize
 
 pytestmark = pytest.mark.cuda
@@ -233,6 +235,87 @@ def test_w8a8_matmul_stacked_is_the_flat_kernel_on_the_layer(dev):
     torch.cuda.synchronize()
     assert (w8a8_matmul.launches, w8a8_matmul_stacked.launches) == (before[0] + 1, before[1] + 1)
     assert torch.equal(got, w8a8_matmul_reference(x, *qs[2]))
+
+
+def _i8_operands(rng, M, N, K, dev):
+    """int8 a [M, K] and w [K, N], row scales, column scales, bias and a
+    bf16 residual, from a seeded numpy generator."""
+    i8 = lambda *shape: torch.as_tensor(rng.integers(-127, 128, shape).astype(np.int8)).to(dev)
+    f = lambda a: torch.as_tensor(np.asarray(a, np.float32)).to(dev)
+    return (i8(M, K), f(rng.random(M) * 1e-2 + 1e-4), i8(K, N), f(rng.random(N) * 1e-2 + 1e-4),
+            f(rng.standard_normal(N)), f(rng.standard_normal((M, N))).bfloat16())
+
+
+def _i8_epilogue_plain(epilogue, a, rs, w, cs, bias, res):
+    """The int8 GEMM's epilogues in PyTorch, in the kernel's f32 order:
+    (acc . rs) . cs (+ bias); quick_gelu as h / (1 + exp(-1.702 h)) written
+    h * (1 / (1 + exp(-(1.702 h)))); the residual added in f32; one
+    rounding to the output dtype."""
+    v = _mm_i32(a, w) * rs[:, None] * cs
+    if epilogue in (0, 1, 2):
+        v = v + bias
+    if epilogue == 1:
+        v = v * (1.0 / (1.0 + torch.exp(-(1.702 * v))))
+    if epilogue == 2:
+        v = res.float() + v
+    return v if epilogue in (1, 4) else v.bfloat16()
+
+
+# The int8 GEMM under each epilogue (0 bias bf16, 1 quick_gelu f32, 2
+# residual bf16, 3 dequantize bf16, 4 dequantize f32) at ragged M, N and K
+# (partial tiles, K past the 128-deep k-tile's edge), at its default plan,
+# held to the plain version bit for bit: int32 sums are exact in any order
+# and the epilogue's f32 steps are the same IEEE operations in the same
+# order. Two calls are bit-equal.
+@pytest.mark.parametrize("epilogue", [0, 1, 2, 3, 4])
+@pytest.mark.parametrize("M", [1, 15, 577])
+@pytest.mark.parametrize("N", [16, 144, 2320])
+@pytest.mark.parametrize("K", [48, 784])
+def test_i8_gemm_epilogues_equal_plain(dev, epilogue, M, N, K):
+    a, rs, w, cs, bias, res = _i8_operands(np.random.default_rng(M * N + K + epilogue), M, N, K, dev)
+    out = torch.empty((M, N), dtype=torch.float32 if epilogue in (1, 4) else torch.bfloat16, device=dev)
+    lib = _build.load("quantized_layer")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    _i8_gemm(lib, a, rs, w, cs, bias, res, out, epilogue, stream)
+    torch.cuda.synchronize()
+    first = out.clone()
+    _i8_gemm(lib, a, rs, w, cs, bias, res, out, epilogue, stream)
+    torch.cuda.synchronize()
+    want = _i8_epilogue_plain(epilogue, a, rs, w, cs, bias, res)
+    assert torch.equal(first, out)
+    assert torch.equal(out, want), float((out.float() - want.float()).abs().max())
+
+
+@pytest.mark.parametrize("tile", list(w8_matmul_kernel.I8_TILES))
+@pytest.mark.parametrize("splits", [1, 2, 3, 7])
+def test_w8a8_matmul_at_every_tile_and_split(dev, monkeypatch, tile, splits):
+    """Every tile the plan can pick, with K (784: seven 128-deep k-tiles)
+    whole or split into ranges whose int32 sums the reduce kernel adds:
+    bit-equal to the plain version, and two calls bit-equal."""
+    M, K, N = 577, 784, 2320
+    per = -(-7 // splits)
+    plan = (*tile, -(-7 // per), per)
+    monkeypatch.setattr(w8_matmul_kernel, "i8_plan", lambda *shape: plan)
+    x, w_q, s = _w8a8_operands(np.random.default_rng(splits), M, K, N, torch.bfloat16, dev)
+    got, again = w8a8_matmul(x, w_q, s), w8a8_matmul(x, w_q, s)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert torch.equal(got, w8a8_matmul_reference(x, w_q, s))
+
+
+def test_w8a8_matmul_stacked_at_the_last_of_28_layers(dev):
+    """The stacked wrapper on layer 27 of a 28-layer stack reads that
+    layer's zero-copy view (TMA from its offset) and equals the plain
+    version on it."""
+    rng = np.random.default_rng(27)
+    L, M, K, N = 28, 192, 512, 640
+    x = torch.as_tensor(rng.standard_normal((M, K)).astype(np.float32)).to(dev, torch.bfloat16)
+    w_q = torch.as_tensor(rng.integers(-127, 128, (L, K, N)).astype(np.int8)).to(dev)
+    s = torch.as_tensor((rng.random((L, N)) * 1e-2).astype(np.float32)).to(dev)
+    got = w8a8_matmul_stacked(x, w_q, s, L - 1)
+    torch.cuda.synchronize()
+    assert torch.equal(got, w8a8_matmul_reference(x, w_q[L - 1], s[L - 1]))
+    assert torch.equal(got, w8a8_matmul_stacked(x, w_q, s, L - 1))
 
 
 def _decode_operands(rng, B, KV, R, S, D, dtype, dev, L=None):

@@ -25,6 +25,10 @@ from tvc_torch.core.kernels.decode_attention_kernel import (
 )
 from tvc_torch.core.kernels.quantized_layer_kernel import _quant_rows
 from tvc_torch.core.kernels.w8_matmul_kernel import (
+    I8_BK,
+    I8_MAX_SPLITS,
+    I8_TILES,
+    i8_plan,
     w8a8_matmul,
     w8a8_matmul_reference,
     w8a8_matmul_stacked,
@@ -188,6 +192,44 @@ def test_decode_splits_cover_the_cache(bkv, S):
     if bkv < 264:
         assert bkv * splits >= min(132, bkv * (S // MIN_SPLIT))
     assert bkv * splits <= max(264, bkv * -(-S // MAX_CHUNK))
+
+
+# The int8 GEMM's shapes in the table (Qwen2-7B W8A8 at M = 576 and the
+# suffix prefill's 4,608 rows; the int8 CLIP layers' GEMMs at the vision,
+# text T=16 / T=32, ViT-L/14 and T=300 shapes) and odd ones.
+I8_SHAPES = [
+    (576, 4608, 3584), (576, 3584, 3584), (576, 37888, 3584), (576, 3584, 18944), (576, 151936, 3584),
+    (4608, 4608, 3584), (3200, 2304, 768), (3200, 768, 768), (3200, 3072, 768), (3200, 768, 3072),
+    (7168, 1536, 512), (7168, 512, 512), (7168, 2048, 512), (7168, 512, 2048), (14336, 1536, 512),
+    (14336, 512, 2048), (2056, 3072, 1024), (2056, 1024, 1024), (1200, 2304, 768), (1200, 768, 768),
+    (1, 16, 16), (15, 144, 48), (577, 2320, 784), (20, 4608, 3584), (15, 3584, 18944), (1, 151936, 3584),
+    (130, 272, 64), (100000, 16, 16),
+]
+
+
+@pytest.mark.parametrize("M,N,K", I8_SHAPES)
+def test_i8_plan_covers_k_once(M, N, K):
+    """The int8 kernel's plan: one of its tiles, and split ranges of ``per``
+    128-deep k-tiles (the kernel's ``n = min(per, nk - kt0)`` for split z,
+    ``kt0 = z per``) that are none empty and cover the k-tiles exactly
+    once, as the C entry point checks."""
+    bm, bn, splits, per = i8_plan(M, N, K)
+    assert (bm, bn) in I8_TILES
+    nk = -(-K // I8_BK)
+    assert 1 <= splits <= I8_MAX_SPLITS and per >= 1
+    covered = []
+    for z in range(splits):
+        n = min(per, nk - z * per)
+        assert n >= 1
+        covered += range(z * per, z * per + n)
+    assert covered == list(range(nk))
+
+
+def test_i8_plan_takes_192_rows_at_the_decode_batch():
+    """M = 576 is three 192-row blocks (128-row blocks would leave half of
+    the fifth empty); the weight-heavy decode GEMMs take them."""
+    for N, K in ((4608, 3584), (3584, 3584), (37888, 3584), (3584, 18944), (151936, 3584)):
+        assert i8_plan(576, N, K)[0] == 192
 
 
 def test_decode_gqa_wrappers_raise_off_cpu(attn):

@@ -48,9 +48,9 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     "quantized_layer": {
         # h, ln_scale, ln_bias, q, scale, M, K, eps, has_ln, stream
         "tvc_quant_rows": [_P, _P, _P, _P, _P, _I, _I, _F, _I, _P],
-        # a, row_scale, w, col_scale, bias, residual, out, M, N, K,
-        # epilogue, stream
-        "tvc_i8_gemm": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+        # a, row_scale, w, col_scale, bias, residual, out, ws (int32 or
+        # null), M, N, K, epilogue, bm, bn, splits, per, stream
+        "tvc_i8_gemm": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
         # qkv, out, seqs, T, W, heads, causal, stream
         "tvc_head_attention_f32": [_P, _P, _I, _I, _I, _I, _I, _P],
         # h (bf16), q, scale, M, K, stream

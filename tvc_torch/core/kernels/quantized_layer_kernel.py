@@ -17,7 +17,8 @@ operands with f32 accumulation.
 For CUDA tensors the wrappers launch the hand-written kernels of
 ``tvc_torch/csrc/quantized_layer.cu`` (row-quantize, int8 tensor-core GEMM
 with a dequantizing epilogue, per-head attention with an f32 output): an
-attention layer is 5 launches and an MLP layer 4. For CPU tensors they
+attention layer is 5 launches and an MLP layer 4 (one more for each GEMM
+whose K the plan splits). For CPU tensors they
 compute the plain PyTorch versions beside them, which follow the TPU
 kernel's body line by line: ``torch.round`` rounds half to even as
 ``jnp.round`` does, ``h / rs`` is the same IEEE division, and the int8
@@ -151,14 +152,21 @@ def _quant_rows_cuda(lib, h, ln_scale, ln_bias, eps, stream) -> Tuple[Tensor, Te
     return q, scale
 
 
-def _i8_gemm(lib, a, row_scale, w, col_scale, bias, residual, out, epilogue, stream) -> None:
+def _i8_gemm(lib, a, row_scale, w, col_scale, bias, residual, out, epilogue, stream, plan=None) -> None:
+    """One int8 tensor-core GEMM launch (two when K is split) with its
+    epilogue, tiled by ``plan`` = ``(bm, bn, splits, per)``, by default
+    :func:`~tvc_torch.core.kernels.w8_matmul_kernel.i8_plan` of the shape."""
+    from tvc_torch.core.kernels.w8_matmul_kernel import i8_plan  # that module imports this one
+
     M, K = a.shape
     N = w.shape[1]
+    bm, bn, splits, per = i8_plan(M, N, K) if plan is None else plan
+    ws = torch.empty((splits, M, N), dtype=torch.int32, device=a.device) if splits > 1 else None
     _build.check(
         lib.tvc_i8_gemm(
             a.data_ptr(), row_scale.data_ptr(), w.data_ptr(), col_scale.data_ptr(),
             None if bias is None else bias.data_ptr(), None if residual is None else residual.data_ptr(),
-            out.data_ptr(), M, N, K, epilogue, stream,
+            out.data_ptr(), None if ws is None else ws.data_ptr(), M, N, K, epilogue, bm, bn, splits, per, stream,
         ),
         "tvc_i8_gemm",
     )

@@ -15,7 +15,7 @@ runs in f32 in that order. Weights come per output channel from
 For CUDA tensors the wrapper launches the hand-written kernels of
 ``tvc_torch/csrc/quantized_layer.cu``: the row-quantize kernel (f32 or bf16
 rows) and the int8 tensor-core GEMM with its dequantize-only epilogue, two
-launches a call. For CPU tensors it computes the plain version beside it,
+launches a call (three when :func:`i8_plan` splits K). For CPU tensors it computes the plain version beside it,
 which sums the int8 products in float64 (exact for every int32 sum here).
 
     w8_matmul(x [M, K], w_q int8 [K, N], scale f32 [N]) -> [M, N], x's dtype
@@ -45,6 +45,8 @@ among them.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 from torch import Tensor
@@ -189,6 +191,65 @@ def w8_plan(M: int, N: int, K: int):
             return bm, 192, 1, nk
     per = cdiv(nk, max(1, min(nk, SMS // blocks)))
     return bm, 128, cdiv(nk, per), per
+
+
+I8_BK = 128  # the int8 kernel's k-tile: one 128-byte row of int8
+#: the int8 kernel's tiles (bm, bn) -> (blocks an SM holds, SM clocks a
+#: 128-deep k-tile takes, SM clocks of a block's fill and epilogue): clocks
+#: at 1.755 GHz fitted to ``scripts/sweep_i8_gemm.py``'s times of every tile
+#: at the table's 22 shapes on an H100 (a pair of co-resident blocks costs
+#: twice its row, as they share the SM)
+I8_TILES = {
+    (192, 256): (1, 3265, 28427),
+    (128, 256): (1, 2559, 27004),
+    (192, 128): (1, 1911, 17711),
+    (128, 128): (2, 1325, 10256),
+    (64, 128): (2, 1146, 7390),
+}
+I8_MAX_SPLITS = 16
+#: device-memory bytes a clock that a split's int32 workspace moves at
+#: (fitted with the tiles' clocks)
+I8_BYTES_PER_CLOCK = 2832
+
+
+def i8_costed_plans(M: int, N: int, K: int):
+    """Every tile and split :func:`i8_plan` weighs for an [M, K] x [K, N]
+    product, as ``((cost in SM clocks, splits, -bm bn), (bm, bn, splits,
+    per))``."""
+    cdiv = lambda a, b: -(-a // b)
+    nk = cdiv(K, I8_BK)
+    for (bm, bn), (per_sm, tile_clocks, block_clocks) in I8_TILES.items():
+        tiles = cdiv(M, bm) * cdiv(N, bn)
+        for per in sorted({cdiv(nk, s) for s in range(1, min(nk, I8_MAX_SPLITS) + 1)}, reverse=True):
+            splits = cdiv(nk, per)
+            blocks = tiles * splits
+            share = min(per_sm, cdiv(blocks, SMS))  # blocks that share an SM
+            cost = cdiv(blocks, SMS * share) * share * (per * tile_clocks + block_clocks)
+            if splits > 1:
+                cost += 4 * (splits + 1) * M * N / I8_BYTES_PER_CLOCK
+            yield (cost, splits, -bm * bn), (bm, bn, splits, per)
+
+
+@functools.lru_cache(maxsize=4096)
+def i8_plan(M: int, N: int, K: int):
+    """The int8 kernel's tiling for an [M, K] x [K, N] product: ``(bm, bn,
+    splits, per)``: bm x bn output tiles (one of :data:`I8_TILES`) and
+    ``splits`` ranges of ``per`` 128-deep k-tiles each (the last range may
+    hold fewer; TMA fills K's tail with zeros). A pure function of the
+    shape, cached (a decode asks for the same few shapes thousands of
+    times).
+
+    Each candidate tile and split is costed in SM clocks
+    (:func:`i8_costed_plans`): the waves of blocks over the 132 SMs (two
+    blocks share an SM where the tile allows two and there are blocks for
+    both) times a block's k-tiles and fixed cost at the tile's measured
+    clocks (:data:`I8_TILES`), plus a split's int32 workspace written and
+    read. Rows and columns past the edges cost as full tiles, so M = 576
+    takes 192-row blocks (3 of them, none padded), a shape with too few
+    tiles to fill the card splits K, and at many blocks the 128 x 128
+    tiles, two an SM, hide each other's fill and epilogue. The cheapest
+    wins; ties go to fewer splits, then the larger tile."""
+    return min(i8_costed_plans(M, N, K))[1]
 
 
 def _aligned(t: Tensor) -> Tensor:

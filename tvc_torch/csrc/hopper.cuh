@@ -1,7 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core kernels:
 // 128-byte-swizzled shared-memory tiles, wgmma matrix descriptors,
 // mbarriers, TMA tile loads and the host's tensor maps for them, and the
-// bf16 wgmma shapes the kernels issue.
+// bf16 and int8 wgmma shapes the kernels issue.
 //
 // Tiles. Every operand tile in shared memory is a stack of 128-byte rows
 // (64 bf16), 1024-byte aligned, with 16-byte chunk c of row r stored at
@@ -19,6 +19,10 @@
 // (row, c), (row, c+1), (row+8, c), (row+8, c+1). A from registers (m64k16
 // bf16) takes the same rows: a[i] = bf16x2 of d[2i], d[2i+1] of the 16
 // columns of that k16 step, so a softmax tile becomes an A operand in place.
+// int8 (s8 x s8 -> s32): a 128-byte row holds 128 int8 of depth; wgmma
+// takes no transpose flag for s8, so both operands are K-major tiles as
+// above, and a k32 step advances the start address by 32 bytes. The s32
+// accumulators lie as the f32 ones.
 
 #pragma once
 
@@ -121,6 +125,15 @@ inline bool make_tensor_map(CUtensorMap* map, CUtensorMapDataType type, int rank
                           CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// Host: a 2-d row-major [rows, cols] map with (box_cols, box_rows) boxes
+inline bool make_map_2d(CUtensorMap* map, CUtensorMapDataType type, int elem, const void* base, int rows, int cols,
+                        int box_cols, int box_rows, CUtensorMapSwizzle swizzle) {
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * elem};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+  return make_tensor_map(map, type, 2, base, dims, strides, box, swizzle);
+}
+
 // generic-proxy writes (st.shared) made visible to wgmma's reads
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
@@ -137,6 +150,11 @@ template <int N>
 __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(int32_t (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -226,5 +244,50 @@ __device__ __forceinline__ void wgmma_m64n32_rs(float (&d)[16], const uint32_t (
 }
 
 #undef TVC_F8
+
+#define TVC_R8(i)                                                                                      \
+  "+r"(d[i]), "+r"(d[i + 1]), "+r"(d[i + 2]), "+r"(d[i + 3]), "+r"(d[i + 4]), "+r"(d[i + 5]), "+r"(d[i + 6]), \
+      "+r"(d[i + 7])
+
+// D[64 x 128] (+)= A[64 x 32] . B[32 x 128], int8 from shared memory, both
+// K-major, s32 sums
+__device__ __forceinline__ void wgmma_m64n128k32_s8(int32_t (&d)[64], uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p;\n}\n"
+      : TVC_R8(0), TVC_R8(8), TVC_R8(16), TVC_R8(24), TVC_R8(32), TVC_R8(40), TVC_R8(48), TVC_R8(56)
+      : "l"(da), "l"(db), "r"(acc)
+      : "memory");
+}
+
+// D[64 x 256] (+)= A[64 x 32] . B[32 x 256], int8 from shared memory, both
+// K-major, s32 sums
+__device__ __forceinline__ void wgmma_m64n256k32_s8(int32_t (&d)[128], uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "%128, %129, p;\n}\n"
+      : TVC_R8(0), TVC_R8(8), TVC_R8(16), TVC_R8(24), TVC_R8(32), TVC_R8(40), TVC_R8(48), TVC_R8(56),
+        TVC_R8(64), TVC_R8(72), TVC_R8(80), TVC_R8(88), TVC_R8(96), TVC_R8(104), TVC_R8(112), TVC_R8(120)
+      : "l"(da), "l"(db), "r"(acc)
+      : "memory");
+}
+
+#undef TVC_R8
 
 }  // namespace hopper

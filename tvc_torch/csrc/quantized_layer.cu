@@ -30,13 +30,38 @@
 //    per row here instead of once per column block inside the GEMM, and
 //    the GEMM reads 1 byte per A element instead of 2 or 4.
 //  * i8_gemm_kernel: C[M, N] = epilogue(A[M, K] . Wq[K, N]) on int8
-//    operands with int32 accumulation: 128x128x64 tiles, 8 warps each
-//    holding a 32x64 block of 16x16x16 signed-char WMMA fragments. Shared
-//    tiles are stored as panels of 16 int8 columns so that every fragment
-//    starts on a 256-byte boundary. Epilogue: dequantize + bias, then
-//    bf16 out (qkv), quick_gelu f32 out (fc), or + residual bf16 out
-//    (out-proj, proj); or dequantize alone, bf16 or f32 out (the W8A8
-//    GEMM below).
+//    operands with int32 sums, on Hopper's int8 tensor cores:
+//     - Mainloop: 128-deep k-tiles; the int8 A box (128-byte swizzled: a
+//       row of 128 int8 is wgmma's K-major layout) in a ring of SA stages
+//       and the int8 weight box as it lies in device memory ([k][n], one
+//       byte a weight) in a ring of SW stages, both filled by TMA ahead of
+//       use, one mbarrier a stage counting its bytes. Rows past M, columns
+//       past N and depth past K arrive as zeros.
+//     - Weight transpose: s8 wgmma takes no transpose flag, so both
+//       operands must be K-major. The threads rewrite each [128 x BN]
+//       weight box into a K-major, 128-byte-swizzled [BN x 128] tile: four
+//       32-bit words (4 depth rows x 4 columns) in, a 4 x 4 byte transpose
+//       by __byte_perm, four words (4 depth values of one column) out, with
+//       the lanes placed so that reads and writes hit 32 distinct banks.
+//       It fills one of two tiles while the tensor cores read the other, so
+//       each weight byte is transposed once per block row of outputs and
+//       tall blocks (192 rows) divide that cost.
+//     - Product: wgmma m64n{128,256}k32 s8 x s8 -> s32, both operands from
+//       shared memory; a warpgroup takes 64 rows (BM = 64 x warpgroups);
+//       tile t's wgmmas run while tile t + 1 is transposed (wait_group 1,
+//       then a block barrier before a tile or stage is reused).
+//     - Epilogue from the accumulator registers: dequantize + bias, then
+//       bf16 out (qkv), quick_gelu f32 out (fc), or + residual bf16 out
+//       (out-proj, proj); or dequantize alone, bf16 or f32 out (the W8A8
+//       GEMM below). M and N edges guarded.
+//     - Filling the card: the tile (192 x 256, 128 x 256, 192 x 128,
+//       128 x 128 or 64 x 128) and a split of K come from i8_plan(M, N, K)
+//       in tvc_torch/core/kernels/w8_matmul_kernel.py. With a split, each
+//       block stores its int32 sums of one K range into a workspace and
+//       i8_splitk_reduce_kernel adds them (exact in any order) and applies
+//       the epilogue, so a split changes no bit. The block rows of one
+//       column tile are neighbours in the grid, so each weight tile crosses
+//       device memory once.
 //
 // The same row-quantize and GEMM kernels also serve the Qwen2 decode's
 // W8A8 GEMM, replacing tvc/core/pallas/w8_matmul_kernel.py w8a8_matmul
@@ -46,7 +71,7 @@
 // with x_q, rs the per-row quantization of x (quant_rows_kernel, f32 or
 // bf16 rows; bf16 -> f32 is exact, so the quanta are those of x.astype(f32))
 // and no bias: the decode adds its q|k|v bias after the rounding. Two
-// launches a call. Bound: at the Qwen2-7B decode batch (M = 576) the
+// launches a call, three when K is split. Bound: at the Qwen2-7B decode batch (M = 576) the
 // gate|up GEMM (K = 3584, N = 37888) does 2 M K N = 156 G operations on
 // 136 MB of int8 weights, ~1,150 operations per byte, above the ridge:
 // bound by operations (~79 us at 1,979 TOP/s).
@@ -63,22 +88,23 @@
 // operands and 2 M N bytes of bf16 output (~19 MB): ~600 operations per
 // byte, at the ridge, so the layer is bound by operations and bytes about
 // equally; chip_smoke.py computes the bound for each shape from its
-// inputs. This first version uses WMMA (mma.sync-level) fragments, whose
-// peak is below wgmma's, and no TMA; the int8 row, the [M, 3W] qkv, the f32
-// attention output and the f32 [M, 4W] GELU output go through device
-// memory.
+// inputs. Shared memory caps what the design reaches: every 64-row wgmma
+// reads its B tile, and TMA, the transpose and wgmma's A reads add
+// BM / 64 x BN + BM + (BM + BN) + 2 BN 128-byte rows a k-tile, against the
+// SM's 128 bytes a clock; at 192 x 256 that is ~80 % of the int8 rate. The
+// int8 row, the [M, 3W] qkv, the f32 attention output and the f32 [M, 4W]
+// GELU output go through device memory.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include "head_attention.cuh"
 
 namespace {
 
-using namespace nvcuda;
+using namespace hopper;
 
 constexpr int kRowWarps = 8;  // rows per block of the row-quantize kernels
 
@@ -197,141 +223,261 @@ __global__ void __launch_bounds__(32 * kRowWarps)
   if (lane == 0) scale[row] = rs;
 }
 
-constexpr int QBM = 128, QBN = 128, QBK = 64;
-constexpr int kPanel = 16;  // int8 columns per shared panel (one WMMA k or n extent)
-constexpr int kQGemmThreads = 256;
+constexpr int QBK = 128;  // depth of a k-tile: one 128-byte swizzled row of int8
 
-template <int EPI>
-__global__ void __launch_bounds__(kQGemmThreads)
-    i8_gemm_kernel(const int8_t* __restrict__ A, const float* __restrict__ row_scale,
-                   const int8_t* __restrict__ Wq, const float* __restrict__ col_scale,
-                   const float* __restrict__ bias, const bf16* __restrict__ res,
-                   void* __restrict__ out, int M, int N, int K) {
-  // As[p][m][:] holds A[m, k0 + 16p .. +16); Bs[p][k][:] holds Wq[k0 + k, n0 + 16p .. +16)
-  __shared__ __align__(256) int8_t As[QBK / kPanel][QBM][kPanel];
-  __shared__ __align__(256) int8_t Bs[QBN / kPanel][QBK][kPanel];
-  __shared__ __align__(256) int scratch[kQGemmThreads / 32][16 * 16];
+// What the GEMM's epilogue needs: row and column scales, bias, residual,
+// output, and which of the QEpilogue variants to apply.
+struct QEpi {
+  const float* rs;
+  const float* cs;
+  const float* bias;
+  const bf16* res;
+  void* out;
+  int M, N, epi;
+};
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int m0 = blockIdx.y * QBM, n0 = blockIdx.x * QBN;
+// quick_gelu in f32: h * sigmoid(1.702 h), sigmoid as 1 / (1 + exp(-t))
+__device__ __forceinline__ float quick_gelu(float h) {
+  return __fmul_rn(h, __fdiv_rn(1.f, __fadd_rn(1.f, expf(-__fmul_rn(1.702f, h)))));
+}
 
-  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
-  uint4 ra[2], rb[2];
-  // A tile: 128 rows x 4 chunks of 16 bytes; W tile: 64 rows x 8 chunks
-  auto load_tiles = [&](int k0) {
+// Columns col .. col + 3 of row `row` from their int32 sums: f32 dequant
+// (acc . rs) . cs (+ bias), then the variant's tail, in the TPU kernel's
+// order.
+__device__ __forceinline__ void epilogue4(const QEpi& e, int row, int col, int4 a) {
+  const float rs = e.rs[row];
+  float v[4] = {__int2float_rn(a.x), __int2float_rn(a.y), __int2float_rn(a.z), __int2float_rn(a.w)};
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int c = tid + i * kQGemmThreads;
-      const int r = c >> 2, kc = c & 3;
-      const int gm = m0 + r, gk = k0 + kc * kPanel;
-      ra[i] = (gm < M && gk < K) ? *reinterpret_cast<const uint4*>(A + (size_t)gm * K + gk) : zero;
-      const int kr = c >> 3, nc = c & 7;
-      const int gk2 = k0 + kr, gn = n0 + nc * kPanel;
-      rb[i] = (gk2 < K && gn < N) ? *reinterpret_cast<const uint4*>(Wq + (size_t)gk2 * N + gn) : zero;
-    }
-  };
-  auto store_tiles = [&]() {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int c = tid + i * kQGemmThreads;
-      *reinterpret_cast<uint4*>(&As[c & 3][c >> 2][0]) = ra[i];
-      *reinterpret_cast<uint4*>(&Bs[c & 7][c >> 3][0]) = rb[i];
-    }
-  };
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, int> acc[2][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[i][j], 0);
-
-  const int wm = warp >> 1;  // rows wm*32 .. +32
-  const int wn = warp & 1;   // cols wn*64 .. +64
-  const int nk = (K + QBK - 1) / QBK;
-  load_tiles(0);
-  for (int kt = 0; kt < nk; ++kt) {
-    store_tiles();
-    __syncthreads();
-    if (kt + 1 < nk) load_tiles((kt + 1) * QBK);
-#pragma unroll
-    for (int p = 0; p < QBK / kPanel; ++p) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, signed char, wmma::row_major> fa[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, signed char, wmma::row_major> fb[4];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(fa[i], reinterpret_cast<const signed char*>(&As[p][wm * 32 + i * 16][0]), kPanel);
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        wmma::load_matrix_sync(fb[j], reinterpret_cast<const signed char*>(&Bs[wn * 4 + j][p * kPanel][0]), kPanel);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-    }
-    __syncthreads();
+  for (int i = 0; i < 4; ++i) {
+    v[i] = __fmul_rn(__fmul_rn(v[i], rs), e.cs[col + i]);
+    if (e.epi <= QEPI_RESIDUAL) v[i] = __fadd_rn(v[i], e.bias[col + i]);
   }
-
-  // epilogue, one 16x16 fragment at a time through the warp's scratch tile:
-  // f32 dequant (acc . row_scale) . col_scale (+ bias), in the TPU kernel's order
-  constexpr bool kBias = EPI == QEPI_BF16 || EPI == QEPI_GELU_F32 || EPI == QEPI_RESIDUAL;
-  constexpr bool kF32Out = EPI == QEPI_GELU_F32 || EPI == QEPI_DEQUANT_F32;
-  int* sc = scratch[warp];
-  const int r = lane >> 1, c0 = (lane & 1) * 8;
+  const size_t o = (size_t)row * e.N + col;
+  if (e.epi == QEPI_GELU_F32 || e.epi == QEPI_DEQUANT_F32) {
+    if (e.epi == QEPI_GELU_F32) {
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      wmma::store_matrix_sync(sc, acc[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-      const int gm = m0 + wm * 32 + i * 16 + r;
-      const int gn = n0 + wn * 64 + j * 16 + c0;
-      if (gm < M && gn < N) {
-        const float rs = row_scale[gm];
-        float v[8];
-#pragma unroll
-        for (int q = 0; q < 8; ++q) {
-          v[q] = __fmul_rn(__fmul_rn((float)sc[r * 16 + c0 + q], rs), col_scale[gn + q]);
-          if (kBias) v[q] = __fadd_rn(v[q], bias[gn + q]);
-        }
-        if (EPI == QEPI_GELU_F32) {
-          // quick_gelu in f32: h * sigmoid(1.702 h), sigmoid as 1 / (1 + exp(-t))
-#pragma unroll
-          for (int q = 0; q < 8; ++q) {
-            const float sg = __fdiv_rn(1.f, __fadd_rn(1.f, expf(-__fmul_rn(1.702f, v[q]))));
-            v[q] = __fmul_rn(v[q], sg);
-          }
-        }
-        if (kF32Out) {
-          float4* o = reinterpret_cast<float4*>(static_cast<float*>(out) + (size_t)gm * N + gn);
-          o[0] = make_float4(v[0], v[1], v[2], v[3]);
-          o[1] = make_float4(v[4], v[5], v[6], v[7]);
-        } else {
-          if (EPI == QEPI_RESIDUAL) {
-            const uint4 rv = *reinterpret_cast<const uint4*>(res + (size_t)gm * N + gn);
-            const bf16* re = reinterpret_cast<const bf16*>(&rv);
-#pragma unroll
-            for (int q = 0; q < 8; ++q) v[q] = __fadd_rn(__bfloat162float(re[q]), v[q]);
-          }
-          uint4 o;
-          bf16* oe = reinterpret_cast<bf16*>(&o);
-#pragma unroll
-          for (int q = 0; q < 8; ++q) oe[q] = __float2bfloat16(v[q]);
-          *reinterpret_cast<uint4*>(static_cast<bf16*>(out) + (size_t)gm * N + gn) = o;
-        }
-      }
-      __syncwarp();
+      for (int i = 0; i < 4; ++i) v[i] = quick_gelu(v[i]);
     }
+    *reinterpret_cast<float4*>(static_cast<float*>(e.out) + o) = make_float4(v[0], v[1], v[2], v[3]);
+    return;
+  }
+  if (e.epi == QEPI_RESIDUAL) {
+    const uint2 raw = *reinterpret_cast<const uint2*>(e.res + o);
+    const float2 r0 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
+    const float2 r1 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
+    v[0] = __fadd_rn(r0.x, v[0]);
+    v[1] = __fadd_rn(r0.y, v[1]);
+    v[2] = __fadd_rn(r1.x, v[2]);
+    v[3] = __fadd_rn(r1.y, v[3]);
+  }
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]), hi = __floats2bfloat162_rn(v[2], v[3]);
+  *reinterpret_cast<uint2*>(static_cast<bf16*>(e.out) + o) =
+      make_uint2(*reinterpret_cast<const uint32_t*>(&lo), *reinterpret_cast<const uint32_t*>(&hi));
+}
+
+template <int WGS, int BN, int SA, int SW>
+struct I8Cfg {
+  static constexpr int BM = 64 * WGS, kThreads = 128 * WGS;
+  static constexpr int kA = BM * QBK;  // bytes of an activation stage
+  static constexpr int kW = QBK * BN;  // bytes of a weight stage, and of its K-major tile
+  static constexpr int kAcc = BN / 2;  // s32 accumulators a thread
+  // two blocks an SM where their shared memory and registers allow
+  static constexpr int kMinBlocks = (BN == 128 && WGS <= 2) ? 2 : 1;
+  static constexpr size_t kPool = (size_t)SA * kA + (size_t)(SW + 2) * kW;  // the rings, then the epilogue's stage
+  static constexpr size_t kSmem = kPool + 8 * (SA + SW) + 1024;
+  static_assert((size_t)BM * (BN + 8) * 4 <= kPool, "the epilogue's int32 stage must fit the rings");
+};
+
+// One block: BM x BN outputs over local k-tiles [kt0, kt0 + n) of 128,
+// kt0 = blockIdx.z * per; warpgroup w takes rows [64 w, 64 w + 64).
+// ws == nullptr: the epilogue to e.out; else the int32 sums to
+// ws[blockIdx.z] (split K). tma: A [M, K] int8, 128 x BM boxes, 128-byte
+// swizzle; tmw: W [K, N] int8, BN x 128 boxes as they lie. Rows, columns
+// and depth past the tensors arrive as zeros.
+template <int WGS, int BN, int SA, int SW>
+__global__ void __launch_bounds__(128 * WGS, (I8Cfg<WGS, BN, SA, SW>::kMinBlocks))
+    i8_gemm_kernel(const __grid_constant__ CUtensorMap tma, const __grid_constant__ CUtensorMap tmw, const QEpi e,
+                   int32_t* __restrict__ ws, int K, int per) {
+  using C = I8Cfg<WGS, BN, SA, SW>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t a_s = (raw + 1023) & ~1023u;
+  // SA activation stages, two K-major weight tiles, SW weight stages as
+  // they lie, then the barriers: SA activation, SW weight
+  const uint32_t t_s = a_s + SA * C::kA, w_s = t_s + 2 * C::kW, bar_s = w_s + SW * C::kW;
+  unsigned char* t_g = smem_raw + (t_s - raw);
+  const unsigned char* w_g = smem_raw + (w_s - raw);
+
+  const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
+  const int m0 = blockIdx.x * C::BM, n0 = blockIdx.y * BN;
+  const int kt0 = blockIdx.z * per;
+  const int n = min(per, (K + QBK - 1) / QBK - kt0);
+
+  if (tid == 0) {
+#pragma unroll
+    for (int i = 0; i < SA + SW; ++i) mbar_init(bar_s + 8 * i, 1);
+    fence_mbar_init();
+  }
+  __syncthreads();
+  auto issue_a = [&](int t) {  // one thread: tile t's activation box into slot t % SA
+    const uint32_t bar = bar_s + 8 * (t % SA);
+    mbar_expect_tx(bar, C::kA);
+    tma_load_2d(a_s + (t % SA) * C::kA, &tma, (kt0 + t) * QBK, m0, bar);
+  };
+  auto issue_w = [&](int t) {  // one thread: tile t's weight box into slot t % SW
+    const uint32_t bar = bar_s + 8 * (SA + t % SW);
+    mbar_expect_tx(bar, C::kW);
+    tma_load_2d(w_s + (t % SW) * C::kW, &tmw, n0, (kt0 + t) * QBK, bar);
+  };
+  // Weight tile t, [128 k][BN n] as it lies, -> K-major swizzled tile
+  // t % 2, [BN n][128 k]. A warp's unit is 128 columns x one round: lane l
+  // takes columns 4g..4g+3 (g = 32 block + l) and depth 4q..4q+3, q = the
+  // lane's group ^ round, reading four 32-bit words (one a depth row) and
+  // writing four (one a column) after a 4 x 4 byte transpose. A weight row
+  // is a multiple of 128 bytes, so the reads fall in bank l whatever the
+  // row; the lanes' groups make the 32 writes of each column j land on
+  // 32 distinct banks of the swizzled tile. 32 rounds cover the depth.
+  auto transpose = [&](int t) {
+    mbar_wait(bar_s + 8 * (SA + t % SW), (t / SW) & 1);
+    const unsigned char* src = w_g + (t % SW) * C::kW;
+    unsigned char* dst = t_g + (t & 1) * C::kW;
+    const int lane_q = (((lane >> 3) & 3) << 2) | ((lane >> 1) & 3);
+#pragma unroll 2
+    for (int u = tid >> 5; u < BN / 4; u += C::kThreads / 32) {
+      const int q = lane_q ^ (u & 31), g = (u >> 5) * 32 + lane;
+      const unsigned char* s = src + 4 * q * BN + 4 * g;
+      const uint32_t w0 = *reinterpret_cast<const uint32_t*>(s);
+      const uint32_t w1 = *reinterpret_cast<const uint32_t*>(s + BN);
+      const uint32_t w2 = *reinterpret_cast<const uint32_t*>(s + 2 * BN);
+      const uint32_t w3 = *reinterpret_cast<const uint32_t*>(s + 3 * BN);
+      const uint32_t x0 = __byte_perm(w0, w1, 0x5140), x1 = __byte_perm(w0, w1, 0x7362);
+      const uint32_t x2 = __byte_perm(w2, w3, 0x5140), x3 = __byte_perm(w2, w3, 0x7362);
+      const uint32_t o[4] = {__byte_perm(x0, x2, 0x5410), __byte_perm(x0, x2, 0x7632), __byte_perm(x1, x3, 0x5410),
+                             __byte_perm(x1, x3, 0x7632)};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int col = 4 * g + j;
+        *reinterpret_cast<uint32_t*>(dst + col * 128 + ((((q >> 2) ^ (col & 7)) << 4) | ((q & 3) << 2))) = o[j];
+      }
+    }
+  };
+
+  int32_t acc[C::kAcc];
+#pragma unroll
+  for (int i = 0; i < C::kAcc; ++i) acc[i] = 0;
+
+  if (tid == 0) {
+    for (int t = 0; t < SA && t < n; ++t) issue_a(t);
+    for (int t = 0; t < SW && t < n; ++t) issue_w(t);
+  }
+  transpose(0);
+  fence_proxy_async();
+  __syncthreads();
+  if (tid == 0 && SW < n) issue_w(SW);
+  for (int t = 0; t < n; ++t) {
+    // tile t: activations in slot t % SA, the K-major weights in tile t % 2
+    mbar_wait(bar_s + 8 * (t % SA), (t / SA) & 1);
+    const uint32_t a_t = a_s + (t % SA) * C::kA + wg * 8192, b_t = t_s + (t & 1) * C::kW;
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < QBK / 32; ++kk) {
+      const uint64_t da = desc_sw128(a_t + kk * 32, 16, kSbo), db = desc_sw128(b_t + kk * 32, 16, kSbo);
+      if constexpr (BN == 256) {
+        wgmma_m64n256k32_s8(acc, da, db, 1);
+      } else {
+        wgmma_m64n128k32_s8(acc, da, db, 1);
+      }
+    }
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_regs(acc);
+    // every warpgroup's wgmmas of tile t - 1 are done: its activation slot
+    // and K-major tile are free
+    __syncthreads();
+    if (tid == 0 && t >= 1 && t - 1 + SA < n) issue_a(t - 1 + SA);
+    if (t + 1 < n) {
+      transpose(t + 1);  // while the tensor cores work on tile t
+      fence_proxy_async();
+    }
+    __syncthreads();  // tile t + 1 is written and its weight slot is free
+    if (tid == 0 && t + 1 + SW < n) issue_w(t + 1 + SW);
+  }
+  wgmma_wait<0>();
+  fence_regs(acc);
+
+  // Epilogue. The int32 sums go through shared memory (the rings are
+  // idle now): thread (warp, lane) holds rows 16 warp + lane / 4 and + 8,
+  // columns 8 j + 2 (lane % 4) and + 1; rows are padded by 8 words so
+  // that each half-warp's 8-byte stores fall on 32 distinct banks. Then
+  // each thread takes 4 consecutive columns of a row, so a warp reads 512
+  // contiguous bytes and writes a contiguous run of the output (or of the
+  // split's workspace).
+  int32_t* stage = reinterpret_cast<int32_t*>(smem_raw + (a_s - raw));
+  constexpr int kLd = BN + 8;
+  const int r0 = wg * 64 + warp * 16 + (lane >> 2);
+  __syncthreads();  // every warpgroup's wgmmas are done with the tiles
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    const int c = 8 * j + 2 * (lane & 3);
+    *reinterpret_cast<int2*>(stage + r0 * kLd + c) = make_int2(acc[4 * j], acc[4 * j + 1]);
+    *reinterpret_cast<int2*>(stage + (r0 + 8) * kLd + c) = make_int2(acc[4 * j + 2], acc[4 * j + 3]);
+  }
+  __syncthreads();
+  int32_t* wsz = ws ? ws + (size_t)blockIdx.z * e.M * e.N : nullptr;
+  for (int i = tid; i < C::BM * (BN / 4); i += C::kThreads) {
+    const int r = i / (BN / 4), c = 4 * (i % (BN / 4)), row = m0 + r, col = n0 + c;
+    if (row >= e.M || col >= e.N) continue;
+    const int4 a = *reinterpret_cast<const int4*>(stage + r * kLd + c);
+    if (wsz)
+      *reinterpret_cast<int4*>(wsz + (size_t)row * e.N + col) = a;
+    else
+      epilogue4(e, row, col, a);
   }
 }
 
-template <int EPI>
-void launch_i8_gemm(const void* a, const void* rs, const void* w, const void* cs,
-                    const void* bias, const void* res, void* out, int M, int N,
-                    int K, cudaStream_t stream) {
-  const dim3 grid((N + QBN - 1) / QBN, (M + QBM - 1) / QBM);
-  i8_gemm_kernel<EPI><<<grid, kQGemmThreads, 0, stream>>>(
-      (const int8_t*)a, (const float*)rs, (const int8_t*)w, (const float*)cs,
-      (const float*)bias, (const bf16*)res, out, M, N, K);
+// The split ranges' int32 sums added (exact in any order), then the
+// epilogue: one thread 4 columns.
+__global__ void __launch_bounds__(256) i8_splitk_reduce_kernel(const int32_t* __restrict__ ws, const QEpi e, int splits) {
+  const size_t i = 4 * ((size_t)blockIdx.x * blockDim.x + threadIdx.x);
+  const size_t MN = (size_t)e.M * e.N;
+  if (i >= MN) return;
+  int4 s = *reinterpret_cast<const int4*>(ws + i);
+  for (int z = 1; z < splits; ++z) {
+    const int4 p = *reinterpret_cast<const int4*>(ws + z * MN + i);
+    s.x += p.x;
+    s.y += p.y;
+    s.z += p.z;
+    s.w += p.w;
+  }
+  epilogue4(e, (int)(i / e.N), (int)(i % e.N), s);
+}
+
+template <int WGS, int BN, int SA, int SW>
+int launch_i8(const void* a, const void* w, const QEpi& e, void* ws, int K, int splits, int per,
+              cudaStream_t stream) {
+  using C = I8Cfg<WGS, BN, SA, SW>;
+  static bool attr_set = false;
+  if (!attr_set) {
+    const cudaError_t err = cudaFuncSetAttribute(i8_gemm_kernel<WGS, BN, SA, SW>,
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::kSmem);
+    if (err != cudaSuccess) return (int)err;
+    attr_set = true;
+  }
+  CUtensorMap tma, tmw;
+  if (!make_map_2d(&tma, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, a, e.M, K, QBK, C::BM, CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !make_map_2d(&tmw, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, w, K, e.N, BN, QBK, CU_TENSOR_MAP_SWIZZLE_NONE))
+    return (int)cudaErrorInvalidValue;
+  // the block rows of one column tile run side by side, so each weight
+  // tile crosses device memory once
+  const dim3 grid((e.M + C::BM - 1) / C::BM, (e.N + BN - 1) / BN, splits);
+  i8_gemm_kernel<WGS, BN, SA, SW><<<grid, C::kThreads, C::kSmem, stream>>>(
+      tma, tmw, e, splits > 1 ? (int32_t*)ws : nullptr, K, per);
+  if (splits > 1) {
+    const size_t quads = (size_t)e.M * e.N / 4;
+    i8_splitk_reduce_kernel<<<(unsigned)((quads + 255) / 256), 256, 0, stream>>>((const int32_t*)ws, e, splits);
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -367,27 +513,27 @@ extern "C" int tvc_quant_rows_bf16(const void* h, void* q, void* scale, int M, i
 
 // out = epilogue(deq(a . w)): a int8 [M, K] with row_scale [M]; w int8
 // [K, N] with col_scale [N]; bias f32 [N] (unused by QEPI_DEQUANT_*);
-// residual bf16 [M, N] for QEPI_RESIDUAL. K and N multiples of 16.
-extern "C" int tvc_i8_gemm(const void* a, const void* row_scale, const void* w,
-                           const void* col_scale, const void* bias, const void* residual,
-                           void* out, int M, int N, int K, int epilogue, void* stream) {
-  if (K % kPanel != 0 || N % kPanel != 0) return (int)cudaErrorInvalidValue;
-  if (M > 0 && N > 0) {
-    cudaStream_t s = (cudaStream_t)stream;
-    if (epilogue == QEPI_BF16)
-      launch_i8_gemm<QEPI_BF16>(a, row_scale, w, col_scale, bias, residual, out, M, N, K, s);
-    else if (epilogue == QEPI_GELU_F32)
-      launch_i8_gemm<QEPI_GELU_F32>(a, row_scale, w, col_scale, bias, residual, out, M, N, K, s);
-    else if (epilogue == QEPI_RESIDUAL)
-      launch_i8_gemm<QEPI_RESIDUAL>(a, row_scale, w, col_scale, bias, residual, out, M, N, K, s);
-    else if (epilogue == QEPI_DEQUANT_BF16)
-      launch_i8_gemm<QEPI_DEQUANT_BF16>(a, row_scale, w, col_scale, bias, residual, out, M, N, K, s);
-    else if (epilogue == QEPI_DEQUANT_F32)
-      launch_i8_gemm<QEPI_DEQUANT_F32>(a, row_scale, w, col_scale, bias, residual, out, M, N, K, s);
-    else
-      return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+// residual bf16 [M, N] for QEPI_RESIDUAL. bm x bn tiles (192 x 256,
+// 128 x 256, 192 x 128, 128 x 128 or 64 x 128) over `splits` ranges of
+// `per` 128-deep k-tiles; ws: int32 [splits, M, N] when splits > 1. K and N
+// multiples of 16; a and w 16-byte aligned.
+extern "C" int tvc_i8_gemm(const void* a, const void* row_scale, const void* w, const void* col_scale,
+                           const void* bias, const void* residual, void* out, void* ws, int M, int N, int K,
+                           int epilogue, int bm, int bn, int splits, int per, void* stream) {
+  const int nk = (K + QBK - 1) / QBK;
+  if (K % 16 != 0 || N % 16 != 0 || epilogue < QEPI_BF16 || epilogue > QEPI_DEQUANT_F32 || splits < 1 ||
+      per < 1 || (splits - 1) * per >= nk || splits * per < nk || (splits > 1 && !ws))
+    return (int)cudaErrorInvalidValue;
+  if (M <= 0 || N <= 0) return (int)cudaGetLastError();
+  const QEpi e{(const float*)row_scale, (const float*)col_scale, (const float*)bias, (const bf16*)residual,
+               out, M, N, epilogue};
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (bm == 192 && bn == 256) return launch_i8<3, 256, 3, 2>(a, w, e, ws, K, splits, per, s);
+  if (bm == 128 && bn == 256) return launch_i8<2, 256, 4, 2>(a, w, e, ws, K, splits, per, s);
+  if (bm == 192 && bn == 128) return launch_i8<3, 128, 4, 2>(a, w, e, ws, K, splits, per, s);
+  if (bm == 128 && bn == 128) return launch_i8<2, 128, 2, 2>(a, w, e, ws, K, splits, per, s);
+  if (bm == 64 && bn == 128) return launch_i8<1, 128, 4, 2>(a, w, e, ws, K, splits, per, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 // Per-(sequence, head) attention with an f32 output [seqs * T, W].

@@ -278,15 +278,6 @@ __global__ void __launch_bounds__(256)
   }
 }
 
-// A 2-d row-major [rows, cols] map with (box_cols, box_rows) boxes
-bool make_map(CUtensorMap* map, CUtensorMapDataType type, int elem, const void* base, int rows, int cols,
-              int box_cols, int box_rows, CUtensorMapSwizzle swizzle) {
-  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)cols * elem};
-  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
-  return make_tensor_map(map, type, 2, base, dims, strides, box, swizzle);
-}
-
 template <int WGS, int MT, int BN, int S>
 int launch_w8(const void* x, const void* w, const void* scale, void* out, void* ws, int M, int N, int K,
               int splits, int per, cudaStream_t stream) {
@@ -299,8 +290,8 @@ int launch_w8(const void* x, const void* w, const void* scale, void* out, void* 
     attr_set = true;
   }
   CUtensorMap tmx, tmw;
-  if (!make_map(&tmx, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x, M, K, 64, C::BM, CU_TENSOR_MAP_SWIZZLE_128B) ||
-      !make_map(&tmw, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, w, K, N, BN, 64, CU_TENSOR_MAP_SWIZZLE_NONE))
+  if (!make_map_2d(&tmx, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x, M, K, 64, C::BM, CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !make_map_2d(&tmw, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, w, K, N, BN, 64, CU_TENSOR_MAP_SWIZZLE_NONE))
     return (int)cudaErrorInvalidValue;
   const dim3 grid((N + BN - 1) / BN, (M + C::BM - 1) / C::BM, splits);
   w8_gemm_kernel<WGS, MT, BN, S><<<grid, C::kThreads, C::kSmem, stream>>>(
