@@ -7,8 +7,10 @@ Phases (each raises on failure; the script then exits non-zero):
   2. build: compile every CUDA kernel of the port from tvc_torch/csrc (one
      nvcc per source, all started together);
   3. kernels: each kernel against its plain PyTorch version on the card,
-     at the main paths' shapes and at ViT-L/14's vision shape (T=257),
-     with kernel / plain / library times and the bound;
+     at the main paths' shapes, at ViT-L/14's vision shape (T=257), at
+     head width 32 and, for the four layer kernels, in f32 at the tiny
+     configurations' shapes, with kernel / plain / library times, the
+     bound and the GEMMs' plans;
   4. slice: ViT-B/32 bf16 with the fused layers and seeded random weights,
      a 131,072 x 512 bank, an AdversarialDetector behind a ServingRuntime:
      warmup, requests through submit() and HTTP, then detect_batch at
@@ -19,6 +21,12 @@ Phases (each raises on failure; the script then exits non-zero):
      with no injected detector (what ``serve --int8`` builds): the W8A8
      layer kernels and the native BPE tokenizer, held against the same
      path on the plain versions;
+  tiny: the tiny configurations (f32, W=64, two heads: head width 32) on
+     the card: ServingRuntime(ServingConfig(clip_model="tiny",
+     int8_serving=True)) through the int8 layer kernels, and a detector
+     over CLIPConfig.from_name("tiny", fused_attention=True) through the
+     bf16-layer kernels in f32, each serving a few requests through
+     submit(), held against the same runtime on the plain versions;
   qwen: Qwen2-7B at full width (int8 W8A8, seeded random weights)
      paraphrasing 192 COCO captions x 3 with 16 new tokens through
      QwenModel.generate_paraphrases_batch (decode batch 576): launch counts
@@ -76,6 +84,10 @@ PEAK_BF16_FLOPS = 989e12  # dense bf16 tensor-core rate
 PEAK_INT8_OPS = 1979e12  # dense int8 tensor-core rate
 PEAK_F32_FLOPS = 67e12  # f32 outside the tensor cores
 LAYER_TOL = 3e-2  # relative to max(1, |plain|): see phase_kernels
+# the bf16-layer kernels in f32 against their plain versions, relative to
+# max(1, |plain|): the same f32 function summed in another order
+# (LayerNorm, GEMM, softmax, P.V), ~1e-6; a wrong index or term is O(1)
+F32_LAYER_TOL = 1e-4
 CONSISTENCY_TOL = 1e-5
 # decode attention, relative to max(1, |plain|): the kernel and the plain
 # version round the same f32 softmax weights to bf16; a weight whose f32
@@ -311,19 +323,28 @@ def phase_kernels() -> dict:
         f"plain_ms={p_ms:.4f} bound_ms={bms:.5f} ({by}) max_abs_err={err:.3e} flags_ok={flags_ok} held={errs}")
 
     # -- attention and MLP layers, bf16 and int8: vision B=64 T=50 W=768
-    # H=12; text rows=448 at T=16 and T=32, W=512 H=8, causal; and the
-    # attention layers at ViT-L/14's vision shape B=8 T=257 W=1024 H=16 and
-    # past the old kernel's T <= 257 at B=4 T=300 W=768 H=12
+    # H=12; text rows=448 at T=16 and T=32, W=512 H=8, causal; the
+    # attention layers at ViT-L/14's vision shape B=8 T=257 W=1024 H=16,
+    # at B=4 T=300 W=768 H=12 and at head width 32 (B=64 T=50 W=768 H=24);
+    # then the tiny configurations' f32 layers (W=64, two heads: head width
+    # 32) at a serving batch of 256 images (T=5) and 256 captions (T=16)
     rows = {k: [] for k in ("fused_attention_layer", "fused_mlp_layer",
                             "fused_attention_layer_i8", "fused_mlp_layer_i8")}
-    for tag, B, T, W, H, causal in (
-        ("vision", 64, 50, 768, 12, False),
-        ("text", 448, 16, 512, 8, True),
-        ("text", 448, 32, 512, 8, True),
-        ("vit-l/14 vision", 8, 257, 1024, 16, False),
-        ("T=300", 4, 300, 768, 12, False),
+    bf16, f32 = torch.bfloat16, torch.float32
+    for tag, B, T, W, H, causal, dt in (
+        ("vision", 64, 50, 768, 12, False, bf16),
+        ("text", 448, 16, 512, 8, True, bf16),
+        ("text", 448, 32, 512, 8, True, bf16),
+        ("vit-l/14 vision", 8, 257, 1024, 16, False, bf16),
+        ("T=300", 4, 300, 768, 12, False, bf16),
+        ("D=32", 64, 50, 768, 24, False, bf16),
+        ("tiny vision f32", 256, 5, 64, 2, False, f32),
+        ("tiny text f32", 256, 16, 64, 2, True, f32),
     ):
         x, ln, attn_w, mlp_w = _layer_inputs(rng, B, T, W, 4 * W, dev)
+        cast = lambda ts: tuple(t.to(dt) if t.dtype == bf16 else t for t in ts)  # the weights, not the biases
+        x, attn_w, mlp_w = x.to(dt), cast(attn_w), cast(mlp_w)
+        el, peak = (4, PEAK_F32_FLOPS) if dt == f32 else (2, PEAK_BF16_FLOPS)
         M, Wh = B * T, 4 * W
         pairs = T * (T + 1) // 2 if causal else T * T
         attn_ops = 4 * B * pairs * W  # QK^T and PV over every head
@@ -333,27 +354,28 @@ def phase_kernels() -> dict:
         cases = [
             ("fused_attention_layer", fused_attention_layer, attention_layer_reference, a_args,
              dict(heads=H, causal=causal), shape,
-             bound_ms(4 * M * W + 2 * 4 * W * W + 4 * 6 * W, 2 * M * W * 4 * W + attn_ops, PEAK_BF16_FLOPS)),
+             bound_ms(2 * el * M * W + el * 4 * W * W + 4 * 6 * W, 2 * M * W * 4 * W + attn_ops, peak)),
             ("fused_attention_layer_i8", fused_attention_layer_i8, attention_layer_i8_reference, a8_args,
              dict(heads=H, causal=causal), shape,
-             bound_ms_of(4 * M * W + 4 * W * W + 4 * 10 * W,
-                         2 * M * W * 4 * W / PEAK_INT8_OPS + attn_ops / PEAK_BF16_FLOPS)),
+             bound_ms_of(2 * el * M * W + 4 * W * W + 4 * 10 * W,
+                         2 * M * W * 4 * W / PEAK_INT8_OPS + attn_ops / peak)),
         ]
-        if tag not in ("vit-l/14 vision", "T=300"):
+        if tag not in ("vit-l/14 vision", "T=300", "D=32"):
             shape = f"{tag} B={B} T={T} W={W}"
             cases += [
                 ("fused_mlp_layer", fused_mlp_layer, mlp_layer_reference, (x, *ln, *mlp_w), {}, shape,
-                 bound_ms(4 * M * W + 2 * 2 * W * Wh + 4 * (Wh + 3 * W), 4 * M * W * Wh, PEAK_BF16_FLOPS)),
+                 bound_ms(2 * el * M * W + el * 2 * W * Wh + 4 * (Wh + 3 * W), 4 * M * W * Wh, peak)),
                 ("fused_mlp_layer_i8", fused_mlp_layer_i8, mlp_layer_i8_reference, (x, *ln, *_quantized(mlp_w)),
                  {}, shape,
-                 bound_ms_of(4 * M * W + 2 * W * Wh + 4 * (2 * Wh + 4 * W), 4 * M * W * Wh / PEAK_INT8_OPS)),
+                 bound_ms_of(2 * el * M * W + 2 * W * Wh + 4 * (2 * Wh + 4 * W), 4 * M * W * Wh / PEAK_INT8_OPS)),
             ]
         for name, kernel, plain, args, kw, shape, (bms, by) in cases:
             run_k = lambda: kernel(*args, **kw)
             run_p = lambda: plain(*args, **kw)
             abs_err, rel_err = _layer_error(run_k(), run_p())
-            if not rel_err <= LAYER_TOL:
-                raise AssertionError(f"{name} {shape} disagrees: {abs_err:.3e} abs, {rel_err:.3e} scaled")
+            tol = F32_LAYER_TOL if dt == f32 and not name.endswith("_i8") else LAYER_TOL
+            if not rel_err <= tol:
+                raise AssertionError(f"{name} {shape} disagrees: {abs_err:.3e} abs, {rel_err:.3e} scaled (tol {tol})")
             k_ms, p_ms = time_ms(run_k), time_ms(run_p)
             row = {"shape": shape, "ms": k_ms, "plain_ms": p_ms, "bound_ms": bms, "bound_by": by,
                    "max_abs_err": abs_err}
@@ -364,8 +386,10 @@ def phase_kernels() -> dict:
                 lib = (f"library_ms(GEMM only, torch._int_mm, weight {layout})={lib_ms:.4f} "
                        f"[by layout {both}] plans(int8 GEMMs)={row['plans']}")
             else:
-                lib_ms = row["library_ms"] = _bf16_mm_ms(M, args)
-                lib = f"library_ms(GEMM only, cuBLAS bf16)={lib_ms:.4f}"
+                lib_ms = row["library_ms"] = _mm_ms(M, args)
+                row["plans"] = _bf16_plans(M, args) if dt == bf16 else "f32 CUDA-core GEMM"
+                lib = (f"library_ms(GEMM only, cuBLAS {'f32' if dt == f32 else 'bf16'})={lib_ms:.4f} "
+                       f"plans(GEMMs)={row['plans']}")
             rows[name].append(row)
             log(f"kernel {name} {shape}: kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
                 f"bound_ms={bms:.5f} ({by}) max_abs_err={abs_err:.3e} scaled_err={rel_err:.3e} " + lib)
@@ -417,21 +441,29 @@ def _i8_plans(M: int, args) -> str:
     return " / ".join(_plan_str(i8_plan(M, w.shape[1], w.shape[0])) for w in (w1, w2))
 
 
-def _plan_str(plan) -> str:
+def _plan_str(plan, depth: int = 128) -> str:
     bm, bn, splits, per = plan
-    return f"{bm}x{bn} tiles, {splits} split{'s' if splits > 1 else ''} of {per} k-tiles"
+    return f"{bm}x{bn} tiles, {splits} split{'s' if splits > 1 else ''} of {per} {depth}-deep k-tiles"
 
 
-def _bf16_mm_ms(M: int, args) -> float:
-    """GEMM-only yardstick of a bf16 layer: cuBLAS on bf16 operands of its
-    two GEMMs' shapes (the layer's weights and random activations), one
-    after the other."""
+def _mm_ms(M: int, args) -> float:
+    """GEMM-only yardstick of a bf16 or f32 layer: cuBLAS on operands of
+    its two GEMMs' shapes and dtype (the layer's weights and random
+    activations; f32 without TF32), one after the other."""
     import torch
 
     w1, w2 = args[3], args[5]
-    a1 = torch.randn((M, w1.shape[0]), dtype=torch.bfloat16, device=w1.device)
-    a2 = torch.randn((M, w2.shape[0]), dtype=torch.bfloat16, device=w2.device)
+    a1 = torch.randn((M, w1.shape[0]), dtype=w1.dtype, device=w1.device)
+    a2 = torch.randn((M, w2.shape[0]), dtype=w2.dtype, device=w2.device)
     return time_ms(lambda: (a1 @ w1, a2 @ w2))
+
+
+def _bf16_plans(M: int, args) -> str:
+    """The bf16 GEMM's plan for each of a bf16 layer's two GEMMs."""
+    from tvc_torch.core.kernels.attention_layer_kernel import bf16_plan
+
+    w1, w2 = args[3], args[5]
+    return " / ".join(_plan_str(bf16_plan(M, w.shape[1], w.shape[0]), 64) for w in (w1, w2))
 
 
 def _w8a8_bound(M, K, N, dtype_bytes=2):
@@ -949,6 +981,8 @@ PATH_KERNELS = {
                  "w8_matmul_stacked", "decode_gqa_attention", "decode_gqa_attention_stacked"),
     "mha": ("fused_mha",),
     "retrieval": ("fused_consistency_scores", "fused_attention_layer", "fused_mlp_layer", "bank_topk"),
+    "tiny int8": ("fused_consistency_scores", "fused_attention_layer_i8", "fused_mlp_layer_i8"),
+    "tiny f32 layers": ("fused_consistency_scores", "fused_attention_layer", "fused_mlp_layer"),
 }
 B_DEFENDED, V_DEFENDED = 256, 6
 
@@ -1162,6 +1196,119 @@ def phase_int8(card: dict, bf16: dict) -> dict:
         f"{float(np.mean(other.is_adversarial == out['result'].is_adversarial)):.4f}, "
         f"max |d agg| {float(np.abs(other.aggregated_score - out['result'].aggregated_score).max()):.3e}")
     out["detector"] = det
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase tiny: the tiny configurations (f32, head width 32) served on the card
+# ---------------------------------------------------------------------------
+
+#: requests of the tiny phase: (queries) each, submitted one after another
+#: so that the kernel and the plain runs batch them alike
+TINY_REQUESTS = (4, 4, 2)
+
+
+def _serve_tiny(rt, images, texts) -> list:
+    """The requests through ``rt.submit`` one after another."""
+    rt.start(http=False)
+    try:
+        out, i = [], 0
+        for n in TINY_REQUESTS:
+            out.append(rt.submit(images[i : i + n], texts[i : i + n]))
+            i += n
+    finally:
+        rt.stop()
+    return out
+
+
+def _drive_tiny(path: str, rt, patches, tol: float) -> dict:
+    """Requests through ``rt`` with the launch counts set to 0 just before
+    and read just after, then the same requests with the kernels patched
+    to their plain versions; the aggregated scores held to ``tol`` and the
+    flags equal wherever the plain score is more than ``tol`` from the
+    threshold."""
+    import torch
+
+    from tvc_torch.core.kernels import launch_counts, reset_launch_counts
+
+    det = rt.detector
+    cfg = det.model.config
+    size = cfg.image_size
+    n = sum(TINY_REQUESTS)
+    rng = np.random.default_rng(5)
+    images = rng.random((n, size, size, 3), dtype=np.float32)
+    texts, _ = coco_variant_batch(n, 1)
+    reset_launch_counts()
+    got = _serve_tiny(rt, images, texts)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    log(f"[{path}] launches while serving {len(TINY_REQUESTS)} requests: {counts}")
+    _check_path_counts(counts, path, "serving")
+    with ExitStack() as stack:
+        for module, name, plain in patches:
+            stack.enter_context(mock.patch.object(module, name, plain))
+        want = _serve_tiny(rt, images, texts)
+    torch.cuda.synchronize()
+    if launch_counts() != counts:
+        raise AssertionError(f"[{path}] the plain run launched a kernel")
+    g = np.concatenate([a["scores"] for a in got])
+    w = np.concatenate([a["scores"] for a in want])
+    gf = np.concatenate([a["is_adversarial"] for a in got])
+    wf = np.concatenate([a["is_adversarial"] for a in want])
+    thr = det.config.detection_threshold
+    away = np.abs(w - thr) > tol
+    d = np.abs(g - w)
+    log(f"[{path}] {cfg.model_name} {cfg.dtype} W={cfg.vision_width} heads={cfg.vision_heads} "
+        f"(head width {cfg.vision_width // cfg.vision_heads}): kernel vs plain max |d aggregated| {d.max():.3e} "
+        f"(tol {tol}); flags equal {int((gf == wf)[away].sum())} of the {int(away.sum())} scores more than tol "
+        f"from the threshold; scores {np.round(g, 4).tolist()}")
+    if g.shape != (n,) or not np.all(np.isfinite(g)) or d.max() > tol or not np.all((gf == wf)[away]):
+        raise AssertionError(f"[{path}] the served results disagree with the plain path")
+    return {"launches": counts, "max_abs_d_aggregated": float(d.max())}
+
+
+def phase_tiny(card: dict) -> dict:
+    """The tiny configurations, f32 with head width 32 (W = 64, two heads),
+    on the card: ServingRuntime(ServingConfig(clip_model="tiny",
+    int8_serving=True)), as ``serve --int8`` builds it by default, through
+    the int8 layer kernels; and a detector over
+    CLIPConfig.from_name("tiny", fused_attention=True) behind a
+    ServingRuntime through the bf16-layer kernels in f32. Each held against
+    the same runtime with the layer kernels (and the consistency kernel)
+    patched to their plain versions: int8 to LAYER_TOL (an int8 quantum
+    flipped by an f32 sum in another order), f32 to F32_LAYER_TOL."""
+    import tvc_torch.models.clip as clip_mod
+    import tvc_torch.parallel.steps as steps_mod
+    from tvc_torch.core.kernels import (
+        attention_layer_i8_reference,
+        attention_layer_reference,
+        consistency_scores_reference,
+        mlp_layer_i8_reference,
+        mlp_layer_reference,
+    )
+    from tvc_torch.detector import AdversarialDetector, DetectorConfig
+    from tvc_torch.models.clip import CLIPConfig, CLIPModel
+    from tvc_torch.retrieval import MultiModalRetriever, RetrievalConfig
+    from tvc_torch.serving import ServingConfig, ServingRuntime
+
+    consistency = (steps_mod, "fused_consistency_scores", consistency_scores_reference)
+    rt = ServingRuntime(ServingConfig(clip_model="tiny", int8_serving=True, drift_window=0, batch_max_size=4))
+    mcfg = rt.detector.model.config
+    if not (mcfg.int8_serving and mcfg.fused_attention and mcfg.vision_width // mcfg.vision_heads == 32):
+        raise AssertionError(f"ServingConfig(clip_model='tiny', int8_serving=True) built {mcfg}")
+    out = {"tiny int8": _drive_tiny("tiny int8", rt, [
+        (clip_mod, "fused_attention_layer_i8", attention_layer_i8_reference),
+        (clip_mod, "fused_mlp_layer_i8", mlp_layer_i8_reference), consistency], LAYER_TOL)}
+
+    model = CLIPModel(CLIPConfig.from_name("tiny", fused_attention=True), seed=0)
+    retriever = MultiModalRetriever(model, RetrievalConfig())
+    embs = np.random.default_rng(0).standard_normal((1024, model.config.embed_dim), dtype=np.float32)
+    retriever.build_image_index(embeddings=embs / np.linalg.norm(embs, axis=-1, keepdims=True))
+    det = AdversarialDetector(model, retriever=retriever, config=DetectorConfig(text_bucket=32))
+    rt = ServingRuntime(ServingConfig(clip_model="tiny", drift_window=0, batch_max_size=4), detector=det)
+    out["tiny f32 layers"] = _drive_tiny("tiny f32 layers", rt, [
+        (clip_mod, "fused_attention_layer", attention_layer_reference),
+        (clip_mod, "fused_mlp_layer", mlp_layer_reference), consistency], F32_LAYER_TOL)
     return out
 
 
@@ -1945,13 +2092,17 @@ def _topk_merge_ms(q, bank, k: int) -> float:
 #: profiler names shortened to the kernel and its template arguments
 #: (the first match wins, so longer names come first)
 PROFILE_NAMES = (
-    "ln_gemm_kernel<true, 0>", "ln_gemm_kernel<true, 1>", "ln_gemm_kernel<false, 2>",
-    "i8_gemm_kernel<0>", "i8_gemm_kernel<1>", "i8_gemm_kernel<2>", "i8_gemm_kernel<3>",
-    "i8_gemm_kernel<4>", "ln_quant_rows_kernel", "quant_rows_kernel<float>",
+    "bf16_gemm_kernel<2, 256, 4>", "bf16_gemm_kernel<2, 192, 4>", "bf16_gemm_kernel<2, 128, 3>",
+    "bf16_gemm_kernel<1, 128, 4>", "bf16_splitk_reduce_kernel", "layernorm_rows_kernel<__nv_bfloat16>",
+    "layernorm_rows_kernel<float>", "f32_gemm_kernel",
+    "i8_gemm_kernel<3, 256, 3, 2>", "i8_gemm_kernel<2, 256, 4, 2>", "i8_gemm_kernel<3, 128, 4, 2>",
+    "i8_gemm_kernel<2, 128, 2, 2>", "i8_gemm_kernel<1, 128, 4, 2>", "i8_splitk_reduce_kernel",
+    "ln_quant_rows_kernel<__nv_bfloat16>", "ln_quant_rows_kernel<float>", "quant_rows_kernel<float>",
     "quant_rows_kernel<__nv_bfloat16>", "decode_gqa_kernel<__nv_bfloat16, 128>",
     "decode_gqa_kernel<__nv_bfloat16, 64>", "decode_reduce_kernel",
-    "head_attention_tc_kernel<float, 64>", "head_attention_tc_kernel<__nv_bfloat16, 64>",
-    "head_attention_tc_kernel<__nv_bfloat16, 32>", "head_attention_kernel<64>", "head_attention_kernel<32>",
+    "head_attention_tc_kernel<float, 64>", "head_attention_tc_kernel<float, 32>",
+    "head_attention_tc_kernel<__nv_bfloat16, 64>", "head_attention_tc_kernel<__nv_bfloat16, 32>",
+    "head_attention_kernel<64>", "head_attention_kernel<32>",
     "consistency_kernel", "w8_gemm_kernel<2, 2, 192, 4>", "w8_gemm_kernel<2, 2, 128, 4>",
     "w8_gemm_kernel<1, 1, 64, 6>", "w8_splitk_reduce_kernel", "w8_gemm_f32_kernel",
     "bank_topk_partial_kernel<float, float>", "bank_topk_partial_kernel<float, __nv_bfloat16>",
@@ -1960,7 +2111,8 @@ PROFILE_NAMES = (
 #: the prefix of the record_function ranges a profile reports by name
 RANGE_PREFIX = "smoke:"
 #: kernel families a profile also sums: (what, name prefix)
-PROFILE_FAMILIES = (("w8 GEMM", "w8_"), ("per-head attention", "head_attention"))
+PROFILE_FAMILIES = (("bf16 layer GEMM", "bf16_"), ("int8 GEMM", "i8_"), ("w8 GEMM", "w8_"),
+                    ("per-head attention", "head_attention"))
 
 
 def profile_batch(path: str, run) -> None:
@@ -2022,6 +2174,8 @@ def main() -> int:
         bf16 = phase_slice(card)
     with phase("int8"):
         int8 = phase_int8(card, bf16)
+    with phase("tiny"):
+        tiny = phase_tiny(card)
     with phase("qwen"):
         qwen = phase_qwen(card)
     with phase("pipeline"):
@@ -2035,7 +2189,8 @@ def main() -> int:
     with phase("large bank"):
         large = phase_large_bank(card)
     kres["bank_topk"]["shapes"].append(large["shape"])
-    paths = {"bf16": bf16, "int8": int8, "qwen": qwen, "pipeline": pipeline, "mha": mha, "retrieval": retrieval}
+    paths = {"bf16": bf16, "int8": int8, "qwen": qwen, "pipeline": pipeline, "mha": mha, "retrieval": retrieval,
+             **tiny}
     kernels = []
     for name, (source, replaces) in KERNEL_SOURCES.items():
         shapes = kres[name]["shapes"]

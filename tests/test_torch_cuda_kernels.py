@@ -40,6 +40,7 @@ from tvc_torch.core.kernels import (
     w8a8_matmul_stacked,
 )
 from tvc_torch.core.kernels import _build, w8_matmul_kernel
+from tvc_torch.core.kernels import attention_layer_kernel as alk
 from tvc_torch.core.kernels.quantized_layer_kernel import _i8_gemm, _mm_i32
 from tvc_torch.core.similarity import l2_normalize
 
@@ -152,15 +153,117 @@ def test_consistency_ragged(dev, B, V, R, D):
 
 def test_kernels_refuse_what_they_do_not_take(dev):
     p = _layer(np.random.default_rng(0), 2, 4, 64, 256, dev)
-    with pytest.raises(ValueError):  # f32 activations
+    with pytest.raises(ValueError):  # head width 16 (the kernels take 32 and 64)
+        fused_attention_layer(p["x"], *p["ln"], *p["attn"], heads=4)
+    with pytest.raises(ValueError):  # f32 activations with bf16 weights
         fused_attention_layer(p["x"].float(), *p["ln"], *p["attn"], heads=1)
-    with pytest.raises(ValueError):  # head width 32
-        fused_attention_layer(p["x"], *p["ln"], *p["attn"], heads=2)
     with pytest.raises(ValueError):  # non-contiguous weight
         fused_mlp_layer(p["x"], *p["ln"], p["mlp"][0].t().contiguous().t(), *p["mlp"][1:])
     x = torch.zeros((2, 8), device=dev)
     with pytest.raises(ValueError):  # bf16 embeddings
         fused_consistency_scores(x.bfloat16(), x.bfloat16(), x[:, None].bfloat16(), x[:, None].bfloat16())
+
+
+def _cast(p, dtype):
+    """The layer operands with x and the weights in ``dtype`` (the compute
+    dtype), biases and LayerNorm parameters f32."""
+    c = lambda t: t.to(dtype) if t.dtype == torch.bfloat16 else t
+    return {k: (c(v) if isinstance(v, torch.Tensor) else tuple(c(t) for t in v)) for k, v in p.items()}
+
+
+# Tolerances of the four layer kernels at the tiny configurations' shapes
+# (W = 64, two heads: head width 32; x f32) and at head width 32 in bf16,
+# relative to max(1, |plain|). f32 bf16-layer kernels: the same f32
+# function in another summation order (LayerNorm, GEMM, softmax, P.V), so
+# ~1e-6; 1e-4 holds it, and a wrong index or missed term is O(1). The int8
+# layers and bf16 operands: 3e-2, as the ragged tests above (an int8
+# quantum flipped by an f32 sum in another order, a bf16 ulp).
+F32_LAYER_TOL = 1e-4
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["attention", "mlp", "attention_i8", "mlp_i8"])
+@pytest.mark.parametrize("B,T,W,H,causal", [(8, 5, 64, 2, False), (12, 17, 64, 2, False), (24, 16, 64, 2, True),
+                                            (24, 32, 64, 2, True), (3, 77, 128, 2, True)])
+def test_layer_kernels_take_f32_and_head_width_32(dev, dtype, kind, B, T, W, H, causal):
+    """Each layer kernel in f32 (the tiny configurations' compute dtype) and
+    at head width 32 (tiny: W = 64, two heads) against its plain version;
+    the output keeps x's dtype and two calls give the same bits."""
+    p = _cast(_layer(np.random.default_rng(B * T + W), B, T, W, 4 * W, dev), dtype)
+    kernel, plain, args, kw = {
+        "attention": (fused_attention_layer, attention_layer_reference, (p["x"], *p["ln"], *p["attn"]),
+                      dict(heads=H, causal=causal)),
+        "mlp": (fused_mlp_layer, mlp_layer_reference, (p["x"], *p["ln"], *p["mlp"]), {}),
+        "attention_i8": (fused_attention_layer_i8, attention_layer_i8_reference,
+                         (p["x"], *p["ln"], *_i8(p["attn"])), dict(heads=H, causal=causal)),
+        "mlp_i8": (fused_mlp_layer_i8, mlp_layer_i8_reference, (p["x"], *p["ln"], *_i8(p["mlp"])), {}),
+    }[kind]
+    before = kernel.launches
+    got = kernel(*args, **kw)
+    want = plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    assert got.dtype == dtype and got.shape == p["x"].shape
+    tol = F32_LAYER_TOL if dtype == torch.float32 and not kind.endswith("_i8") else 3e-2
+    assert _scaled_err(got, want) <= tol
+    assert torch.equal(got, kernel(*args, **kw))
+
+
+def _gemm_plain(a, w, bias, res, epilogue):
+    """The bf16 GEMM's function in PyTorch: f32 sums, + bias, then nothing,
+    quick_gelu or + the residual in f32, rounded once to bf16."""
+    v = a.float() @ w.float() + bias
+    if epilogue == alk.EPI_GELU:
+        v = v * torch.sigmoid(1.702 * v)
+    if epilogue == alk.EPI_RESIDUAL:
+        v = res.float() + v
+    return v.bfloat16()
+
+
+# The bf16 layer GEMM at every tile of BF16_TILES and splits of K, under
+# each epilogue, at ragged shapes (partial tiles, K past a 64-deep k-tile,
+# N not a multiple of 64), against the plain version: both sum the same
+# bf16 products in f32 in another order, so an output may differ by one
+# bf16 ulp where a sum lands near a rounding boundary: 1e-2 of max(1, |y|)
+# (GELU and residual add less). Two calls give the same bits.
+@pytest.mark.parametrize("tile", list(alk.BF16_TILES))
+@pytest.mark.parametrize("M,N,K,splits", [(130, 136, 72, 1), (130, 136, 72, 2), (21, 200, 64, 1),
+                                          (577, 2320, 784, 1), (577, 2320, 784, 2), (577, 2320, 784, 3),
+                                          (577, 2320, 784, 7)])
+def test_bf16_gemm_at_every_tile_and_split(dev, tile, M, N, K, splits):
+    rng = np.random.default_rng(M + N + K + splits)
+    f = lambda *shape, scale=1.0: torch.as_tensor((scale * rng.standard_normal(shape)).astype(np.float32)).to(dev)
+    a, w = f(M, K).bfloat16(), f(K, N, scale=K ** -0.5).bfloat16()
+    bias, res = f(N, scale=0.02), f(M, N).bfloat16()
+    nk = -(-K // alk.BF16_BK)
+    per = -(-nk // splits)
+    plan = (*tile, -(-nk // per), per)
+    lib = _build.load("attention_layer")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for epilogue in (alk.EPI_BIAS, alk.EPI_GELU, alk.EPI_RESIDUAL):
+        r = res if epilogue == alk.EPI_RESIDUAL else None
+        got = alk._gemm(lib, a, w, bias, r, epilogue, stream, plan=plan)
+        again = alk._gemm(lib, a, w, bias, r, epilogue, stream, plan=plan)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again)
+        assert _scaled_err(got, _gemm_plain(a, w, bias, res, epilogue)) <= 1e-2, (epilogue, plan)
+
+
+@pytest.mark.parametrize("M,N,K,epilogue", [(37, 200, 72, 0), (130, 136, 72, 1), (257, 64, 256, 2)])
+def test_f32_gemm_matches_plain(dev, M, N, K, epilogue):
+    """The f32 layer GEMM (CUDA cores, no TF32) against the same function in
+    f32 PyTorch: sums in another order only, 1e-5 of max(1, |y|)."""
+    rng = np.random.default_rng(M * N + epilogue)
+    f = lambda *shape: torch.as_tensor(rng.standard_normal(shape).astype(np.float32)).to(dev)
+    a, w, bias, res = f(M, K), f(K, N) / K ** 0.5, f(N), f(M, N)
+    lib = _build.load("attention_layer")
+    got = alk._gemm(lib, a, w, bias, res if epilogue == alk.EPI_RESIDUAL else None, epilogue,
+                    torch.cuda.current_stream(dev).cuda_stream)
+    v = a @ w + bias
+    want = v * torch.sigmoid(1.702 * v) if epilogue == alk.EPI_GELU else (res + v if epilogue == alk.EPI_RESIDUAL else v)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32
+    assert _scaled_err(got, want) <= 1e-5
 
 
 @pytest.mark.parametrize("causal", [False, True])
@@ -182,16 +285,16 @@ def test_layer_kernels_take_t_above_257(dev, causal):
 def test_int8_kernels_refuse_what_they_do_not_take(dev):
     p = _layer(np.random.default_rng(2), 2, 4, 64, 256, dev)
     a, m = _i8(p["attn"]), _i8(p["mlp"])
-    with pytest.raises(ValueError):  # f32 activations
-        fused_attention_layer_i8(p["x"].float(), *p["ln"], *a, heads=1)
+    with pytest.raises(ValueError):  # f64 activations
+        fused_attention_layer_i8(p["x"].double(), *p["ln"], *a, heads=1)
     with pytest.raises(ValueError):  # bf16 weights where int8 are taken
         fused_attention_layer_i8(p["x"], *p["ln"], *p["attn"][:1], a[1], *a[2:], heads=1)
     with pytest.raises(ValueError):  # f64 scales
         fused_mlp_layer_i8(p["x"], *p["ln"], m[0], m[1].double(), *m[2:])
     with pytest.raises(ValueError):  # non-contiguous weight
         fused_mlp_layer_i8(p["x"], *p["ln"], m[0].t().contiguous().t(), *m[1:])
-    with pytest.raises(ValueError):  # head width 32
-        fused_attention_layer_i8(p["x"], *p["ln"], *a, heads=2)
+    with pytest.raises(ValueError):  # head width 16 (the kernels take 32 and 64)
+        fused_attention_layer_i8(p["x"], *p["ln"], *a, heads=4)
     q = _layer(np.random.default_rng(3), 2, 4, 72, 144, dev)
     with pytest.raises(ValueError):  # width 72: not a multiple of 16
         fused_mlp_layer_i8(q["x"], *q["ln"], *_i8(q["mlp"]))

@@ -39,22 +39,24 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "tvc_consistency_scores": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     },
     "attention_layer": {
-        # a, ln_scale, ln_bias, w, bias, residual, out, M, N, K, eps,
-        # has_ln, epilogue, stream
-        "tvc_ln_gemm": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _P],
-        # qkv, out, seqs, T, W, heads, causal, stream
-        "tvc_head_attention": [_P, _P, _I, _I, _I, _I, _I, _P],
+        # x, ln_scale, ln_bias, y, M, K, eps, is_f32, stream
+        "tvc_layernorm_rows": [_P, _P, _P, _P, _I, _I, _F, _I, _P],
+        # a, w, bias, residual, out, ws (f32 or null), M, N, K, epilogue,
+        # bm, bn, splits, per, stream
+        "tvc_bf16_gemm": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+        # a, w, bias, residual, out, M, N, K, epilogue, stream
+        "tvc_f32_gemm": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+        # qkv, out, seqs, T, W, heads, causal, is_f32, stream
+        "tvc_head_attention": [_P, _P, _I, _I, _I, _I, _I, _I, _P],
     },
     "quantized_layer": {
-        # h, ln_scale, ln_bias, q, scale, M, K, eps, has_ln, stream
-        "tvc_quant_rows": [_P, _P, _P, _P, _P, _I, _I, _F, _I, _P],
+        # h, ln_scale, ln_bias, q, scale, M, K, eps, has_ln, is_f32, stream
+        "tvc_quant_rows": [_P, _P, _P, _P, _P, _I, _I, _F, _I, _I, _P],
         # a, row_scale, w, col_scale, bias, residual, out, ws (int32 or
         # null), M, N, K, epilogue, bm, bn, splits, per, stream
         "tvc_i8_gemm": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
-        # qkv, out, seqs, T, W, heads, causal, stream
-        "tvc_head_attention_f32": [_P, _P, _I, _I, _I, _I, _I, _P],
-        # h (bf16), q, scale, M, K, stream
-        "tvc_quant_rows_bf16": [_P, _P, _P, _I, _I, _P],
+        # qkv, out, seqs, T, W, heads, causal, in_f32, stream
+        "tvc_head_attention_f32": [_P, _P, _I, _I, _I, _I, _I, _I, _P],
     },
     "decode_attention": {
         # q, k, v, mask, out, ws (f32 or null), B, KV, R, S, D, is_bf16,

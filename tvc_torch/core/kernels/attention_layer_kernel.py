@@ -4,24 +4,29 @@
     fused_attention_layer: x + W_out . MHA(split(W_qkv . LN(x)))
     fused_mlp_layer:       x + W_proj . quick_gelu(W_fc . LN(x))
 
+The compute dtype is ``x.dtype``, as in the TPU kernel: bf16 on the
+serving towers, f32 on the tiny configurations (and in the CPU tests).
 For CUDA tensors the wrappers launch the hand-written kernels of
-``tvc_torch/csrc/attention_layer.cu``: a tiled bf16 tensor-core GEMM with a
-LayerNorm prologue and a bias / quick_gelu / residual epilogue, and the
-per-head attention of ``head_attention.cuh`` (wgmma tiles of 64 query rows,
-any sequence length). An attention layer is three launches
-and an MLP layer two, because the TPU kernel's VMEM-resident weights and
-per-sequence qkv do not fit a Hopper block's shared memory (the source note
-gives the sizes). For CPU tensors they compute the plain PyTorch versions
-beside them, which follow the TPU kernel's numerics: f32 LayerNorm and
-softmax, GEMMs on compute-dtype operands with f32 accumulation, f32 bias
-and residual. The compute dtype is ``x.dtype`` (bf16 on the card, f32 in
-the CPU tests). Inference only.
+``tvc_torch/csrc/attention_layer.cu``: a LayerNorm row kernel (LN(x)
+rounded to the compute dtype, as the TPU kernel rounds it before its
+product); for bf16 a TMA-fed wgmma GEMM with a bias / quick_gelu /
+residual epilogue, tiled by :func:`bf16_plan`; for f32 the same function
+on the CUDA cores (no TF32); and the per-head attention of
+``head_attention.cuh`` (head widths :data:`HEAD_DIMS`, any sequence
+length). An attention layer is 4 launches and an MLP layer 3, one more for
+each GEMM whose K the plan splits, because the TPU kernel's VMEM-resident
+weights and per-sequence qkv do not fit a Hopper block's shared memory (the
+source note gives the sizes). For CPU tensors they compute the plain
+PyTorch versions beside them, which follow the TPU kernel's numerics: f32
+LayerNorm and softmax, GEMMs on compute-dtype operands with f32
+accumulation, f32 bias and residual. Inference only.
 
-Weights keep the JAX layout ``[in, out]``.
+Weights keep the JAX layout ``[in, out]``, in the compute dtype.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Sequence, Tuple
 
@@ -31,7 +36,62 @@ from torch import Tensor
 from tvc_torch.core.kernels import _build
 
 EPI_BIAS, EPI_GELU, EPI_RESIDUAL = 0, 1, 2
-HEAD_DIM = 64  # the attention kernel's head width
+HEAD_DIMS = (32, 64)  # the attention kernel's head widths (tiny configs, every CLIP preset)
+SMS = 132  # streaming multiprocessors of an H100 SXM
+
+BF16_BK = 64  # the bf16 GEMM's k-tile: one 128-byte swizzled row of bf16
+#: the bf16 GEMM's tiles (bm, bn) -> (blocks an SM holds, SM clocks a
+#: 64-deep k-tile takes, SM clocks of a block's fill and epilogue): clocks
+#: at 1.755 GHz fitted to ``scripts/sweep_bf16_gemm.py``'s times of every
+#: tile at the 16 layer GEMMs of the CLIP presets on an H100 (a pair of
+#: co-resident blocks costs twice its row, as they share the SM)
+BF16_TILES = {
+    (128, 256): (1, 1293, 16180),
+    (128, 192): (1, 1002, 12614),
+    (128, 128): (2, 701, 6632),
+    (64, 128): (2, 453, 4154),
+}
+BF16_MAX_SPLITS = 8
+#: device-memory bytes a clock that a split's f32 workspace moves at
+BF16_BYTES_PER_CLOCK = 2832
+
+
+def bf16_costed_plans(M: int, N: int, K: int):
+    """Every tile and split :func:`bf16_plan` weighs for an [M, K] x [K, N]
+    product, as ``((cost in SM clocks, splits, -bm bn), (bm, bn, splits,
+    per))``."""
+    cdiv = lambda a, b: -(-a // b)
+    nk = cdiv(K, BF16_BK)
+    for (bm, bn), (per_sm, tile_clocks, block_clocks) in BF16_TILES.items():
+        tiles = cdiv(M, bm) * cdiv(N, bn)
+        for per in sorted({cdiv(nk, s) for s in range(1, min(nk, BF16_MAX_SPLITS) + 1)}, reverse=True):
+            splits = cdiv(nk, per)
+            blocks = tiles * splits
+            share = min(per_sm, cdiv(blocks, SMS))  # blocks that share an SM
+            cost = cdiv(blocks, SMS * share) * share * (per * tile_clocks + block_clocks)
+            if splits > 1:
+                cost += 4 * (splits + 1) * M * N / BF16_BYTES_PER_CLOCK
+            yield (cost, splits, -bm * bn), (bm, bn, splits, per)
+
+
+@functools.lru_cache(maxsize=4096)
+def bf16_plan(M: int, N: int, K: int):
+    """The bf16 GEMM's tiling for an [M, K] x [K, N] product: ``(bm, bn,
+    splits, per)``: bm x bn output tiles (one of :data:`BF16_TILES`) and
+    ``splits`` ranges of ``per`` 64-deep k-tiles each (the last range may
+    hold fewer; TMA fills K's tail with zeros). A pure function of the
+    shape, cached.
+
+    Each candidate is costed in SM clocks (:func:`bf16_costed_plans`): the
+    waves of blocks over the 132 SMs (two blocks share an SM where the tile
+    allows two and there are blocks for both) times a block's k-tiles and
+    fixed cost at the tile's clocks (:data:`BF16_TILES`), plus a split's f32
+    workspace written and read. Rows and columns past the edges cost as
+    full tiles, so a shape whose 128 x 128 tiles come to just over one wave
+    (M = 3,200, N = 768: 150 tiles) takes wider tiles in one wave instead
+    of leaving a tail. The cheapest wins; ties go to fewer splits, then the
+    larger tile."""
+    return min(bf16_costed_plans(M, N, K))[1]
 
 
 def layernorm_f32(x: Tensor, scale: Tensor, bias: Tensor, eps: float = 1e-5) -> Tensor:
@@ -103,35 +163,66 @@ def _check_cuda_operands(
     x: Tensor,
     vectors: Sequence[Tuple[str, Tensor, int]],
     matrices: Sequence[Tuple[str, Tensor, Tuple[int, int]]],
-    weight_dtype: torch.dtype = torch.bfloat16,
+    weight_dtype: torch.dtype = None,
 ) -> None:
     """Raise unless every operand is what the kernels take: contiguous,
-    on x's device, bf16 activations, ``weight_dtype`` weights and f32
-    vectors."""
+    16-byte aligned, on x's device, bf16 or f32 activations, weights of
+    ``weight_dtype`` (by default x's dtype) and f32 vectors."""
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
-    if x.ndim != 3 or x.dtype != torch.bfloat16 or not x.is_contiguous():
-        raise ValueError(f"x must be a contiguous bf16 [B, T, W] tensor, got {x.dtype} {tuple(x.shape)}")
+    if x.ndim != 3 or x.dtype not in (torch.bfloat16, torch.float32) or not x.is_contiguous():
+        raise ValueError(f"x must be a contiguous bf16 or float32 [B, T, W] tensor, got {x.dtype} {tuple(x.shape)}")
     W = x.shape[2]
     if W % 8 != 0:
         raise ValueError(f"width {W} must be a multiple of 8 (16-byte loads)")
+    weight_dtype = x.dtype if weight_dtype is None else weight_dtype
     for name, t, n in vectors:
         if t.dtype != torch.float32 or tuple(t.shape) != (n,) or not t.is_contiguous() or t.device != x.device:
             raise ValueError(f"{name} must be a contiguous float32 [{n}] tensor on {x.device}")
     for name, t, shape in matrices:
         if t.dtype != weight_dtype or tuple(t.shape) != shape or not t.is_contiguous() or t.device != x.device:
             raise ValueError(f"{name} must be a contiguous {weight_dtype} {list(shape)} tensor on {x.device}")
+    for name, t in (("x", x), *((name, t) for name, t, _ in matrices)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary (tensor-map loads)")
 
 
-def _gemm(lib, a, ln_scale, ln_bias, w, bias, residual, out, M, N, K, eps, has_ln, epilogue, stream):
-    ptr = lambda t: None if t is None else t.data_ptr()
+def _check_heads(W: int, heads: int) -> None:
+    if heads <= 0 or W % heads or W // heads not in HEAD_DIMS:
+        raise ValueError(f"the attention kernel takes head widths {HEAD_DIMS}; got W={W}, heads={heads}")
+
+
+def _layernorm_rows(lib, x: Tensor, ln_scale, ln_bias, eps, stream) -> Tensor:
+    """LN(x) of x [M, W] rounded to x's dtype: one launch."""
+    M, W = x.shape
+    y = torch.empty_like(x)
     _build.check(
-        lib.tvc_ln_gemm(
-            ptr(a), ptr(ln_scale), ptr(ln_bias), ptr(w), ptr(bias), ptr(residual),
-            ptr(out), M, N, K, eps, int(has_ln), epilogue, stream,
-        ),
-        "tvc_ln_gemm",
+        lib.tvc_layernorm_rows(x.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(), y.data_ptr(), M, W, eps,
+                               int(x.dtype == torch.float32), stream),
+        "tvc_layernorm_rows",
     )
+    return y
+
+
+def _gemm(lib, a: Tensor, w: Tensor, bias: Tensor, residual, epilogue: int, stream, plan=None) -> Tensor:
+    """epilogue(a [M, K] . w [K, N]) in a's dtype: the bf16 tensor-core GEMM
+    tiled by ``plan`` = ``(bm, bn, splits, per)`` (by default
+    :func:`bf16_plan` of the shape; two launches when K is split), or the
+    f32 CUDA-core GEMM."""
+    M, K = a.shape
+    N = w.shape[1]
+    out = torch.empty((M, N), dtype=a.dtype, device=a.device)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    if a.dtype == torch.float32:
+        code = lib.tvc_f32_gemm(a.data_ptr(), w.data_ptr(), bias.data_ptr(), ptr(residual), out.data_ptr(),
+                                M, N, K, epilogue, stream)
+    else:
+        bm, bn, splits, per = bf16_plan(M, N, K) if plan is None else plan
+        ws = torch.empty((splits, M, N), dtype=torch.float32, device=a.device) if splits > 1 else None
+        code = lib.tvc_bf16_gemm(a.data_ptr(), w.data_ptr(), bias.data_ptr(), ptr(residual), out.data_ptr(),
+                                 ptr(ws), M, N, K, epilogue, bm, bn, splits, per, stream)
+    _build.check(code, "tvc_f32_gemm" if a.dtype == torch.float32 else "tvc_bf16_gemm")
+    return out
 
 
 def fused_attention_layer(
@@ -158,22 +249,21 @@ def fused_attention_layer(
         [("ln_scale", ln_scale, W), ("ln_bias", ln_bias, W), ("bqkv", bqkv, 3 * W), ("bout", bout, W)],
         [("wqkv", wqkv, (W, 3 * W)), ("wout", wout, (W, W))],
     )
-    if W != heads * HEAD_DIM:
-        raise ValueError(f"the attention kernel takes head width {HEAD_DIM}; got W={W}, heads={heads}")
+    _check_heads(W, heads)
     M = B * T
     lib = _build.load("attention_layer")
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    qkv = torch.empty((M, 3 * W), dtype=torch.bfloat16, device=x.device)
-    _gemm(lib, x, ln_scale, ln_bias, wqkv, bqkv, None, qkv, M, 3 * W, W, eps, True, EPI_BIAS, stream)
-    attn = torch.empty((M, W), dtype=torch.bfloat16, device=x.device)
+    h = _layernorm_rows(lib, x.view(M, W), ln_scale, ln_bias, eps, stream)
+    qkv = _gemm(lib, h, wqkv, bqkv, None, EPI_BIAS, stream)
+    attn = torch.empty((M, W), dtype=x.dtype, device=x.device)
     _build.check(
-        lib.tvc_head_attention(qkv.data_ptr(), attn.data_ptr(), B, T, W, heads, int(causal), stream),
+        lib.tvc_head_attention(qkv.data_ptr(), attn.data_ptr(), B, T, W, heads, int(causal),
+                               int(x.dtype == torch.float32), stream),
         "tvc_head_attention",
     )
-    out = torch.empty_like(x)
-    _gemm(lib, attn, None, None, wout, bout, x, out, M, W, W, eps, False, EPI_RESIDUAL, stream)
+    out = _gemm(lib, attn, wout, bout, x, EPI_RESIDUAL, stream)
     fused_attention_layer.launches += 1
-    return out
+    return out.view(B, T, W)
 
 
 fused_attention_layer.launches = 0
@@ -205,12 +295,11 @@ def fused_mlp_layer(
     M = B * T
     lib = _build.load("attention_layer")
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    hidden = torch.empty((M, Wh), dtype=torch.bfloat16, device=x.device)
-    _gemm(lib, x, ln_scale, ln_bias, wfc, bfc, None, hidden, M, Wh, W, eps, True, EPI_GELU, stream)
-    out = torch.empty_like(x)
-    _gemm(lib, hidden, None, None, wproj, bproj, x, out, M, W, Wh, eps, False, EPI_RESIDUAL, stream)
+    h = _layernorm_rows(lib, x.view(M, W), ln_scale, ln_bias, eps, stream)
+    hidden = _gemm(lib, h, wfc, bfc, None, EPI_GELU, stream)
+    out = _gemm(lib, hidden, wproj, bproj, x, EPI_RESIDUAL, stream)
     fused_mlp_layer.launches += 1
-    return out
+    return out.view(B, T, W)
 
 
 fused_mlp_layer.launches = 0

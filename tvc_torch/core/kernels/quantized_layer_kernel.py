@@ -16,15 +16,17 @@ operands with f32 accumulation.
 
 For CUDA tensors the wrappers launch the hand-written kernels of
 ``tvc_torch/csrc/quantized_layer.cu`` (row-quantize, int8 tensor-core GEMM
-with a dequantizing epilogue, per-head attention with an f32 output): an
-attention layer is 5 launches and an MLP layer 4 (one more for each GEMM
-whose K the plan splits). For CPU tensors they
+with a dequantizing epilogue, per-head attention with an f32 output, head
+widths 32 and 64): an attention layer is 5 launches and an MLP layer 4 (one
+more for each GEMM whose K the plan splits). For CPU tensors they
 compute the plain PyTorch versions beside them, which follow the TPU
 kernel's body line by line: ``torch.round`` rounds half to even as
 ``jnp.round`` does, ``h / rs`` is the same IEEE division, and the int8
 products are summed exactly (in float64, whose 53-bit mantissa holds every
 int32 sum here) before the f32 dequantization. The compute dtype is
-``x.dtype`` (bf16 on the card, f32 in the CPU tests). Inference only.
+``x.dtype``: bf16 on the serving towers, f32 on the tiny configurations
+(f32 qkv and residual, as the TPU kernel computes them) and in the CPU
+tests. Inference only.
 """
 
 from __future__ import annotations
@@ -37,13 +39,14 @@ from torch import Tensor
 
 from tvc_torch.core.kernels import _build
 from tvc_torch.core.kernels.attention_layer_kernel import (
-    HEAD_DIM,
     _check_cuda_operands,
+    _check_heads,
     _mm_f32,
     layernorm_f32,
 )
 
 QEPI_BF16, QEPI_GELU_F32, QEPI_RESIDUAL = 0, 1, 2
+QEPI_BIAS_F32, QEPI_RESIDUAL_F32 = 5, 6  # the f32-x forms of QEPI_BF16 / QEPI_RESIDUAL
 
 
 def over_127(t: Tensor) -> Tensor:
@@ -134,9 +137,8 @@ def mlp_layer_i8_reference(
 
 
 def _quant_rows_cuda(lib, h, ln_scale, ln_bias, eps, stream) -> Tuple[Tensor, Tensor]:
-    """One row-quantize launch over ``h [M, K]``: LayerNorm first when
-    ``ln_scale`` is given (h bf16), else h f32. Returns (int8 [M, K], f32
-    [M])."""
+    """One row-quantize launch over ``h [M, K]`` (bf16 or f32), LayerNorm
+    first when ``ln_scale`` is given. Returns (int8 [M, K], f32 [M])."""
     M, K = h.shape
     q = torch.empty((M, K), dtype=torch.int8, device=h.device)
     scale = torch.empty((M,), dtype=torch.float32, device=h.device)
@@ -145,7 +147,7 @@ def _quant_rows_cuda(lib, h, ln_scale, ln_bias, eps, stream) -> Tuple[Tensor, Te
         lib.tvc_quant_rows(
             h.data_ptr(), ln_scale.data_ptr() if has_ln else None,
             ln_bias.data_ptr() if has_ln else None, q.data_ptr(), scale.data_ptr(),
-            M, K, eps, int(has_ln), stream,
+            M, K, eps, int(has_ln), int(h.dtype == torch.float32), stream,
         ),
         "tvc_quant_rows",
     )
@@ -208,22 +210,22 @@ def fused_attention_layer_i8(
         weight_dtype=torch.int8,
     )
     _check_widths(width=W)
-    if W != heads * HEAD_DIM:
-        raise ValueError(f"the attention kernel takes head width {HEAD_DIM}; got W={W}, heads={heads}")
+    _check_heads(W, heads)
+    f32 = x.dtype == torch.float32
     M = B * T
     lib = _build.load("quantized_layer")
     stream = torch.cuda.current_stream(x.device).cuda_stream
     hq, hs = _quant_rows_cuda(lib, x.view(M, W), ln_scale, ln_bias, eps, stream)
-    qkv = torch.empty((M, 3 * W), dtype=torch.bfloat16, device=x.device)
-    _i8_gemm(lib, hq, hs, wqkv_q, sqkv, bqkv, None, qkv, QEPI_BF16, stream)
+    qkv = torch.empty((M, 3 * W), dtype=x.dtype, device=x.device)
+    _i8_gemm(lib, hq, hs, wqkv_q, sqkv, bqkv, None, qkv, QEPI_BIAS_F32 if f32 else QEPI_BF16, stream)
     attn = torch.empty((M, W), dtype=torch.float32, device=x.device)
     _build.check(
-        lib.tvc_head_attention_f32(qkv.data_ptr(), attn.data_ptr(), B, T, W, heads, int(causal), stream),
+        lib.tvc_head_attention_f32(qkv.data_ptr(), attn.data_ptr(), B, T, W, heads, int(causal), int(f32), stream),
         "tvc_head_attention_f32",
     )
     aq, as_ = _quant_rows_cuda(lib, attn, None, None, eps, stream)
     out = torch.empty_like(x)
-    _i8_gemm(lib, aq, as_, wout_q, sout, bout, x, out, QEPI_RESIDUAL, stream)
+    _i8_gemm(lib, aq, as_, wout_q, sout, bout, x, out, QEPI_RESIDUAL_F32 if f32 else QEPI_RESIDUAL, stream)
     fused_attention_layer_i8.launches += 1
     return out
 
@@ -265,7 +267,8 @@ def fused_mlp_layer_i8(
     _i8_gemm(lib, hq, hs, wfc_q, sfc, bfc, None, g, QEPI_GELU_F32, stream)
     gq, gs = _quant_rows_cuda(lib, g, None, None, eps, stream)
     out = torch.empty_like(x)
-    _i8_gemm(lib, gq, gs, wproj_q, sproj, bproj, x, out, QEPI_RESIDUAL, stream)
+    epilogue = QEPI_RESIDUAL_F32 if x.dtype == torch.float32 else QEPI_RESIDUAL
+    _i8_gemm(lib, gq, gs, wproj_q, sproj, bproj, x, out, epilogue, stream)
     fused_mlp_layer_i8.launches += 1
     return out
 

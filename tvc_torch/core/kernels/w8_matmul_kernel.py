@@ -97,17 +97,8 @@ def w8a8_matmul(x: Tensor, w_q: Tensor, scale: Tensor) -> Tensor:
     N = w_q.shape[1]
     lib = _build.load("quantized_layer")
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    if x.dtype == torch.bfloat16:
-        xq = torch.empty((M, K), dtype=torch.int8, device=x.device)
-        rs = torch.empty((M,), dtype=torch.float32, device=x.device)
-        _build.check(
-            lib.tvc_quant_rows_bf16(x.data_ptr(), xq.data_ptr(), rs.data_ptr(), M, K, stream),
-            "tvc_quant_rows_bf16",
-        )
-        epilogue = QEPI_DEQUANT_BF16
-    else:
-        xq, rs = _quant_rows_cuda(lib, x, None, None, 0.0, stream)
-        epilogue = QEPI_DEQUANT_F32
+    xq, rs = _quant_rows_cuda(lib, x, None, None, 0.0, stream)
+    epilogue = QEPI_DEQUANT_BF16 if x.dtype == torch.bfloat16 else QEPI_DEQUANT_F32
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
     _i8_gemm(lib, xq, rs, w_q, scale, None, None, out, epilogue, stream)
     w8a8_matmul.launches += 1

@@ -494,15 +494,25 @@ int launch_head_attention_strided(const void* q, const void* k, const void* v, v
   return (int)cudaGetLastError();
 }
 
-// The layer kernels' call: the packed bf16 [seqs * T, 3W] q | k | v,
-// head width 64; returns cudaErrorInvalidValue for another head width.
-template <typename OutT>
+// The layer kernels' call: the packed [seqs * T, 3W] q | k | v of InT
+// (bf16, or f32 with an f32 output), head width D = W / heads of 32 or 64,
+// logits scaled by 1 / sqrt(D) rounded to f32 (as the plain version's
+// f32 product with the Python float); returns cudaErrorInvalidValue for
+// another head width.
+template <typename InT, typename OutT>
 int launch_head_attention(const void* qkv, void* out, int seqs, int T, int W,
                           int heads, int causal, cudaStream_t stream) {
-  if (W != heads * 64) return (int)cudaErrorInvalidValue;
-  const bf16* base = (const bf16*)qkv;
-  return launch_head_attention_strided<bf16, OutT, 64>(
-      base, base + W, base + 2 * W, out, 3 * W, seqs, T, heads, causal, 0.125f /* 1/sqrt(64) */, stream);
+  if (heads <= 0 || W % heads != 0) return (int)cudaErrorInvalidValue;
+  const int D = W / heads;
+  const float scale = (float)(1.0 / sqrt((double)D));
+  const InT* base = (const InT*)qkv;
+  if (D == 64)
+    return launch_head_attention_strided<InT, OutT, 64>(base, base + W, base + 2 * W, out, 3 * W, seqs, T, heads,
+                                                        causal, scale, stream);
+  if (D == 32)
+    return launch_head_attention_strided<InT, OutT, 32>(base, base + W, base + 2 * W, out, 3 * W, seqs, T, heads,
+                                                        causal, scale, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace

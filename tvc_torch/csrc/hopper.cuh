@@ -216,6 +216,27 @@ __device__ __forceinline__ void wgmma_m64n192_ss(float (&d)[96], uint64_t da, ui
       : "memory");
 }
 
+// D[64 x 256] (+)= A[64 x 16] . B[16 x 256], both from shared memory
+template <int TB>
+__device__ __forceinline__ void wgmma_m64n256_ss(float (&d)[128], uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "%128, %129, p, 1, 1, 0, %131;\n}\n"
+      : TVC_F8(0), TVC_F8(8), TVC_F8(16), TVC_F8(24), TVC_F8(32), TVC_F8(40), TVC_F8(48), TVC_F8(56),
+        TVC_F8(64), TVC_F8(72), TVC_F8(80), TVC_F8(88), TVC_F8(96), TVC_F8(104), TVC_F8(112), TVC_F8(120)
+      : "l"(da), "l"(db), "r"(acc), "n"(TB)
+      : "memory");
+}
+
 // D[64 x 64] += A[64 x 16] (registers) . B[16 x 64] (shared)
 template <int TB>
 __device__ __forceinline__ void wgmma_m64n64_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {

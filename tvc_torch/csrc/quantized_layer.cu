@@ -22,7 +22,7 @@
 // Kernels, launched in sequence by the Python wrappers
 // (tvc_torch/core/kernels/quantized_layer_kernel.py):
 //  * ln_quant_rows_kernel / quant_rows_kernel: one warp per row. The LN
-//    form takes bf16 x and computes mean and variance (two passes, f32),
+//    form takes bf16 or f32 x and computes mean and variance (two passes, f32),
 //    then the absmax of the normalized affine row, then writes the int8
 //    row and its scale; the plain form does absmax and quantize for an
 //    f32 row (attention output, GELU output). A per-row scale needs the
@@ -50,10 +50,11 @@
 //       shared memory; a warpgroup takes 64 rows (BM = 64 x warpgroups);
 //       tile t's wgmmas run while tile t + 1 is transposed (wait_group 1,
 //       then a block barrier before a tile or stage is reused).
-//     - Epilogue from the accumulator registers: dequantize + bias, then
-//       bf16 out (qkv), quick_gelu f32 out (fc), or + residual bf16 out
-//       (out-proj, proj); or dequantize alone, bf16 or f32 out (the W8A8
-//       GEMM below). M and N edges guarded.
+//     - Epilogue: dequantize + bias, then bf16 out (qkv), quick_gelu f32
+//       out (fc), or + residual bf16 out (out-proj, proj); with f32 x
+//       (the tiny configurations) f32 qkv and + f32 residual, f32 out; or
+//       dequantize alone, bf16 or f32 out (the W8A8 GEMM below). M and N
+//       edges guarded.
 //     - Filling the card: the tile (192 x 256, 128 x 256, 192 x 128,
 //       128 x 128 or 64 x 128) and a split of K come from i8_plan(M, N, K)
 //       in tvc_torch/core/kernels/w8_matmul_kernel.py. With a split, each
@@ -76,7 +77,9 @@
 // 136 MB of int8 weights, ~1,150 operations per byte, above the ridge:
 // bound by operations (~79 us at 1,979 TOP/s).
 //  * head_attention_tc_kernel<float> (head_attention.cuh): the bf16
-//    layer's per-(sequence, head) tensor-core attention with an f32 output.
+//    layer's per-(sequence, head) tensor-core attention with an f32 output
+//    (head_attention_kernel, on the CUDA cores, for f32 qkv); head width 32
+//    or 64.
 // An attention layer is 5 launches (LN-quantize, QKV GEMM, attention,
 // quantize, out-proj GEMM) and an MLP layer 4 (LN-quantize, fc GEMM,
 // quantize, proj GEMM).
@@ -114,6 +117,8 @@ enum QEpilogue {
   QEPI_RESIDUAL = 2,
   QEPI_DEQUANT_BF16 = 3,  // (acc . rs) . cs, no bias, bf16 out
   QEPI_DEQUANT_F32 = 4,   // the same, f32 out
+  QEPI_BIAS_F32 = 5,      // + bias, f32 out (f32 qkv)
+  QEPI_RESIDUAL_F32 = 6,  // + bias + f32 residual, f32 out
 };
 
 __device__ __forceinline__ float row_scale_of(float absmax) {
@@ -138,51 +143,6 @@ __device__ __forceinline__ uint2 pack8(const int* v) {
   return p;
 }
 
-// LN(x) row -> int8 row + scale. x bf16 [M, K], K % 8 == 0.
-__global__ void __launch_bounds__(32 * kRowWarps)
-    ln_quant_rows_kernel(const bf16* __restrict__ x, const float* __restrict__ ln_g,
-                         const float* __restrict__ ln_b, int8_t* __restrict__ q,
-                         float* __restrict__ scale, int M, int K, float eps) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int row = blockIdx.x * kRowWarps + warp;
-  if (row >= M) return;
-  const bf16* xr = x + (size_t)row * K;
-  const __nv_bfloat162* x2 = reinterpret_cast<const __nv_bfloat162*>(xr);
-  // two-pass f32 statistics, as the TPU kernel: mean((x - mean)^2)
-  float s = 0.f;
-  for (int i = lane; i < K / 2; i += 32) {
-    const float2 f = __bfloat1622float2(x2[i]);
-    s += f.x + f.y;
-  }
-  const float mean = warp_sum(s) / K;
-  float s2 = 0.f;
-  for (int i = lane; i < K / 2; i += 32) {
-    const float2 f = __bfloat1622float2(x2[i]);
-    const float a = f.x - mean, b = f.y - mean;
-    s2 += a * a + b * b;
-  }
-  const float rstd = rsqrtf(warp_sum(s2) / K + eps);
-  float amax = 0.f;
-  for (int c = lane; c < K / 8; c += 32) {
-    const uint4 raw = *reinterpret_cast<const uint4*>(xr + c * 8);
-    const bf16* e = reinterpret_cast<const bf16*>(&raw);
-#pragma unroll
-    for (int t = 0; t < 8; ++t)
-      amax = fmaxf(amax, fabsf(ln_affine(__bfloat162float(e[t]), mean, rstd, ln_g[c * 8 + t], ln_b[c * 8 + t])));
-  }
-  const float rs = row_scale_of(warp_max(amax));
-  for (int c = lane; c < K / 8; c += 32) {
-    const uint4 raw = *reinterpret_cast<const uint4*>(xr + c * 8);
-    const bf16* e = reinterpret_cast<const bf16*>(&raw);
-    int v[8];
-#pragma unroll
-    for (int t = 0; t < 8; ++t)
-      v[t] = quant1(ln_affine(__bfloat162float(e[t]), mean, rstd, ln_g[c * 8 + t], ln_b[c * 8 + t]), rs);
-    *reinterpret_cast<uint2*>(q + (size_t)row * K + c * 8) = pack8(v);
-  }
-  if (lane == 0) scale[row] = rs;
-}
-
 // Eight consecutive elements of a row as f32 (16 bytes of bf16, 32 of f32).
 __device__ __forceinline__ void load8(const float* p, float* f) {
   const float4 a = reinterpret_cast<const float4*>(p)[0], b = reinterpret_cast<const float4*>(p)[1];
@@ -193,6 +153,56 @@ __device__ __forceinline__ void load8(const bf16* p, float* f) {
   const bf16* e = reinterpret_cast<const bf16*>(&raw);
 #pragma unroll
   for (int t = 0; t < 8; ++t) f[t] = __bfloat162float(e[t]);
+}
+
+// Elements 2 i and 2 i + 1 of a row as f32.
+__device__ __forceinline__ float2 load2(const bf16* row, int i) {
+  return __bfloat1622float2(reinterpret_cast<const __nv_bfloat162*>(row)[i]);
+}
+__device__ __forceinline__ float2 load2(const float* row, int i) { return reinterpret_cast<const float2*>(row)[i]; }
+
+// LN(x) row -> int8 row + scale. x bf16 or f32 [M, K], K % 8 == 0.
+template <typename T>
+__global__ void __launch_bounds__(32 * kRowWarps)
+    ln_quant_rows_kernel(const T* __restrict__ x, const float* __restrict__ ln_g,
+                         const float* __restrict__ ln_b, int8_t* __restrict__ q,
+                         float* __restrict__ scale, int M, int K, float eps) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int row = blockIdx.x * kRowWarps + warp;
+  if (row >= M) return;
+  const T* xr = x + (size_t)row * K;
+  // two-pass f32 statistics, as the TPU kernel: mean((x - mean)^2)
+  float s = 0.f;
+  for (int i = lane; i < K / 2; i += 32) {
+    const float2 f = load2(xr, i);
+    s += f.x + f.y;
+  }
+  const float mean = warp_sum(s) / K;
+  float s2 = 0.f;
+  for (int i = lane; i < K / 2; i += 32) {
+    const float2 f = load2(xr, i);
+    const float a = f.x - mean, b = f.y - mean;
+    s2 += a * a + b * b;
+  }
+  const float rstd = rsqrtf(warp_sum(s2) / K + eps);
+  float amax = 0.f;
+  for (int c = lane; c < K / 8; c += 32) {
+    float f[8];
+    load8(xr + c * 8, f);
+#pragma unroll
+    for (int t = 0; t < 8; ++t)
+      amax = fmaxf(amax, fabsf(ln_affine(f[t], mean, rstd, ln_g[c * 8 + t], ln_b[c * 8 + t])));
+  }
+  const float rs = row_scale_of(warp_max(amax));
+  for (int c = lane; c < K / 8; c += 32) {
+    float f[8];
+    load8(xr + c * 8, f);
+    int v[8];
+#pragma unroll
+    for (int t = 0; t < 8; ++t) v[t] = quant1(ln_affine(f[t], mean, rstd, ln_g[c * 8 + t], ln_b[c * 8 + t]), rs);
+    *reinterpret_cast<uint2*>(q + (size_t)row * K + c * 8) = pack8(v);
+  }
+  if (lane == 0) scale[row] = rs;
 }
 
 // f32 or bf16 row -> int8 row + scale. h [M, K], K % 8 == 0.
@@ -231,7 +241,7 @@ struct QEpi {
   const float* rs;
   const float* cs;
   const float* bias;
-  const bf16* res;
+  const void* res;  // bf16 (QEPI_RESIDUAL) or f32 (QEPI_RESIDUAL_F32)
   void* out;
   int M, N, epi;
 };
@@ -250,19 +260,26 @@ __device__ __forceinline__ void epilogue4(const QEpi& e, int row, int col, int4 
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     v[i] = __fmul_rn(__fmul_rn(v[i], rs), e.cs[col + i]);
-    if (e.epi <= QEPI_RESIDUAL) v[i] = __fadd_rn(v[i], e.bias[col + i]);
+    if (e.epi != QEPI_DEQUANT_BF16 && e.epi != QEPI_DEQUANT_F32) v[i] = __fadd_rn(v[i], e.bias[col + i]);
   }
   const size_t o = (size_t)row * e.N + col;
-  if (e.epi == QEPI_GELU_F32 || e.epi == QEPI_DEQUANT_F32) {
+  if (e.epi == QEPI_GELU_F32 || e.epi == QEPI_DEQUANT_F32 || e.epi == QEPI_BIAS_F32 || e.epi == QEPI_RESIDUAL_F32) {
     if (e.epi == QEPI_GELU_F32) {
 #pragma unroll
       for (int i = 0; i < 4; ++i) v[i] = quick_gelu(v[i]);
+    }
+    if (e.epi == QEPI_RESIDUAL_F32) {
+      const float4 r = *reinterpret_cast<const float4*>(static_cast<const float*>(e.res) + o);
+      v[0] = __fadd_rn(r.x, v[0]);
+      v[1] = __fadd_rn(r.y, v[1]);
+      v[2] = __fadd_rn(r.z, v[2]);
+      v[3] = __fadd_rn(r.w, v[3]);
     }
     *reinterpret_cast<float4*>(static_cast<float*>(e.out) + o) = make_float4(v[0], v[1], v[2], v[3]);
     return;
   }
   if (e.epi == QEPI_RESIDUAL) {
-    const uint2 raw = *reinterpret_cast<const uint2*>(e.res + o);
+    const uint2 raw = *reinterpret_cast<const uint2*>(static_cast<const bf16*>(e.res) + o);
     const float2 r0 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
     const float2 r1 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
     v[0] = __fadd_rn(r0.x, v[0]);
@@ -480,40 +497,38 @@ int launch_i8(const void* a, const void* w, const QEpi& e, void* ws, int K, int 
   return (int)cudaGetLastError();
 }
 
-}  // namespace
-
-// has_ln: h is bf16 and LayerNorm(ln_scale, ln_bias, eps) comes first;
-// else h is f32. Writes q int8 [M, K] and scale f32 [M].
-extern "C" int tvc_quant_rows(const void* h, const void* ln_scale, const void* ln_bias,
-                              void* q, void* scale, int M, int K, float eps,
-                              int has_ln, void* stream) {
-  if (K % 8 != 0) return (int)cudaErrorInvalidValue;
-  if (M > 0 && K > 0) {
-    const int blocks = (M + kRowWarps - 1) / kRowWarps;
-    cudaStream_t s = (cudaStream_t)stream;
-    if (has_ln)
-      ln_quant_rows_kernel<<<blocks, 32 * kRowWarps, 0, s>>>(
-          (const bf16*)h, (const float*)ln_scale, (const float*)ln_bias, (int8_t*)q,
-          (float*)scale, M, K, eps);
-    else
-      quant_rows_kernel<float><<<blocks, 32 * kRowWarps, 0, s>>>(
-          (const float*)h, (int8_t*)q, (float*)scale, M, K);
-  }
-  return (int)cudaGetLastError();
+template <typename T>
+void launch_quant_rows(const void* h, const void* ln_scale, const void* ln_bias, void* q, void* scale, int M,
+                       int K, float eps, int has_ln, cudaStream_t s) {
+  const int blocks = (M + kRowWarps - 1) / kRowWarps;
+  if (has_ln)
+    ln_quant_rows_kernel<T><<<blocks, 32 * kRowWarps, 0, s>>>(
+        (const T*)h, (const float*)ln_scale, (const float*)ln_bias, (int8_t*)q, (float*)scale, M, K, eps);
+  else
+    quant_rows_kernel<T><<<blocks, 32 * kRowWarps, 0, s>>>((const T*)h, (int8_t*)q, (float*)scale, M, K);
 }
 
-// bf16 rows -> q int8 [M, K] and scale f32 [M] (no LayerNorm).
-extern "C" int tvc_quant_rows_bf16(const void* h, void* q, void* scale, int M, int K, void* stream) {
+}  // namespace
+
+// h [M, K] bf16 (is_f32 = 0) or f32 rows -> q int8 [M, K] and scale f32
+// [M]; has_ln: LayerNorm(ln_scale, ln_bias, eps) first.
+extern "C" int tvc_quant_rows(const void* h, const void* ln_scale, const void* ln_bias,
+                              void* q, void* scale, int M, int K, float eps,
+                              int has_ln, int is_f32, void* stream) {
   if (K % 8 != 0) return (int)cudaErrorInvalidValue;
-  if (M > 0 && K > 0)
-    quant_rows_kernel<bf16><<<(M + kRowWarps - 1) / kRowWarps, 32 * kRowWarps, 0, (cudaStream_t)stream>>>(
-        (const bf16*)h, (int8_t*)q, (float*)scale, M, K);
+  if (M > 0 && K > 0) {
+    const cudaStream_t s = (cudaStream_t)stream;
+    if (is_f32)
+      launch_quant_rows<float>(h, ln_scale, ln_bias, q, scale, M, K, eps, has_ln, s);
+    else
+      launch_quant_rows<bf16>(h, ln_scale, ln_bias, q, scale, M, K, eps, has_ln, s);
+  }
   return (int)cudaGetLastError();
 }
 
 // out = epilogue(deq(a . w)): a int8 [M, K] with row_scale [M]; w int8
 // [K, N] with col_scale [N]; bias f32 [N] (unused by QEPI_DEQUANT_*);
-// residual bf16 [M, N] for QEPI_RESIDUAL. bm x bn tiles (192 x 256,
+// residual [M, N] bf16 for QEPI_RESIDUAL, f32 for QEPI_RESIDUAL_F32. bm x bn tiles (192 x 256,
 // 128 x 256, 192 x 128, 128 x 128 or 64 x 128) over `splits` ranges of
 // `per` 128-deep k-tiles; ws: int32 [splits, M, N] when splits > 1. K and N
 // multiples of 16; a and w 16-byte aligned.
@@ -521,11 +536,11 @@ extern "C" int tvc_i8_gemm(const void* a, const void* row_scale, const void* w, 
                            const void* bias, const void* residual, void* out, void* ws, int M, int N, int K,
                            int epilogue, int bm, int bn, int splits, int per, void* stream) {
   const int nk = (K + QBK - 1) / QBK;
-  if (K % 16 != 0 || N % 16 != 0 || epilogue < QEPI_BF16 || epilogue > QEPI_DEQUANT_F32 || splits < 1 ||
+  if (K % 16 != 0 || N % 16 != 0 || epilogue < QEPI_BF16 || epilogue > QEPI_RESIDUAL_F32 || splits < 1 ||
       per < 1 || (splits - 1) * per >= nk || splits * per < nk || (splits > 1 && !ws))
     return (int)cudaErrorInvalidValue;
   if (M <= 0 || N <= 0) return (int)cudaGetLastError();
-  const QEpi e{(const float*)row_scale, (const float*)col_scale, (const float*)bias, (const bf16*)residual,
+  const QEpi e{(const float*)row_scale, (const float*)col_scale, (const float*)bias, residual,
                out, M, N, epilogue};
   const cudaStream_t s = (cudaStream_t)stream;
   if (bm == 192 && bn == 256) return launch_i8<3, 256, 3, 2>(a, w, e, ws, K, splits, per, s);
@@ -536,8 +551,12 @@ extern "C" int tvc_i8_gemm(const void* a, const void* row_scale, const void* w, 
   return (int)cudaErrorInvalidValue;
 }
 
-// Per-(sequence, head) attention with an f32 output [seqs * T, W].
+// Per-(sequence, head) attention on the packed [seqs * T, 3W] q | k | v,
+// bf16 (in_f32 = 0) or f32, with an f32 output [seqs * T, W]; head width
+// W / heads of 32 or 64.
 extern "C" int tvc_head_attention_f32(const void* qkv, void* out, int seqs, int T,
-                                      int W, int heads, int causal, void* stream) {
-  return launch_head_attention<float>(qkv, out, seqs, T, W, heads, causal, (cudaStream_t)stream);
+                                      int W, int heads, int causal, int in_f32, void* stream) {
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (in_f32) return launch_head_attention<float, float>(qkv, out, seqs, T, W, heads, causal, s);
+  return launch_head_attention<bf16, float>(qkv, out, seqs, T, W, heads, causal, s);
 }
