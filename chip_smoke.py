@@ -7,10 +7,13 @@ Phases (each raises on failure; the script then exits non-zero):
   2. build: compile every CUDA kernel of the port from tvc_torch/csrc (one
      nvcc per source, all started together);
   3. kernels: each kernel against its plain PyTorch version on the card,
-     at the main paths' shapes, at ViT-L/14's vision shape (T=257), at
-     head width 32 and, for the four layer kernels, in f32 at the tiny
-     configurations' shapes, with kernel / plain / library times, the
-     bound and the GEMMs' plans;
+     at the main paths' shapes (fused_consistency_scores at the seven
+     CONSISTENCY_SHAPES, each also bit-equal over two calls and one device
+     kernel a call by torch.profiler, the wrapper and the bare kernel
+     timed), at ViT-L/14's vision shape (T=257), at head width 32 and,
+     for the four layer kernels, in f32 at the tiny configurations'
+     shapes, with kernel / plain / library times, the bound and the GEMMs'
+     plans;
   4. slice: ViT-B/32 bf16 with the fused layers and seeded random weights,
      a 131,072 x 512 bank, an AdversarialDetector behind a ServingRuntime:
      warmup, requests through submit() and HTTP, then detect_batch at
@@ -259,6 +262,132 @@ def consistency_errors(got, want, vmask, rmask, weights) -> dict:
     return {k: float(v.abs().max()) for k, v in diffs.items()}
 
 
+#: the consistency phase's shapes: (what, B, D, V, R, kind). masked: slots
+#: dropped at random, one query without variants, one without references,
+#: weights and threshold as device tensors (the serving step); valid: all
+#: slots valid, weights and threshold as Python numbers (the detector);
+#: bf16: refs and variants bf16, img and txt f32; ragged: int32 masks and
+#: variants a non-contiguous slice (copied by the wrapper, counted). The
+#: first shape is the one the kernel's row has been timed at since it came.
+CONSISTENCY_SHAPES = (
+    ("int8 serving step (K=3)", 256, 512, 6, 3, "masked"),
+    ("bf16 detector (K=10)", 256, 512, 6, 10, "valid"),
+    ("full TVC process_batch", 192, 512, 5, 3, "valid"),
+    ("retrieval-scale batch", 4096, 512, 6, 10, "valid"),
+    ("bf16 refs and variants", 256, 512, 6, 3, "bf16"),
+    ("ragged: D=30, int32 masks, strided variants", 37, 30, 6, 3, "ragged"),
+    ("tiny configs' width", 256, 32, 6, 3, "valid"),
+)
+
+
+def device_kernels(fn) -> list:
+    """Names of the device activities (kernels, copies) one call of ``fn``
+    runs, from torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def consistency_inputs(dev, rng, B: int, D: int, V: int, R: int, kind: str):
+    """One CONSISTENCY_SHAPES call's inputs, made from ``rng``: (args of
+    fused_consistency_scores, the same with f32 embeddings for the plain
+    version, the valid-slot masks as numpy)."""
+    import torch
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    t = lambda a, dt=f32: torch.as_tensor(np.asarray(a, np.float32)).to(dev, dt)
+    img_np = rng.standard_normal((B, D))
+    txt_np = img_np + 0.8 * rng.standard_normal((B, D))
+    img, txt = t(img_np), t(txt_np)
+    low = bf16 if kind == "bf16" else f32
+    var = t(txt_np[:, None] + 0.5 * rng.standard_normal((B, V, D)), low)
+    refs = t(rng.standard_normal((B, R, D)), low)
+    vmask_np = rng.random((B, V)) > (0.2 if kind in ("masked", "ragged") else -1.0)
+    rmask_np = rng.random((B, R)) > (0.1 if kind in ("masked", "ragged") else -1.0)
+    if kind == "masked":
+        vmask_np[0] = False
+        rmask_np[1] = False
+    mask_dt = torch.int32 if kind == "ragged" else torch.bool
+    vmask, rmask = (torch.as_tensor(m).to(dev, mask_dt) for m in (vmask_np, rmask_np))
+    if kind == "ragged":  # the same values, a view with a row stride of D + 2
+        var = torch.cat([var, torch.zeros_like(var[..., :2])], dim=-1)[..., :D]
+    w = (0.4, 0.4, 0.2)
+    weights, thr = (torch.tensor(w, device=dev), torch.tensor(0.5, device=dev)) if kind == "masked" else (w, 0.5)
+    args = (img, txt, var, refs, vmask, rmask, weights, thr)
+    plain_args = (img.float(), txt.float(), var.float(), refs.float(), vmask, rmask, weights, thr)
+    return args, plain_args, vmask_np, rmask_np
+
+
+def consistency_bound(args, vmask_np, rmask_np) -> tuple:
+    """(bytes, bound ms, bound by) of one call: img, txt and the valid slot
+    rows in their stored dtype (the kernel reads no masked row), every mask
+    element, tensor weights and threshold, the outputs."""
+    img, txt, var, refs, vmask, rmask, weights, thr = args
+    B, D = img.shape
+    V, R = var.shape[1], refs.shape[1]
+    nv, nr = int(vmask_np.sum()), int(rmask_np.sum())
+    per_column = B * (img.element_size() + txt.element_size()) + var.element_size() * nv + refs.element_size() * nr
+    nbytes = (D * per_column
+              + vmask.element_size() * B * V + rmask.element_size() * B * R
+              + sum(4 * x.numel() for x in (weights, thr) if hasattr(x, "numel")) + (4 * 7 + 1) * B)
+    flops = 6 * D * (B + nv + nr)  # three multiply-adds per element of each dot pair
+    return (nbytes, *bound_ms(nbytes, flops, PEAK_F32_FLOPS))
+
+
+def consistency_shape(dev, rng, what: str, B: int, D: int, V: int, R: int, kind: str) -> dict:
+    """fused_consistency_scores at one shape against the plain version on
+    the f32 values: held by consistency_errors at CONSISTENCY_TOL, flags equal
+    away from the threshold, two calls bit-equal, one kernel a call (and one
+    copy kernel per operand the wrapper copies); the wrapper's time, the bare
+    kernel's and the plain version's (device time), and the bound."""
+    import torch
+
+    from tvc_torch.core.kernels import consistency_scores_reference, fused_consistency_scores
+    from tvc_torch.core.kernels.consistency_kernel import consistency_launch
+
+    args, plain_args, vmask_np, rmask_np = consistency_inputs(dev, rng, B, D, V, R, kind)
+    vmask, rmask, w = args[4], args[5], (0.4, 0.4, 0.2)
+    copies = fused_consistency_scores.copies
+    got = fused_consistency_scores(*args)
+    copies = fused_consistency_scores.copies - copies
+    again = fused_consistency_scores(*args)
+    want = consistency_scores_reference(*plain_args)
+    torch.cuda.synchronize()
+    errs = consistency_errors(got, want, vmask.bool(), rmask.bool(), w)
+    err = max(float((got[k].float() - want[k].float()).abs().max()) for k in want if k != "is_adversarial")
+    away = (want["aggregated"] - 0.5).abs() > 1e-4
+    flags_ok = bool((got["is_adversarial"] == want["is_adversarial"])[away].all())
+    bit_equal = all(torch.equal(got[k], again[k]) for k in got)
+    dtypes_ok = got["is_adversarial"].dtype == torch.bool and all(
+        got[k].dtype == torch.float32 and got[k].shape == (B,) for k in got if k != "is_adversarial")
+    if not (max(errs.values()) <= CONSISTENCY_TOL and flags_ok and bit_equal and dtypes_ok):
+        raise AssertionError(f"consistency kernel at {what} B={B} D={D} V={V} R={R}: errors {errs}, flags ok "
+                             f"{flags_ok}, bit-equal {bit_equal}, dtypes ok {dtypes_ok}")
+    names = device_kernels(lambda: fused_consistency_scores(*args))
+    kernels = sum("consistency_kernel" in n for n in names)
+    if kernels != 1 or len(names) != 1 + copies or copies != (kind == "ragged"):
+        raise AssertionError(f"consistency at {what}: {kernels} kernels, device activities {names}, "
+                             f"{copies} operand copies a call")
+
+    launch, _ = consistency_launch(*args)
+    w_ms = time_ms(lambda: fused_consistency_scores(*args), iters=50)
+    k_ms = time_ms(launch, iters=50)
+    p_ms = time_ms(lambda: consistency_scores_reference(*plain_args), iters=50)
+    nbytes, bms, by = consistency_bound(args, vmask_np, rmask_np)
+    shape = f"{what}: B={B} D={D} V={V} R={R}"
+    log(f"kernel fused_consistency_scores {shape}: wrapper_ms={w_ms:.4f} kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
+        f"bound_ms={bms:.5f} ({by}, {nbytes / 1e6:.3f} MB) kernel at {100 * bms / k_ms:.1f}% of the bound, "
+        f"max_abs_err={err:.3e} flags_ok={flags_ok} bit_equal={bit_equal} device activities a call "
+        f"{len(names)} ({copies} copies) held={errs}")
+    return {"shape": shape, "ms": w_ms, "kernel_ms": k_ms, "plain_ms": p_ms, "bound_ms": bms, "bound_by": by,
+            "max_abs_err": err, "device_kernels_per_call": len(names), "copies_per_call": copies}
+
+
 def phase_kernels() -> dict:
     """Each kernel at the main path's shapes against its plain version."""
     import torch
@@ -266,10 +395,8 @@ def phase_kernels() -> dict:
     from tvc_torch.core.kernels import (
         attention_layer_i8_reference,
         attention_layer_reference,
-        consistency_scores_reference,
         fused_attention_layer,
         fused_attention_layer_i8,
-        fused_consistency_scores,
         fused_mlp_layer,
         fused_mlp_layer_i8,
         mlp_layer_i8_reference,
@@ -280,47 +407,11 @@ def phase_kernels() -> dict:
     rng = np.random.default_rng(0)
     results = {}
 
-    # -- consistency: B=256, D=512, V=6, R=3, masked slots, one query with
-    # no variants and one with no references
-    B, D, V, R = 256, 512, 6, 3
-    f = lambda a: torch.as_tensor(np.asarray(a, np.float32)).to(dev)
-    img = f(rng.standard_normal((B, D)))
-    txt = f(img.cpu().numpy() + 0.8 * rng.standard_normal((B, D)))
-    var = f(txt.cpu().numpy()[:, None] + 0.5 * rng.standard_normal((B, V, D)))
-    refs = f(rng.standard_normal((B, R, D)))
-    vmask_np = rng.random((B, V)) > 0.2
-    vmask_np[0] = False
-    rmask_np = rng.random((B, R)) > 0.1
-    rmask_np[1] = False
-    vmask = torch.as_tensor(vmask_np).to(dev)
-    rmask = torch.as_tensor(rmask_np).to(dev)
-    weights = torch.tensor([0.4, 0.4, 0.2], device=dev)
-    thr = torch.tensor(0.5, device=dev)
-    args = (img, txt, var, refs, vmask, rmask, weights, thr)
-    got = fused_consistency_scores(*args)
-    want = consistency_scores_reference(*args)
-    torch.cuda.synchronize()
-    errs = consistency_errors(got, want, vmask, rmask, (0.4, 0.4, 0.2))
-    err = max(
-        float((got[k].float() - want[k].float()).abs().max())
-        for k in want if k != "is_adversarial"
-    )
-    away = (want["aggregated"] - thr).abs() > 1e-4
-    flags_ok = bool((got["is_adversarial"] == want["is_adversarial"])[away].all())
-    if not (max(errs.values()) <= CONSISTENCY_TOL and flags_ok):
-        raise AssertionError(f"consistency kernel disagrees: errors {errs}, flags ok {flags_ok}")
-    rows = 2 * B + int(vmask_np.sum()) + int(rmask_np.sum())
-    nbytes = 4 * D * rows + B * (V + R) + 16 + 4 * 8 * B
-    flops = 6 * D * (rows - B)  # three multiply-adds per element of each dot pair
-    bms, by = bound_ms(nbytes, flops, PEAK_F32_FLOPS)
-    k_ms = time_ms(lambda: fused_consistency_scores(*args), iters=50)
-    p_ms = time_ms(lambda: consistency_scores_reference(*args), iters=50)
-    results["fused_consistency_scores"] = {
-        "shapes": [{"shape": f"B={B} D={D} V={V} R={R}", "ms": k_ms, "plain_ms": p_ms,
-                    "bound_ms": bms, "bound_by": by, "max_abs_err": err}],
-    }
-    log(f"kernel fused_consistency_scores B={B} D={D} V={V} R={R}: kernel_ms={k_ms:.4f} "
-        f"plain_ms={p_ms:.4f} bound_ms={bms:.5f} ({by}) max_abs_err={err:.3e} flags_ok={flags_ok} held={errs}")
+    # the first shape draws from the phase's generator, as before the other
+    # shapes came, so that the layers below keep their inputs
+    more = np.random.default_rng(10)
+    results["fused_consistency_scores"] = {"shapes": [consistency_shape(dev, rng if i == 0 else more, *shape)
+                                                      for i, shape in enumerate(CONSISTENCY_SHAPES)]}
 
     # -- attention and MLP layers, bf16 and int8: vision B=64 T=50 W=768
     # H=12; text rows=448 at T=16 and T=32, W=512 H=8, causal; the
@@ -1026,7 +1117,7 @@ def drive_path(path: str, rt, det, plain_patches, card: dict) -> dict:
     the same path on the plain versions; defended queries/s; a profile."""
     import torch
 
-    from tvc_torch.core.kernels import launch_counts, reset_launch_counts
+    from tvc_torch.core.kernels import fused_consistency_scores, launch_counts, reset_launch_counts
 
     size = det.model.config.image_size
     rng = np.random.default_rng(2)
@@ -1063,11 +1154,14 @@ def drive_path(path: str, rt, det, plain_patches, card: dict) -> dict:
     B, V = B_DEFENDED, V_DEFENDED
     images = rng.random((B, size, size, 3), dtype=np.float32)
     reset_launch_counts()
+    copies = fused_consistency_scores.copies
     res = det.detect_batch(images, texts, variants)
     torch.cuda.synchronize()
     counts = launch_counts()
     log(f"[{path}] launches in one defended batch (B={B}, V={V}): {counts}")
     _check_path_counts(counts, path, "defended batch")
+    if fused_consistency_scores.copies != copies:
+        raise AssertionError(f"{path}: the consistency wrapper copied an operand of the defended batch")
     agg = res.aggregated_score
     if agg.shape != (B,) or not np.all(np.isfinite(agg)):
         raise AssertionError(f"aggregated is not {B} finite values")

@@ -135,20 +135,72 @@ def test_mlp_layer_i8_ragged(dev, B, T, W, Wh):
     assert _scaled_err(got, want) <= 3e-2
 
 
-@pytest.mark.parametrize("B,V,R,D", [(1, 1, 1, 4), (37, 6, 0, 516), (300, 2, 10, 512)])
-def test_consistency_ragged(dev, B, V, R, D):
+CONSISTENCY_KEYS = ("orig_similarity", "variant_mean", "sd_score", "consistency_score")
+
+
+def _consistency_inputs(rng, B, V, R, D, dev, dtypes=(torch.float32,) * 4):
+    f = lambda dt, *s: torch.as_tensor(rng.standard_normal(s).astype(np.float32), device=dev).to(dt)
+    return f(dtypes[0], B, D), f(dtypes[1], B, D), f(dtypes[2], B, V, D), f(dtypes[3], B, R, D)
+
+
+def _held_to_plain(got, want):
+    """The stats within 1e-5 of the plain version on the f32 values (random
+    variants: sims near 0, so the std is well conditioned here)."""
+    for k in (*CONSISTENCY_KEYS, "variant_std"):
+        assert got[k].dtype == torch.float32, k
+        assert float((got[k] - want[k]).abs().max()) <= 1e-5, k
+    assert got["is_adversarial"].dtype == torch.bool
+
+
+@pytest.mark.parametrize("B,V,R,D", [(1, 1, 1, 4), (37, 6, 0, 516), (300, 2, 10, 512), (5, 3, 2, 1), (37, 6, 3, 30),
+                                     (64, 40, 3, 64), (8, 0, 3, 32)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16, "mixed"])
+@pytest.mark.parametrize("mask_dtype", [torch.bool, torch.int32])
+def test_consistency_ragged(dev, B, V, R, D, dtype, mask_dtype):
+    """Any D (scalar tails, rows off 16-byte boundaries), f32 / bf16 / f16
+    embeddings in any mix (held against the plain version on their f32
+    values), integer masks, more slots than a block has warps; one launch a
+    call and two calls bit-equal."""
     rng = np.random.default_rng(D)
-    f = lambda *s: torch.as_tensor(rng.standard_normal(s).astype(np.float32), device=dev)
-    img, txt, var, refs = f(B, D), f(B, D), f(B, V, D), f(B, R, D)
+    dtypes = (torch.float32, torch.float32, torch.float16, torch.bfloat16) if dtype == "mixed" else (dtype,) * 4
+    img, txt, var, refs = _consistency_inputs(rng, B, V, R, D, dev, dtypes)
     vmask = torch.as_tensor(rng.random((B, V)) > 0.3, device=dev)
     rmask = torch.as_tensor(rng.random((B, R)) > 0.3, device=dev)
-    got = fused_consistency_scores(img, txt, var, refs, vmask, rmask, (0.4, 0.4, 0.2), 0.3)
-    want = consistency_scores_reference(img, txt, var, refs, vmask, rmask, (0.4, 0.4, 0.2), 0.3)
+    before = fused_consistency_scores.launches, fused_consistency_scores.copies
+    args = (img, txt, var, refs, vmask.to(mask_dtype), rmask.to(mask_dtype), (0.4, 0.4, 0.2), 0.3)
+    got = fused_consistency_scores(*args)
+    again = fused_consistency_scores(*args)
+    want = consistency_scores_reference(img.float(), txt.float(), var.float(), refs.float(), vmask, rmask,
+                                        (0.4, 0.4, 0.2), 0.3)
     torch.cuda.synchronize()
-    for k in ("orig_similarity", "variant_mean", "sd_score", "consistency_score"):
-        assert float((got[k] - want[k]).abs().max()) <= 1e-5, k
-    # random variants: sims near 0, so the std is well conditioned here
-    assert float((got["variant_std"] - want["variant_std"]).abs().max()) <= 1e-5
+    assert (fused_consistency_scores.launches, fused_consistency_scores.copies) == (before[0] + 2, before[1])
+    _held_to_plain(got, want)
+    for k in got:
+        assert torch.equal(got[k], again[k]), k
+
+
+def test_consistency_one_valid_variant_has_std_zero_and_takes_strided_operands(dev):
+    """One valid variant: variant_std exactly 0 (ROADMAP 3). A strided
+    variants slice and a transposed refs view are copied (counted) and give
+    the contiguous operands' bits; weights and threshold as device tensors."""
+    rng = np.random.default_rng(7)
+    B, V, R, D = 33, 4, 3, 512
+    img, txt, var, refs = _consistency_inputs(rng, B, V, R, D, dev)
+    vmask = torch.zeros((B, V), dtype=torch.bool, device=dev)
+    vmask[torch.arange(B), torch.as_tensor(rng.integers(0, V, B), device=dev)] = True
+    w, thr = torch.tensor([0.4, 0.4, 0.2], device=dev), torch.tensor(0.3, device=dev)
+    got = fused_consistency_scores(img, txt, var, refs, vmask, None, w, thr)
+    assert bool((got["variant_std"] == 0).all())
+    wide = torch.cat([var, var], dim=-1)[..., :D]
+    refs_t = refs.transpose(0, 1).contiguous().transpose(0, 1)
+    copies = fused_consistency_scores.copies
+    strided = fused_consistency_scores(img, txt, wide, refs_t, vmask, None, w, thr)
+    torch.cuda.synchronize()
+    assert fused_consistency_scores.copies == copies + 2
+    for k in got:
+        assert torch.equal(got[k], strided[k]), k
+    want = consistency_scores_reference(img, txt, var, refs, vmask, None, w, thr)
+    _held_to_plain(got, want)
 
 
 def test_kernels_refuse_what_they_do_not_take(dev):
@@ -160,8 +212,8 @@ def test_kernels_refuse_what_they_do_not_take(dev):
     with pytest.raises(ValueError):  # non-contiguous weight
         fused_mlp_layer(p["x"], *p["ln"], p["mlp"][0].t().contiguous().t(), *p["mlp"][1:])
     x = torch.zeros((2, 8), device=dev)
-    with pytest.raises(ValueError):  # bf16 embeddings
-        fused_consistency_scores(x.bfloat16(), x.bfloat16(), x[:, None].bfloat16(), x[:, None].bfloat16())
+    with pytest.raises(ValueError):  # integer embeddings (bf16 and f16 are taken, as the JAX kernel takes them)
+        fused_consistency_scores(x.int(), x.int(), x[:, None].int(), x[:, None].int())
 
 
 def _cast(p, dtype):

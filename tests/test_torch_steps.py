@@ -14,6 +14,8 @@ import torch
 from tvc.models.clip import CLIPConfig as JConfig, CLIPModel as JModel
 from tvc.parallel.steps import make_serving_step as j_make_step
 from tvc_torch.models.clip import CLIPConfig, CLIPModel, bucket_text_tokens, params_from_jax
+from tvc_torch.core.kernels import consistency_kernel
+from tvc_torch.parallel import steps as steps_mod
 from tvc_torch.parallel.steps import make_serving_step
 
 ASSETS = Path(__file__).resolve().parent.parent / "tvc" / "assets"
@@ -88,6 +90,24 @@ def test_serving_step_matches_jax(setup, with_bank, two_sided):
             np.testing.assert_allclose(g, w, atol=2e-5, rtol=0, err_msg=k)
     if two_sided:
         assert bool(got["is_adversarial"].any()) and not bool(got["is_adversarial"].all())
+
+
+@pytest.mark.parametrize("with_bank", [True, False])
+def test_serving_step_hands_the_consistency_kernel_operands_it_reads_as_they_lie(setup, monkeypatch, with_bank):
+    """On the card the consistency wrapper copies any operand its kernel
+    cannot read in place; the step's operands need no copy (and the
+    weights and threshold go as f32 tensors, read by the kernel)."""
+    _, tm, d, _ = setup
+    seen = []
+
+    def spy(*args, **kw):
+        seen.append(consistency_kernel.operands_needing_copy(*args, **kw))
+        return consistency_kernel.fused_consistency_scores(*args, **kw)
+
+    monkeypatch.setattr(steps_mod, "fused_consistency_scores", spy)
+    step = make_serving_step(tm, top_k=K, num_refs=R, with_bank=with_bank, device="cpu")
+    _call(step, tm.params, d, np.float32(-np.inf), np.float32(0.5))
+    assert seen == [[]]
 
 
 def test_tensor_tokens_take_one_bucket_with_the_same_result(setup):

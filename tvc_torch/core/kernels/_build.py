@@ -35,8 +35,11 @@ NVCC_FLAGS = [
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES: Dict[str, Dict[str, list]] = {
     "consistency": {
-        # params, img, txt, var, vmask, ref, rmask, out, B, V, R, D, stream
-        "tvc_consistency_scores": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+        # img, txt, var, ref, vmask, rmask, weights (or null), threshold (or
+        # null), w_tv, w_sd, w_cons, threshold, stats, flags, B, V, R, D,
+        # dtypes, vmask code, rmask code, stream
+        "tvc_consistency_scores": [_P, _P, _P, _P, _P, _P, _P, _P, _F, _F, _F, _F, _P, _P,
+                                   _I, _I, _I, _I, _I, _I, _I, _P],
     },
     "attention_layer": {
         # x, ln_scale, ln_bias, y, M, K, eps, is_f32, stream
