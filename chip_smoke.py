@@ -13,7 +13,11 @@ Phases (each raises on failure; the script then exits non-zero):
      timed), at ViT-L/14's vision shape (T=257), at head width 32 and,
      for the four layer kernels, in f32 at the tiny configurations'
      shapes, with kernel / plain / library times, the bound and the GEMMs'
-     plans;
+     plans; and every kernel at the shapes the JAX kernels take that the
+     tiled kernels do not ("F1" rows: head widths off 32 / 64, widths off
+     the GEMMs' 16-byte rows, decode R > 8 and D off {16, 32, 64, 128},
+     bank_topk D % 8 != 0 and k > 128), with the copies and launches a
+     call makes;
   4. slice: ViT-B/32 bf16 with the fused layers and seeded random weights,
      a 131,072 x 512 bank, an AdversarialDetector behind a ServingRuntime:
      warmup, requests through submit() and HTTP, then detect_batch at
@@ -30,6 +34,18 @@ Phases (each raises on failure; the script then exits non-zero):
      over CLIPConfig.from_name("tiny", fused_attention=True) through the
      bf16-layer kernels in f32, each serving a few requests through
      submit(), held against the same runtime on the plain versions;
+  attack: detect under attack. PGD standard (eps 8/255, 10 steps) on 64
+     seeded 224 px images against the slice phase's ViT-B/32 (gradients
+     through the einsum module), attacked images/s, peak memory and a
+     profile, then that detector on the clean + attacked batch held against
+     its plain versions, queries/s; then the trained tiny_coco fixture: its
+     evaluation held to the recorded metrics, PGD / FGSM and C&W / FSTA /
+     SMA / hubness fast on the rendered images of the first 64 held-out
+     COCO captions (the eps-ball and the clamp checked), the clean and attacked images served
+     by ServingRuntime(ServingConfig(clip_model="tiny_coco_trained")) and
+     by an injected detector over tiny_coco with fused_attention (the f32
+     layer kernels), each held against its plain route, AUROC and TPR at
+     5 % FPR per attack (reported, not gated);
   qwen: Qwen2-7B at full width (int8 W8A8, seeded random weights)
      paraphrasing 192 COCO captions x 3 with 16 new tokens through
      QwenModel.generate_paraphrases_batch (decode batch 576): launch counts
@@ -489,7 +505,138 @@ def phase_kernels() -> dict:
     results.update(phase_qwen_kernels(rng, dev))
     results.update(phase_w8_kernels(dev))
     results.update(phase_mha_topk_kernels(dev))
+    for name, shapes in phase_f1_shapes(dev).items():
+        results[name]["shapes"] += shapes
     return results
+
+
+# Shapes the JAX kernels take that the tiled kernels do not (head widths
+# off 32 / 64, widths off a multiple of 8 / 16, decode R > 8 and head
+# widths off {16, 32, 64, 128}, bank_topk D % 8 != 0 and k > 128): each
+# wrapper fits them to its kernels (the attention's tail path, zero-padded
+# GEMM operands, k in passes) and is held to its plain
+# version: f32 to F1_F32_TOL of max(1, |plain|) (sums in another order),
+# bf16 to 1e-2 (one bf16 ulp), the int8 layers to LAYER_TOL, the W8A8
+# GEMM and the top-k exactly (small-integer top-k operands: exact scores).
+F1_F32_TOL = 2e-5
+
+
+def phase_f1_shapes(dev) -> dict:
+    """The repaired shapes, each launched, held to its plain version and
+    timed, with the copies and launches a call makes."""
+    import torch
+
+    from tvc_torch.core import kernels as tk
+
+    rng = np.random.default_rng(11)
+    f32, bf16 = torch.float32, torch.bfloat16
+
+    def t(*shape, dtype=f32, scale=1.0):
+        return (torch.as_tensor(rng.standard_normal(shape).astype(np.float32)) * scale).to(dev, dtype)
+
+    def layer(W, Wh, dt):
+        ln = (1 + 0.1 * t(W), 0.1 * t(W))
+        attn = (t(W, 3 * W, dtype=dt, scale=W ** -0.5), 0.02 * t(3 * W), t(W, W, dtype=dt, scale=W ** -0.5),
+                0.02 * t(W))
+        mlp = (t(W, Wh, dtype=dt, scale=W ** -0.5), 0.02 * t(Wh), t(Wh, W, dtype=dt, scale=Wh ** -0.5), 0.02 * t(W))
+        return ln, attn, mlp
+
+    out = {}
+
+    def hold(name, owner, shape, run_k, run_p, tol, nbytes, t_ops):
+        copies, launches = getattr(owner, "copies", 0), owner.launches
+        got = run_k()
+        torch.cuda.synchronize()
+        copies, launches = getattr(owner, "copies", 0) - copies, owner.launches - launches
+        want = run_p()
+        if isinstance(got, tuple):  # top-k: values and indices exactly
+            abs_err = float((got[0] - want[0]).abs().max())
+            ok = torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+            rel_err = abs_err
+        else:
+            abs_err, rel_err = _layer_error(got, want)
+            ok = torch.equal(got, want) if tol == 0 else rel_err <= tol
+        if not ok:
+            raise AssertionError(f"{name} {shape} disagrees with its plain version: {abs_err:.3e} abs, "
+                                 f"{rel_err:.3e} scaled (tol {tol})")
+        k_ms, p_ms = time_ms(run_k), time_ms(run_p)
+        bms, by = bound_ms_of(nbytes, t_ops)
+        row = {"shape": f"F1 {shape}", "ms": k_ms, "plain_ms": p_ms, "bound_ms": bms, "bound_by": by,
+               "max_abs_err": abs_err, "copies_per_call": copies, "launches_per_call": launches}
+        out.setdefault(name, []).append(row)
+        log(f"kernel {name} F1 {shape}: kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} bound_ms={bms:.5f} ({by}) "
+            f"max_abs_err={abs_err:.3e} scaled_err={rel_err:.3e} copies/call={copies} launches/call={launches}")
+
+    # fused_mha: head width 48 (the JAX-checked case) in f32, 96 in bf16
+    for B, T, H, D, dt in ((2, 7, 3, 48, f32), (16, 77, 8, 96, bf16)):
+        q, k, v = (t(B, T, H, D, dtype=dt) for _ in range(3))
+        el, peak = (4, PEAK_F32_FLOPS) if dt == f32 else (2, PEAK_BF16_FLOPS)
+        hold("fused_mha", tk.fused_mha, f"{'f32' if dt == f32 else 'bf16'} B={B} T={T} H={H} D={D}",
+             lambda: tk.fused_mha(q, k, v), lambda: tk.mha_reference(q, k, v),
+             F1_F32_TOL if dt == f32 else 1e-2, 4 * el * B * T * H * D, 4 * B * H * T * T * D / peak)
+    # the four layer kernels: W = 36, three heads of 12 (bf16 GEMM widths
+    # off a multiple of 8: padded), W = 40 two heads of 20 (int8 GEMM
+    # widths off a multiple of 16: padded), f32 and bf16
+    for W, H, Wh, dt in ((36, 3, 60, bf16), (36, 3, 60, f32), (40, 2, 24, bf16)):
+        B, T = 4, 16
+        ln, attn, mlp = layer(W, Wh, dt)
+        x = t(B, T, W, dtype=dt)
+        el, peak = (4, PEAK_F32_FLOPS) if dt == f32 else (2, PEAK_BF16_FLOPS)
+        tol = F1_F32_TOL if dt == f32 else 1e-2
+        tag = f"{'f32' if dt == f32 else 'bf16'} B={B} T={T} W={W}"
+        M, attn_ops = B * T, 4 * B * T * T * W
+        hold("fused_attention_layer", tk.fused_attention_layer, f"{tag} H={H}",
+             lambda: tk.fused_attention_layer(x, *ln, *attn, heads=H),
+             lambda: tk.attention_layer_reference(x, *ln, *attn, heads=H), tol,
+             2 * el * M * W + el * 4 * W * W + 4 * 6 * W, (2 * M * W * 4 * W + attn_ops) / peak)
+        hold("fused_mlp_layer", tk.fused_mlp_layer, f"{tag} Wh={Wh}", lambda: tk.fused_mlp_layer(x, *ln, *mlp),
+             lambda: tk.mlp_layer_reference(x, *ln, *mlp), tol,
+             2 * el * M * W + el * 2 * W * Wh + 4 * (Wh + 3 * W), 4 * M * W * Wh / peak)
+        if dt == bf16:  # the GEMMs at the int8 rate, the attention at the operands' rate
+            a8, m8 = _quantized(attn), _quantized(mlp)
+            hold("fused_attention_layer_i8", tk.fused_attention_layer_i8, f"{tag} H={H}",
+                 lambda: tk.fused_attention_layer_i8(x, *ln, *a8, heads=H),
+                 lambda: tk.attention_layer_i8_reference(x, *ln, *a8, heads=H), LAYER_TOL,
+                 2 * el * M * W + 4 * W * W + 4 * 10 * W, 2 * M * W * 4 * W / PEAK_INT8_OPS + attn_ops / peak)
+            hold("fused_mlp_layer_i8", tk.fused_mlp_layer_i8, f"{tag} Wh={Wh}",
+                 lambda: tk.fused_mlp_layer_i8(x, *ln, *m8), lambda: tk.mlp_layer_i8_reference(x, *ln, *m8),
+                 LAYER_TOL, 2 * el * M * W + 2 * W * Wh + 4 * (2 * Wh + 4 * W), 4 * M * W * Wh / PEAK_INT8_OPS)
+    # the decode attention on its tail path: R = 9, head width 48, the
+    # JAX-checked case, in bf16 and f32; head width 200 at R = 12
+    for (B, KV, R, S, D), dt in (((2, 2, 9, 20, 48), bf16), ((2, 2, 9, 20, 48), f32), ((2, 2, 12, 70, 200), bf16)):
+        q, k, v = t(B, KV, R, D, dtype=dt), t(B, KV, S, D, dtype=dt), t(B, KV, S, D, dtype=dt)
+        mask = torch.zeros((B, S), device=dev)
+        el, peak = (4, PEAK_F32_FLOPS) if dt == f32 else (2, PEAK_BF16_FLOPS)
+        hold("decode_gqa_attention", tk.decode_gqa_attention,
+             f"{'f32' if dt == f32 else 'bf16'} B={B} KV={KV} R={R} S={S} D={D}",
+             lambda: tk.decode_gqa_attention(q, k, v, mask), lambda: tk.decode_gqa_reference(q, k, v, mask),
+             F1_F32_TOL if dt == f32 else DECODE_TOL, el * (2 * B * KV * R * D + 2 * B * KV * S * D) + 4 * B * S,
+             4 * B * KV * R * S * D / peak)
+    # bank_topk: D = 12 (padded to 16), k = 130 (passes of 128 and 2), the
+    # JAX-checked case; small integers, so every score is exact
+    B, N, D, K = 3, 500, 12, 130
+    q = torch.as_tensor(rng.integers(-3, 4, (B, D)).astype(np.float32), device=dev)
+    bank = torch.as_tensor(rng.integers(-3, 4, (N, D)).astype(np.float32), device=dev)
+    hold("bank_topk", tk.bank_topk, f"B={B} N={N} D={D} k={K} small-integer operands",
+         lambda: tk.bank_topk(q, bank, K, normalize=False),
+         lambda: tk.bank_topk_reference(q, bank, K, normalize=False), 0, 4 * (B * D + N * D) + 8 * B * K,
+         2 * B * N * D / PEAK_F32_FLOPS)
+    # the int8 GEMMs at K = 40, N = 24 (the JAX-checked case): K and N
+    # zero-padded to 48 and 32
+    for dt in (bf16, f32):
+        M, K_, N_ = 6, 40, 24
+        x = t(M, K_, dtype=dt)
+        w_q, sc = tk.quantize_linear(t(K_, N_))
+        el = 4 if dt == f32 else 2
+        tag = f"{'f32' if dt == f32 else 'bf16'} M={M} K={K_} N={N_}"
+        hold("w8a8_matmul", tk.w8a8_matmul, tag, lambda: tk.w8a8_matmul(x, w_q, sc),
+             lambda: tk.w8a8_matmul_reference(x, w_q, sc), 0, el * (M * K_ + M * N_) + K_ * N_ + 4 * N_,
+             2 * M * K_ * N_ / PEAK_INT8_OPS)
+        if dt == bf16:
+            hold("w8_matmul", tk.w8_matmul, tag, lambda: tk.w8_matmul(x, w_q, sc),
+                 lambda: tk.w8_matmul_plain(x, w_q, sc), 1e-2, el * (M * K_ + M * N_) + K_ * N_ + 4 * N_,
+                 2 * M * K_ * N_ / PEAK_BF16_FLOPS)
+    return out
 
 
 def _int_mm_layouts_ms(pairs) -> tuple:
@@ -1074,6 +1221,9 @@ PATH_KERNELS = {
     "retrieval": ("fused_consistency_scores", "fused_attention_layer", "fused_mlp_layer", "bank_topk"),
     "tiny int8": ("fused_consistency_scores", "fused_attention_layer_i8", "fused_mlp_layer_i8"),
     "tiny f32 layers": ("fused_consistency_scores", "fused_attention_layer", "fused_mlp_layer"),
+    "attack": ("fused_consistency_scores", "fused_attention_layer", "fused_mlp_layer"),
+    "fixture serving": ("fused_consistency_scores",),
+    "fixture f32 layers": ("fused_consistency_scores", "fused_attention_layer", "fused_mlp_layer"),
 }
 B_DEFENDED, V_DEFENDED = 256, 6
 
@@ -1110,49 +1260,18 @@ def _check_path_counts(counts: dict, path: str, what: str) -> None:
         raise AssertionError(f"{path} path, {what}: not launched {missing}, launched off the path {stray}: {counts}")
 
 
-def drive_path(path: str, rt, det, plain_patches, card: dict) -> dict:
-    """Serve a few requests through ``rt`` (submit and HTTP), then one
-    defended batch through ``det`` at B=256, V=6, each with the launch
-    counts set to 0 just before and read just after; hold the batch against
-    the same path on the plain versions; defended queries/s; a profile."""
+def hold_defended_batch(path: str, det, images, texts, variants, plain_patches) -> dict:
+    """One ``det.detect_batch`` with the launch counts set to 0 just before
+    and read just after (every kernel of ``path`` launched, no other, no
+    operand copied by the consistency wrapper), then the same batch with
+    the kernels patched to their plain versions, held as the module notes
+    say: the aggregated scores to LAYER_TOL on the rows whose three scored
+    references agree, which must be >= 90 % of the rows."""
     import torch
 
     from tvc_torch.core.kernels import fused_consistency_scores, launch_counts, reset_launch_counts
 
-    size = det.model.config.image_size
-    rng = np.random.default_rng(2)
-    texts, variants = coco_variant_batch(B_DEFENDED, V_DEFENDED)
-
-    # -- serving: warmup, submit(), HTTP, /stats
-    reset_launch_counts()
-    rt.warmup()
-    rt.start(http=True)
-    try:
-        imgs = rng.random((5, size, size, 3), dtype=np.float32)
-        answers = [rt.submit(imgs[i : i + 2], texts[i : i + 2]) for i in (0, 2)]
-        opener = _local_http()
-        body = json.dumps({"images": imgs[4:5].tolist(), "texts": [texts[4]]}).encode()
-        req = urllib.request.Request(
-            rt.address + "/v1/detect", data=body, headers={"Content-Type": "application/json"}
-        )
-        with opener.open(req, timeout=120) as r:
-            answers.append(json.load(r))
-        with opener.open(rt.address + "/stats", timeout=30) as r:
-            stats = json.load(r)
-    finally:
-        rt.stop()
-    serve_counts = launch_counts()
-    for a, n in zip(answers, (2, 2, 1)):
-        if len(a["scores"]) != n or not np.all(np.isfinite(a["scores"])):
-            raise AssertionError(f"bad serving answer {a}")
-    log(f"[{path}] served: {answers}")
-    log(f"[{path}] /stats: {json.dumps(stats)}")
-    log(f"[{path}] launches while serving: {serve_counts}")
-    _check_path_counts(serve_counts, path, "serving")
-
-    # -- detect_batch at B=256, V=6 real caption variants
-    B, V = B_DEFENDED, V_DEFENDED
-    images = rng.random((B, size, size, 3), dtype=np.float32)
+    B, V = len(texts), len(variants[0])
     reset_launch_counts()
     copies = fused_consistency_scores.copies
     res = det.detect_batch(images, texts, variants)
@@ -1190,6 +1309,54 @@ def drive_path(path: str, rt, det, plain_patches, card: dict) -> dict:
     # rows whose scored references agree, and those must be nearly all
     if same_refs.mean() < 0.9 or d_agg[same_refs].max() > LAYER_TOL:
         raise AssertionError(f"{path} defended step disagrees with its plain version")
+    return {"result": res, "launches": counts, "flag_agreement": flag_agree, "ref_idx_agreement": idx_agree,
+            "max_abs_d_aggregated_same_refs": float(d_agg[same_refs].max())}
+
+
+def drive_path(path: str, rt, det, plain_patches, card: dict) -> dict:
+    """Serve a few requests through ``rt`` (submit and HTTP), then one
+    defended batch through ``det`` at B=256, V=6, each with the launch
+    counts set to 0 just before and read just after; hold the batch against
+    the same path on the plain versions; defended queries/s; a profile."""
+    import torch
+
+    from tvc_torch.core.kernels import launch_counts, reset_launch_counts
+
+    size = det.model.config.image_size
+    rng = np.random.default_rng(2)
+    texts, variants = coco_variant_batch(B_DEFENDED, V_DEFENDED)
+
+    # -- serving: warmup, submit(), HTTP, /stats
+    reset_launch_counts()
+    rt.warmup()
+    rt.start(http=True)
+    try:
+        imgs = rng.random((5, size, size, 3), dtype=np.float32)
+        answers = [rt.submit(imgs[i : i + 2], texts[i : i + 2]) for i in (0, 2)]
+        opener = _local_http()
+        body = json.dumps({"images": imgs[4:5].tolist(), "texts": [texts[4]]}).encode()
+        req = urllib.request.Request(
+            rt.address + "/v1/detect", data=body, headers={"Content-Type": "application/json"}
+        )
+        with opener.open(req, timeout=120) as r:
+            answers.append(json.load(r))
+        with opener.open(rt.address + "/stats", timeout=30) as r:
+            stats = json.load(r)
+    finally:
+        rt.stop()
+    serve_counts = launch_counts()
+    for a, n in zip(answers, (2, 2, 1)):
+        if len(a["scores"]) != n or not np.all(np.isfinite(a["scores"])):
+            raise AssertionError(f"bad serving answer {a}")
+    log(f"[{path}] served: {answers}")
+    log(f"[{path}] /stats: {json.dumps(stats)}")
+    log(f"[{path}] launches while serving: {serve_counts}")
+    _check_path_counts(serve_counts, path, "serving")
+
+    # -- detect_batch at B=256, V=6 real caption variants
+    B, V = B_DEFENDED, V_DEFENDED
+    images = rng.random((B, size, size, 3), dtype=np.float32)
+    held = hold_defended_batch(path, det, images, texts, variants, plain_patches)
 
     # -- defended queries/s
     iters = 5
@@ -1201,8 +1368,8 @@ def drive_path(path: str, rt, det, plain_patches, card: dict) -> dict:
     qps = B * iters / (time.perf_counter() - t0)
     log(f"[{path}] defended queries/s at B={B}, V={V}: {qps:.1f} on {card['smi']}")
     profile_batch(path, lambda: det.detect_batch(images, texts, variants))
-    return {"launches": counts, "qps": qps, "result": res, "inputs": (images, texts, variants),
-            "flag_agreement": flag_agree, "ref_idx_agreement": idx_agree}
+    return {"launches": held["launches"], "qps": qps, "result": held["result"], "inputs": (images, texts, variants),
+            "flag_agreement": held["flag_agreement"], "ref_idx_agreement": held["ref_idx_agreement"]}
 
 
 def phase_slice(card: dict) -> dict:
@@ -1302,12 +1469,12 @@ def phase_int8(card: dict, bf16: dict) -> dict:
 TINY_REQUESTS = (4, 4, 2)
 
 
-def _serve_tiny(rt, images, texts) -> list:
+def _serve_tiny(rt, images, texts, requests=TINY_REQUESTS) -> list:
     """The requests through ``rt.submit`` one after another."""
     rt.start(http=False)
     try:
         out, i = [], 0
-        for n in TINY_REQUESTS:
+        for n in requests:
             out.append(rt.submit(images[i : i + n], texts[i : i + n]))
             i += n
     finally:
@@ -1315,12 +1482,12 @@ def _serve_tiny(rt, images, texts) -> list:
     return out
 
 
-def _drive_tiny(path: str, rt, patches, tol: float) -> dict:
-    """Requests through ``rt`` with the launch counts set to 0 just before
-    and read just after, then the same requests with the kernels patched
-    to their plain versions; the aggregated scores held to ``tol`` and the
-    flags equal wherever the plain score is more than ``tol`` from the
-    threshold."""
+def _drive_tiny(path: str, rt, patches, tol: float, images=None, texts=None, requests=TINY_REQUESTS) -> dict:
+    """Requests through ``rt`` (by default seeded images and COCO
+    captions) with the launch counts set to 0 just before and read just
+    after, then the same requests with the kernels patched to their plain
+    versions; the aggregated scores held to ``tol`` and the flags equal
+    wherever the plain score is more than ``tol`` from the threshold."""
     import torch
 
     from tvc_torch.core.kernels import launch_counts, reset_launch_counts
@@ -1328,20 +1495,20 @@ def _drive_tiny(path: str, rt, patches, tol: float) -> dict:
     det = rt.detector
     cfg = det.model.config
     size = cfg.image_size
-    n = sum(TINY_REQUESTS)
-    rng = np.random.default_rng(5)
-    images = rng.random((n, size, size, 3), dtype=np.float32)
-    texts, _ = coco_variant_batch(n, 1)
+    n = sum(requests)
+    if images is None:
+        images = np.random.default_rng(5).random((n, size, size, 3), dtype=np.float32)
+        texts, _ = coco_variant_batch(n, 1)
     reset_launch_counts()
-    got = _serve_tiny(rt, images, texts)
+    got = _serve_tiny(rt, images, texts, requests)
     torch.cuda.synchronize()
     counts = launch_counts()
-    log(f"[{path}] launches while serving {len(TINY_REQUESTS)} requests: {counts}")
+    log(f"[{path}] launches while serving {len(requests)} requests: {counts}")
     _check_path_counts(counts, path, "serving")
     with ExitStack() as stack:
         for module, name, plain in patches:
             stack.enter_context(mock.patch.object(module, name, plain))
-        want = _serve_tiny(rt, images, texts)
+        want = _serve_tiny(rt, images, texts, requests)
     torch.cuda.synchronize()
     if launch_counts() != counts:
         raise AssertionError(f"[{path}] the plain run launched a kernel")
@@ -1355,10 +1522,10 @@ def _drive_tiny(path: str, rt, patches, tol: float) -> dict:
     log(f"[{path}] {cfg.model_name} {cfg.dtype} W={cfg.vision_width} heads={cfg.vision_heads} "
         f"(head width {cfg.vision_width // cfg.vision_heads}): kernel vs plain max |d aggregated| {d.max():.3e} "
         f"(tol {tol}); flags equal {int((gf == wf)[away].sum())} of the {int(away.sum())} scores more than tol "
-        f"from the threshold; scores {np.round(g, 4).tolist()}")
+        f"from the threshold; scores {np.round(g[:16], 4).tolist()}{' ...' if n > 16 else ''}")
     if g.shape != (n,) or not np.all(np.isfinite(g)) or d.max() > tol or not np.all((gf == wf)[away]):
         raise AssertionError(f"[{path}] the served results disagree with the plain path")
-    return {"launches": counts, "max_abs_d_aggregated": float(d.max())}
+    return {"launches": counts, "max_abs_d_aggregated": float(d.max()), "scores": g, "flags": gf}
 
 
 def phase_tiny(card: dict) -> dict:
@@ -1403,6 +1570,227 @@ def phase_tiny(card: dict) -> dict:
     out["tiny f32 layers"] = _drive_tiny("tiny f32 layers", rt, [
         (clip_mod, "fused_attention_layer", attention_layer_reference),
         (clip_mod, "fused_mlp_layer", mlp_layer_reference), consistency], F32_LAYER_TOL)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase attack: detect under attack
+# ---------------------------------------------------------------------------
+
+B_ATTACK = 64  # attacked images of each part of the phase
+#: the ε-ball within one f32 rounding of orig + δ, the [0, 1] clamp exactly
+EPS_ROUNDING = 1e-7
+
+
+def _check_ball(name: str, adv: np.ndarray, orig: np.ndarray, eps: float) -> float:
+    linf = float(np.abs(adv - orig).max())
+    if adv.min() < 0.0 or adv.max() > 1.0 or linf > eps + EPS_ROUNDING:
+        raise AssertionError(f"{name}: the adversarial images leave the eps-ball or [0, 1] "
+                             f"(linf {linf:.6f}, eps {eps:.6f}, range [{adv.min()}, {adv.max()}])")
+    return linf
+
+
+def _attack_full_width(card: dict, det) -> dict:
+    """PGD ``standard`` (eps 8/255, 10 steps, random start) on B_ATTACK
+    seeded 224 px images against ViT-B/32 bf16 with seeded random weights,
+    the gradient through the einsum module; then the bf16 detector of the
+    slice phase (fused layer kernels, consistency kernel) on the clean and
+    the attacked batch together, held against the same detector on the
+    plain versions."""
+    import torch
+
+    import tvc_torch.models.clip as clip_mod
+    import tvc_torch.parallel.steps as steps_mod
+    from tvc_torch.attacks import PGDAttacker, PGDAttackPresets
+    from tvc_torch.attacks.common import make_encoder
+    from tvc_torch.core.kernels import attention_layer_reference, consistency_scores_reference, mlp_layer_reference
+
+    model = det.model
+    size = model.config.image_size
+    images = np.random.default_rng(21).random((B_ATTACK, size, size, 3), dtype=np.float32)
+    texts, variants = coco_variant_batch(B_ATTACK, V_DEFENDED)
+    attacker = PGDAttacker(model, PGDAttackPresets.standard())
+    attacker.attack(images[:2], texts[:2])  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = attacker.attack(images, texts)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    linf = _check_ball("PGD ViT-B/32", res.adv_images, images, attacker.config.epsilon)
+    with torch.no_grad():
+        tf = model.encode_text(texts)
+        enc = make_encoder(model)
+        clean = torch.sum(enc(model.params, torch.as_tensor(images, device=model.device)) * tf, -1).float()
+    clean = clean.cpu().numpy()
+    if not np.all(np.isfinite(res.final_similarity)) or not res.final_similarity.mean() < clean.mean():
+        raise AssertionError(f"PGD did not lower the similarity: {res.final_similarity.mean()} vs clean "
+                             f"{clean.mean()}")
+    log(f"[attack] PGD standard on {model.config.model_name} {model.config.dtype}, B={B_ATTACK}, {size} px: "
+        f"{B_ATTACK / secs:.1f} "
+        f"attacked images/s ({secs:.3f} s), peak {peak:.2f} GiB, linf {linf:.6f}, mean cos(image, text) "
+        f"{clean.mean():.4f} -> {res.final_similarity.mean():.4f}, success rate {res.success_rate:.3f} "
+        f"on {card['smi']}")
+    profile_batch("attack", lambda: attacker.attack(images, texts))
+
+    mixed = np.concatenate([images, res.adv_images])
+    patches = [
+        (clip_mod, "fused_attention_layer", attention_layer_reference),
+        (clip_mod, "fused_mlp_layer", mlp_layer_reference),
+        (steps_mod, "fused_consistency_scores", consistency_scores_reference),
+    ]
+    held = hold_defended_batch("attack", det, mixed, texts + texts, variants + variants, patches)
+    iters = 5
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        det.detect_batch(mixed, texts + texts, variants + variants)
+    torch.cuda.synchronize()
+    qps = 2 * B_ATTACK * iters / (time.perf_counter() - t0)
+    agg = held["result"].aggregated_score
+    labels = np.r_[np.zeros(B_ATTACK), np.ones(B_ATTACK)]
+    from tvc_torch.metrics import DetectionEvaluator
+
+    log(f"[attack] detector on the clean + attacked batch (B={2 * B_ATTACK}, V={V_DEFENDED}): {qps:.1f} queries/s; "
+        f"flags clean {int(held['result'].is_adversarial[:B_ATTACK].sum())} / attacked "
+        f"{int(held['result'].is_adversarial[B_ATTACK:].sum())} of {B_ATTACK}; AUROC (random weights, "
+        f"reported only) {DetectionEvaluator.auroc(labels, agg):.4f} on {card['smi']}")
+    return {"launches": held["launches"], "images_per_s": B_ATTACK / secs, "peak_gib": peak, "qps": qps,
+            "flag_agreement": held["flag_agreement"]}
+
+
+def _detection_report(tag: str, scores: np.ndarray, n: int, names) -> dict:
+    """AUROC and TPR at 5 % FPR of each attack's scores against the clean
+    ones (the first n), with tvc_torch.metrics."""
+    from tvc_torch.metrics import DetectionEvaluator
+
+    out = {}
+    clean = scores[:n]
+    for i, name in enumerate(names):
+        adv = scores[n * (i + 1): n * (i + 2)]
+        labels = np.r_[np.zeros(n), np.ones(n)]
+        s = np.r_[clean, adv]
+        fpr, tpr, _ = DetectionEvaluator.roc_curve(labels, s)
+        out[name] = {"auroc": DetectionEvaluator.auroc(labels, s), "tpr_at_5pct_fpr": float(tpr[fpr <= 0.05].max()),
+                     "mean_score": float(adv.mean())}
+        log(f"[{tag}] {name}: AUROC {out[name]['auroc']:.4f}, TPR at 5 % FPR {out[name]['tpr_at_5pct_fpr']:.4f}, "
+            f"mean aggregated {adv.mean():.4f} (clean {clean.mean():.4f})")
+    return out
+
+
+def _attack_fixture(card: dict, tmp: Path) -> dict:
+    """The trained tiny_coco fixture on the card: its evaluation held to the
+    recorded metrics; PGD, FGSM, C&W / FSTA / SMA / hubness ``fast`` on
+    the rendered images of held-out COCO captions [0:B_ATTACK] (the
+    eps-ball and the clamp checked); the clean and attacked
+    images detected through ServingRuntime(ServingConfig(clip_model=
+    "tiny_coco_trained")) (einsum towers, consistency kernel) and through
+    an injected detector over tiny_coco with fused_attention (the f32
+    layer kernels at head width 32), each held against its plain route."""
+    import torch
+
+    import tvc_torch.models.clip as clip_mod
+    import tvc_torch.parallel.steps as steps_mod
+    from tvc_torch.attacks import (
+        CWAttacker, CWAttackPresets, FGSMAttacker, FGSMAttackPresets, FSTAAttacker, FSTAAttackPresets,
+        HubnessAttacker, HubnessAttackPresets, PGDAttacker, PGDAttackPresets, SMAAttacker, SMAAttackPresets,
+    )
+    from tvc_torch.core.kernels import attention_layer_reference, consistency_scores_reference, mlp_layer_reference
+    from tvc_torch.data.loaders import COCOCaptionsDataset, DataConfig, load_coco_captions, render_caption_image
+    from tvc_torch.detector import AdversarialDetector, DetectorConfig
+    from tvc_torch.fixtures import EVAL_HOLDOUT, FIXTURE_COCO_META_PATH, evaluate_fixture_coco, load_trained_tiny_coco
+    from tvc_torch.models.clip import CLIPConfig, CLIPModel
+    from tvc_torch.retrieval import MultiModalRetriever, RetrievalConfig
+    from tvc_torch.serving import ServingConfig, ServingRuntime
+
+    model = load_trained_tiny_coco()
+    metrics = evaluate_fixture_coco(model)
+    meta = json.loads(FIXTURE_COCO_META_PATH.read_text())
+    diffs = {k: abs(metrics[k] - meta[k]) for k in metrics}
+    log(f"[fixture] tiny_coco evaluation on the card: {json.dumps(metrics)}; |d| to the recorded "
+        f"{json.dumps({k: float(f'{v:.3e}') for k, v in diffs.items()})}")
+    if metrics["retrieval_accuracy"] != meta["retrieval_accuracy"] or \
+            max(v for k, v in diffs.items() if k != "retrieval_accuracy") > 1e-3:
+        raise AssertionError("the fixture's evaluation on the card parts from its recorded metrics")
+
+    n = B_ATTACK
+    size = model.config.image_size
+    batch = next(COCOCaptionsDataset(DataConfig(image_size=size, max_samples=n)).batches(batch_size=n))
+    images, texts = batch["images"], list(batch["texts"])
+    held_out = load_coco_captions()[:EVAL_HOLDOUT]
+    if texts != [c for _, c in held_out[:n]]:
+        raise AssertionError("the attacked captions are not the first held-out captions")
+    # the reference-image bank: the rendered images of the other held-out captions
+    bank_caps = held_out[n:]
+    bank_imgs = np.stack([render_caption_image(c, size, noise_seed=int(i) % 2**31) for i, c in bank_caps])
+    retriever = MultiModalRetriever(model, RetrievalConfig())
+    retriever.build_image_index(embeddings=model.encode_image(bank_imgs).float().cpu().numpy())
+    retriever.save(str(tmp / "fixture_bank"))
+
+    adv = {}
+    for name, attacker in (("pgd", PGDAttacker(model, PGDAttackPresets.standard())),
+                           ("fgsm", FGSMAttacker(model, FGSMAttackPresets.standard())),
+                           ("cw", CWAttacker(model, CWAttackPresets.fast())),
+                           ("fsta", FSTAAttacker(model, FSTAAttackPresets.fast())),
+                           ("sma", SMAAttacker(model, SMAAttackPresets.fast()))):
+        t0 = time.perf_counter()
+        res = attacker.attack(images, texts)
+        torch.cuda.synchronize()
+        # C&W bounds no norm (it minimizes L2 through tanh): the clamp only
+        linf = _check_ball(name, res.adv_images, images, getattr(attacker.config, "epsilon", 1.0))
+        adv[name] = res.adv_images
+        log(f"[fixture] {name}: {time.perf_counter() - t0:.3f} s, linf {linf:.6f}, mean cos(image, text) "
+            f"{res.final_similarity.mean():.4f}, success rate {res.success_rate:.3f}")
+    hub = HubnessAttacker(model, HubnessAttackPresets.fast())
+    hub.build_reference_database(images=images, texts=[c for _, c in bank_caps[:100]])
+    t0 = time.perf_counter()
+    res = hub.attack(images)
+    torch.cuda.synchronize()
+    linf = _check_ball("hubness", res.adv_images, images, hub.config.epsilon)
+    adv["hubness"] = res.adv_images
+    hijack = float(np.mean(res.info["hubness_scores"]))
+    log(f"[fixture] hubness fast ({hub.config.num_iterations} iterations, {res.info['num_queries']} queries of a "
+        f"100-caption pool, gallery: the {n} clean images): {time.perf_counter() - t0:.3f} s, linf {linf:.6f}, "
+        f"hijack mean {hijack:.4f} (recorded beside the fixture, another setting: "
+        f"{meta['hubness_hijack_mean']:.4f})")
+
+    all_images = np.concatenate([images] + [adv[k] for k in adv])
+    all_texts = texts * (1 + len(adv))
+    requests = (n,) * (1 + len(adv))
+    cfg = ServingConfig(clip_model="tiny_coco_trained", bank_path=str(tmp / "fixture_bank"), drift_window=0,
+                        batch_max_size=n)
+    rt = ServingRuntime(cfg)
+    mcfg = rt.detector.model.config
+    if mcfg.fused_attention or mcfg.int8_serving:
+        raise AssertionError(f"ServingConfig(clip_model='tiny_coco_trained') built {mcfg}")
+    consistency = (steps_mod, "fused_consistency_scores", consistency_scores_reference)
+    serving = _drive_tiny("fixture serving", rt, [consistency], F32_LAYER_TOL, all_images, all_texts, requests)
+    fused = CLIPModel(CLIPConfig.from_name("tiny_coco", fused_attention=True), params=model.params)
+    retriever2 = MultiModalRetriever(fused, RetrievalConfig())
+    retriever2.load(str(tmp / "fixture_bank"))
+    det2 = AdversarialDetector(fused, retriever=retriever2, config=DetectorConfig(
+        num_text_variants=cfg.num_text_variants, text_bucket=cfg.text_bucket))
+    rt2 = ServingRuntime(cfg, detector=det2)
+    layers = _drive_tiny("fixture f32 layers", rt2, [
+        (clip_mod, "fused_attention_layer", attention_layer_reference),
+        (clip_mod, "fused_mlp_layer", mlp_layer_reference), consistency], F32_LAYER_TOL,
+        all_images, all_texts, requests)
+    d = float(np.abs(serving["scores"] - layers["scores"]).max())
+    log(f"[fixture] the two routes (einsum towers vs f32 layer kernels) part by max |d aggregated| {d:.3e}")
+    serving["detection"] = _detection_report("fixture serving", serving["scores"], n, list(adv))
+    layers["detection"] = _detection_report("fixture f32 layers", layers["scores"], n, list(adv))
+    return {"fixture serving": serving, "fixture f32 layers": layers, "metrics": metrics, "hijack_mean": hijack}
+
+
+def phase_attack(card: dict, bf16: dict) -> dict:
+    """Detect under attack: the full-width PGD and detection, then the
+    trained fixture."""
+    import tempfile
+
+    out = {"attack": _attack_full_width(card, bf16["detector"])}
+    with tempfile.TemporaryDirectory() as tmp:
+        out.update(_attack_fixture(card, Path(tmp)))
     return out
 
 
@@ -2176,8 +2564,9 @@ def _topk_merge_ms(q, bank, k: int) -> float:
     idx = torch.empty((B, k), dtype=torch.int32, device=q.device)
     lib = _build.load("bank_topk")
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    _build.check(lib.tvc_bank_topk_partial(q.data_ptr(), bank.data_ptr(), None, pv.data_ptr(), pi.data_ptr(), B, N, D,
-                                           k, rows, splits, 0, 0, 0, stream), "tvc_bank_topk_partial")
+    _build.check(lib.tvc_bank_topk_partial(q.data_ptr(), bank.data_ptr(), None, None, None, pv.data_ptr(),
+                                           pi.data_ptr(), B, N, D, k, rows, splits, 0, 0, 0, stream),
+                 "tvc_bank_topk_partial")
     return time_ms(lambda: _build.check(lib.tvc_bank_topk_merge(pv.data_ptr(), pi.data_ptr(), vals.data_ptr(),
                                                                  idx.data_ptr(), B, splits, k, 0, stream),
                                         "tvc_bank_topk_merge"), iters=20)
@@ -2270,6 +2659,8 @@ def main() -> int:
         int8 = phase_int8(card, bf16)
     with phase("tiny"):
         tiny = phase_tiny(card)
+    with phase("attack"):
+        attack = phase_attack(card, bf16)
     with phase("qwen"):
         qwen = phase_qwen(card)
     with phase("pipeline"):
@@ -2284,7 +2675,7 @@ def main() -> int:
         large = phase_large_bank(card)
     kres["bank_topk"]["shapes"].append(large["shape"])
     paths = {"bf16": bf16, "int8": int8, "qwen": qwen, "pipeline": pipeline, "mha": mha, "retrieval": retrieval,
-             **tiny}
+             **tiny, **{k: v for k, v in attack.items() if k in PATH_KERNELS}}
     kernels = []
     for name, (source, replaces) in KERNEL_SOURCES.items():
         shapes = kres[name]["shapes"]
@@ -2308,6 +2699,13 @@ def main() -> int:
         f"GiB on {card['smi']}")
     log(f"ViT-B/32 vision images/s at B={B_MHA}: " + ", ".join(f"{k} {v:.1f}" for k, v in mha["images_per_s"].items())
         + f"; ViT-L/14 with fused_mha at B={B_MHA_L14}: {mha['l14_images_per_s']:.1f} on {card['smi']}")
+    full = attack["attack"]
+    log(f"detect under attack: PGD standard on ViT-B/32 {full['images_per_s']:.1f} attacked images/s, peak "
+        f"{full['peak_gib']:.2f} GiB; the detector on the clean + attacked batch {full['qps']:.1f} queries/s; "
+        f"tiny_coco fixture AUROC / TPR at 5 % FPR " + ", ".join(
+            f"{k} {v['auroc']:.4f} / {v['tpr_at_5pct_fpr']:.4f}"
+            for k, v in attack["fixture serving"]["detection"].items())
+        + f"; hubness hijack mean {attack['hijack_mean']:.4f} on {card['smi']}")
     log(f"retrieval: native resize {retrieval['host_ms_per_image']:.3f} host ms per image; text index "
         f"{retrieval['text_index_s']:.2f} s; tie order {retrieval['ties']}; large bank_topk peak memory: the "
         f"wrapper's {large['wrapper_peak_gib']:.2f} GiB, the phase's {large['peak_gib']:.2f} GiB")

@@ -59,3 +59,51 @@ def test_save_load_roundtrip_and_errors(data, tmp_path):
         EmbeddingBank(16, device="cpu").build(bank)
     with pytest.raises(RuntimeError):
         EmbeddingBank(32, device="cpu").search(queries, 1)
+
+
+def test_positional_parameters_follow_the_reference(data, tmp_path):
+    """``(dim, mesh, normalize)`` in the reference's order: the positional
+    call ``(d, None, False)`` builds an unnormalized bank, as JAX's does."""
+    bank, queries = data
+    tb = EmbeddingBank(32, None, False, device="cpu").build(bank)
+    jb = JBank(32, None, False).build(bank)
+    assert tb.normalize is False and jb.normalize is False
+    np.testing.assert_allclose(tb._bank[:203].numpy(), bank, rtol=0, atol=0)
+    np.testing.assert_array_equal(tb.search(queries, 5)[1].numpy(), np.asarray(jb.search(jnp.asarray(queries), 5)[1]))
+    tb.save(str(tmp_path / "raw"))
+    back = EmbeddingBank.load(str(tmp_path / "raw"), None, False, device="cpu")
+    assert back.normalize is False
+    np.testing.assert_array_equal(back._bank.numpy(), tb._bank.numpy())
+
+
+def test_a_mesh_raises_until_the_sharded_bank_is_ported(tmp_path):
+    with pytest.raises(NotImplementedError, match="mesh"):
+        EmbeddingBank(16, mesh=object(), device="cpu")
+    EmbeddingBank(16, device="cpu").build(np.ones((3, 16), np.float32)).save(str(tmp_path / "b"))
+    with pytest.raises(NotImplementedError, match="mesh"):
+        EmbeddingBank.load(str(tmp_path / "b"), mesh=object(), device="cpu")
+
+
+@pytest.mark.parametrize("pair", ["bank", "bank.load", "qwen"])
+def test_signatures_keep_the_reference_order(pair):
+    """The port's parameters are the reference's, in its order, with
+    ``device`` last, so a positional call means the same in both."""
+    import inspect
+
+    import tvc.models.qwen as jq
+    import tvc_torch.models.qwen as tq
+
+    ref, port = {
+        "bank": (JBank.__init__, EmbeddingBank.__init__),
+        "bank.load": (JBank.load, EmbeddingBank.load),
+        "qwen": (jq.QwenModel.__init__, tq.QwenModel.__init__),
+    }[pair]
+    names = lambda f: list(inspect.signature(f).parameters)
+    assert names(port) == names(ref) + ["device"]
+
+
+def test_a_positional_mesh_reaches_qwen_where_the_reference_has_it():
+    import tvc_torch.models.qwen as tq
+
+    with pytest.raises(NotImplementedError, match="mesh"):
+        tq.QwenModel(tq.QwenConfig.tiny(), None, 0, None, 32, False, object(), device="cpu")

@@ -205,8 +205,8 @@ def test_consistency_one_valid_variant_has_std_zero_and_takes_strided_operands(d
 
 def test_kernels_refuse_what_they_do_not_take(dev):
     p = _layer(np.random.default_rng(0), 2, 4, 64, 256, dev)
-    with pytest.raises(ValueError):  # head width 16 (the kernels take 32 and 64)
-        fused_attention_layer(p["x"], *p["ln"], *p["attn"], heads=4)
+    with pytest.raises(ValueError):  # 3 heads do not split width 64
+        fused_attention_layer(p["x"], *p["ln"], *p["attn"], heads=3)
     with pytest.raises(ValueError):  # f32 activations with bf16 weights
         fused_attention_layer(p["x"].float(), *p["ln"], *p["attn"], heads=1)
     with pytest.raises(ValueError):  # non-contiguous weight
@@ -345,11 +345,8 @@ def test_int8_kernels_refuse_what_they_do_not_take(dev):
         fused_mlp_layer_i8(p["x"], *p["ln"], m[0], m[1].double(), *m[2:])
     with pytest.raises(ValueError):  # non-contiguous weight
         fused_mlp_layer_i8(p["x"], *p["ln"], m[0].t().contiguous().t(), *m[1:])
-    with pytest.raises(ValueError):  # head width 16 (the kernels take 32 and 64)
-        fused_attention_layer_i8(p["x"], *p["ln"], *a, heads=4)
-    q = _layer(np.random.default_rng(3), 2, 4, 72, 144, dev)
-    with pytest.raises(ValueError):  # width 72: not a multiple of 16
-        fused_mlp_layer_i8(q["x"], *q["ln"], *_i8(q["mlp"]))
+    with pytest.raises(ValueError):  # 3 heads do not split width 64
+        fused_attention_layer_i8(p["x"], *p["ln"], *a, heads=3)
 
 
 def _w8a8_operands(rng, M, K, N, dtype, dev):
@@ -554,8 +551,8 @@ def test_qwen_kernels_refuse_what_they_do_not_take(dev):
         w8a8_matmul(x, w_q.float(), s)
     with pytest.raises(ValueError):  # scale of the wrong width
         w8a8_matmul(x, w_q, s[:16])
-    with pytest.raises(ValueError):  # K = 72: not a multiple of 16
-        w8a8_matmul(*_w8a8_operands(np.random.default_rng(2), 4, 72, 32, torch.bfloat16, dev))
+    with pytest.raises(ValueError):  # 3-d x
+        w8a8_matmul(x[None], w_q, s)
     with pytest.raises(ValueError):  # layer out of range
         w8a8_matmul_stacked(x, w_q[None], s[None], 1)
     q, k, v, mask = _decode_operands(np.random.default_rng(3), 2, 2, 7, 16, 128, torch.bfloat16, dev)
@@ -565,11 +562,8 @@ def test_qwen_kernels_refuse_what_they_do_not_take(dev):
         decode_gqa_attention(q, k.float(), v, mask)
     with pytest.raises(ValueError):  # non-contiguous cache
         decode_gqa_attention(q, k.transpose(2, 3).contiguous().transpose(2, 3), v, mask)
-    with pytest.raises(ValueError):  # R = 9 query heads per KV head
-        decode_gqa_attention(torch.cat([q, q[:, :, :2]], 2), k, v, mask)
-    q2, k2, v2, m2 = _decode_operands(np.random.default_rng(4), 2, 2, 7, 16, 96, torch.bfloat16, dev)
-    with pytest.raises(ValueError):  # head dim 96
-        decode_gqa_attention(q2, k2, v2, m2)
+    with pytest.raises(ValueError):  # a cache of another head width
+        decode_gqa_attention(q, k[..., :64].contiguous(), v[..., :64].contiguous(), mask)
 
 
 # The weight-only GEMM, relative to max(1, |y|): kernel and plain convert the
@@ -654,8 +648,6 @@ def test_w8_matmul_refuses_what_it_does_not_take(dev):
         w8_matmul(x, w_q.float(), s)
     with pytest.raises(ValueError):  # scale of the wrong width
         w8_matmul(x, w_q, s[:16])
-    with pytest.raises(ValueError):  # K = 72: not a multiple of 16
-        w8_matmul(*_w8a8_operands(np.random.default_rng(8), 4, 72, 32, torch.bfloat16, dev))
     with pytest.raises(ValueError):  # 3-d x
         w8_matmul(x[None], w_q, s)
     with pytest.raises(ValueError):  # layer out of range
@@ -700,8 +692,8 @@ def test_fused_mha_reads_views_of_a_packed_projection(dev):
 
 def test_fused_mha_refuses_what_it_does_not_take(dev):
     x = torch.zeros((2, 8, 2, 128), device=dev, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="head dims"):
-        fused_mha(x, x, x)
+    with pytest.raises(ValueError, match="must be a"):  # k of another shape
+        fused_mha(x, x[:, :4], x)
     y = torch.randn((1, 258, 2, 64), device=dev, dtype=torch.float32)
     assert _scaled_err(fused_mha(y, y, y), mha_reference(y, y, y)) <= 1e-5  # f32 takes any T
     z = torch.zeros((1, 8, 2, 64), device=dev, dtype=torch.float16)
@@ -810,9 +802,133 @@ def test_bank_topk_normalize_rows_of_very_different_norms(dev):
 
 def test_bank_topk_refuses_what_it_does_not_take(dev):
     q = torch.zeros((2, 64), device=dev)
-    with pytest.raises(ValueError, match="k <= 128"):
-        bank_topk(q, torch.zeros((300, 64), device=dev), 129)
-    with pytest.raises(ValueError, match="multiple of 8"):
-        bank_topk(torch.zeros((2, 12), device=dev), torch.zeros((30, 12), device=dev), 3)
+    with pytest.raises(ValueError, match="k >= 1"):
+        bank_topk(q, torch.zeros((300, 64), device=dev), 0)
+    with pytest.raises(ValueError, match="float32 or bf16"):
+        bank_topk(q.half(), torch.zeros((30, 64), device=dev), 3)
     with pytest.raises(ValueError, match="width"):
         bank_topk(q, torch.zeros((30, 32), device=dev), 3)
+
+
+# -- shapes the TPU kernels take that the tiled kernels do not -------------------
+#
+# Head widths other than 32 / 64 run the attention's tail path; widths the
+# GEMMs' 16-byte rows do not take are zero-padded around them (counted in
+# ``<wrapper>.copies``); the decode attention takes head widths off its
+# tiled kernel's and R > 8 on the tail path; bank_topk pads D and runs
+# k > 128 in passes. Tolerances
+# as in the tests above: f32 2e-5 of max(1, |y|) (sums in another order),
+# bf16 1e-2 (one bf16 ulp), int8 3e-2 (one quantum), W8A8 exact.
+
+
+@pytest.mark.parametrize("B,T,H,D,dtype,causal", [
+    (2, 7, 3, 48, torch.float32, False), (2, 7, 3, 48, torch.bfloat16, True), (3, 70, 2, 96, torch.bfloat16, False),
+    (2, 33, 2, 128, torch.float32, True), (1, 5, 1, 300, torch.float32, False), (2, 9, 4, 16, torch.bfloat16, False),
+])
+def test_fused_mha_takes_any_head_width(dev, B, T, H, D, dtype, causal):
+    g = torch.Generator(device=dev).manual_seed(T * D)
+    q, k, v = (torch.randn((B, T, H, D), generator=g, device=dev).to(dtype) for _ in range(3))
+    before = fused_mha.launches
+    got, want = fused_mha(q, k, v, causal=causal), mha_reference(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert fused_mha.launches == before + 1 and got.shape == q.shape and got.dtype == dtype
+    assert _scaled_err(got, want) <= (2e-5 if dtype == torch.float32 else 1e-2)
+    assert torch.equal(got, fused_mha(q, k, v, causal=causal))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["attention", "mlp", "attention_i8", "mlp_i8"])
+@pytest.mark.parametrize("B,T,W,Wh,H,causal", [(2, 5, 36, 60, 3, False), (3, 9, 40, 24, 2, True),
+                                               (2, 6, 35, 70, 5, False), (2, 50, 96, 384, 2, True)])
+def test_layer_kernels_take_any_width_and_head_width(dev, dtype, kind, B, T, W, Wh, H, causal):
+    p = _cast(_layer(np.random.default_rng(B * T + W), B, T, W, Wh, dev), dtype)
+    kernel, plain, args, kw = {
+        "attention": (fused_attention_layer, attention_layer_reference, (p["x"], *p["ln"], *p["attn"]),
+                      dict(heads=H, causal=causal)),
+        "mlp": (fused_mlp_layer, mlp_layer_reference, (p["x"], *p["ln"], *p["mlp"]), {}),
+        "attention_i8": (fused_attention_layer_i8, attention_layer_i8_reference,
+                         (p["x"], *p["ln"], *_i8(p["attn"])), dict(heads=H, causal=causal)),
+        "mlp_i8": (fused_mlp_layer_i8, mlp_layer_i8_reference, (p["x"], *p["ln"], *_i8(p["mlp"])), {}),
+    }[kind]
+    before = kernel.launches, kernel.copies
+    got = kernel(*args, **kw)
+    want = plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert kernel.launches == before[0] + 1
+    # a bf16 GEMM pads widths off a multiple of 8, an int8 GEMM off 16
+    grain = 16 if kind.endswith("_i8") else (8 if dtype == torch.bfloat16 else None)
+    widths = (W,) if kind.startswith("attention") else (W, Wh)
+    assert (kernel.copies > before[1]) == bool(grain and any(n % grain for n in widths))
+    assert got.dtype == dtype and got.shape == p["x"].shape
+    tol = 2e-5 if dtype == torch.float32 and not kind.endswith("_i8") else (
+        1e-2 if not kind.endswith("_i8") else 3e-2)
+    assert _scaled_err(got, want) <= tol
+    assert torch.equal(got, kernel(*args, **kw))
+
+
+@pytest.mark.parametrize("M,K,N,dtype", [(6, 40, 24, torch.bfloat16), (6, 40, 24, torch.float32),
+                                         (33, 100, 30, torch.bfloat16)])
+def test_int8_gemms_take_any_width(dev, M, K, N, dtype):
+    x, w_q, s = _w8a8_operands(np.random.default_rng(K * N), M, K, N, dtype, dev)
+    before = w8a8_matmul.copies
+    got = w8a8_matmul(x, w_q, s)
+    torch.cuda.synchronize()
+    assert w8a8_matmul.copies > before
+    assert torch.equal(got, w8a8_matmul_reference(x, w_q, s))
+    got8 = w8_matmul(x, w_q, s)
+    torch.cuda.synchronize()
+    assert got8.shape == (M, N)
+    assert _scaled_err(got8, w8_matmul_plain(x, w_q, s)) <= (2e-5 if dtype == torch.float32 else 1e-2)
+
+
+def test_gemms_pad_without_an_owner(dev):
+    """``_gemm`` and ``_i8_gemm`` called bare (as the sweep scripts call
+    them) at widths off their grain count their copies on themselves."""
+    rng = np.random.default_rng(36)
+    f = lambda *shape: torch.as_tensor(rng.standard_normal(shape).astype(np.float32)).to(dev)
+    a, w, bias = f(20, 36).bfloat16(), (f(36, 60) / 6).bfloat16(), f(60)
+    before = alk._gemm.copies
+    got = alk._gemm(_build.load("attention_layer"), a, w, bias, None, alk.EPI_BIAS,
+                    torch.cuda.current_stream(dev).cuda_stream)
+    torch.cuda.synchronize()
+    assert alk._gemm.copies > before and got.shape == (20, 60)
+    assert _scaled_err(got, _gemm_plain(a, w, bias, None, alk.EPI_BIAS)) <= 1e-2
+    a8, rs, w8, cs, bias8, res = _i8_operands(rng, 20, 24, 40, dev)
+    out = torch.empty((20, 24), dtype=torch.bfloat16, device=dev)
+    before = _i8_gemm.copies
+    _i8_gemm(_build.load("quantized_layer"), a8, rs, w8, cs, bias8, res, out, 2,
+             torch.cuda.current_stream(dev).cuda_stream)
+    torch.cuda.synchronize()
+    assert _i8_gemm.copies > before
+    assert torch.equal(out, _i8_epilogue_plain(2, a8, rs, w8, cs, bias8, res))
+
+
+@pytest.mark.parametrize("B,KV,R,S,D,dtype", [(2, 2, 9, 20, 48, torch.bfloat16), (2, 2, 9, 20, 48, torch.float32),
+                                              (3, 2, 20, 300, 40, torch.bfloat16), (1, 4, 3, 1500, 96, torch.float32),
+                                              (2, 2, 12, 70, 200, torch.bfloat16), (2, 1, 3, 17, 300, torch.float32)])
+def test_decode_gqa_attention_takes_any_head_width_and_r(dev, B, KV, R, S, D, dtype):
+    q, k, v, mask = _decode_operands(np.random.default_rng(R * D), B, KV, R, S, D, dtype, dev)
+    before = decode_gqa_attention.launches
+    got, want = decode_gqa_attention(q, k, v, mask), decode_gqa_reference(q, k, v, mask)
+    torch.cuda.synchronize()
+    assert decode_gqa_attention.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    assert _decode_err(got, want) <= (2e-5 if dtype == torch.float32 else 1e-2)
+
+
+@pytest.mark.parametrize("B,N,D,k,n_valid", [(3, 500, 12, 130, None), (5, 700, 64, 300, None),
+                                             (4, 600, 20, 257, 200), (2, 3000, 8, 129, 2100)])
+def test_bank_topk_takes_any_width_and_k(dev, B, N, D, k, n_valid):
+    """Small-integer operands without normalization: every score is an
+    exact integer in any summation order, so ties abound and the indices
+    (ties by index) and the surplus slots must equal the plain version's."""
+    g = torch.Generator(device=dev).manual_seed(N + k)
+    q = torch.randint(-3, 4, (B, D), generator=g, device=dev).float()
+    bank = torch.randint(-3, 4, (N, D), generator=g, device=dev).float()
+    got = bank_topk(q, bank, k, n_valid=n_valid, normalize=False)
+    want = bank_topk_reference(q, bank, k, n_valid=n_valid, normalize=False)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    qn = torch.randn((B, D), generator=g, device=dev)
+    bn = torch.randn((N, D), generator=g, device=dev)
+    _topk_check(bank_topk(qn, bn, k), bank_topk_reference(qn, bn, k), qn, bn)

@@ -40,9 +40,14 @@ class EmbeddingBank:
     def __init__(
         self,
         dim: int,
+        mesh=None,
         normalize: bool = True,
         device: Optional[Union[str, torch.device]] = None,
     ):
+        """``mesh`` keeps the reference's parameter order: a sharded bank is
+        not ported yet, so a mesh raises ``NotImplementedError``."""
+        if mesh is not None:
+            raise NotImplementedError("a sharded bank (mesh=) is not ported yet; it waits for the multi-GPU slice")
         self.dim = dim
         self.normalize = normalize
         self.device = resolve_device(device)
@@ -109,8 +114,9 @@ class EmbeddingBank:
     def load(
         cls,
         path: str,
+        mesh=None,
         normalize: bool = True,
         device: Optional[Union[str, torch.device]] = None,
     ) -> "EmbeddingBank":
         data = np.load(path if str(path).endswith(".npz") else str(path) + ".npz")
-        return cls(int(data["dim"]), normalize=normalize, device=device).build(data["embeddings"])
+        return cls(int(data["dim"]), mesh=mesh, normalize=normalize, device=device).build(data["embeddings"])

@@ -67,6 +67,9 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "tvc_decode_gqa": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
         # B, KV, R, D, splits -> f32 words of workspace the split path needs
         "tvc_decode_gqa_workspace": [_I, _I, _I, _I, _I],
+        # q, k, v, mask, out, B, KV, R, S, D, is_bf16, stream (the tail
+        # path: head widths off 16 / 32 / 64 / 128, R > 8)
+        "tvc_decode_gqa_any": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     },
     "w8_matmul": {
         # x (bf16), w (int8), scale (f32), out (bf16), ws (f32 or null), M, N,
@@ -80,9 +83,10 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "tvc_mha": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P],
     },
     "bank_topk": {
-        # q, bank, valid (u8 or null), part_vals, part_idx, B, N, D, k,
-        # rows_per_split, splits, bank_is_bf16, q_is_bf16, normalize, stream
-        "tvc_bank_topk_partial": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+        # q, bank, valid (u8 or null), floor_vals, floor_idx (or null),
+        # part_vals, part_idx, B, N, D, k, rows_per_split, splits,
+        # bank_is_bf16, q_is_bf16, normalize, stream
+        "tvc_bank_topk_partial": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
         # part_vals, part_idx, vals, idx, B, splits, k, cutoff, stream
         "tvc_bank_topk_merge": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     },

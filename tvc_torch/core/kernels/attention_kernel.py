@@ -10,11 +10,13 @@ dtype.
 
 For CUDA tensors the wrapper launches the hand-written kernel of
 ``tvc_torch/csrc/mha.cu`` (the per-head attention of ``head_attention.cuh``
-on [B, T, H, D] operands, head widths 32 and 64, any T: bf16 on the tensor
-cores; f32 on the CUDA cores, since the tensor cores would mean TF32; other
-head widths raise ``ValueError``); for CPU tensors it computes the plain
-version beside it, :func:`mha_reference`. ``fused_mha.launches`` counts the
-launches. Inference only: no gradient, as the TPU kernel defines none.
+on [B, T, H, D] operands, any T: at head widths 32 and 64 bf16 on the
+tensor cores and f32 on the CUDA cores, since the tensor cores would mean
+TF32; any other head width on the header's tail path, a warp a query row
+on the CUDA cores, as the TPU kernel takes any width); for CPU tensors it
+computes the plain version beside it, :func:`mha_reference`.
+``fused_mha.launches`` counts the launches. Inference only: no gradient,
+as the TPU kernel defines none.
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ from torch import Tensor
 
 from tvc_torch.core.kernels import _build
 
-HEAD_DIMS = (32, 64)  # the kernel's head widths (tiny configs, every CLIP preset)
+HEAD_DIMS = (32, 64)  # head widths of the tiled kernels (tiny configs, every CLIP preset); others: the tail path
 
 
 def mha_reference(q: Tensor, k: Tensor, v: Tensor, causal: bool = False) -> Tensor:
@@ -68,12 +70,10 @@ def fused_mha(q: Tensor, k: Tensor, v: Tensor, causal: bool = False, block_heads
             raise ValueError(f"{name} must be a {q.dtype} {list(q.shape)} tensor on {q.device}, "
                              f"got {t.dtype} {tuple(t.shape)}")
     B, T, H, D = q.shape
-    if D not in HEAD_DIMS:
-        raise ValueError(f"the attention kernel takes head dims {HEAD_DIMS}; got D={D}")
     out = torch.empty((B, T, H, D), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
-    ld = _row_stride((q, k, v), T, H, D, q.element_size())
+    ld = _row_stride((q, k, v), T, H, D, q.element_size()) if D in HEAD_DIMS else None
     if ld is None:
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
         ld = H * D

@@ -12,9 +12,13 @@ rounded to the compute dtype, as the TPU kernel rounds it before its
 product); for bf16 a TMA-fed wgmma GEMM with a bias / quick_gelu /
 residual epilogue, tiled by :func:`bf16_plan`; for f32 the same function
 on the CUDA cores (no TF32); and the per-head attention of
-``head_attention.cuh`` (head widths :data:`HEAD_DIMS`, any sequence
-length). An attention layer is 4 launches and an MLP layer 3, one more for
-each GEMM whose K the plan splits, because the TPU kernel's VMEM-resident
+``head_attention.cuh`` (tiled at head widths :data:`HEAD_DIMS`, any other
+width on its tail path; any sequence length). Widths the bf16 GEMM's
+16-byte tensor-map rows do not take (K or N not a multiple of 8) are
+zero-padded around it, which changes no product; each padded operand and
+the sliced output is a copy, counted in ``<wrapper>.copies``. An
+attention layer is 4 launches and an MLP layer 3, one more for each GEMM
+whose K the plan splits, because the TPU kernel's VMEM-resident
 weights and per-sequence qkv do not fit a Hopper block's shared memory (the
 source note gives the sizes). For CPU tensors they compute the plain
 PyTorch versions beside them, which follow the TPU kernel's numerics: f32
@@ -34,9 +38,10 @@ import torch
 from torch import Tensor
 
 from tvc_torch.core.kernels import _build
+from tvc_torch.core.kernels._pad import padded, round_up
 
 EPI_BIAS, EPI_GELU, EPI_RESIDUAL = 0, 1, 2
-HEAD_DIMS = (32, 64)  # the attention kernel's head widths (tiny configs, every CLIP preset)
+HEAD_DIMS = (32, 64)  # the tiled attention kernels' head widths (tiny configs, every CLIP preset)
 SMS = 132  # streaming multiprocessors of an H100 SXM
 
 BF16_BK = 64  # the bf16 GEMM's k-tile: one 128-byte swizzled row of bf16
@@ -172,9 +177,6 @@ def _check_cuda_operands(
         raise ValueError(f"unsupported device {x.device}")
     if x.ndim != 3 or x.dtype not in (torch.bfloat16, torch.float32) or not x.is_contiguous():
         raise ValueError(f"x must be a contiguous bf16 or float32 [B, T, W] tensor, got {x.dtype} {tuple(x.shape)}")
-    W = x.shape[2]
-    if W % 8 != 0:
-        raise ValueError(f"width {W} must be a multiple of 8 (16-byte loads)")
     weight_dtype = x.dtype if weight_dtype is None else weight_dtype
     for name, t, n in vectors:
         if t.dtype != torch.float32 or tuple(t.shape) != (n,) or not t.is_contiguous() or t.device != x.device:
@@ -188,8 +190,8 @@ def _check_cuda_operands(
 
 
 def _check_heads(W: int, heads: int) -> None:
-    if heads <= 0 or W % heads or W // heads not in HEAD_DIMS:
-        raise ValueError(f"the attention kernel takes head widths {HEAD_DIMS}; got W={W}, heads={heads}")
+    if heads <= 0 or W % heads:
+        raise ValueError(f"width {W} must split into {heads} heads")
 
 
 def _layernorm_rows(lib, x: Tensor, ln_scale, ln_bias, eps, stream) -> Tensor:
@@ -204,13 +206,25 @@ def _layernorm_rows(lib, x: Tensor, ln_scale, ln_bias, eps, stream) -> Tensor:
     return y
 
 
-def _gemm(lib, a: Tensor, w: Tensor, bias: Tensor, residual, epilogue: int, stream, plan=None) -> Tensor:
+def _gemm(lib, a: Tensor, w: Tensor, bias: Tensor, residual, epilogue: int, stream, plan=None,
+          owner=None) -> Tensor:
     """epilogue(a [M, K] . w [K, N]) in a's dtype: the bf16 tensor-core GEMM
     tiled by ``plan`` = ``(bm, bn, splits, per)`` (by default
     :func:`bf16_plan` of the shape; two launches when K is split), or the
-    f32 CUDA-core GEMM."""
+    f32 CUDA-core GEMM. A bf16 K or N that is not a multiple of 8 is
+    zero-padded around the GEMM (copies counted in ``owner.copies``, in
+    ``_gemm.copies`` without an owner)."""
     M, K = a.shape
     N = w.shape[1]
+    if a.dtype == torch.bfloat16 and (K % 8 or N % 8):
+        owner = owner or _gemm
+        Kp, Np = round_up(K, 8), round_up(N, 8)
+        out = _gemm(lib, padded(a, (M, Kp), owner), padded(w, (Kp, Np), owner), padded(bias, (Np,), owner),
+                    None if residual is None else padded(residual, (M, Np), owner), epilogue, stream, plan)
+        if Np == N:
+            return out
+        owner.copies += 1
+        return out[:, :N].contiguous()
     out = torch.empty((M, N), dtype=a.dtype, device=a.device)
     ptr = lambda t: None if t is None else t.data_ptr()
     if a.dtype == torch.float32:
@@ -223,6 +237,9 @@ def _gemm(lib, a: Tensor, w: Tensor, bias: Tensor, residual, epilogue: int, stre
                                  ptr(ws), M, N, K, epilogue, bm, bn, splits, per, stream)
     _build.check(code, "tvc_f32_gemm" if a.dtype == torch.float32 else "tvc_bf16_gemm")
     return out
+
+
+_gemm.copies = 0
 
 
 def fused_attention_layer(
@@ -254,19 +271,20 @@ def fused_attention_layer(
     lib = _build.load("attention_layer")
     stream = torch.cuda.current_stream(x.device).cuda_stream
     h = _layernorm_rows(lib, x.view(M, W), ln_scale, ln_bias, eps, stream)
-    qkv = _gemm(lib, h, wqkv, bqkv, None, EPI_BIAS, stream)
+    qkv = _gemm(lib, h, wqkv, bqkv, None, EPI_BIAS, stream, owner=fused_attention_layer)
     attn = torch.empty((M, W), dtype=x.dtype, device=x.device)
     _build.check(
         lib.tvc_head_attention(qkv.data_ptr(), attn.data_ptr(), B, T, W, heads, int(causal),
                                int(x.dtype == torch.float32), stream),
         "tvc_head_attention",
     )
-    out = _gemm(lib, attn, wout, bout, x, EPI_RESIDUAL, stream)
+    out = _gemm(lib, attn, wout, bout, x.view(M, W), EPI_RESIDUAL, stream, owner=fused_attention_layer)
     fused_attention_layer.launches += 1
     return out.view(B, T, W)
 
 
 fused_attention_layer.launches = 0
+fused_attention_layer.copies = 0
 
 
 def fused_mlp_layer(
@@ -290,16 +308,15 @@ def fused_mlp_layer(
         [("ln_scale", ln_scale, W), ("ln_bias", ln_bias, W), ("bfc", bfc, Wh), ("bproj", bproj, W)],
         [("wfc", wfc, (W, Wh)), ("wproj", wproj, (Wh, W))],
     )
-    if Wh % 8 != 0:
-        raise ValueError(f"hidden width {Wh} must be a multiple of 8")
     M = B * T
     lib = _build.load("attention_layer")
     stream = torch.cuda.current_stream(x.device).cuda_stream
     h = _layernorm_rows(lib, x.view(M, W), ln_scale, ln_bias, eps, stream)
-    hidden = _gemm(lib, h, wfc, bfc, None, EPI_GELU, stream)
-    out = _gemm(lib, hidden, wproj, bproj, x, EPI_RESIDUAL, stream)
+    hidden = _gemm(lib, h, wfc, bfc, None, EPI_GELU, stream, owner=fused_mlp_layer)
+    out = _gemm(lib, hidden, wproj, bproj, x.view(M, W), EPI_RESIDUAL, stream, owner=fused_mlp_layer)
     fused_mlp_layer.launches += 1
     return out.view(B, T, W)
 
 
 fused_mlp_layer.launches = 0
+fused_mlp_layer.copies = 0

@@ -14,12 +14,16 @@ For CUDA tensors the wrapper launches the hand-written kernel of
 ``tvc_torch/csrc/decode_attention.cu`` (bf16 products on the tensor cores,
 f32 on the CUDA cores; D 16, 32, 64 or 128, R <= 8, any S); for CPU tensors
 it computes the plain version beside it, which is the JAX package's oracle
-``decode_gqa_reference``. :func:`decode_splits` cuts S across blocks when
-B * KV would leave the card short of two blocks an SM and S is long, or S
-exceeds the 1,024 slots whose logits a block keeps in shared memory; every
-split then forms the weights against the row's combined max and sum, and
-the partials are added in split order, so the result does not depend on
-the split but for sums taken in another order.
+``decode_gqa_reference``. Other shapes, which the TPU kernel takes too
+(a head width off those four, R > 8), take ``tvc_decode_gqa_any`` of the
+same source, which launches ``head_attention.cuh``'s tail kernel: a warp
+a query row on the CUDA cores, any D and R, one launch, no copy.
+:func:`decode_splits` cuts S across blocks when B * KV would leave the
+card short of two blocks an SM and S is long, or S exceeds the 1,024
+slots whose logits a block keeps in shared memory; every split then forms
+the weights against the row's combined max and sum, and the partials are
+added in split order, so the result does not depend on the split but for
+sums taken in another order.
 
 ``decode_gqa_attention_stacked(q, k, v [L, B, KV, S, D], mask, layer)`` is
 the same function over layer ``layer`` of the stacked all-layer cache: the
@@ -39,8 +43,8 @@ from torch import Tensor
 
 from tvc_torch.core.kernels import _build
 
-HEAD_DIMS = (16, 32, 64, 128)  # the kernel's head widths (16: QwenConfig.tiny())
-MAX_R = 8  # query heads per KV head the kernel takes
+HEAD_DIMS = (16, 32, 64, 128)  # the tiled kernel's head widths (16: QwenConfig.tiny())
+MAX_R = 8  # query heads per KV head the tiled kernel takes
 MAX_CHUNK = 1024  # cache slots one block takes: its R x chunk f32 logits live in shared memory
 SPLIT_GRAIN = 16  # a split's slots are a multiple of 16 (the tensor-core product's M)
 MIN_SPLIT = 256  # slots a split takes at least when S is cut only to fill the card
@@ -72,10 +76,8 @@ def _check_operands(q: Tensor, k: Tensor, v: Tensor, mask: Tensor) -> None:
     if mask.dtype != torch.float32 or tuple(mask.shape) != (B, S) or not mask.is_contiguous() \
             or mask.device != q.device:
         raise ValueError(f"mask must be a contiguous float32 [{B}, {S}] tensor on {q.device}")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"the decode attention kernel takes head dims {HEAD_DIMS}; got D={D}")
-    if not 1 <= R <= MAX_R:
-        raise ValueError(f"the decode attention kernel takes 1 <= R <= {MAX_R} query heads per KV head; got R={R}")
+    if R < 1:
+        raise ValueError(f"q must hold at least one query head per KV head; got R={R}")
     if S < 1:
         raise ValueError("the cache has no slots")
 
@@ -103,6 +105,17 @@ def decode_gqa_attention(q: Tensor, k: Tensor, v: Tensor, mask: Tensor) -> Tenso
     _check_operands(q, k, v, mask)
     B, KV, R, D = q.shape
     S = k.shape[2]
+    if D not in HEAD_DIMS or R > MAX_R:  # the tail path
+        out = torch.empty_like(q)
+        _build.check(
+            _build.load("decode_attention").tvc_decode_gqa_any(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), out.data_ptr(), B, KV, R, S, D,
+                int(q.dtype == torch.bfloat16), torch.cuda.current_stream(q.device).cuda_stream,
+            ),
+            "tvc_decode_gqa_any",
+        )
+        decode_gqa_attention.launches += 1
+        return out
     lib = _build.load("decode_attention")
     sms = torch.cuda.get_device_properties(q.device).multi_processor_count
     splits, chunk = decode_splits(B * KV, S, sms)

@@ -16,14 +16,19 @@ operands with f32 accumulation.
 
 For CUDA tensors the wrappers launch the hand-written kernels of
 ``tvc_torch/csrc/quantized_layer.cu`` (row-quantize, int8 tensor-core GEMM
-with a dequantizing epilogue, per-head attention with an f32 output, head
-widths 32 and 64): an attention layer is 5 launches and an MLP layer 4 (one
-more for each GEMM whose K the plan splits). For CPU tensors they
-compute the plain PyTorch versions beside them, which follow the TPU
-kernel's body line by line: ``torch.round`` rounds half to even as
-``jnp.round`` does, ``h / rs`` is the same IEEE division, and the int8
-products are summed exactly (in float64, whose 53-bit mantissa holds every
-int32 sum here) before the f32 dequantization. The compute dtype is
+with a dequantizing epilogue, per-head attention with an f32 output, tiled
+at head widths 32 and 64, any other on the tail path): an attention layer
+is 5 launches and an MLP layer 4 (one more for each GEMM whose K the plan
+splits). A GEMM width that is not a multiple of 16 (the int8 tensor-map
+rows) is zero-padded around the GEMM: zero activations and weight rows
+change no int32 sum, zero weight columns are sliced off; each padded
+operand and the sliced output is a copy, counted in ``<wrapper>.copies``.
+For CPU tensors they compute the plain PyTorch versions beside them,
+which follow the TPU kernel's body line by line: ``torch.round`` rounds
+half to even as ``jnp.round`` does, ``h / rs`` is the same IEEE division,
+and the int8 products are summed exactly (in float64, whose 53-bit
+mantissa holds every int32 sum here) before the f32 dequantization. The
+compute dtype is
 ``x.dtype``: bf16 on the serving towers, f32 on the tiny configurations
 (f32 qkv and residual, as the TPU kernel computes them) and in the CPU
 tests. Inference only.
@@ -44,6 +49,7 @@ from tvc_torch.core.kernels.attention_layer_kernel import (
     _mm_f32,
     layernorm_f32,
 )
+from tvc_torch.core.kernels._pad import padded, round_up
 
 QEPI_BF16, QEPI_GELU_F32, QEPI_RESIDUAL = 0, 1, 2
 QEPI_BIAS_F32, QEPI_RESIDUAL_F32 = 5, 6  # the f32-x forms of QEPI_BF16 / QEPI_RESIDUAL
@@ -154,14 +160,29 @@ def _quant_rows_cuda(lib, h, ln_scale, ln_bias, eps, stream) -> Tuple[Tensor, Te
     return q, scale
 
 
-def _i8_gemm(lib, a, row_scale, w, col_scale, bias, residual, out, epilogue, stream, plan=None) -> None:
+def _i8_gemm(lib, a, row_scale, w, col_scale, bias, residual, out, epilogue, stream, plan=None,
+             owner=None) -> None:
     """One int8 tensor-core GEMM launch (two when K is split) with its
     epilogue, tiled by ``plan`` = ``(bm, bn, splits, per)``, by default
-    :func:`~tvc_torch.core.kernels.w8_matmul_kernel.i8_plan` of the shape."""
+    :func:`~tvc_torch.core.kernels.w8_matmul_kernel.i8_plan` of the shape.
+    K or N not a multiple of 16 is zero-padded around the GEMM (copies
+    counted in ``owner.copies``, in ``_i8_gemm.copies`` without an
+    owner)."""
     from tvc_torch.core.kernels.w8_matmul_kernel import i8_plan  # that module imports this one
 
     M, K = a.shape
     N = w.shape[1]
+    if K % 16 or N % 16:
+        owner = owner or _i8_gemm
+        Kp, Np = round_up(K, 16), round_up(N, 16)
+        pad = lambda t, *shape: None if t is None else padded(t, shape, owner)
+        out_p = out if Np == N else out.new_empty((M, Np))
+        _i8_gemm(lib, pad(a, M, Kp), row_scale, pad(w, Kp, Np), pad(col_scale, Np), pad(bias, Np),
+                 pad(residual, M, Np), out_p, epilogue, stream, plan)
+        if Np != N:
+            out.copy_(out_p[:, :N])
+            owner.copies += 1
+        return
     bm, bn, splits, per = i8_plan(M, N, K) if plan is None else plan
     ws = torch.empty((splits, M, N), dtype=torch.int32, device=a.device) if splits > 1 else None
     _build.check(
@@ -174,10 +195,7 @@ def _i8_gemm(lib, a, row_scale, w, col_scale, bias, residual, out, epilogue, str
     )
 
 
-def _check_widths(**widths) -> None:
-    for name, n in widths.items():
-        if n % 16 != 0:
-            raise ValueError(f"{name} {n} must be a multiple of 16 (16-byte int8 loads)")
+_i8_gemm.copies = 0
 
 
 def fused_attention_layer_i8(
@@ -209,7 +227,6 @@ def fused_attention_layer_i8(
         [("wqkv_q", wqkv_q, (W, 3 * W)), ("wout_q", wout_q, (W, W))],
         weight_dtype=torch.int8,
     )
-    _check_widths(width=W)
     _check_heads(W, heads)
     f32 = x.dtype == torch.float32
     M = B * T
@@ -217,7 +234,8 @@ def fused_attention_layer_i8(
     stream = torch.cuda.current_stream(x.device).cuda_stream
     hq, hs = _quant_rows_cuda(lib, x.view(M, W), ln_scale, ln_bias, eps, stream)
     qkv = torch.empty((M, 3 * W), dtype=x.dtype, device=x.device)
-    _i8_gemm(lib, hq, hs, wqkv_q, sqkv, bqkv, None, qkv, QEPI_BIAS_F32 if f32 else QEPI_BF16, stream)
+    _i8_gemm(lib, hq, hs, wqkv_q, sqkv, bqkv, None, qkv, QEPI_BIAS_F32 if f32 else QEPI_BF16, stream,
+             owner=fused_attention_layer_i8)
     attn = torch.empty((M, W), dtype=torch.float32, device=x.device)
     _build.check(
         lib.tvc_head_attention_f32(qkv.data_ptr(), attn.data_ptr(), B, T, W, heads, int(causal), int(f32), stream),
@@ -225,12 +243,14 @@ def fused_attention_layer_i8(
     )
     aq, as_ = _quant_rows_cuda(lib, attn, None, None, eps, stream)
     out = torch.empty_like(x)
-    _i8_gemm(lib, aq, as_, wout_q, sout, bout, x, out, QEPI_RESIDUAL_F32 if f32 else QEPI_RESIDUAL, stream)
+    _i8_gemm(lib, aq, as_, wout_q, sout, bout, x.view(M, W), out.view(M, W),
+             QEPI_RESIDUAL_F32 if f32 else QEPI_RESIDUAL, stream, owner=fused_attention_layer_i8)
     fused_attention_layer_i8.launches += 1
     return out
 
 
 fused_attention_layer_i8.launches = 0
+fused_attention_layer_i8.copies = 0
 
 
 def fused_mlp_layer_i8(
@@ -258,19 +278,20 @@ def fused_mlp_layer_i8(
         [("wfc_q", wfc_q, (W, Wh)), ("wproj_q", wproj_q, (Wh, W))],
         weight_dtype=torch.int8,
     )
-    _check_widths(width=W, hidden_width=Wh)
     M = B * T
     lib = _build.load("quantized_layer")
     stream = torch.cuda.current_stream(x.device).cuda_stream
     hq, hs = _quant_rows_cuda(lib, x.view(M, W), ln_scale, ln_bias, eps, stream)
     g = torch.empty((M, Wh), dtype=torch.float32, device=x.device)
-    _i8_gemm(lib, hq, hs, wfc_q, sfc, bfc, None, g, QEPI_GELU_F32, stream)
+    _i8_gemm(lib, hq, hs, wfc_q, sfc, bfc, None, g, QEPI_GELU_F32, stream, owner=fused_mlp_layer_i8)
     gq, gs = _quant_rows_cuda(lib, g, None, None, eps, stream)
     out = torch.empty_like(x)
     epilogue = QEPI_RESIDUAL_F32 if x.dtype == torch.float32 else QEPI_RESIDUAL
-    _i8_gemm(lib, gq, gs, wproj_q, sproj, bproj, x, out, epilogue, stream)
+    _i8_gemm(lib, gq, gs, wproj_q, sproj, bproj, x.view(M, W), out.view(M, W), epilogue, stream,
+             owner=fused_mlp_layer_i8)
     fused_mlp_layer_i8.launches += 1
     return out
 
 
 fused_mlp_layer_i8.launches = 0
+fused_mlp_layer_i8.copies = 0

@@ -27,10 +27,17 @@ For CUDA tensors the wrapper launches the hand-written kernels of
 ``tvc_torch/csrc/bank_topk.cu`` (a split-N partial pass on the CUDA cores,
 8 x 16 scores a thread on 128-query x 256-row tiles fed by a 3-stage
 cp.async ring, threshold filters ahead of the sorted candidate lists in
-shared memory, then a merge; 1 <= k <= 128 and D a multiple of 8, else
-``ValueError``); for CPU tensors it computes the plain version
-:func:`bank_topk_reference` (matmul, then an exact top-k over keys that
-order ties by index). ``bank_topk.launches`` counts the launches.
+shared memory, then a merge); for CPU tensors it computes the plain
+version :func:`bank_topk_reference` (matmul, then an exact top-k over keys
+that order ties by index). The kernels hold sorted lists of at most 128
+entries and read rows in 16-byte pieces; the TPU kernel takes any k and
+D, and so does the wrapper: a k above 128 runs in passes of at most 128,
+each pass taking only the rows after the previous pass's last entry in
+the (score, index) order (a floor the partial kernel applies per query),
+and a D that is not a multiple of 8 is zero-padded in both operands (no
+score changes; the copies are counted in ``bank_topk.copies``).
+``bank_topk.launches`` counts the kernels' passes (a partial and a merge
+launch each).
 
 The kernel route's rounding point with ``normalize``: the wrapper
 normalizes only the ``[B, D]`` queries in f32, and the kernel divides each
@@ -49,9 +56,10 @@ import torch
 from torch import Tensor
 
 from tvc_torch.core.kernels import _build
+from tvc_torch.core.kernels._pad import padded, round_up
 from tvc_torch.core.similarity import l2_normalize
 
-MAX_K = 128  # the kernel's sorted candidate lists hold at most 128 entries
+MAX_K = 128  # the kernel's sorted candidate lists hold at most 128 entries: larger k runs in passes
 TILE_ROWS = 256  # bank rows of one tile of the partial kernel
 QUERY_BLOCK = 128  # queries of one partial block
 BLOCKS_PER_SM = 1  # partial blocks an SM holds (~255 registers a thread): the splits fill one wave
@@ -159,10 +167,8 @@ def _check_operands(q: Tensor, bank: Tensor, k: int) -> None:
                              f"{t.dtype} {tuple(t.shape)} on {t.device}")
     if q.shape[1] != bank.shape[1]:
         raise ValueError(f"queries [B, {q.shape[1]}] and bank [N, {bank.shape[1]}] differ in width")
-    if q.shape[1] % 8:
-        raise ValueError(f"the top-k kernel takes widths that are a multiple of 8; got D={q.shape[1]}")
-    if not 1 <= k <= MAX_K:
-        raise ValueError(f"the top-k kernel takes 1 <= k <= {MAX_K}; got k={k}")
+    if k < 1:
+        raise ValueError(f"the top-k kernel takes k >= 1; got k={k}")
 
 
 def bank_topk(
@@ -188,18 +194,54 @@ def bank_topk(
     valid = _valid_rows(bank, n_valid)
     B, D = q.shape
     N = bk.shape[0]
+    if D % 8:
+        q = padded(q, (B, round_up(D, 8)), bank_topk)
+        bk = padded(bk, (N, round_up(D, 8)), bank_topk)
+    if B == 0:
+        return (torch.empty((B, k), dtype=torch.float32, device=q.device),
+                torch.empty((B, k), dtype=torch.int32, device=q.device))
+    cutoff = _cutoff(N, block_n)
+    passes = []
+    for k0 in range(0, k, MAX_K):
+        floor = passes[-1] if passes else None
+        passes.append(_topk_pass(q, bk, valid, min(MAX_K, k - k0), floor, normalize, cutoff))
+    if len(passes) == 1:
+        return passes[0]
+    vals = torch.cat([v for v, _ in passes], dim=1)
+    idx = torch.cat([i for _, i in passes], dim=1)
+    # the surplus slots' index over the whole list, as one pass's merge
+    # sets it: the best valid row before the TPU kernel's last tile, else 0
+    finite = vals > float("-inf")
+    left = finite & (idx < cutoff)
+    first = torch.gather(idx, 1, left.to(torch.uint8).argmax(dim=1, keepdim=True))
+    leftover = torch.where(left.any(dim=1, keepdim=True), first, torch.zeros_like(first))
+    return vals, torch.where(finite, idx, leftover)
+
+
+bank_topk.launches = 0
+bank_topk.copies = 0
+
+
+def _topk_pass(q: Tensor, bk: Tensor, valid, k: int, floor, normalize: bool, cutoff: int):
+    """One partial + merge launch pair: the top ``k`` <= 128 of each query
+    among the valid rows after its ``floor`` entry (the last column of the
+    previous pass's ``(vals, idx)``, or None for all rows)."""
+    B, D = q.shape
+    N = bk.shape[0]
     vals = torch.empty((B, k), dtype=torch.float32, device=q.device)
     idx = torch.empty((B, k), dtype=torch.int32, device=q.device)
-    if B == 0:
-        return vals, idx
+    floor_vals = floor_idx = None
+    if floor is not None:
+        floor_vals, floor_idx = floor[0][:, -1].contiguous(), floor[1][:, -1].contiguous()
     splits, rows_per_split = split_plan(B, N, torch.cuda.get_device_properties(q.device).multi_processor_count)
     part_vals = torch.empty((B, splits, k), dtype=torch.float32, device=q.device)
     part_idx = torch.empty((B, splits, k), dtype=torch.int32, device=q.device)
     lib = _build.load("bank_topk")
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    ptr = lambda t: None if t is None else t.data_ptr()
     _build.check(
         lib.tvc_bank_topk_partial(
-            q.data_ptr(), bk.data_ptr(), None if valid is None else valid.data_ptr(),
+            q.data_ptr(), bk.data_ptr(), ptr(valid), ptr(floor_vals), ptr(floor_idx),
             part_vals.data_ptr(), part_idx.data_ptr(), B, N, D, k, rows_per_split, splits,
             int(bk.dtype == torch.bfloat16), int(q.dtype == torch.bfloat16), int(normalize), stream,
         ),
@@ -208,12 +250,9 @@ def bank_topk(
     _build.check(
         lib.tvc_bank_topk_merge(
             part_vals.data_ptr(), part_idx.data_ptr(), vals.data_ptr(), idx.data_ptr(),
-            B, splits, k, _cutoff(N, block_n), stream,
+            B, splits, k, cutoff, stream,
         ),
         "tvc_bank_topk_merge",
     )
     bank_topk.launches += 1
     return vals, idx
-
-
-bank_topk.launches = 0

@@ -29,7 +29,10 @@ the kernels of ``tvc_torch/csrc/w8_matmul.cu``: bf16 activations on the
 tensor cores (the card's path; tile and split of K from :func:`w8_plan`),
 f32 activations on the CUDA cores (the tiny and f32 configurations: f32
 products summed in f32, no TF32). An operand that does not start on a
-16-byte boundary, or an x that is not contiguous, is copied first. For
+16-byte boundary, or an x that is not contiguous, is copied first; bf16
+widths K, N that are not multiples of 16 are zero-padded around the
+kernel (copies counted in ``w8_matmul.copies``; likewise the W8A8 GEMM in
+``w8a8_matmul.copies``). For
 CPU tensors it computes the plain version :func:`w8_matmul_plain`. :func:`w8_matmul_reference` is another
 function: the JAX package's dequantize-then-matmul oracle, which rounds
 every dequantized weight to x's dtype first; the decode takes it for
@@ -52,8 +55,8 @@ import torch
 from torch import Tensor
 
 from tvc_torch.core.kernels import _build
+from tvc_torch.core.kernels._pad import padded, round_up
 from tvc_torch.core.kernels.quantized_layer_kernel import (
-    _check_widths,
     _i8_gemm,
     _mm_i32,
     _quant_rows,
@@ -84,7 +87,6 @@ def _check_operands(x: Tensor, w_q: Tensor, scale: Tensor, dtypes=(torch.bfloat1
     if scale.dtype != torch.float32 or tuple(scale.shape) != (N,) or not scale.is_contiguous() \
             or scale.device != x.device:
         raise ValueError(f"scale must be a contiguous float32 [{N}] tensor on {x.device}")
-    _check_widths(K=K, N=N)
 
 
 def w8a8_matmul(x: Tensor, w_q: Tensor, scale: Tensor) -> Tensor:
@@ -100,12 +102,13 @@ def w8a8_matmul(x: Tensor, w_q: Tensor, scale: Tensor) -> Tensor:
     xq, rs = _quant_rows_cuda(lib, x, None, None, 0.0, stream)
     epilogue = QEPI_DEQUANT_BF16 if x.dtype == torch.bfloat16 else QEPI_DEQUANT_F32
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
-    _i8_gemm(lib, xq, rs, w_q, scale, None, None, out, epilogue, stream)
+    _i8_gemm(lib, xq, rs, w_q, scale, None, None, out, epilogue, stream, owner=w8a8_matmul)
     w8a8_matmul.launches += 1
     return out
 
 
 w8a8_matmul.launches = 0
+w8a8_matmul.copies = 0
 
 
 def _check_stacked(w_q: Tensor, scale: Tensor, layer: int) -> None:
@@ -263,13 +266,19 @@ def w8_matmul(x: Tensor, w_q: Tensor, scale: Tensor) -> Tensor:
         x, w_q = _aligned(x), _aligned(w_q)
     _check_operands(x, w_q, scale)
     M, K = x.shape
-    N = w_q.shape[1]
+    N = N_out = w_q.shape[1]
     lib = _build.load("w8_matmul")
-    out = torch.empty((M, N), dtype=x.dtype, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     if x.dtype == torch.float32:
+        out = torch.empty((M, N), dtype=x.dtype, device=x.device)
         code = lib.tvc_w8_matmul_f32(x.data_ptr(), w_q.data_ptr(), scale.data_ptr(), out.data_ptr(), M, N, K, stream)
     else:
+        # the tensor-core kernel's 16-byte rows: K and N zero-padded to
+        # multiples of 16 around it (zero columns of x and rows of w_q add
+        # nothing; padded columns are sliced off; copies counted)
+        K, N = round_up(K, 16), round_up(N, 16)
+        x, w_q, scale = padded(x, (M, K), w8_matmul), padded(w_q, (K, N), w8_matmul), padded(scale, (N,), w8_matmul)
+        out = torch.empty((M, N), dtype=x.dtype, device=x.device)
         bm, bn, splits, per = w8_plan(M, N, K)
         ws = torch.empty((splits, M, N), dtype=torch.float32, device=x.device) if splits > 1 else None
         code = lib.tvc_w8_matmul(
@@ -278,10 +287,14 @@ def w8_matmul(x: Tensor, w_q: Tensor, scale: Tensor) -> Tensor:
         )
     _build.check(code, "tvc_w8_matmul")
     w8_matmul.launches += 1
+    if out.shape[1] != N_out:
+        w8_matmul.copies += 1
+        return out[:, :N_out].contiguous()
     return out
 
 
 w8_matmul.launches = 0
+w8_matmul.copies = 0
 
 
 def w8_matmul_stacked(x: Tensor, w_q: Tensor, scale: Tensor, layer: int) -> Tensor:

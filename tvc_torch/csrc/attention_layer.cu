@@ -65,7 +65,8 @@
 //    in f32, then the f32 epilogue.
 //  * head_attention_tc_kernel<bf16> / head_attention_kernel (f32)
 //    (head_attention.cuh): the per-(sequence, head) softmax attention on
-//    the packed qkv, head width 32 or 64, any T.
+//    the packed qkv, head width 32 or 64, any T; other head widths on the
+//    header's tail path (attention_rows_kernel).
 // Every output element is a sum in a fixed order (no atomics; split
 // partials added in split order), so two calls return the same bits.
 //
@@ -131,6 +132,29 @@ __global__ void __launch_bounds__(32 * kRowWarps)
     store_pair(yr + 2 * i, (f.x - mean) * rstd * ln_g[2 * i] + ln_b[2 * i],
                (f.y - mean) * rstd * ln_g[2 * i + 1] + ln_b[2 * i + 1]);
   }
+}
+
+// The same function for odd K (rows not 4-byte aligned), an element a lane
+// at a time: the tail path for widths no configured model has.
+template <typename T>
+__global__ void __launch_bounds__(32 * kRowWarps)
+    layernorm_rows_odd_kernel(const T* __restrict__ x, const float* __restrict__ ln_g,
+                              const float* __restrict__ ln_b, T* __restrict__ y, int M, int K, float eps) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int row = blockIdx.x * kRowWarps + warp;
+  if (row >= M) return;
+  const T* xr = x + (size_t)row * K;
+  float s = 0.f;
+  for (int i = lane; i < K; i += 32) s += to_f32(xr[i]);
+  const float mean = warp_sum(s) / K;
+  float s2 = 0.f;
+  for (int i = lane; i < K; i += 32) {
+    const float a = to_f32(xr[i]) - mean;
+    s2 += a * a;
+  }
+  const float rstd = rsqrtf(warp_sum(s2) / K + eps);
+  T* yr = y + (size_t)row * K;
+  for (int i = lane; i < K; i += 32) store_one(yr + i, (to_f32(xr[i]) - mean) * rstd * ln_g[i] + ln_b[i]);
 }
 
 // quick_gelu in f32: h * sigmoid(1.702 h), sigmoid as 1 / (1 + exp(-t))
@@ -404,14 +428,19 @@ int launch_bf16(const void* a, const void* w, const Epi& e, void* ws, int K, int
 }  // namespace
 
 // y = LN(x) (f32 statistics, eps), rounded to x's type: x, y [M, K] bf16
-// (is_f32 = 0) or f32; K even.
+// (is_f32 = 0) or f32; odd K on the element-a-lane kernel.
 extern "C" int tvc_layernorm_rows(const void* x, const void* ln_scale, const void* ln_bias, void* y, int M, int K,
                                   float eps, int is_f32, void* stream) {
-  if (K % 2 != 0) return (int)cudaErrorInvalidValue;
   if (M > 0 && K > 0) {
     const int blocks = (M + kRowWarps - 1) / kRowWarps;
     const cudaStream_t s = (cudaStream_t)stream;
-    if (is_f32)
+    if (K % 2 && is_f32)
+      layernorm_rows_odd_kernel<float><<<blocks, 32 * kRowWarps, 0, s>>>(
+          (const float*)x, (const float*)ln_scale, (const float*)ln_bias, (float*)y, M, K, eps);
+    else if (K % 2)
+      layernorm_rows_odd_kernel<bf16><<<blocks, 32 * kRowWarps, 0, s>>>(
+          (const bf16*)x, (const float*)ln_scale, (const float*)ln_bias, (bf16*)y, M, K, eps);
+    else if (is_f32)
       layernorm_rows_kernel<float><<<blocks, 32 * kRowWarps, 0, s>>>(
           (const float*)x, (const float*)ln_scale, (const float*)ln_bias, (float*)y, M, K, eps);
     else
@@ -458,8 +487,8 @@ extern "C" int tvc_f32_gemm(const void* a, const void* w, const void* bias, cons
 }
 
 // Per-(sequence, head) attention on the packed [seqs * T, 3W] q | k | v:
-// bf16 in and out (is_f32 = 0) or f32 in and out; head width W / heads of
-// 32 or 64.
+// bf16 in and out (is_f32 = 0) or f32 in and out; head width W / heads
+// (32 or 64 tiled, any other on the tail path).
 extern "C" int tvc_head_attention(const void* qkv, void* out, int seqs, int T, int W, int heads, int causal,
                                   int is_f32, void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;

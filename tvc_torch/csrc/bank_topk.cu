@@ -128,7 +128,8 @@ struct Layout {
 template <typename QT, typename BT, int DK>
 __global__ void __launch_bounds__(kThreads, 1)
     bank_topk_partial_kernel(const QT* __restrict__ q, const BT* __restrict__ bank,
-                             const uint8_t* __restrict__ valid, float* __restrict__ part_vals,
+                             const uint8_t* __restrict__ valid, const float* __restrict__ floor_vals,
+                             const int* __restrict__ floor_idx, float* __restrict__ part_vals,
                              int* __restrict__ part_idx, int B, int N, int D, int k, int rows_per_split,
                              int normalize) {
   using L = Layout<QT, BT, DK>;
@@ -302,7 +303,14 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int b = 0; b < 16; ++b) {
         const int row = tile_row0 + tx + 16 * b;
         const bool ok = row < r_end && (valid == nullptr || valid[row]) && q0 + ty + 16 * a < B;
-        const float s = ok ? (normalize ? __fmul_rn(acc[a][b], rnorm[tx + 16 * b]) : acc[a][b]) : -INFINITY;
+        float s = ok ? (normalize ? __fmul_rn(acc[a][b], rnorm[tx + 16 * b]) : acc[a][b]) : -INFINITY;
+        // a later pass of k > 128: only rows after the query's floor entry
+        // in the (score, row) order (before the tile maxima, so the seed
+        // filter sees the eligible rows only)
+        if (floor_vals != nullptr && ok) {
+          const int qg = q0 + ty + 16 * a;
+          if (!better(floor_vals[qg], floor_idx[qg], s, row)) s = -INFINITY;
+        }
         acc[a][b] = s;
         mx = fmaxf(mx, s);
       }
@@ -429,8 +437,9 @@ __global__ void __launch_bounds__(32 * kMergeWarps)
 }
 
 template <typename QT, typename BT, int DK>
-int launch_partial_dk(const void* q, const void* bank, const uint8_t* valid, float* pv, int* pi, int B, int N,
-                      int D, int k, int rows_per_split, int splits, int normalize, cudaStream_t stream) {
+int launch_partial_dk(const void* q, const void* bank, const uint8_t* valid, const float* fv, const int* fi,
+                      float* pv, int* pi, int B, int N, int D, int k, int rows_per_split, int splits, int normalize,
+                      cudaStream_t stream) {
   const size_t smem = Layout<QT, BT, DK>::bytes(k);
   static size_t allowed = 0;  // the kernel's shared-memory limit, raised as larger k come
   if (smem > allowed) {
@@ -441,51 +450,61 @@ int launch_partial_dk(const void* q, const void* bank, const uint8_t* valid, flo
   }
   const dim3 grid(splits, (B + kQB - 1) / kQB);
   bank_topk_partial_kernel<QT, BT, DK><<<grid, kThreads, smem, stream>>>(
-      (const QT*)q, (const BT*)bank, valid, pv, pi, B, N, D, k, rows_per_split, normalize);
+      (const QT*)q, (const BT*)bank, valid, fv, fi, pv, pi, B, N, D, k, rows_per_split, normalize);
   return (int)cudaGetLastError();
 }
 
 // 16 columns a stage where the ring and the lists of k entries fit a
 // block's shared memory, else 8
 template <typename QT, typename BT>
-int launch_partial(const void* q, const void* bank, const uint8_t* valid, float* pv, int* pi, int B, int N,
-                   int D, int k, int rows_per_split, int splits, int normalize, cudaStream_t stream) {
+int launch_partial(const void* q, const void* bank, const uint8_t* valid, const float* fv, const int* fi,
+                   float* pv, int* pi, int B, int N, int D, int k, int rows_per_split, int splits, int normalize,
+                   cudaStream_t stream) {
   int dev = 0, optin = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (e != cudaSuccess) return (int)e;
   if (Layout<QT, BT, 16>::bytes(k) <= (size_t)optin)
-    return launch_partial_dk<QT, BT, 16>(q, bank, valid, pv, pi, B, N, D, k, rows_per_split, splits, normalize,
-                                         stream);
-  return launch_partial_dk<QT, BT, 8>(q, bank, valid, pv, pi, B, N, D, k, rows_per_split, splits, normalize, stream);
+    return launch_partial_dk<QT, BT, 16>(q, bank, valid, fv, fi, pv, pi, B, N, D, k, rows_per_split, splits,
+                                         normalize, stream);
+  return launch_partial_dk<QT, BT, 8>(q, bank, valid, fv, fi, pv, pi, B, N, D, k, rows_per_split, splits,
+                                      normalize, stream);
 }
 
 }  // namespace
 
 // q [B, D] and bank [N, D] row-major (f32 or bf16 each, 16-byte aligned),
-// valid [N] u8 or null (every row valid); part_vals / part_idx [B, splits,
-// k]. Split s takes rows [s * rows_per_split, (s + 1) * rows_per_split).
-// normalize != 0: each score divided by its bank row's norm. Returns
+// valid [N] u8 or null (every row valid); floor_vals f32 / floor_idx i32
+// [B] or both null: when given, query b takes only rows that come after
+// (floor_vals[b], floor_idx[b]) in the (score descending, row ascending)
+// order -- the next pass of a k above 128, whose floor is the previous
+// pass's last entry; part_vals / part_idx [B, splits, k]. Split s takes
+// rows [s * rows_per_split, (s + 1) * rows_per_split). normalize != 0:
+// each score divided by its bank row's norm. Returns
 // cudaErrorInvalidValue unless 1 <= k <= 128, D % 8 == 0 and the splits
 // cover N.
-extern "C" int tvc_bank_topk_partial(const void* q, const void* bank, const void* valid, void* part_vals,
-                                     void* part_idx, int B, int N, int D, int k, int rows_per_split, int splits,
-                                     int bank_is_bf16, int q_is_bf16, int normalize, void* stream) {
+extern "C" int tvc_bank_topk_partial(const void* q, const void* bank, const void* valid, const void* floor_vals,
+                                     const void* floor_idx, void* part_vals, void* part_idx, int B, int N, int D,
+                                     int k, int rows_per_split, int splits, int bank_is_bf16, int q_is_bf16,
+                                     int normalize, void* stream) {
   if (k < 1 || k > kMaxK || D < 8 || D % 8 || rows_per_split < 1 || splits < 1 ||
       (long long)rows_per_split * splits < N || B < 1 || ((uintptr_t)q | (uintptr_t)bank) % 16)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
+  if ((floor_vals == nullptr) != (floor_idx == nullptr)) return (int)cudaErrorInvalidValue;
   const uint8_t* v = (const uint8_t*)valid;
+  const float* fv = (const float*)floor_vals;
+  const int* fi = (const int*)floor_idx;
   float* pv = (float*)part_vals;
   int* pi = (int*)part_idx;
   if (q_is_bf16) {
     return bank_is_bf16
-               ? launch_partial<bf16, bf16>(q, bank, v, pv, pi, B, N, D, k, rows_per_split, splits, normalize, s)
-               : launch_partial<bf16, float>(q, bank, v, pv, pi, B, N, D, k, rows_per_split, splits, normalize, s);
+               ? launch_partial<bf16, bf16>(q, bank, v, fv, fi, pv, pi, B, N, D, k, rows_per_split, splits, normalize, s)
+               : launch_partial<bf16, float>(q, bank, v, fv, fi, pv, pi, B, N, D, k, rows_per_split, splits, normalize, s);
   }
   return bank_is_bf16
-             ? launch_partial<float, bf16>(q, bank, v, pv, pi, B, N, D, k, rows_per_split, splits, normalize, s)
-             : launch_partial<float, float>(q, bank, v, pv, pi, B, N, D, k, rows_per_split, splits, normalize, s);
+             ? launch_partial<float, bf16>(q, bank, v, fv, fi, pv, pi, B, N, D, k, rows_per_split, splits, normalize, s)
+             : launch_partial<float, float>(q, bank, v, fv, fi, pv, pi, B, N, D, k, rows_per_split, splits, normalize, s);
 }
 
 // part_vals / part_idx [B, splits, k] -> vals [B, k] f32, idx [B, k] i32.

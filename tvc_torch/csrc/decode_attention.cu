@@ -68,9 +68,9 @@
 #include <math.h>
 #include <stdint.h>
 
-namespace {
+#include "head_attention.cuh"  // bf16, warp_sum / warp_max, to_f32 and the tail path
 
-using bf16 = __nv_bfloat16;
+namespace {
 
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
@@ -81,23 +81,9 @@ constexpr int kMaxChunk = 1024;  // slots a block takes (its logits live in shar
 
 enum Mode { kFused = 0, kStats = 1, kPartial = 2 };
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
 template <typename T> __device__ __forceinline__ T from_f32(float x);
 template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
 template <> __device__ __forceinline__ bf16 from_f32<bf16>(float x) { return __float2bfloat16(x); }
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -477,4 +463,21 @@ extern "C" int tvc_decode_gqa(const void* q, const void* k, const void* v, const
   TVC_DECODE_D(16)
 #undef TVC_DECODE_D
   return (int)cudaErrorInvalidValue;
+}
+
+// The tail path: any R, S and D (the wrapper takes it for head widths off
+// the tiled kernel's and for R > 8), the same operands and function as
+// tvc_decode_gqa, one launch of the header's attention_rows_kernel, no
+// workspace.
+extern "C" int tvc_decode_gqa_any(const void* q, const void* k, const void* v, const void* mask, void* out, int B,
+                                  int KV, int R, int S, int D, int is_bf16, void* stream) {
+  if (R < 1 || S < 1) return (int)cudaErrorInvalidValue;
+  if (B < 1 || KV < 1) return (int)cudaGetLastError();
+  const float scale = (float)(1.0 / sqrt((double)D));
+  const long long head = (long long)R * D, cache = (long long)S * D;
+  const RowLayout L{KV, {KV * head, head, D}, {KV * cache, cache, D}, {KV * head, head, D}};
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (is_bf16)
+    return launch_attention_rows<bf16, bf16>(q, k, v, (const float*)mask, out, L, B * KV, R, S, D, 0, scale, st);
+  return launch_attention_rows<float, float>(q, k, v, (const float*)mask, out, L, B * KV, R, S, D, 0, scale, st);
 }

@@ -2,7 +2,7 @@
 // attention_layer.cu (bf16 layer: P.V rounded to bf16), quantized_layer.cu
 // (int8 layer: P.V kept in f32 until it is quantized) and mha.cu (the
 // standalone multi-head attention on [B, T, H, D] q, k, v), each of which
-// compiles its own copy.
+// compiles its own copy; decode_attention.cu takes its tail path.
 //
 // The kernels read q, k and v through three base pointers and one row
 // stride `ld` (elements): row t of sequence s, head h starts at
@@ -10,7 +10,9 @@
 // [seqs * T, 3W] q | k | v activation (bases qkv, qkv + W, qkv + 2W,
 // ld = 3W); mha.cu passes three [B, T, H, D] tensors (ld = H * D, or the
 // row stride of q | k | v views of a packed projection). out is
-// [seqs * T, H * D]. Head widths 32 and 64.
+// [seqs * T, H * D]. Head widths 32 and 64 on the two kernels below, any
+// other on the tail path (attention_rows_kernel, which decode_attention.cu
+// launches too).
 //
 // What every path computes (the TPU kernels' function and rounding
 // points): logits = (q . k summed in f32) * scale, the scale applied after
@@ -454,6 +456,135 @@ __global__ void __launch_bounds__(128)
   }
 }
 
+// Any other shape: attention_rows_kernel, on the CUDA cores, the tail
+// path of this header's kernels (head widths other than 32 / 64) and of
+// decode_attention.cu (head widths off the tiled kernel's, more than 8
+// query heads a KV head); no model the repo configures reaches it, and the
+// TPU kernels take any width. One warp a query row, four rows a block;
+// the row's q in shared memory as f32, lanes on keys for the logits (each
+// lane a key's whole dot product, in d order) and on output columns for
+// P.V (256 columns a pass over the keys). Three sweeps of the logits: the
+// exact row max, the sum of e^(s - m), then the weights e^(s - m) / l,
+// rounded to the operands' type for bf16 as the TPU kernels round them,
+// and P.V summed in f32, rounded once to OutT. Any D, rows and keys.
+//
+// Where the rows lie: a block column g (blockIdx.x) is a group of `rows`
+// query rows over one slab of `keys` keys, g = outer * inner + in (outer a
+// sequence, in a head, or outer a batch row, in a KV head); query row i of
+// it starts at q + outer * q.o + in * q.i + i * q.r, key j at
+// k (and v) + outer * kv.o + in * kv.i + j * kv.r, its output at
+// out + outer * o.o + in * o.i + i * o.r. `mask`, when not null, is an
+// additive f32 [outer, keys] mask added to the scaled logits.
+constexpr int kAnyWarps = 4;
+constexpr int kAnyCols = 8;  // output columns a lane holds in one pass
+
+struct RowStrides {
+  long long o, i, r;  // elements per outer index, inner index and row
+};
+
+struct RowLayout {
+  int inner;  // groups per outer index
+  RowStrides q, kv, o;
+};
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ void store_one(float* o, float x) { *o = x; }
+__device__ __forceinline__ void store_one(bf16* o, float x) { *o = __float2bfloat16(x); }
+__device__ __forceinline__ float weight_in(float p, const float*) { return p; }
+__device__ __forceinline__ float weight_in(float p, const bf16*) { return __bfloat162float(__float2bfloat16(p)); }
+
+template <typename InT, typename OutT>
+__global__ void __launch_bounds__(32 * kAnyWarps)
+    attention_rows_kernel(const InT* __restrict__ qg, const InT* __restrict__ kg, const InT* __restrict__ vg,
+                          const float* __restrict__ mask, OutT* __restrict__ out, RowLayout L, int rows, int keys,
+                          int D, int causal, float scale) {
+  extern __shared__ float any_sm[];  // [kAnyWarps][D] query rows, then [kAnyWarps][32] weights
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int outer = blockIdx.x / L.inner, in = blockIdx.x % L.inner;
+  const int row = blockIdx.y * kAnyWarps + warp;
+  if (row >= rows) return;  // whole warps: nothing below syncs wider than a warp
+  float* qs = any_sm + warp * D;
+  float* ps = any_sm + kAnyWarps * D + warp * 32;
+  const InT* qr = qg + outer * L.q.o + in * L.q.i + row * L.q.r;
+  const InT* kb = kg + outer * L.kv.o + in * L.kv.i;
+  const InT* vb = vg + outer * L.kv.o + in * L.kv.i;
+  const float* mr = mask ? mask + (size_t)outer * keys : nullptr;
+  for (int d = lane; d < D; d += 32) qs[d] = to_f32(qr[d]);
+  __syncwarp();
+  const int nk = causal ? row + 1 : keys;
+  auto logit = [&](int j) {
+    const InT* kr = kb + j * L.kv.r;
+    float s = 0.f;
+    for (int d = 0; d < D; ++d) s = fmaf(qs[d], to_f32(kr[d]), s);
+    s = __fmul_rn(s, scale);
+    return mr ? __fadd_rn(s, mr[j]) : s;
+  };
+  float m = -INFINITY;
+  for (int j = lane; j < nk; j += 32) m = fmaxf(m, logit(j));
+  m = warp_max(m);
+  float l = 0.f;
+  for (int j = lane; j < nk; j += 32) l += expf(logit(j) - m);
+  l = warp_sum(l);
+  OutT* orow = out + outer * L.o.o + in * L.o.i + row * L.o.r;
+  for (int c0 = 0; c0 < D; c0 += 32 * kAnyCols) {
+    float o[kAnyCols];
+#pragma unroll
+    for (int c = 0; c < kAnyCols; ++c) o[c] = 0.f;
+    for (int j0 = 0; j0 < nk; j0 += 32) {
+      const int j = j0 + lane;
+      ps[lane] = j < nk ? weight_in(__fdiv_rn(expf(logit(j) - m), l), qg) : 0.f;
+      __syncwarp();
+      const int n = min(32, nk - j0);
+      for (int jj = 0; jj < n; ++jj) {
+        const InT* vr = vb + (j0 + jj) * L.kv.r;
+        const float p = ps[jj];
+#pragma unroll
+        for (int c = 0; c < kAnyCols; ++c) {
+          const int col = c0 + lane + 32 * c;
+          if (col < D) o[c] = fmaf(p, to_f32(vr[col]), o[c]);
+        }
+      }
+      __syncwarp();  // every lane has read ps before the next keys' weights
+    }
+#pragma unroll
+    for (int c = 0; c < kAnyCols; ++c) {
+      const int col = c0 + lane + 32 * c;
+      if (col < D) store_one(orow + col, o[c]);
+    }
+  }
+}
+
+// The tail path's launch: `groups` groups of `rows` query rows laid out as
+// L says, each over `keys` keys; any D >= 1.
+template <typename InT, typename OutT>
+int launch_attention_rows(const void* q, const void* k, const void* v, const float* mask, void* out,
+                          const RowLayout& L, int groups, int rows, int keys, int D, int causal, float scale,
+                          cudaStream_t stream) {
+  if (D < 1) return (int)cudaErrorInvalidValue;
+  if (groups <= 0 || rows <= 0 || keys <= 0) return (int)cudaGetLastError();
+  const size_t smem = (size_t)kAnyWarps * (D + 32) * sizeof(float);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(attention_rows_kernel<InT, OutT>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const dim3 grid(groups, (rows + kAnyWarps - 1) / kAnyWarps);
+  attention_rows_kernel<InT, OutT><<<grid, 32 * kAnyWarps, smem, stream>>>(
+      (const InT*)q, (const InT*)k, (const InT*)v, mask, (OutT*)out, L, rows, keys, D, causal, scale);
+  return (int)cudaGetLastError();
+}
+
+// The tail path over `seqs` sequences of T rows and `heads` heads: q, k, v
+// with row stride ld, out [seqs * T, heads * D].
+template <typename InT, typename OutT>
+int launch_head_attention_any(const void* q, const void* k, const void* v, void* out, int ld, int seqs, int T,
+                              int heads, int D, int causal, float scale, cudaStream_t stream) {
+  const long long seq = (long long)T * ld, W = (long long)heads * D;
+  const RowLayout L{heads, {seq, D, ld}, {seq, D, ld}, {T * W, D, W}};
+  return launch_attention_rows<InT, OutT>(q, k, v, nullptr, out, L, seqs * heads, T, T, D, causal, scale, stream);
+}
+
 // Launch on `stream` over `seqs` sequences of T rows and `heads` heads;
 // returns cudaGetLastError() (cudaErrorInvalidValue if a tensor map cannot
 // be made).
@@ -495,10 +626,10 @@ int launch_head_attention_strided(const void* q, const void* k, const void* v, v
 }
 
 // The layer kernels' call: the packed [seqs * T, 3W] q | k | v of InT
-// (bf16, or f32 with an f32 output), head width D = W / heads of 32 or 64,
-// logits scaled by 1 / sqrt(D) rounded to f32 (as the plain version's
-// f32 product with the Python float); returns cudaErrorInvalidValue for
-// another head width.
+// (bf16, or f32 with an f32 output), head width D = W / heads (32 and 64
+// on the kernels above, any other width on the tail path), logits scaled
+// by 1 / sqrt(D) rounded to f32 (as the plain version's f32 product with
+// the Python float).
 template <typename InT, typename OutT>
 int launch_head_attention(const void* qkv, void* out, int seqs, int T, int W,
                           int heads, int causal, cudaStream_t stream) {
@@ -512,7 +643,8 @@ int launch_head_attention(const void* qkv, void* out, int seqs, int T, int W,
   if (D == 32)
     return launch_head_attention_strided<InT, OutT, 32>(base, base + W, base + 2 * W, out, 3 * W, seqs, T, heads,
                                                         causal, scale, stream);
-  return (int)cudaErrorInvalidValue;
+  return launch_head_attention_any<InT, OutT>(base, base + W, base + 2 * W, out, 3 * W, seqs, T, heads, D, causal,
+                                              scale, stream);
 }
 
 }  // namespace

@@ -19,13 +19,14 @@
 // wgmma for Q.K^T and P.V, k and v tiles streamed by TMA through a
 // 2-stage ring, the output written once). f32 operands run on the CUDA
 // cores (head_attention_kernel: 64 query rows a block, 64-row key tiles,
-// the same two sweeps, f32 weights). Neither has a limit on T.
+// the same two sweeps, f32 weights). Neither has a limit on T. Other head
+// widths run the header's tail path, a warp a query row.
 
 #include "head_attention.cuh"
 
 // q, k, v: [B, T, H, D] with row stride `ld` elements (the batch stride is
-// T * ld); out: contiguous [B, T, H, D] of the operands' type. Returns
-// cudaErrorInvalidValue for a head width other than 32 / 64.
+// T * ld); out: contiguous [B, T, H, D] of the operands' type. Head widths
+// other than 32 / 64 take the tail path (attention_rows_kernel).
 extern "C" int tvc_mha(const void* q, const void* k, const void* v, void* out, int ld, int B, int T,
                        int H, int D, int is_bf16, int causal, float scale, void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
@@ -36,5 +37,6 @@ extern "C" int tvc_mha(const void* q, const void* k, const void* v, void* out, i
     if (D == 64) return launch_head_attention_strided<float, float, 64>(q, k, v, out, ld, B, T, H, causal, scale, s);
     if (D == 32) return launch_head_attention_strided<float, float, 32>(q, k, v, out, ld, B, T, H, causal, scale, s);
   }
-  return (int)cudaErrorInvalidValue;
+  if (is_bf16) return launch_head_attention_any<bf16, bf16>(q, k, v, out, ld, B, T, H, D, causal, scale, s);
+  return launch_head_attention_any<float, float>(q, k, v, out, ld, B, T, H, D, causal, scale, s);
 }

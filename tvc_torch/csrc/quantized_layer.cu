@@ -28,7 +28,9 @@
 //    f32 row (attention output, GELU output). A per-row scale needs the
 //    whole row before any element is quantized, so this pass runs once
 //    per row here instead of once per column block inside the GEMM, and
-//    the GEMM reads 1 byte per A element instead of 2 or 4.
+//    the GEMM reads 1 byte per A element instead of 2 or 4. Widths that
+//    are not a multiple of 8 take quant_rows_any_kernel (an element a
+//    lane; the wrapper then pads the int8 rows for the GEMM).
 //  * i8_gemm_kernel: C[M, N] = epilogue(A[M, K] . Wq[K, N]) on int8
 //    operands with int32 sums, on Hopper's int8 tensor cores:
 //     - Mainloop: 128-deep k-tiles; the int8 A box (128-byte swizzled: a
@@ -230,6 +232,41 @@ __global__ void __launch_bounds__(32 * kRowWarps)
     for (int t = 0; t < 8; ++t) v[t] = quant1(f[t], rs);
     *reinterpret_cast<uint2*>(q + (size_t)row * K + c * 8) = pack8(v);
   }
+  if (lane == 0) scale[row] = rs;
+}
+
+// The same two functions for K % 8 != 0 (rows not 16-byte aligned), an
+// element a lane at a time: the tail path for widths no configured model
+// has. has_ln: LN(x) first, as ln_quant_rows_kernel.
+template <typename T>
+__global__ void __launch_bounds__(32 * kRowWarps)
+    quant_rows_any_kernel(const T* __restrict__ x, const float* __restrict__ ln_g,
+                          const float* __restrict__ ln_b, int8_t* __restrict__ q,
+                          float* __restrict__ scale, int M, int K, float eps, int has_ln) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int row = blockIdx.x * kRowWarps + warp;
+  if (row >= M) return;
+  const T* xr = x + (size_t)row * K;
+  float mean = 0.f, rstd = 0.f;
+  if (has_ln) {
+    float s = 0.f;
+    for (int i = lane; i < K; i += 32) s += to_f32(xr[i]);
+    mean = warp_sum(s) / K;
+    float s2 = 0.f;
+    for (int i = lane; i < K; i += 32) {
+      const float a = to_f32(xr[i]) - mean;
+      s2 += a * a;
+    }
+    rstd = rsqrtf(warp_sum(s2) / K + eps);
+  }
+  auto value = [&](int i) {
+    const float f = to_f32(xr[i]);
+    return has_ln ? ln_affine(f, mean, rstd, ln_g[i], ln_b[i]) : f;
+  };
+  float amax = 0.f;
+  for (int i = lane; i < K; i += 32) amax = fmaxf(amax, fabsf(value(i)));
+  const float rs = row_scale_of(warp_max(amax));
+  for (int i = lane; i < K; i += 32) q[(size_t)row * K + i] = (int8_t)quant1(value(i), rs);
   if (lane == 0) scale[row] = rs;
 }
 
@@ -501,7 +538,10 @@ template <typename T>
 void launch_quant_rows(const void* h, const void* ln_scale, const void* ln_bias, void* q, void* scale, int M,
                        int K, float eps, int has_ln, cudaStream_t s) {
   const int blocks = (M + kRowWarps - 1) / kRowWarps;
-  if (has_ln)
+  if (K % 8)
+    quant_rows_any_kernel<T><<<blocks, 32 * kRowWarps, 0, s>>>(
+        (const T*)h, (const float*)ln_scale, (const float*)ln_bias, (int8_t*)q, (float*)scale, M, K, eps, has_ln);
+  else if (has_ln)
     ln_quant_rows_kernel<T><<<blocks, 32 * kRowWarps, 0, s>>>(
         (const T*)h, (const float*)ln_scale, (const float*)ln_bias, (int8_t*)q, (float*)scale, M, K, eps);
   else
@@ -511,11 +551,11 @@ void launch_quant_rows(const void* h, const void* ln_scale, const void* ln_bias,
 }  // namespace
 
 // h [M, K] bf16 (is_f32 = 0) or f32 rows -> q int8 [M, K] and scale f32
-// [M]; has_ln: LayerNorm(ln_scale, ln_bias, eps) first.
+// [M]; has_ln: LayerNorm(ln_scale, ln_bias, eps) first. K % 8 != 0 on the
+// element-a-lane kernel.
 extern "C" int tvc_quant_rows(const void* h, const void* ln_scale, const void* ln_bias,
                               void* q, void* scale, int M, int K, float eps,
                               int has_ln, int is_f32, void* stream) {
-  if (K % 8 != 0) return (int)cudaErrorInvalidValue;
   if (M > 0 && K > 0) {
     const cudaStream_t s = (cudaStream_t)stream;
     if (is_f32)
@@ -553,7 +593,7 @@ extern "C" int tvc_i8_gemm(const void* a, const void* row_scale, const void* w, 
 
 // Per-(sequence, head) attention on the packed [seqs * T, 3W] q | k | v,
 // bf16 (in_f32 = 0) or f32, with an f32 output [seqs * T, W]; head width
-// W / heads of 32 or 64.
+// W / heads (32 or 64 tiled, any other on the tail path).
 extern "C" int tvc_head_attention_f32(const void* qkv, void* out, int seqs, int T,
                                       int W, int heads, int causal, int in_f32, void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;

@@ -41,7 +41,7 @@ from tvc_torch.core.kernels.quantized_layer_kernel import (
     fused_mlp_layer_i8,
     quantize_linear,
 )
-from tvc_torch.core.similarity import l2_normalize
+from tvc_torch.core.similarity import cosine_similarity, l2_normalize
 
 CLIP_IMAGE_MEAN = (0.48145466, 0.4578275, 0.40821073)
 CLIP_IMAGE_STD = (0.26862954, 0.26130258, 0.27577711)
@@ -858,13 +858,23 @@ class CLIPModel:
         return self.tokenizer(texts)
 
     def encode_image(self, images, normalize: bool = True) -> Tensor:
-        """PIL list or raw [0, 1] NHWC pixel array -> embeddings [B, E]."""
+        """PIL list or raw [0, 1] NHWC pixel array (or tensor) -> embeddings [B, E]."""
         if isinstance(images, (list, tuple)):
             pixels = torch.as_tensor(self.preprocess(images), device=self.device)
         else:
-            arr = torch.as_tensor(np.asarray(images, np.float32), device=self.device)
+            if torch.is_tensor(images):
+                arr = images.to(self.device, torch.float32)
+            else:
+                arr = torch.as_tensor(np.asarray(images, np.float32), device=self.device)
             pixels = normalize_pixels(arr[None] if arr.ndim == 3 else arr)
         feats = self.infer_image_features(self.params, pixels)
+        return l2_normalize(feats) if normalize else feats
+
+    def encode_image_tensor(self, pixels: Tensor, normalize: bool = True) -> Tensor:
+        """Differentiable path on already-normalized pixels (the attack
+        loop): the einsum module, whatever ``config.fused_attention`` says,
+        since the kernels define no gradient."""
+        feats = self.image_features(self.params, pixels)
         return l2_normalize(feats) if normalize else feats
 
     def encode_text(self, texts, normalize: bool = True) -> Tensor:
@@ -887,3 +897,10 @@ class CLIPModel:
             self.params, torch.as_tensor(tokens, dtype=torch.long, device=self.device)
         )
         return l2_normalize(feats) if normalize else feats
+
+    def get_text_image_similarity(self, text, image) -> Tensor:
+        """cos(text, image): a caption or captions against one image (an
+        [H, W, 3] array, resized and normalized) or a list of them."""
+        t = self.encode_text([text] if isinstance(text, str) else text)
+        i = self.encode_image(image if isinstance(image, (list, tuple)) else [image])
+        return cosine_similarity(t, i)

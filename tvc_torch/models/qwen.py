@@ -490,10 +490,10 @@ class QwenModel:
         tokenizer: Optional[Callable] = None,
         max_new_tokens: int = 32,
         cast_params_bf16: bool = False,
+        mesh=None,
         init_int8: bool = False,
         decode_only: bool = False,
         device: Optional[Union[str, torch.device]] = None,
-        mesh=None,
     ):
         """cast_params_bf16: matrix params stored in bf16.
 

@@ -129,16 +129,19 @@ class ServingRuntime:
 
         cfg = self.config
         if cfg.clip_model == "tiny_coco_trained":
-            raise NotImplementedError(
-                "the trained tiny_coco fixture is not ported yet (fixtures slice)"
+            from tvc_torch.fixtures import load_trained_tiny_coco
+
+            # served as loaded (CLIPConfig.tiny_coco(): the module towers),
+            # whatever int8_serving says, as the JAX package serves it
+            model = load_trained_tiny_coco(seed=cfg.seed, device=self.device)
+        else:
+            model = CLIPModel(
+                CLIPConfig.from_name(
+                    cfg.clip_model, int8_serving=cfg.int8_serving, fused_attention=cfg.int8_serving
+                ),
+                seed=cfg.seed,
+                device=self.device,
             )
-        model = CLIPModel(
-            CLIPConfig.from_name(
-                cfg.clip_model, int8_serving=cfg.int8_serving, fused_attention=cfg.int8_serving
-            ),
-            seed=cfg.seed,
-            device=self.device,
-        )
         retriever = MultiModalRetriever(model, RetrievalConfig())
         if cfg.bank_path:
             retriever.load(cfg.bank_path)
