@@ -45,7 +45,28 @@ Phases (each raises on failure; the script then exits non-zero):
      by ServingRuntime(ServingConfig(clip_model="tiny_coco_trained")) and
      by an injected detector over tiny_coco with fused_attention (the f32
      layer kernels), each held against its plain route, AUROC and TPR at
-     5 % FPR per attack (reported, not gated);
+     5 % FPR per attack (reported, not gated); the adaptive (defense-aware)
+     attack: AdaptiveAttacker (pgd base, eps 8/255, 10 steps) at B=64
+     against the slice phase's detector calibrated two-sided on the clean
+     images (attacked images/s, peak memory), run_adaptive_evaluation
+     scored by that detector's detect_batch over lambda (0, 2, 5) and a
+     20-step strong pass (attack success, detection rate and band AUROC
+     per lambda, the eps-ball and the clamp on every attacked batch), the
+     clean and the lambda-0 batch held against the plain versions, the
+     same evaluation on the fixture's two routes, and the alt-stack
+     MultiModalDefenseDetector's AUROC on the fixture's clean vs PGD images;
+  sd: StableDiffusionModel(SDConfig()) (the SD-1.5 shape class: bf16,
+     512 px, 20 DDIM steps, CFG 7.5, seeded random weights initialized on
+     the card) behind SDReferenceGenerator(SDReferenceConfig()) with the
+     slice phase's ViT-B/32 as its CLIP, feeding an AdversarialDetector
+     with no retriever on 8 COCO captions (24 references, a CFG batch of
+     48): SD reference images/s, ms per CFG UNet call, VAE decode ms, the
+     detector's queries/s, peak memory, a profile; generation bit-equal
+     over two calls, images on the 1/255 grid in [0, 1], one UNet call
+     bf16 against f32 in direction and relative L2 beside three bf16
+     slips (the limits must catch the timestep-embedding one), the
+     references' vision encode and the detector on the same references
+     against their plain versions; the model freed before qwen;
   qwen: Qwen2-7B at full width (int8 W8A8, seeded random weights)
      paraphrasing 192 COCO captions x 3 with 16 new tokens through
      QwenModel.generate_paraphrases_batch (decode batch 576): launch counts
@@ -1224,27 +1245,33 @@ PATH_KERNELS = {
     "attack": ("fused_consistency_scores", "fused_attention_layer", "fused_mlp_layer"),
     "fixture serving": ("fused_consistency_scores",),
     "fixture f32 layers": ("fused_consistency_scores", "fused_attention_layer", "fused_mlp_layer"),
+    "adaptive": ("fused_consistency_scores", "fused_attention_layer", "fused_mlp_layer"),
+    "sd": ("fused_consistency_scores", "fused_attention_layer", "fused_mlp_layer"),
 }
 B_DEFENDED, V_DEFENDED = 256, 6
 
 
-def coco_variant_batch(B: int, V: int):
-    """B real COCO val2017 captions (one per image) and, for each, the other
-    captions of the same image repeated to V variants."""
-    path = REPO / "tvc" / "assets" / "coco_captions_val2017.json.gz"
-    with gzip.open(path, "rt") as f:
+def coco_variant_batch(B: int, V: int, order: str = "variants"):
+    """B real COCO val2017 captions (the first of one image each) and, for
+    each, the other captions of the same image repeated to V variants (the
+    caption itself where the image has no other). ``order="variants"``: the
+    images with two or more captions, by id, permuted with
+    default_rng(12345); ``order="captions"``: every image in the order of
+    its first caption, permuted the same way, which is the order of the JAX
+    package's ``load_coco_captions()``."""
+    with gzip.open(REPO / "tvc" / "assets" / "coco_captions_val2017.json.gz", "rt") as f:
         pairs = json.load(f)
     by_img = {}
     for img_id, cap in pairs:
         by_img.setdefault(img_id, []).append(cap.strip())
-    ids = sorted(i for i, caps in by_img.items() if len(caps) >= 2)
-    order = np.random.default_rng(12345).permutation(len(ids))[:B]
-    texts, variants = [], []
-    for j in order:
-        caps = by_img[ids[int(j)]]
-        texts.append(caps[0])
-        variants.append((caps[1:] * V)[:V])
-    return texts, variants
+    if order == "captions":
+        caps = list(by_img.values())
+    elif order == "variants":
+        caps = [by_img[i] for i in sorted(i for i, c in by_img.items() if len(c) >= 2)]
+    else:
+        raise ValueError(f"order {order!r}")
+    pick = [caps[int(j)] for j in np.random.default_rng(12345).permutation(len(caps))[:B]]
+    return [c[0] for c in pick], [((c[1:] or c) * V)[:V] for c in pick]
 
 
 def _local_http():
@@ -1780,17 +1807,394 @@ def _attack_fixture(card: dict, tmp: Path) -> dict:
     log(f"[fixture] the two routes (einsum towers vs f32 layer kernels) part by max |d aggregated| {d:.3e}")
     serving["detection"] = _detection_report("fixture serving", serving["scores"], n, list(adv))
     layers["detection"] = _detection_report("fixture f32 layers", layers["scores"], n, list(adv))
-    return {"fixture serving": serving, "fixture f32 layers": layers, "metrics": metrics, "hijack_mean": hijack}
+
+    # the adaptive evaluation on both routes: the attacker differentiates the
+    # einsum module; each route's detect_batch scores (no variants: the
+    # served detector has no variant source)
+    refs = retriever.retrieve_reference_embeddings(texts, top_k=rt.detector.config.num_reference_images)
+    no_variants = [[] for _ in texts]
+    adaptive = {}
+    for path, det in (("fixture serving", rt.detector), ("fixture f32 layers", det2)):
+        adaptive[path] = _adaptive_evaluation(
+            f"{path} adaptive", path, model, det, images, texts, no_variants, refs,
+            lambda x, d=det: d.detect_batch(x, texts).aggregated_score)
+
+    # the alt stack (MultiModalDefenseDetector: retrieval references from the
+    # fixture bank) on the clean and the PGD images
+    from tvc_torch.defenses import DetectionConfig, MultiModalDefenseDetector
+    from tvc_torch.metrics import DetectionEvaluator
+
+    alt = MultiModalDefenseDetector(model, DetectionConfig(), retrieval_generator=lambda t, k: (
+        retriever.retrieve_reference_embeddings(t, top_k=k)))
+    clean_overall = alt.detect(images, texts)["overall_score"]
+    pgd_overall = alt.detect(adv["pgd"], texts)["overall_score"]
+    # the alt stack's direction: LOW consistency = adversarial
+    alt_auroc = DetectionEvaluator.auroc(np.r_[np.zeros(n), np.ones(n)], -np.r_[clean_overall, pgd_overall])
+    log(f"[fixture] MultiModalDefenseDetector (alt stack, retrieval refs) clean vs PGD: AUROC {alt_auroc:.4f}, "
+        f"mean overall score clean {clean_overall.mean():.4f} / PGD {pgd_overall.mean():.4f}")
+    return {"fixture serving": serving, "fixture f32 layers": layers, "metrics": metrics, "hijack_mean": hijack,
+            "fixture adaptive": adaptive, "alt_auroc": alt_auroc}
+
+
+#: the adaptive evaluation of the attack phase: AdaptiveAttackConfig's
+#: pgd base at eps 8/255 and its own alpha (1/255), ADAPTIVE_STEPS steps a
+#: sweep point, the sweep ADAPTIVE_SWEEP, then the strong pass at the best
+#: lambda with ADAPTIVE_STRONG_STEPS steps (the JAX default of 500 would be
+#: 50 sweep points' work at full width)
+ADAPTIVE_EPS, ADAPTIVE_STEPS, ADAPTIVE_SWEEP, ADAPTIVE_STRONG_STEPS = 8 / 255, 10, (0.0, 2.0, 5.0), 20
+
+
+def _adaptive_evaluation(tag: str, path: str, model, det, images, texts, variants, refs, score_batch) -> dict:
+    """run_adaptive_evaluation against ``det`` with ``score_batch`` (the
+    detector's own detect_batch) as the production scoring path: the
+    launch counts set to 0 just before the clean scores and read after the
+    strong pass (every kernel of ``path``, no other), the eps-ball and
+    [0, 1] checked on every attacked batch it scores (each lambda and the
+    strong pass), each row reported. Returns the first attacked batch
+    (lambda ADAPTIVE_SWEEP[0]) under ``first_attacked``."""
+    import torch
+
+    from tvc_torch.attacks import AdaptiveAttackConfig, run_adaptive_evaluation
+    from tvc_torch.core.kernels import launch_counts, reset_launch_counts
+
+    balls, first = [], []
+
+    def scored(adv):
+        balls.append(_check_ball(f"[{tag}]", adv, images, ADAPTIVE_EPS))
+        if not first:
+            first.append(adv)
+        return score_batch(adv)
+
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    clean = np.asarray(score_batch(images))
+    out = run_adaptive_evaluation(
+        model, det, images, texts, variants, refs, clean, sweep=ADAPTIVE_SWEEP,
+        attack_config=AdaptiveAttackConfig(epsilon=ADAPTIVE_EPS, num_steps=ADAPTIVE_STEPS), score_batch=scored,
+        strong_steps=ADAPTIVE_STRONG_STEPS)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = launch_counts()
+    _check_path_counts(counts, path, "adaptive evaluation")
+    if len(balls) != len(ADAPTIVE_SWEEP) + 1:
+        raise AssertionError(f"[{tag}] scored {len(balls)} attacked batches, expected {len(ADAPTIVE_SWEEP) + 1}")
+    lo, hi = out["band"]
+    log(f"[{tag}] band [{lo:.4f}, {hi:.4f}] from {len(clean)} clean scores; {ADAPTIVE_STEPS} steps a sweep point, "
+        f"strong pass {ADAPTIVE_STRONG_STEPS} steps; {secs:.3f} s; max linf {max(balls):.6f}; launches {counts}")
+    for name, row in [*((f"lambda {k}", v) for k, v in out["sweep"].items()),
+                      (f"strong (lambda {out['strong']['penalty_weight']})", out["strong"])]:
+        log(f"[{tag}] {name}: attack_success_rate {row['attack_success_rate']:.4f}, detection_rate "
+            f"{row['detection_rate']:.4f}, auroc_band {row['auroc_band']:.4f}, evasion_success_rate "
+            f"{row['evasion_success_rate']:.4f}, mean aggregated {row['mean_aggregated']:.4f}")
+    return {"evaluation": out, "launches": counts, "seconds": secs, "max_linf": max(balls),
+            "first_attacked": first[0]}
+
+
+def _adaptive_full_width(card: dict, det) -> dict:
+    """The defense-aware attack on the slice phase's ViT-B/32 bf16 (B_ATTACK
+    seeded 224 px images, real COCO variants): the detector calibrated
+    two-sided on the clean images, AdaptiveAttacker(base="pgd") timed at
+    lambda 2, then run_adaptive_evaluation scored by that detector's
+    detect_batch (the fused step: consistency and layer kernels); the
+    clean batch and the evaluation's lambda-0 batch, the shapes that
+    evaluation scores, held against the same detector on the plain
+    versions."""
+    import torch
+
+    import tvc_torch.models.clip as clip_mod
+    import tvc_torch.parallel.steps as steps_mod
+    from tvc_torch.attacks import AdaptiveAttackConfig, AdaptiveAttacker
+    from tvc_torch.core.kernels import attention_layer_reference, consistency_scores_reference, mlp_layer_reference
+
+    model = det.model
+    size = model.config.image_size
+    images = np.random.default_rng(21).random((B_ATTACK, size, size, 3), dtype=np.float32)
+    texts, variants = coco_variant_batch(B_ATTACK, V_DEFENDED)
+    R = det.config.num_reference_images
+    refs = det.retriever.retrieve_reference_embeddings(texts, top_k=R)  # the text-retrieved bank rows
+    lo, hi = det.calibrate_two_sided(det.detect_batch(images, texts, variants).aggregated_score)
+    cfg = AdaptiveAttackConfig(epsilon=ADAPTIVE_EPS, num_steps=ADAPTIVE_STEPS, band_lower=lo, band_upper=hi)
+    attacker = AdaptiveAttacker(model, cfg)
+    attacker.attack(images[:2], texts[:2], variants[:2], refs[:2], penalty_weight=2.0)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = attacker.attack(images, texts, variants, refs, penalty_weight=2.0)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    linf = _check_ball("adaptive ViT-B/32", res.adv_images, images, cfg.epsilon)
+    log(f"[adaptive] AdaptiveAttacker pgd base, lambda 2, {ADAPTIVE_STEPS} steps, eps 8/255 on "
+        f"{model.config.model_name} {model.config.dtype}, B={B_ATTACK}, V={V_DEFENDED}, R={R}: "
+        f"{B_ATTACK / secs:.1f} attacked images/s ({secs:.3f} s), peak {peak:.2f} GiB, linf {linf:.6f}, "
+        f"inside the band (self-scored) {float(np.mean(res.info['inside_band'])):.4f}, mean cos(image, text) "
+        f"{res.final_similarity.mean():.4f} on {card['smi']}")
+    ev = _adaptive_evaluation("adaptive", "adaptive", model, det, images, texts, variants, refs,
+                              lambda x: det.detect_batch(x, texts, variants).aggregated_score)
+    patches = [
+        (clip_mod, "fused_attention_layer", attention_layer_reference),
+        (clip_mod, "fused_mlp_layer", mlp_layer_reference),
+        (steps_mod, "fused_consistency_scores", consistency_scores_reference),
+    ]
+    held = {what: hold_defended_batch("adaptive", det, batch, texts, variants, patches)
+            for what, batch in (("clean", images), (f"lambda {ADAPTIVE_SWEEP[0]}", ev.pop("first_attacked")))}
+    log(f"[adaptive] held against the plain versions at B={B_ATTACK}: " + ", ".join(
+        f"{what} flag agreement {h['flag_agreement']:.4f}, max |d aggregated| {h['max_abs_d_aggregated_same_refs']:.3e}"
+        for what, h in held.items()))
+    return {**ev, "images_per_s": B_ATTACK / secs, "peak_gib": peak,
+            "held": {what: {k: v for k, v in h.items() if k != "result"} for what, h in held.items()}}
 
 
 def phase_attack(card: dict, bf16: dict) -> dict:
-    """Detect under attack: the full-width PGD and detection, then the
-    trained fixture."""
+    """Detect under attack: the full-width PGD and detection, the
+    full-width adaptive evaluation, then the trained fixture."""
     import tempfile
 
     out = {"attack": _attack_full_width(card, bf16["detector"])}
+    out["adaptive"] = _adaptive_full_width(card, bf16["detector"])
     with tempfile.TemporaryDirectory() as tmp:
         out.update(_attack_fixture(card, Path(tmp)))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase sd: the generative references
+# ---------------------------------------------------------------------------
+
+N_SD = 8  # captions of the sd phase: x 3 references, a CFG batch of 48 in each UNet call
+# One UNet call, bf16 against f32 on the same inputs and parameters, the
+# largest over rows of the output of 1 - cos and of the relative L2. On
+# the H100 the sound UNet reads 1.298e-4 and 1.612e-2 (bf16 rounds every
+# activation and weight to 2^-9, ~150 operations deep); with its timestep
+# embedding taken in bf16 (a control run beside it every time, which the
+# limits must catch) 1.246e-2 and 1.607e-1. Each limit sits near the
+# geometric mean of the two. GroupNorm statistics or attention logits
+# taken in bf16 move the reading by 2 %, inside bf16's own noise: no limit
+# on the whole UNet sees them, tests/test_torch_sd.py's bf16 block tests do.
+SD_DIRECTION_TOL, SD_REL_L2_TOL = 1e-3, 5e-2
+SD_CAUGHT_CONTROL = "timestep embedding in bf16"
+
+
+def phase_sd(card: dict, bf16: dict) -> dict:
+    """The generative references at full width: StableDiffusionModel at
+    the SD-1.5 shape class (seeded random weights, bf16, 512 px, 20 DDIM
+    steps, CFG 7.5) behind SDReferenceGenerator(SDReferenceConfig()) with
+    the slice phase's ViT-B/32 bf16 as its CLIP, feeding an
+    AdversarialDetector with no retriever (R = 3, V = 6; the staged path:
+    the vision encode of the queries and of the generated images and the
+    text towers through the layer kernels, then the consistency kernel) on
+    N_SD COCO captions and N_SD of the slice phase's images. Held:
+    generation bit-equal over two calls, images in [0, 1] on the 1/255
+    grid, one UNet call bf16 against f32 in direction and relative L2
+    (SD_DIRECTION_TOL, SD_REL_L2_TOL; the SD_CAUGHT_CONTROL slip must part
+    by more), the detector on the same SD reference vectors against its
+    plain versions (LAYER_TOL, flags equal away from the threshold), and
+    the references' vision encode against its plain version
+    (MHA_COS_TOL)."""
+    import dataclasses
+
+    import torch
+
+    import tvc_torch.detector as det_mod
+    import tvc_torch.models.clip as clip_mod
+    from tvc_torch.core.kernels import (
+        attention_layer_reference, consistency_scores_reference, launch_counts, mlp_layer_reference,
+        reset_launch_counts,
+    )
+    from tvc_torch.detector import AdversarialDetector, DetectorConfig
+    import tvc_torch.models.sd as sd_mod
+    from tvc_torch.models.sd import SDConfig, StableDiffusionModel, UNet, compute_params, load_params
+    from tvc_torch.sd_ref import SDReferenceConfig, SDReferenceGenerator
+
+    model = bf16["detector"].model
+    cfg = SDConfig()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sd = StableDiffusionModel(cfg, seed=0)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for m in (sd.unet, sd.vae_enc, sd.vae_dec) for p in m.parameters())
+    log(f"[sd] StableDiffusionModel(SDConfig()): {cfg.image_size} px, UNet base {cfg.unet_base} mults "
+        f"{cfg.unet_mults}, VAE base {cfg.vae_base}, {cfg.dtype}, {cfg.num_inference_steps} DDIM steps, CFG "
+        f"{cfg.guidance_scale}: {n_params} seeded random parameters initialized on the card in "
+        f"{time.perf_counter() - t0:.2f} s")
+    ref_cfg = SDReferenceConfig()
+    gen = SDReferenceGenerator(sd, ref_cfg, clip_model=model)
+    if gen.cache is not None:
+        raise AssertionError("the sd phase generates with no cache")
+    n = ref_cfg.num_images
+    texts, variants = coco_variant_batch(N_SD, V_DEFENDED, order="captions")
+    images = bf16["inputs"][0][:N_SD]
+
+    # -- generation: images/s, determinism, range
+    sd.generate_images_batch(texts[:1], 1, seed=ref_cfg.base_seed, num_inference_steps=2)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    first = sd.generate_images_batch(texts, n, seed=ref_cfg.base_seed)
+    gen_secs = time.perf_counter() - t0
+    second = sd.generate_images_batch(texts, n, seed=ref_cfg.base_seed)
+    a, b = (np.stack([np.stack(p) for p in x]) for x in (first, second))
+    if a.shape != (N_SD, n, cfg.image_size, cfg.image_size, 3) or not np.array_equal(a, b):
+        raise AssertionError(f"SD generation is not deterministic per seed (shape {a.shape})")
+    if a.min() < 0.0 or a.max() > 1.0 or not np.array_equal(a * 255.0, np.round(a * 255.0)):
+        raise AssertionError("SD images leave [0, 1] or the 1/255 grid")
+    log(f"[sd] {N_SD} captions x {n} images (CFG batch {2 * N_SD * n}): {N_SD * n / gen_secs:.2f} SD reference "
+        f"images/s ({gen_secs:.3f} s), bit-equal over two calls, pixel mean {a.mean():.4f} std {a.std():.4f} on "
+        f"{card['smi']}")
+
+    # -- one CFG UNet step and the VAE decode, device time
+    B = N_SD * n
+    lat = sd.initial_latents(B, ref_cfg.base_seed)
+    with torch.no_grad():
+        ctx = torch.cat([sd._text_encoder([""] * N_SD), sd._text_encoder(texts)]).repeat_interleave(n, dim=0)
+    lat2, tvec = torch.cat([lat, lat]), torch.full((2 * B,), 951.0, device=lat.device)
+    step_ms = time_ms(lambda: sd._apply("unet", lat2, tvec, ctx), iters=3, warmup=1)
+    dec_ms = time_ms(lambda: sd._apply("vae_dec", lat / cfg.vae_scale), iters=3, warmup=1)
+    log(f"[sd] one CFG UNet call at B={2 * B}: {step_ms:.3f} ms; VAE decode at B={B}: {dec_ms:.3f} ms "
+        f"(CUDA events) on {card['smi']}")
+
+    # -- one UNet call, bf16 against f32 on the same inputs, in direction and
+    # in relative L2; then the same call with one of two plausible bf16 slips
+    # (SD_CONTROLS), which the limits must catch
+    f32_unet = UNet(dataclasses.replace(cfg, dtype=torch.float32), device=lat.device)
+    load_params(f32_unet, sd.params["unet"])
+    rows = slice(B - 2, B + 2)  # two unconditional and two conditional rows
+    with torch.no_grad():
+        want = torch.func.functional_call(f32_unet, compute_params(f32_unet),
+                                          (lat2[rows], tvec[rows], ctx[rows])).flatten(1)
+    del f32_unet
+
+    def unet_error() -> tuple:
+        with torch.no_grad():
+            got = sd._apply("unet", lat2[rows], tvec[rows], ctx[rows]).flatten(1).float()
+        cos = 1 - torch.nn.functional.cosine_similarity(got, want, dim=-1)
+        rel = torch.linalg.vector_norm(got - want, dim=-1) / torch.linalg.vector_norm(want, dim=-1)
+        return float(cos.max()), float(rel.max())
+
+    def gn_bf16_statistics(self, x):
+        B_, C = x.shape[0], x.shape[-1]
+        xg = x.to(torch.bfloat16).reshape(B_, -1, self.groups, C // self.groups)
+        mean = xg.mean(dim=(1, 3), keepdim=True)
+        var = torch.clamp(torch.square(xg).mean(dim=(1, 3), keepdim=True) - torch.square(mean), min=0.0)
+        y = sd_mod._normalize(xg, mean.float(), var.float(), self.scale.reshape(self.groups, -1),
+                              self.bias.reshape(self.groups, -1), 1e-6)
+        return y.reshape(x.shape).to(self.dtype)
+
+    def mha_bf16_logits(self, q_in, kv_in, name):
+        B_, _, C = q_in.shape
+        hd = C // self.heads
+        q, k, v = (getattr(self, f"{name}_{part}")(t).reshape(B_, -1, self.heads, hd).transpose(1, 2)
+                   for part, t in (("q", q_in), ("k", kv_in), ("v", kv_in)))
+        logits = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(hd)  # in the compute dtype
+        w = torch.softmax(logits.float(), dim=-1).to(self.dtype)
+        return getattr(self, f"{name}_o")(torch.matmul(w, v).transpose(1, 2).reshape(B_, -1, C))
+
+    def timestep_embedding_bf16(t, dim):
+        half = dim // 2
+        freqs = torch.exp(-math.log(10000.0) * torch.arange(half, dtype=torch.float32, device=t.device) / half)
+        args = t.to(torch.bfloat16)[:, None] * freqs.to(torch.bfloat16)[None]
+        return torch.cat([torch.cos(args), torch.sin(args)], dim=-1).float()
+
+    one_minus_cos, rel = unet_error()
+    controls = {}
+    for what, owner, name, slip in (
+            ("GroupNorm statistics in bf16", sd_mod.GroupNorm, "forward", gn_bf16_statistics),
+            ("attention logits in bf16", sd_mod.AttnBlock, "_mha", mha_bf16_logits),
+            ("timestep embedding in bf16", sd_mod, "timestep_embedding", timestep_embedding_bf16)):
+        with mock.patch.object(owner, name, slip):
+            controls[what] = unet_error()
+    log(f"[sd] one UNet call, bf16 vs f32 on the same inputs: 1 - cos {one_minus_cos:.3e} (tol "
+        f"{SD_DIRECTION_TOL}), relative L2 {rel:.3e} (tol {SD_REL_L2_TOL}); controls (1 - cos, relative L2): "
+        + ", ".join(f"{k} ({c:.3e}, {r:.3e})" for k, (c, r) in controls.items()))
+    if one_minus_cos > SD_DIRECTION_TOL or rel > SD_REL_L2_TOL:
+        raise AssertionError("the bf16 UNet parts from the f32 UNet")
+    if not all(v > tol for v, tol in zip(controls[SD_CAUGHT_CONTROL], (SD_DIRECTION_TOL, SD_REL_L2_TOL))):
+        raise AssertionError(f"the limits no longer catch the control '{SD_CAUGHT_CONTROL}'")
+
+    # -- the detector with SD references (no retriever: the staged path)
+    dcfg = DetectorConfig(num_text_variants=V_DEFENDED, num_reference_images=n)
+    recorded = []
+
+    def references(t, k):
+        recorded.append(gen.generate_reference_vectors(t, k))
+        return recorded[-1]
+
+    det = AdversarialDetector(model, dcfg, reference_generator=references)
+    # warm-up of the references' resize to the CLIP size (the native
+    # library builds at its first use)
+    model.encode_image([np.zeros((cfg.image_size, cfg.image_size, 3), np.uint8)])
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    res = det.detect_batch(images, texts, variants)
+    torch.cuda.synchronize()
+    det_secs = time.perf_counter() - t0
+    counts = launch_counts()
+    log(f"[sd] detector with SD references (B={N_SD}, V={V_DEFENDED}, R={n}): {N_SD / det_secs:.3f} queries/s "
+        f"({det_secs:.3f} s, generation included); launches {counts} on {card['smi']}")
+    _check_path_counts(counts, "sd", "detector with SD references")
+    refs = recorded[-1]
+    norms = np.linalg.norm(refs, axis=-1)
+    if refs.shape != (N_SD, n, model.config.embed_dim) or not np.allclose(norms[norms > 0], 1.0, atol=1e-3) \
+            or not np.all(np.isfinite(res.aggregated_score)):
+        raise AssertionError(f"bad SD reference vectors {refs.shape} or scores")
+    log(f"[sd] generator stats {gen.get_stats()}: {int((norms > 0).sum())} of {N_SD * n} references kept by "
+        f"the quality filter")
+
+    # held against the plain versions, the same SD reference vectors passed in
+    fixed = AdversarialDetector(model, dcfg, reference_generator=lambda t, k: refs)
+    got = fixed.detect_batch(images, texts, variants)
+    with ExitStack() as stack:
+        for module, name, plain in ((clip_mod, "fused_attention_layer", attention_layer_reference),
+                                    (clip_mod, "fused_mlp_layer", mlp_layer_reference),
+                                    (det_mod, "fused_consistency_scores", consistency_scores_reference)):
+            stack.enter_context(mock.patch.object(module, name, plain))
+        want = fixed.detect_batch(images, texts, variants)
+    thr = fixed.threshold_manager.get_threshold()
+    d = np.abs(got.aggregated_score - want.aggregated_score)
+    away = np.abs(want.aggregated_score - thr) > LAYER_TOL
+    log(f"[sd] kernel vs plain path on the same SD references: max |d aggregated| {d.max():.3e} (tol {LAYER_TOL}); "
+        f"flags equal {int((got.is_adversarial == want.is_adversarial)[away].sum())} of the {int(away.sum())} "
+        f"scores more than tol from the threshold {thr}; aggregated {np.round(got.aggregated_score, 4).tolist()}")
+    if d.max() > LAYER_TOL or not np.all((got.is_adversarial == want.is_adversarial)[away]):
+        raise AssertionError("the detector with SD references disagrees with its plain version")
+
+    # the references' vision encode (N_SD * n resized 8-bit 512 px images, a
+    # batch only this path encodes) against the same encode on the plain
+    # versions, held by direction as phase mha holds a bf16 tower; with no
+    # image filtered it is the batch the detector encoded, bit for bit
+    pixels = [np.round(im * 255.0).astype(np.uint8) for im in a.reshape(-1, *a.shape[2:])]
+    reset_launch_counts()
+    with torch.no_grad():
+        emb = model.encode_image(pixels).float()
+    torch.cuda.synchronize()
+    enc_counts = launch_counts()
+    if {k for k, v in enc_counts.items() if v} != {"fused_attention_layer", "fused_mlp_layer"}:
+        raise AssertionError(f"the references' encode launched {enc_counts}")
+    with ExitStack() as stack:
+        for name, plain in (("fused_attention_layer", attention_layer_reference),
+                            ("fused_mlp_layer", mlp_layer_reference)):
+            stack.enter_context(mock.patch.object(clip_mod, name, plain))
+        with torch.no_grad():
+            plain_emb = model.encode_image(pixels).float()
+    if launch_counts() != enc_counts:
+        raise AssertionError("the plain encode launched a kernel")
+    enc_cos = float((1 - torch.nn.functional.cosine_similarity(emb, plain_emb, dim=-1)).max())
+    same = np.array_equal(emb.cpu().numpy(), refs.reshape(-1, refs.shape[-1]))
+    log(f"[sd] the references' encode (B={len(pixels)}, {cfg.image_size} px resized to {model.config.image_size}): "
+        f"launches {enc_counts}; kernel vs plain 1 - cos {enc_cos:.3e} (tol {MHA_COS_TOL}), max |d| "
+        f"{float((emb - plain_emb).abs().max()):.3e}; equal to the detector's reference vectors: {same}")
+    if enc_cos > MHA_COS_TOL or not bool(torch.isfinite(emb).all()) \
+            or (gen.stats["filtered_out"] == 0 and not same):
+        raise AssertionError("the references' encode disagrees with its plain version or with the detector's")
+    profile_batch("sd", lambda: det.detect_batch(images, texts, variants))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[sd] peak memory over the phase {peak:.2f} GiB on {card['smi']}")
+    out = {"launches": counts, "images_per_s": N_SD * n / gen_secs, "unet_step_ms": step_ms,
+           "vae_decode_ms": dec_ms, "qps": N_SD / det_secs, "peak_gib": peak,
+           "one_minus_cos": one_minus_cos, "relative_l2": rel, "controls": controls,
+           "encode_one_minus_cos": enc_cos}
+    del sd, gen, det, fixed
+    torch.cuda.empty_cache()
     return out
 
 
@@ -1814,17 +2218,8 @@ QWEN_MEDIAN_TOL, QWEN_MAX_TOL, QWEN_TOP1 = 2e-2, 0.5, 0.9
 
 def coco_captions(n: int):
     """The first n captions in the order of the JAX package's
-    ``load_coco_captions()`` (one caption per image, the pairs permuted
-    with default_rng(12345)), read from the bundled asset."""
-    with gzip.open(REPO / "tvc" / "assets" / "coco_captions_val2017.json.gz", "rt") as f:
-        pairs = json.load(f)
-    seen, one = set(), []
-    for img_id, cap in pairs:
-        if img_id not in seen:
-            seen.add(img_id)
-            one.append(cap.strip())
-    order = np.random.default_rng(12345).permutation(len(one))
-    return [one[int(i)] for i in order[:n]]
+    ``load_coco_captions()``, read from the bundled asset."""
+    return coco_variant_batch(n, 0, order="captions")[0]
 
 
 def qwen_expected_launches(cfg, prefix_len: int, steps: int, prompts: int = 1, suffix_len: int = 1,
@@ -2661,6 +3056,8 @@ def main() -> int:
         tiny = phase_tiny(card)
     with phase("attack"):
         attack = phase_attack(card, bf16)
+    with phase("sd"):
+        sd = phase_sd(card, bf16)
     with phase("qwen"):
         qwen = phase_qwen(card)
     with phase("pipeline"):
@@ -2675,7 +3072,7 @@ def main() -> int:
         large = phase_large_bank(card)
     kres["bank_topk"]["shapes"].append(large["shape"])
     paths = {"bf16": bf16, "int8": int8, "qwen": qwen, "pipeline": pipeline, "mha": mha, "retrieval": retrieval,
-             **tiny, **{k: v for k, v in attack.items() if k in PATH_KERNELS}}
+             **tiny, **{k: v for k, v in attack.items() if k in PATH_KERNELS}, "sd": sd}
     kernels = []
     for name, (source, replaces) in KERNEL_SOURCES.items():
         shapes = kres[name]["shapes"]
@@ -2706,6 +3103,15 @@ def main() -> int:
             f"{k} {v['auroc']:.4f} / {v['tpr_at_5pct_fpr']:.4f}"
             for k, v in attack["fixture serving"]["detection"].items())
         + f"; hubness hijack mean {attack['hijack_mean']:.4f} on {card['smi']}")
+    adaptive = attack["adaptive"]
+    log(f"adaptive attack on ViT-B/32: {adaptive['images_per_s']:.1f} attacked images/s, peak "
+        f"{adaptive['peak_gib']:.2f} GiB; per lambda (attack_success_rate / detection_rate / auroc_band) " + ", ".join(
+            f"{k}: {v['attack_success_rate']:.4f} / {v['detection_rate']:.4f} / {v['auroc_band']:.4f}"
+            for k, v in adaptive["evaluation"]["sweep"].items())
+        + f"; tiny_coco fixture alt-stack AUROC clean vs PGD {attack['alt_auroc']:.4f} on {card['smi']}")
+    log(f"SD references (SD-1.5 shape, bf16, 512 px, 20 steps, CFG batch {2 * N_SD * 3}): {sd['images_per_s']:.2f} "
+        f"images/s, {sd['unet_step_ms']:.3f} ms per CFG UNet call, VAE decode {sd['vae_decode_ms']:.3f} ms, "
+        f"detector with SD references {sd['qps']:.3f} queries/s, peak {sd['peak_gib']:.2f} GiB on {card['smi']}")
     log(f"retrieval: native resize {retrieval['host_ms_per_image']:.3f} host ms per image; text index "
         f"{retrieval['text_index_s']:.2f} s; tie order {retrieval['ties']}; large bank_topk peak memory: the "
         f"wrapper's {large['wrapper_peak_gib']:.2f} GiB, the phase's {large['peak_gib']:.2f} GiB")

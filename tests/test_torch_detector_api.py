@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 from PIL import Image
 
+from test_torch_native_ready import jax_native_ready
 from tvc.detector import AdversarialDetector as JDetector, DetectorConfig as JDetConfig
 from tvc.detector import EnsembleDetector as JEnsemble
 from tvc.models.clip import CLIPConfig as JConfig, CLIPModel as JModel
@@ -88,6 +89,7 @@ def test_detect_adversarial_matches_jax(pair):
                  jd.detect_adversarial(images[2], TEXTS[2], methods=methods))
     assert td.config.methods == ("text_variants", "sd_reference", "consistency")
     # a PIL photo of another size: resized as the JAX package resizes it
+    jax_native_ready()
     photo = Image.fromarray((np.random.default_rng(1).random((45, 61, 3)) * 255).astype(np.uint8))
     _same_single(td.detect_adversarial(photo, TEXTS[3]), jd.detect_adversarial(photo, TEXTS[3]))
 

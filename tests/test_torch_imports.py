@@ -125,3 +125,62 @@ def test_chip_smoke_fails_without_a_card(no_cuda):
     import chip_smoke
 
     assert chip_smoke.main() == 1
+
+
+#: the detect-under-attack and generative-reference modules: each port file
+#: and the JAX file it ports
+SLICE_PAIRS = (
+    ("tvc_torch/attacks/adaptive.py", "tvc/attacks/adaptive.py"),
+    ("tvc_torch/defenses/__init__.py", "tvc/defenses/__init__.py"),
+    ("tvc_torch/defenses/consistency_checker.py", "tvc/defenses/consistency_checker.py"),
+    ("tvc_torch/defenses/detector.py", "tvc/defenses/detector.py"),
+    ("tvc_torch/bank/store.py", "tvc/bank/store.py"),
+    ("tvc_torch/models/sd.py", "tvc/models/sd.py"),
+    ("tvc_torch/sd_ref.py", "tvc/sd_ref.py"),
+)
+
+
+def _public_names(path: Path) -> set:
+    """Top-level public classes, functions and constants, each public
+    class's public methods (``Class.method``), and a package's re-exports."""
+    names = set()
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            names.add(node.name)
+            if isinstance(node, ast.ClassDef):
+                names |= {f"{node.name}.{f.name}" for f in node.body
+                          if isinstance(f, ast.FunctionDef) and not f.name.startswith("_")}
+        elif isinstance(node, ast.Assign):
+            names |= {t.id for t in node.targets if isinstance(t, ast.Name)}
+        elif isinstance(node, ast.ImportFrom) and path.name == "__init__.py":
+            names |= {a.asname or a.name for a in node.names}
+    return {n for n in names if not n.split(".")[-1].startswith("_")}
+
+
+@pytest.mark.parametrize("port,ref", SLICE_PAIRS)
+def test_slice_modules_have_the_reference_public_names(port, ref):
+    want = _public_names(REPO / ref)
+    missing = want - _public_names(REPO / port)
+    assert not missing, missing
+
+
+def test_slice_modules_load_no_sklearn_at_import():
+    code = (
+        "import json, sys\n"
+        "import tvc_torch.attacks.adaptive, tvc_torch.defenses, tvc_torch.bank.store, tvc_torch.models.sd\n"
+        "import tvc_torch.sd_ref\n"
+        "print(json.dumps(sorted(sys.modules)))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120,
+                         check=True)
+    loaded = json.loads(out.stdout.strip().splitlines()[-1])
+    bad = [m for m in loaded if m.split(".")[0] in FORBIDDEN + ("sklearn",)]
+    assert not bad, bad
+
+
+def test_sd_without_device_raises_when_cuda_is_absent(no_cuda):
+    from tvc_torch.models.sd import SDConfig, StableDiffusionModel
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        StableDiffusionModel(SDConfig.tiny())
+    assert StableDiffusionModel(SDConfig.tiny(), device="cpu").device.type == "cpu"

@@ -7,7 +7,7 @@ import numpy as np
 import pytest
 from PIL import Image
 
-from tvc import native as jax_native
+from test_torch_native_ready import jax_native_ready
 from tvc.models import clip as jax_clip
 from tvc_torch import native
 from tvc_torch.models import clip as torch_clip
@@ -26,8 +26,7 @@ def _inputs(seed: int):
 
 
 def test_native_library_matches_jax_native():
-    if not jax_native.available():
-        pytest.skip("the JAX package's native image library is not built here")
+    jax_native = jax_native_ready()
     rng = np.random.default_rng(0)
     batch = rng.integers(0, 256, (3, 40, 57, 3), dtype=np.uint8)
     for size in (32, 64):
@@ -49,8 +48,7 @@ def test_native_library_matches_jax_native():
 def test_preprocess_normalized_takes_the_native_resize(size):
     """normalize=True: every input is an [h, w, 3] image, so both sides
     resize natively (1e-5)."""
-    if not jax_native.available():
-        pytest.skip("the JAX package's native image library is not built here")
+    jax_native_ready()
     images = _inputs(1)
     got = torch_clip.preprocess_images(images, size)
     want = jax_clip.preprocess_images(images, size)
@@ -75,10 +73,10 @@ def test_preprocess_non_rgb_arrays_take_pil_branch():
     rng = np.random.default_rng(3)
     gray = Image.fromarray(rng.integers(0, 256, (20, 30), dtype=np.uint8))
     images = [gray, rng.integers(0, 256, (32, 32, 3), dtype=np.uint8)]
-    if jax_native.available():
-        np.testing.assert_allclose(
-            torch_clip.preprocess_images(images, 16), jax_clip.preprocess_images(images, 16), atol=1e-5
-        )
+    jax_native_ready()
+    np.testing.assert_allclose(
+        torch_clip.preprocess_images(images, 16), jax_clip.preprocess_images(images, 16), atol=1e-5
+    )
     np.testing.assert_array_equal(
         torch_clip.preprocess_images(images, 16, normalize=False),
         jax_clip.preprocess_images(images, 16, normalize=False),

@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 from PIL import Image
 
+from test_torch_native_ready import jax_native_ready
 from tvc.models.clip import CLIPConfig as JConfig, CLIPModel as JModel
 from tvc.retrieval import MultiModalRetriever as JRetriever, RetrievalConfig as JRetrievalConfig
 from tvc_torch.models.clip import CLIPConfig, CLIPModel, params_from_jax
@@ -24,23 +25,34 @@ ASSETS = Path(__file__).resolve().parent.parent / "tvc" / "assets"
 TOL = 2e-5
 
 
+def _photos_and_pixels():
+    rng = np.random.default_rng(5)
+    pixels = rng.random((6, 32, 32, 3)).astype(np.float32)
+    photos = [Image.fromarray(rng.integers(0, 256, (h, w, 3), dtype=np.uint8)) for h, w in
+              ((48, 64), (37, 50), (32, 32), (90, 60))]
+    return photos, pixels
+
+
+def _image_index_inputs(photos, pixels):
+    return photos + [Image.fromarray((p * 255).astype(np.uint8)) for p in pixels]
+
+
 @pytest.fixture(scope="module")
 def pair():
+    # the JAX side resizes the off-size photos natively, as the port does
+    jax_native_ready()
     jm = JModel(JConfig.tiny_coco(), seed=0)
     cfg = CLIPConfig.tiny_coco()
     tm = CLIPModel(cfg, params=params_from_jax(jax.tree_util.tree_map(np.asarray, jm.params), cfg), device="cpu")
     with gzip.open(ASSETS / "coco_captions_val2017.json.gz", "rt") as f:
         caps = [c.strip() for _, c in json.load(f)[:90]]
     caps += caps[:6]  # duplicated captions: equal embeddings, ties in every search
-    rng = np.random.default_rng(5)
-    pixels = rng.random((6, 32, 32, 3)).astype(np.float32)
-    photos = [Image.fromarray(rng.integers(0, 256, (h, w, 3), dtype=np.uint8)) for h, w in
-              ((48, 64), (37, 50), (32, 32), (90, 60))]
+    photos, pixels = _photos_and_pixels()
     kw = dict(top_k=7, batch_size=40)
     jr, tr = JRetriever(jm, JRetrievalConfig(**kw)), MultiModalRetriever(tm, RetrievalConfig(**kw))
     for r in (jr, tr):
         r.build_text_index(caps)
-        r.build_image_index(photos + [Image.fromarray((p * 255).astype(np.uint8)) for p in pixels])
+        r.build_image_index(_image_index_inputs(photos, pixels))
     return jr, tr, caps, pixels, photos
 
 
@@ -56,6 +68,23 @@ def test_indexes_match_jax(pair):
     assert tr.text_bank.size == jr.text_bank.size == len(caps)
     for j, t in ((jr.text_bank, tr.text_bank), (jr.image_bank, tr.image_bank)):
         np.testing.assert_allclose(t._bank[: t.size].numpy(), np.asarray(j._bank)[: j.size], atol=TOL, rtol=0)
+
+
+def test_image_index_matches_jax_after_a_lost_build_race(pair):
+    """A process that lost the race to build tvc.native's library (the
+    loader's failure remembered) recovers through jax_native_ready, and the
+    JAX image index built after it equals the port's."""
+    from tvc import native
+
+    jr, tr, *_ = pair
+    native._TRIED, native._LIB = True, None
+    jax_native_ready()
+    photos, pixels = _photos_and_pixels()
+    fresh = JRetriever(jr.model, JRetrievalConfig(top_k=7, batch_size=40))
+    fresh.build_image_index(_image_index_inputs(photos, pixels))
+    t = tr.image_bank
+    np.testing.assert_allclose(t._bank[: t.size].numpy(), np.asarray(fresh.image_bank._bank)[: t.size], atol=TOL,
+                               rtol=0)
 
 
 def test_retrieve_texts_by_image_matches_jax(pair):

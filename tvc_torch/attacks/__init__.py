@@ -1,7 +1,14 @@
 """Attack suite (port of ``tvc/attacks``): six image attacks against CLIP
 and the text attack, differentiated through ``torch.autograd`` over the
-einsum module. The adaptive attacker is not ported yet."""
+einsum module, and the defense-aware adaptive attacker."""
 
+from tvc_torch.attacks.adaptive import (  # noqa: F401
+    AdaptiveAttackConfig,
+    AdaptiveAttacker,
+    DEFAULT_PENALTY_SWEEP,
+    create_adaptive_attacker,
+    run_adaptive_evaluation,
+)
 from tvc_torch.attacks.common import (  # noqa: F401
     AttackResult,
     AttackStats,
