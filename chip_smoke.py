@@ -67,6 +67,24 @@ Phases (each raises on failure; the script then exits non-zero):
      slips (the limits must catch the timestep-embedding one), the
      references' vision encode and the detector on the same references
      against their plain versions; the model freed before qwen;
+  weights: the model lifecycle. (a) make_train_step on the slice phase's
+     ViT-B/32 (bf16 compute, f32 parameters and AdamW state), 20 steps at
+     lr 1e-4 on one batch of 256 rendered 224 px COCO pairs: training
+     pairs/s (CUDA events after 2 warm-up steps), peak memory, a profile,
+     the loss finite and falling, the first step's loss against an f32
+     recomputation (TRAIN_LOSS_TOL); the trained weights installed and
+     detect_batch at B=256, V=6 held against the plain versions; (b)
+     train_clip_fixture_coco() at its defaults to its stop rule (retrieval
+     >= 0.92, cross_text_cos >= 0.45), its metrics beside the recorded
+     asset's, saved under build/weights and read back bit-equal, served
+     through the f32 layer kernels against plain; (c) published layouts
+     written under build/weights with seeded values: an HF CLIPModel
+     ViT-B/32 as model.safetensors and as pytorch_model.bin (both loaded by
+     load_clip_weights, bit-equal trees, the load seconds, served against
+     plain), a diffusers SD-1.5 checkout (f16 unet/ and vae/) through
+     load_sd_weights driven as the sd phase (drive_sd), and an HF
+     Qwen2-1.5B (BF16 safetensors) through load_qwen_weights, w8, its
+     teacher-forced logits against the plain w8 path; the files deleted;
   qwen: Qwen2-7B at full width (int8 W8A8, seeded random weights)
      paraphrasing 192 COCO captions x 3 with 16 new tokens through
      QwenModel.generate_paraphrases_batch (decode batch 576): launch counts
@@ -1247,6 +1265,10 @@ PATH_KERNELS = {
     "fixture f32 layers": ("fused_consistency_scores", "fused_attention_layer", "fused_mlp_layer"),
     "adaptive": ("fused_consistency_scores", "fused_attention_layer", "fused_mlp_layer"),
     "sd": ("fused_consistency_scores", "fused_attention_layer", "fused_mlp_layer"),
+    "weights trained": ("fused_consistency_scores", "fused_attention_layer", "fused_mlp_layer"),
+    "weights fixture": ("fused_consistency_scores", "fused_attention_layer", "fused_mlp_layer"),
+    "weights clip": ("fused_consistency_scores", "fused_attention_layer", "fused_mlp_layer"),
+    "weights sd": ("fused_consistency_scores", "fused_attention_layer", "fused_mlp_layer"),
 }
 B_DEFENDED, V_DEFENDED = 256, 6
 
@@ -1975,38 +1997,66 @@ SD_DIRECTION_TOL, SD_REL_L2_TOL = 1e-3, 5e-2
 SD_CAUGHT_CONTROL = "timestep embedding in bf16"
 
 
+def _gn_bf16_statistics(self, x):
+    """A bf16 slip: GroupNorm statistics taken in bf16."""
+    import torch
+
+    import tvc_torch.models.sd as sd_mod
+
+    B_, C = x.shape[0], x.shape[-1]
+    xg = x.to(torch.bfloat16).reshape(B_, -1, self.groups, C // self.groups)
+    mean = xg.mean(dim=(1, 3), keepdim=True)
+    var = torch.clamp(torch.square(xg).mean(dim=(1, 3), keepdim=True) - torch.square(mean), min=0.0)
+    y = sd_mod._normalize(xg, mean.float(), var.float(), self.scale.reshape(self.groups, -1),
+                          self.bias.reshape(self.groups, -1), self.eps)
+    return y.reshape(x.shape).to(self.dtype)
+
+
+def _mha_bf16_logits(self, q_in, kv_in, name):
+    """A bf16 slip in the native UNet: attention logits in the compute dtype."""
+    import torch
+
+    B_, _, C = q_in.shape
+    hd = C // self.heads
+    q, k, v = (getattr(self, f"{name}_{part}")(t).reshape(B_, -1, self.heads, hd).transpose(1, 2)
+               for part, t in (("q", q_in), ("k", kv_in), ("v", kv_in)))
+    logits = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(hd)  # in the compute dtype
+    w = torch.softmax(logits.float(), dim=-1).to(self.dtype)
+    return getattr(self, f"{name}_o")(torch.matmul(w, v).transpose(1, 2).reshape(B_, -1, C))
+
+
+def _attend_bf16_logits(q, k, v, heads, dtype):
+    """The same slip in the diffusers-layout mirror's attention."""
+    import torch
+
+    B_, _, C = q.shape
+    hd = C // heads
+    q, k, v = (x.reshape(B_, -1, heads, hd).transpose(1, 2) for x in (q, k, v))
+    w = torch.softmax((torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(hd)).float(), dim=-1).to(dtype)
+    return torch.matmul(w, v).transpose(1, 2).reshape(B_, -1, C)
+
+
+def _timestep_embedding_bf16(t, dim):
+    """A bf16 slip: the sinusoidal timestep embedding's arguments in bf16."""
+    import torch
+
+    half = dim // 2
+    freqs = torch.exp(-math.log(10000.0) * torch.arange(half, dtype=torch.float32, device=t.device) / half)
+    args = t.to(torch.bfloat16)[:, None] * freqs.to(torch.bfloat16)[None]
+    return torch.cat([torch.cos(args), torch.sin(args)], dim=-1).float()
+
+
 def phase_sd(card: dict, bf16: dict) -> dict:
     """The generative references at full width: StableDiffusionModel at
     the SD-1.5 shape class (seeded random weights, bf16, 512 px, 20 DDIM
-    steps, CFG 7.5) behind SDReferenceGenerator(SDReferenceConfig()) with
-    the slice phase's ViT-B/32 bf16 as its CLIP, feeding an
-    AdversarialDetector with no retriever (R = 3, V = 6; the staged path:
-    the vision encode of the queries and of the generated images and the
-    text towers through the layer kernels, then the consistency kernel) on
-    N_SD COCO captions and N_SD of the slice phase's images. Held:
-    generation bit-equal over two calls, images in [0, 1] on the 1/255
-    grid, one UNet call bf16 against f32 in direction and relative L2
-    (SD_DIRECTION_TOL, SD_REL_L2_TOL; the SD_CAUGHT_CONTROL slip must part
-    by more), the detector on the same SD reference vectors against its
-    plain versions (LAYER_TOL, flags equal away from the threshold), and
-    the references' vision encode against its plain version
-    (MHA_COS_TOL)."""
+    steps, CFG 7.5), driven by :func:`drive_sd`."""
     import dataclasses
 
     import torch
 
-    import tvc_torch.detector as det_mod
-    import tvc_torch.models.clip as clip_mod
-    from tvc_torch.core.kernels import (
-        attention_layer_reference, consistency_scores_reference, launch_counts, mlp_layer_reference,
-        reset_launch_counts,
-    )
-    from tvc_torch.detector import AdversarialDetector, DetectorConfig
     import tvc_torch.models.sd as sd_mod
-    from tvc_torch.models.sd import SDConfig, StableDiffusionModel, UNet, compute_params, load_params
-    from tvc_torch.sd_ref import SDReferenceConfig, SDReferenceGenerator
+    from tvc_torch.models.sd import SDConfig, StableDiffusionModel, UNet
 
-    model = bf16["detector"].model
     cfg = SDConfig()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2018,10 +2068,46 @@ def phase_sd(card: dict, bf16: dict) -> dict:
         f"{cfg.unet_mults}, VAE base {cfg.vae_base}, {cfg.dtype}, {cfg.num_inference_steps} DDIM steps, CFG "
         f"{cfg.guidance_scale}: {n_params} seeded random parameters initialized on the card in "
         f"{time.perf_counter() - t0:.2f} s")
+    controls = (("GroupNorm statistics in bf16", sd_mod.GroupNorm, "forward", _gn_bf16_statistics),
+                ("attention logits in bf16", sd_mod.AttnBlock, "_mha", _mha_bf16_logits),
+                ("timestep embedding in bf16", sd_mod, "timestep_embedding", _timestep_embedding_bf16))
+    return drive_sd("sd", sd, card, bf16,
+                    lambda dev: UNet(dataclasses.replace(cfg, dtype=torch.float32), device=dev), controls)
+
+
+def drive_sd(path: str, sd, card: dict, bf16: dict, make_f32_unet, controls) -> dict:
+    """``sd`` behind SDReferenceGenerator(SDReferenceConfig()) with the
+    slice phase's ViT-B/32 bf16 as its CLIP, feeding an
+    AdversarialDetector with no retriever (R = 3, V = 6; the staged path:
+    the vision encode of the queries and of the generated images and the
+    text towers through the layer kernels, then the consistency kernel) on
+    N_SD COCO captions and N_SD of the slice phase's images. Held:
+    generation bit-equal over two calls, images in [0, 1] on the 1/255
+    grid, one UNet call bf16 against the f32 UNet ``make_f32_unet(device)``
+    on the same parameters in direction and relative L2 (SD_DIRECTION_TOL,
+    SD_REL_L2_TOL; with each of ``controls`` (name, owner, attribute,
+    slip) patched in, the SD_CAUGHT_CONTROL slip must part by more), the
+    detector on the same SD reference vectors against its plain versions
+    (LAYER_TOL, flags equal away from the threshold), and the references'
+    vision encode against its plain version (MHA_COS_TOL). Frees ``sd``."""
+    import torch
+
+    import tvc_torch.detector as det_mod
+    import tvc_torch.models.clip as clip_mod
+    from tvc_torch.core.kernels import (
+        attention_layer_reference, consistency_scores_reference, launch_counts, mlp_layer_reference,
+        reset_launch_counts,
+    )
+    from tvc_torch.detector import AdversarialDetector, DetectorConfig
+    from tvc_torch.models.sd import compute_params, load_params
+    from tvc_torch.sd_ref import SDReferenceConfig, SDReferenceGenerator
+
+    model = bf16["detector"].model
+    cfg = sd.config
     ref_cfg = SDReferenceConfig()
     gen = SDReferenceGenerator(sd, ref_cfg, clip_model=model)
     if gen.cache is not None:
-        raise AssertionError("the sd phase generates with no cache")
+        raise AssertionError(f"the {path} phase generates with no cache")
     n = ref_cfg.num_images
     texts, variants = coco_variant_batch(N_SD, V_DEFENDED, order="captions")
     images = bf16["inputs"][0][:N_SD]
@@ -2038,7 +2124,7 @@ def phase_sd(card: dict, bf16: dict) -> dict:
         raise AssertionError(f"SD generation is not deterministic per seed (shape {a.shape})")
     if a.min() < 0.0 or a.max() > 1.0 or not np.array_equal(a * 255.0, np.round(a * 255.0)):
         raise AssertionError("SD images leave [0, 1] or the 1/255 grid")
-    log(f"[sd] {N_SD} captions x {n} images (CFG batch {2 * N_SD * n}): {N_SD * n / gen_secs:.2f} SD reference "
+    log(f"[{path}] {N_SD} captions x {n} images (CFG batch {2 * N_SD * n}): {N_SD * n / gen_secs:.2f} SD reference "
         f"images/s ({gen_secs:.3f} s), bit-equal over two calls, pixel mean {a.mean():.4f} std {a.std():.4f} on "
         f"{card['smi']}")
 
@@ -2050,13 +2136,13 @@ def phase_sd(card: dict, bf16: dict) -> dict:
     lat2, tvec = torch.cat([lat, lat]), torch.full((2 * B,), 951.0, device=lat.device)
     step_ms = time_ms(lambda: sd._apply("unet", lat2, tvec, ctx), iters=3, warmup=1)
     dec_ms = time_ms(lambda: sd._apply("vae_dec", lat / cfg.vae_scale), iters=3, warmup=1)
-    log(f"[sd] one CFG UNet call at B={2 * B}: {step_ms:.3f} ms; VAE decode at B={B}: {dec_ms:.3f} ms "
+    log(f"[{path}] one CFG UNet call at B={2 * B}: {step_ms:.3f} ms; VAE decode at B={B}: {dec_ms:.3f} ms "
         f"(CUDA events) on {card['smi']}")
 
     # -- one UNet call, bf16 against f32 on the same inputs, in direction and
-    # in relative L2; then the same call with one of two plausible bf16 slips
-    # (SD_CONTROLS), which the limits must catch
-    f32_unet = UNet(dataclasses.replace(cfg, dtype=torch.float32), device=lat.device)
+    # in relative L2; then the same call with each bf16 slip of ``controls``,
+    # which the limits must catch (SD_CAUGHT_CONTROL)
+    f32_unet = make_f32_unet(lat.device)
     load_params(f32_unet, sd.params["unet"])
     rows = slice(B - 2, B + 2)  # two unconditional and two conditional rows
     with torch.no_grad():
@@ -2071,45 +2157,18 @@ def phase_sd(card: dict, bf16: dict) -> dict:
         rel = torch.linalg.vector_norm(got - want, dim=-1) / torch.linalg.vector_norm(want, dim=-1)
         return float(cos.max()), float(rel.max())
 
-    def gn_bf16_statistics(self, x):
-        B_, C = x.shape[0], x.shape[-1]
-        xg = x.to(torch.bfloat16).reshape(B_, -1, self.groups, C // self.groups)
-        mean = xg.mean(dim=(1, 3), keepdim=True)
-        var = torch.clamp(torch.square(xg).mean(dim=(1, 3), keepdim=True) - torch.square(mean), min=0.0)
-        y = sd_mod._normalize(xg, mean.float(), var.float(), self.scale.reshape(self.groups, -1),
-                              self.bias.reshape(self.groups, -1), 1e-6)
-        return y.reshape(x.shape).to(self.dtype)
-
-    def mha_bf16_logits(self, q_in, kv_in, name):
-        B_, _, C = q_in.shape
-        hd = C // self.heads
-        q, k, v = (getattr(self, f"{name}_{part}")(t).reshape(B_, -1, self.heads, hd).transpose(1, 2)
-                   for part, t in (("q", q_in), ("k", kv_in), ("v", kv_in)))
-        logits = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(hd)  # in the compute dtype
-        w = torch.softmax(logits.float(), dim=-1).to(self.dtype)
-        return getattr(self, f"{name}_o")(torch.matmul(w, v).transpose(1, 2).reshape(B_, -1, C))
-
-    def timestep_embedding_bf16(t, dim):
-        half = dim // 2
-        freqs = torch.exp(-math.log(10000.0) * torch.arange(half, dtype=torch.float32, device=t.device) / half)
-        args = t.to(torch.bfloat16)[:, None] * freqs.to(torch.bfloat16)[None]
-        return torch.cat([torch.cos(args), torch.sin(args)], dim=-1).float()
-
     one_minus_cos, rel = unet_error()
-    controls = {}
-    for what, owner, name, slip in (
-            ("GroupNorm statistics in bf16", sd_mod.GroupNorm, "forward", gn_bf16_statistics),
-            ("attention logits in bf16", sd_mod.AttnBlock, "_mha", mha_bf16_logits),
-            ("timestep embedding in bf16", sd_mod, "timestep_embedding", timestep_embedding_bf16)):
+    errors = {}
+    for what, owner, name, slip in controls:
         with mock.patch.object(owner, name, slip):
-            controls[what] = unet_error()
-    log(f"[sd] one UNet call, bf16 vs f32 on the same inputs: 1 - cos {one_minus_cos:.3e} (tol "
+            errors[what] = unet_error()
+    log(f"[{path}] one UNet call, bf16 vs f32 on the same inputs: 1 - cos {one_minus_cos:.3e} (tol "
         f"{SD_DIRECTION_TOL}), relative L2 {rel:.3e} (tol {SD_REL_L2_TOL}); controls (1 - cos, relative L2): "
-        + ", ".join(f"{k} ({c:.3e}, {r:.3e})" for k, (c, r) in controls.items()))
+        + ", ".join(f"{k} ({c:.3e}, {r:.3e})" for k, (c, r) in errors.items()))
     if one_minus_cos > SD_DIRECTION_TOL or rel > SD_REL_L2_TOL:
-        raise AssertionError("the bf16 UNet parts from the f32 UNet")
-    if not all(v > tol for v, tol in zip(controls[SD_CAUGHT_CONTROL], (SD_DIRECTION_TOL, SD_REL_L2_TOL))):
-        raise AssertionError(f"the limits no longer catch the control '{SD_CAUGHT_CONTROL}'")
+        raise AssertionError(f"[{path}] the bf16 UNet parts from the f32 UNet")
+    if not all(v > tol for v, tol in zip(errors[SD_CAUGHT_CONTROL], (SD_DIRECTION_TOL, SD_REL_L2_TOL))):
+        raise AssertionError(f"[{path}] the limits no longer catch the control '{SD_CAUGHT_CONTROL}'")
 
     # -- the detector with SD references (no retriever: the staged path)
     dcfg = DetectorConfig(num_text_variants=V_DEFENDED, num_reference_images=n)
@@ -2129,15 +2188,15 @@ def phase_sd(card: dict, bf16: dict) -> dict:
     torch.cuda.synchronize()
     det_secs = time.perf_counter() - t0
     counts = launch_counts()
-    log(f"[sd] detector with SD references (B={N_SD}, V={V_DEFENDED}, R={n}): {N_SD / det_secs:.3f} queries/s "
+    log(f"[{path}] detector with SD references (B={N_SD}, V={V_DEFENDED}, R={n}): {N_SD / det_secs:.3f} queries/s "
         f"({det_secs:.3f} s, generation included); launches {counts} on {card['smi']}")
-    _check_path_counts(counts, "sd", "detector with SD references")
+    _check_path_counts(counts, path, "detector with SD references")
     refs = recorded[-1]
     norms = np.linalg.norm(refs, axis=-1)
     if refs.shape != (N_SD, n, model.config.embed_dim) or not np.allclose(norms[norms > 0], 1.0, atol=1e-3) \
             or not np.all(np.isfinite(res.aggregated_score)):
         raise AssertionError(f"bad SD reference vectors {refs.shape} or scores")
-    log(f"[sd] generator stats {gen.get_stats()}: {int((norms > 0).sum())} of {N_SD * n} references kept by "
+    log(f"[{path}] generator stats {gen.get_stats()}: {int((norms > 0).sum())} of {N_SD * n} references kept by "
         f"the quality filter")
 
     # held against the plain versions, the same SD reference vectors passed in
@@ -2152,11 +2211,12 @@ def phase_sd(card: dict, bf16: dict) -> dict:
     thr = fixed.threshold_manager.get_threshold()
     d = np.abs(got.aggregated_score - want.aggregated_score)
     away = np.abs(want.aggregated_score - thr) > LAYER_TOL
-    log(f"[sd] kernel vs plain path on the same SD references: max |d aggregated| {d.max():.3e} (tol {LAYER_TOL}); "
-        f"flags equal {int((got.is_adversarial == want.is_adversarial)[away].sum())} of the {int(away.sum())} "
-        f"scores more than tol from the threshold {thr}; aggregated {np.round(got.aggregated_score, 4).tolist()}")
+    log(f"[{path}] kernel vs plain path on the same SD references: max |d aggregated| {d.max():.3e} (tol "
+        f"{LAYER_TOL}); flags equal {int((got.is_adversarial == want.is_adversarial)[away].sum())} of the "
+        f"{int(away.sum())} scores more than tol from the threshold {thr}; aggregated "
+        f"{np.round(got.aggregated_score, 4).tolist()}")
     if d.max() > LAYER_TOL or not np.all((got.is_adversarial == want.is_adversarial)[away]):
-        raise AssertionError("the detector with SD references disagrees with its plain version")
+        raise AssertionError(f"[{path}] the detector with SD references disagrees with its plain version")
 
     # the references' vision encode (N_SD * n resized 8-bit 512 px images, a
     # batch only this path encodes) against the same encode on the plain
@@ -2180,21 +2240,406 @@ def phase_sd(card: dict, bf16: dict) -> dict:
         raise AssertionError("the plain encode launched a kernel")
     enc_cos = float((1 - torch.nn.functional.cosine_similarity(emb, plain_emb, dim=-1)).max())
     same = np.array_equal(emb.cpu().numpy(), refs.reshape(-1, refs.shape[-1]))
-    log(f"[sd] the references' encode (B={len(pixels)}, {cfg.image_size} px resized to {model.config.image_size}): "
-        f"launches {enc_counts}; kernel vs plain 1 - cos {enc_cos:.3e} (tol {MHA_COS_TOL}), max |d| "
-        f"{float((emb - plain_emb).abs().max()):.3e}; equal to the detector's reference vectors: {same}")
+    log(f"[{path}] the references' encode (B={len(pixels)}, {cfg.image_size} px resized to "
+        f"{model.config.image_size}): launches {enc_counts}; kernel vs plain 1 - cos {enc_cos:.3e} (tol "
+        f"{MHA_COS_TOL}), max |d| {float((emb - plain_emb).abs().max()):.3e}; equal to the detector's reference "
+        f"vectors: {same}")
     if enc_cos > MHA_COS_TOL or not bool(torch.isfinite(emb).all()) \
             or (gen.stats["filtered_out"] == 0 and not same):
         raise AssertionError("the references' encode disagrees with its plain version or with the detector's")
-    profile_batch("sd", lambda: det.detect_batch(images, texts, variants))
+    profile_batch(path, lambda: det.detect_batch(images, texts, variants))
     peak = torch.cuda.max_memory_allocated() / 2**30
-    log(f"[sd] peak memory over the phase {peak:.2f} GiB on {card['smi']}")
+    log(f"[{path}] peak memory over the phase {peak:.2f} GiB on {card['smi']}")
     out = {"launches": counts, "images_per_s": N_SD * n / gen_secs, "unet_step_ms": step_ms,
            "vae_decode_ms": dec_ms, "qps": N_SD / det_secs, "peak_gib": peak,
-           "one_minus_cos": one_minus_cos, "relative_l2": rel, "controls": controls,
+           "one_minus_cos": one_minus_cos, "relative_l2": rel, "controls": errors,
            "encode_one_minus_cos": enc_cos}
     del sd, gen, det, fixed
     torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase weights: train on the card, save and load published layouts
+# ---------------------------------------------------------------------------
+
+#: the full-width trainer: ViT-B/32 (bf16 compute, f32 parameters and
+#: optimizer state) on one fixed batch of N_TRAIN rendered 224 px COCO
+#: pairs, TRAIN_STEPS steps at TRAIN_LR, the first TRAIN_WARMUP untimed
+N_TRAIN, TRAIN_STEPS, TRAIN_WARMUP, TRAIN_LR = 256, 20, 2, 1e-4
+# The first step's loss (bf16 compute) against an f32 recomputation of the
+# same forward on the same parameters, relative. bf16 rounds each
+# activation to 2^-9 relative; the 512-d cosines then move by ~1e-3, the
+# logits (x exp(logit_scale) = 14.3) by ~1e-2, and a cross entropy near
+# log(256) = 5.5 by ~2e-3 relative. A wrong label, sign, scale or missing
+# term moves it by O(1).
+TRAIN_LOSS_TOL = 1e-2
+#: the fixture's stop rule (train_clip_fixture_coco's defaults)
+FIXTURE_RETRIEVAL, FIXTURE_CROSS_TEXT = 0.92, 0.45
+#: prompts of the loaded Qwen2-1.5B's teacher-forced hold (x 5 variants)
+N_WEIGHTS_PROMPTS = 64
+WEIGHTS_DIR = REPO / "build" / "weights"
+_SAFETENSORS_DTYPES = {"float32": "F32", "float16": "F16", "bfloat16": "BF16", "int64": "I64", "bool": "BOOL"}
+
+
+def write_safetensors(path: Path, tensors: dict) -> None:
+    """A ``.safetensors`` file (the card's machine has no safetensors
+    package): the header's length as 8 little-endian bytes, the JSON
+    header, then each tensor's bytes in order."""
+    import torch
+
+    path.parent.mkdir(parents=True, exist_ok=True)
+    header, offset, raws = {}, 0, []
+    for name, t in tensors.items():
+        raw = t.detach().cpu().contiguous().reshape(-1).view(torch.uint8).numpy()
+        header[name] = {"dtype": _SAFETENSORS_DTYPES[str(t.dtype).removeprefix("torch.")],
+                        "shape": list(t.shape), "data_offsets": [offset, offset + raw.nbytes]}
+        offset += raw.nbytes
+        raws.append(raw)
+    head = json.dumps(header, separators=(",", ":")).encode()
+    head += b" " * (-len(head) % 8)
+    with open(path, "wb") as f:
+        f.write(len(head).to_bytes(8, "little"))
+        f.write(head)
+        for raw in raws:
+            f.write(raw)
+
+
+def seeded_state_dict(shapes: dict, seed: int, dtype) -> dict:
+    """Seeded values at the published names and shapes, drawn on the card
+    and returned on the host in ``dtype``: weights of two or more axes (and
+    the class embedding) N(0, 1 / fan_in) with fan_in the product of the
+    axes after the first, norm weights 1 + N(0, 0.02^2), biases N(0, 0.02^2),
+    ``position_ids`` 0..n-1 (int64), ``logit_scale`` log(1 / 0.07)."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    out = {}
+    for name, shape in shapes.items():
+        if name.endswith("position_ids"):
+            out[name] = torch.arange(math.prod(shape), dtype=torch.int64).reshape(shape)
+            continue
+        if name == "logit_scale":
+            out[name] = torch.tensor(math.log(1 / 0.07), dtype=dtype)
+            continue
+        t = torch.randn(shape, generator=gen, device="cuda")
+        if len(shape) >= 2 or name.endswith("class_embedding"):
+            t *= (math.prod(shape[1:]) if len(shape) >= 2 else shape[0]) ** -0.5
+        else:
+            t = t * 0.02 + (1.0 if name.endswith(".weight") else 0.0)
+        out[name] = t.to(dtype).cpu()
+    return out
+
+
+def _trees_equal(a: dict, b: dict) -> bool:
+    import torch
+
+    from tvc_torch.models.clip import _flatten
+
+    fa, fb = _flatten(a), _flatten(b)
+    return set(fa) == set(fb) and all(torch.equal(torch.as_tensor(fa[k]).cpu(), torch.as_tensor(fb[k]).cpu())
+                                      for k in fa)
+
+
+def _weights_train(card: dict, bf16: dict) -> dict:
+    """(a) make_train_step on the slice phase's ViT-B/32 at full width, then
+    the trained weights installed and served through the layer kernels."""
+    import dataclasses
+
+    import torch
+
+    import tvc_torch.models.clip as clip_mod
+    import tvc_torch.parallel.steps as steps_mod
+    from tvc_torch.core.kernels import attention_layer_reference, consistency_scores_reference, mlp_layer_reference
+    from tvc_torch.data.loaders import render_caption_image
+    from tvc_torch.models.clip import CLIPModule, _flatten, normalize_pixels
+    from tvc_torch.parallel.steps import make_train_step
+
+    det = bf16["detector"]
+    model = det.model
+    cfg, dev = model.config, model.device
+    captions, _ = coco_variant_batch(N_TRAIN, 1)
+    px = torch.as_tensor(np.stack([render_caption_image(c, cfg.image_size, noise_seed=i)
+                                   for i, c in enumerate(captions)]), device=dev)
+    tok = torch.as_tensor(model.tokenize(captions), dtype=torch.long, device=dev)
+    step, state = make_train_step(model, None, TRAIN_LR)
+    params0 = model.params
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    p, s, losses = params0, state, []
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    for i in range(TRAIN_STEPS):
+        if i == TRAIN_WARMUP:
+            start.record()
+        p, s, loss = step(p, s, px, tok)
+        losses.append(loss)
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end)
+    pairs_s = (TRAIN_STEPS - TRAIN_WARMUP) * N_TRAIN / (ms / 1e3)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    losses = [float(x) for x in losses]
+    n_params = sum(v.numel() for v in _flatten(params0).values())
+    log(f"[weights train] make_train_step on {cfg.model_name} ({n_params} parameters, {cfg.dtype} compute, f32 "
+        f"parameters and AdamW state), B={N_TRAIN} rendered {cfg.image_size} px COCO pairs, lr {TRAIN_LR}: losses "
+        f"{[round(x, 4) for x in losses]}; {pairs_s:.1f} training pairs/s over steps {TRAIN_WARMUP + 1}-"
+        f"{TRAIN_STEPS} ({ms / (TRAIN_STEPS - TRAIN_WARMUP):.3f} ms a step, CUDA events), peak {peak:.2f} GiB on "
+        f"{card['smi']}")
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError("[weights train] the loss is not finite or did not fall")
+    f32 = CLIPModule(dataclasses.replace(cfg, dtype=torch.float32, fused_attention=False), device=dev)
+    with torch.no_grad():
+        _, _, logits = torch.func.functional_call(f32, _flatten(params0), (normalize_pixels(px), tok))
+        labels = torch.arange(N_TRAIN, device=dev)
+        want = float(0.5 * (torch.nn.functional.cross_entropy(logits, labels)
+                            + torch.nn.functional.cross_entropy(logits.T, labels)))
+    del f32
+    rel = abs(losses[0] - want) / abs(want)
+    log(f"[weights train] first step's loss {losses[0]:.6f} vs the f32 forward {want:.6f}: relative {rel:.3e} "
+        f"(tol {TRAIN_LOSS_TOL})")
+    if rel > TRAIN_LOSS_TOL:
+        raise AssertionError("[weights train] the bf16 training loss parts from the f32 loss")
+    profile_batch("weights train", lambda: step(p, s, px, tok))
+
+    model.params = p
+    images, texts, variants = bf16["inputs"]
+    patches = [(clip_mod, "fused_attention_layer", attention_layer_reference),
+               (clip_mod, "fused_mlp_layer", mlp_layer_reference),
+               (steps_mod, "fused_consistency_scores", consistency_scores_reference)]
+    held = hold_defended_batch("weights trained", det, images, texts, variants, patches)
+    moved = float(np.abs(held["result"].aggregated_score - bf16["result"].aggregated_score).max())
+    log(f"[weights train] the trained weights served: max |d aggregated| to the untrained batch {moved:.3e}")
+    del p, s, state, params0
+    return {"weights trained": {"launches": held["launches"], "pairs_per_s": pairs_s, "peak_gib": peak,
+                                "losses": losses, "loss_f32_rel": rel}}
+
+
+def _weights_fixture(card: dict) -> dict:
+    """(b) train_clip_fixture_coco at its defaults to its stop rule, saved
+    and read back bit-equal, served through the f32 layer kernels."""
+    import torch
+
+    import tvc_torch.models.clip as clip_mod
+    import tvc_torch.parallel.steps as steps_mod
+    from tvc_torch._flax_msgpack import read_state_dict
+    from tvc_torch.core.kernels import attention_layer_reference, consistency_scores_reference, mlp_layer_reference
+    from tvc_torch.data.loaders import COCOCaptionsDataset, DataConfig, load_coco_captions, render_caption_image
+    from tvc_torch.detector import AdversarialDetector, DetectorConfig
+    from tvc_torch.fixtures import EVAL_HOLDOUT, FIXTURE_COCO_META_PATH, save_fixture, train_clip_fixture_coco
+    from tvc_torch.models.clip import CLIPConfig, CLIPModel, params_from_jax
+    from tvc_torch.retrieval import MultiModalRetriever, RetrievalConfig
+    from tvc_torch.serving import ServingConfig, ServingRuntime
+
+    t0 = time.perf_counter()
+    model, metrics = train_clip_fixture_coco(log=lambda m: log(f"[weights fixture] {m}"))
+    total = time.perf_counter() - t0
+    meta = json.loads(FIXTURE_COCO_META_PATH.read_text())
+    keys = ("retrieval_accuracy", "pair_similarity", "variant_similarity", "cross_text_cos", "galmax_mean",
+            "hub_feasible_frac", "step")
+    log(f"[weights fixture] train_clip_fixture_coco() on the card: stopped at step {metrics['step']} after "
+        f"{metrics['seconds']:.2f} s of training ({total:.2f} s with the corpus); port "
+        + ", ".join(f"{k} {metrics[k]:.4f}" for k in keys[:-1])
+        + "; the recorded JAX asset " + ", ".join(f"{k} {meta[k]}" for k in keys if k in meta)
+        + f" on {card['smi']}")
+    if not (metrics["retrieval_accuracy"] >= FIXTURE_RETRIEVAL and metrics["cross_text_cos"] >= FIXTURE_CROSS_TEXT):
+        raise AssertionError("[weights fixture] the port did not reach the fixture's stop rule")
+    path = WEIGHTS_DIR / "clip_tiny_coco.msgpack"
+    save_fixture(model, metrics, path=path)
+    tree = read_state_dict(path)
+    if not _trees_equal(tree, model.params) or json.loads(path.with_suffix(".json").read_text())["step"] != \
+            metrics["step"]:
+        raise AssertionError("[weights fixture] the saved fixture does not read back bit-equal")
+    log(f"[weights fixture] saved {path.stat().st_size} bytes of flax msgpack, read back bit-equal")
+
+    n = B_ATTACK
+    size = model.config.image_size
+    batch = next(COCOCaptionsDataset(DataConfig(image_size=size, max_samples=n)).batches(batch_size=n))
+    images, texts = batch["images"], list(batch["texts"])
+    bank_caps = load_coco_captions()[n:EVAL_HOLDOUT]
+    bank_imgs = np.stack([render_caption_image(c, size, noise_seed=int(i) % 2**31) for i, c in bank_caps])
+    fused = CLIPModel(CLIPConfig.from_name("tiny_coco", fused_attention=True),
+                      params=params_from_jax(tree, CLIPConfig.tiny_coco()))
+    retriever = MultiModalRetriever(fused, RetrievalConfig())
+    retriever.build_image_index(embeddings=model.encode_image(bank_imgs).float().cpu().numpy())
+    cfg = ServingConfig(clip_model="tiny_coco_trained", drift_window=0, batch_max_size=n)
+    det = AdversarialDetector(fused, retriever=retriever, config=DetectorConfig(
+        num_text_variants=cfg.num_text_variants, text_bucket=cfg.text_bucket))
+    served = _drive_tiny("weights fixture", ServingRuntime(cfg, detector=det), [
+        (clip_mod, "fused_attention_layer", attention_layer_reference),
+        (clip_mod, "fused_mlp_layer", mlp_layer_reference),
+        (steps_mod, "fused_consistency_scores", consistency_scores_reference)], F32_LAYER_TOL,
+        images, texts, (n // 2, n // 2))
+    torch.cuda.empty_cache()
+    return {"weights fixture": {"launches": served["launches"], "metrics": {k: metrics[k] for k in keys},
+                                "seconds": metrics["seconds"], "total_seconds": total}}
+
+
+def _weights_clip(card: dict, bf16: dict) -> dict:
+    """(c) an HF CLIPModel-layout ViT-B/32 (openai/clip-vit-base-patch32's
+    names and shapes, seeded) as model.safetensors and as
+    pytorch_model.bin, each loaded by load_clip_weights; the trees
+    bit-equal; the model served through the kernels."""
+    import torch
+
+    import tvc_torch.models.clip as clip_mod
+    import tvc_torch.parallel.steps as steps_mod
+    from tvc_torch.core.kernels import attention_layer_reference, consistency_scores_reference, mlp_layer_reference
+    from tvc_torch.detector import AdversarialDetector, DetectorConfig
+    from tvc_torch.models.clip import CLIPConfig
+    from tvc_torch.models.loaders import clip_state_dict_shapes, load_clip_weights
+    from tvc_torch.retrieval import MultiModalRetriever
+
+    cfg = CLIPConfig.vit_b32(fused_attention=True)
+    sd = seeded_state_dict(clip_state_dict_shapes(cfg), 11, torch.float32)
+    n_params = sum(v.numel() for k, v in sd.items() if not k.endswith("position_ids"))
+    root = WEIGHTS_DIR / "clip"
+    write_safetensors(root / "safetensors" / "model.safetensors", sd)
+    (root / "bin").mkdir(parents=True)
+    torch.save(sd, root / "bin" / "pytorch_model.bin")
+    del sd
+    models, secs = {}, {}
+    for fmt in ("safetensors", "bin"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        models[fmt] = load_clip_weights(cfg, str(root / fmt))
+        torch.cuda.synchronize()
+        secs[fmt] = time.perf_counter() - t0
+        if models[fmt] is None:
+            raise AssertionError(f"[weights clip] load_clip_weights found no checkpoint under {root / fmt}")
+    same = _trees_equal(models["safetensors"].params, models["bin"].params)
+    log(f"[weights clip] HF CLIPModel layout, {cfg.model_name}, {n_params} seeded parameters: load_clip_weights "
+        f"{secs['safetensors']:.2f} s from model.safetensors, {secs['bin']:.2f} s from pytorch_model.bin; trees "
+        f"bit-equal: {same} on {card['smi']}")
+    if not same:
+        raise AssertionError("[weights clip] the two formats load different trees")
+    model = models.pop("safetensors")
+    del models
+    embs = np.random.default_rng(1).standard_normal((131072, cfg.embed_dim), dtype=np.float32)
+    retriever = MultiModalRetriever(model)
+    retriever.build_image_index(embeddings=embs)
+    det = AdversarialDetector(model, DetectorConfig(num_text_variants=V_DEFENDED, num_reference_images=3,
+                                                    retrieval_top_k=10, text_bucket=32), retriever=retriever)
+    images, texts, variants = bf16["inputs"]
+    held = hold_defended_batch("weights clip", det, images, texts, variants, [
+        (clip_mod, "fused_attention_layer", attention_layer_reference),
+        (clip_mod, "fused_mlp_layer", mlp_layer_reference),
+        (steps_mod, "fused_consistency_scores", consistency_scores_reference)])
+    del det, retriever, model
+    torch.cuda.empty_cache()
+    return {"weights clip": {"launches": held["launches"], "load_s": secs}}
+
+
+def _weights_sd(card: dict, bf16: dict) -> dict:
+    """(c) a diffusers-layout SD-1.5 checkout (unet/ and vae/, f16
+    diffusion_pytorch_model.safetensors, seeded) through load_sd_weights,
+    driven as the sd phase drives the native model."""
+    import dataclasses
+
+    import torch
+
+    import tvc_torch.models.sd as sd_mod
+    import tvc_torch.models.sd_hf as sd_hf_mod
+    from tvc_torch.models.loaders import load_sd_weights, sd_unet_state_dict_shapes, sd_vae_state_dict_shapes
+    from tvc_torch.models.sd_hf import HFUNet, HFUNetConfig
+
+    root = WEIGHTS_DIR / "sd"
+    n_params = 0
+    for sub, shapes, seed in (("unet", sd_unet_state_dict_shapes(), 12), ("vae", sd_vae_state_dict_shapes(), 13)):
+        sd = seeded_state_dict(shapes, seed, torch.float16)
+        n_params += sum(v.numel() for v in sd.values())
+        write_safetensors(root / sub / "diffusion_pytorch_model.safetensors", sd)
+        del sd
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = load_sd_weights(str(root))
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    if model is None:
+        raise AssertionError(f"[weights sd] load_sd_weights found no checkout under {root}")
+    log(f"[weights sd] diffusers layout, SD-1.5 shapes, {n_params} seeded f16 parameters: load_sd_weights "
+        f"{load_s:.2f} s into {type(model.unet).__name__} / {type(model.vae_enc).__name__} / "
+        f"{type(model.vae_dec).__name__} ({model.config.image_size} px) on {card['smi']}")
+    controls = (("GroupNorm statistics in bf16", sd_mod.GroupNorm, "forward", _gn_bf16_statistics),
+                ("attention logits in bf16", sd_hf_mod, "_attend", _attend_bf16_logits),
+                ("timestep embedding in bf16", sd_hf_mod, "hf_timestep_embedding", _timestep_embedding_bf16))
+    res = drive_sd("weights sd", model, card, bf16,
+                   lambda dev: HFUNet(dataclasses.replace(HFUNetConfig(), dtype=torch.float32), device=dev), controls)
+    del model
+    torch.cuda.empty_cache()
+    res["load_s"] = load_s
+    return {"weights sd": res}
+
+
+def _weights_qwen(card: dict) -> dict:
+    """(c) an HF Qwen2ForCausalLM-layout Qwen2-1.5B (the pipeline's model;
+    BF16 safetensors, seeded) through load_qwen_weights, cast to bf16 and
+    quantized to w8 as the pipeline phase builds it, its teacher-forced
+    logits held against the plain w8 path."""
+    import gc
+
+    import torch
+
+    from tvc_torch.models.loaders import load_qwen_weights, qwen_state_dict_shapes
+    from tvc_torch.models.qwen import PARAPHRASE_PREFIX, PARAPHRASE_PROMPT, QwenConfig
+    from tvc_torch.pipeline import PipelineConfig
+
+    cfg = QwenConfig.qwen2_1_5b()
+    path = WEIGHTS_DIR / "qwen" / "model.safetensors"
+    sd = seeded_state_dict(qwen_state_dict_shapes(cfg), 14, torch.bfloat16)
+    n_params = sum(v.numel() for v in sd.values())
+    write_safetensors(path, sd)
+    del sd
+    gc.collect()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    qwen = load_qwen_weights(cfg, str(path.parent), max_new_tokens=MAX_NEW, cast_params_bf16=True)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    if qwen is None:
+        raise AssertionError(f"[weights qwen] load_qwen_weights found no checkpoint under {path.parent}")
+    qwen.quantize_weights_int8()
+    log(f"[weights qwen] HF Qwen2ForCausalLM layout, {cfg.model_name} shapes, {n_params} seeded BF16 parameters "
+        f"({path.stat().st_size / 2**30:.2f} GiB): load_qwen_weights {load_s:.2f} s, then w8 on {card['smi']}")
+    texts = coco_captions(N_WEIGHTS_PROMPTS)
+    inp = qwen.prepare([PARAPHRASE_PROMPT.format(text=x) for x in texts], PipelineConfig().num_text_variants, None,
+                       PARAPHRASE_PREFIX)
+    held = hold_w8_forced("weights qwen", qwen, inp)
+    launched = {k for k, v in held["launches"].items() if v}
+    qwen_kernels = {k for k in PATH_KERNELS["pipeline"] if k.startswith(("w8_", "decode_"))}
+    if not launched or not launched <= qwen_kernels or not {"w8_matmul_stacked", "decode_gqa_attention_stacked"} \
+            <= launched:
+        raise AssertionError(f"[weights qwen] the decode launched {sorted(launched)}")
+    del qwen, inp
+    gc.collect()
+    torch.cuda.empty_cache()
+    held["load_s"] = load_s
+    return {"weights qwen": held}
+
+
+def phase_weights(card: dict, bf16: dict) -> dict:
+    """The model lifecycle on the card: (a) make_train_step at full width
+    and the trained weights through the kernels; (b) the tiny_coco fixture
+    trained from scratch to its stop rule, saved, read back, served; (c)
+    published layouts written under build/weights (HF CLIP in both formats,
+    diffusers SD-1.5, HF Qwen2-1.5B), loaded and held. The files are
+    deleted at the end."""
+    import shutil
+
+    out = {}
+    try:
+        with phase("weights: train"):
+            out.update(_weights_train(card, bf16))
+        with phase("weights: fixture"):
+            out.update(_weights_fixture(card))
+        with phase("weights: clip"):
+            out.update(_weights_clip(card, bf16))
+        with phase("weights: sd"):
+            out.update(_weights_sd(card, bf16))
+        with phase("weights: qwen"):
+            out.update(_weights_qwen(card))
+    finally:
+        shutil.rmtree(WEIGHTS_DIR, ignore_errors=True)
     return out
 
 
@@ -2389,6 +2834,49 @@ def qwen_ranges(qwen_mod):
         yield
 
 
+def hold_w8_forced(path: str, qwen, inp) -> dict:
+    """Teacher-forced logits of the w8 decode (weight-only int8 GEMMs and
+    the decode attention kernels) against the same decode on the plain
+    versions, prefill + N_FORCED - 1 steps over ``inp``'s rows, held to
+    QWEN_MEDIAN_TOL / QWEN_MAX_TOL of the logits' RMS and QWEN_TOP1."""
+    import torch
+
+    import tvc_torch.models.qwen as qwen_mod
+    from tvc_torch.core.kernels import decode_gqa_reference, launch_counts, reset_launch_counts, w8_matmul_plain
+
+    kern_logits, plain_logits = [], []
+    reset_launch_counts()
+    toks = qwen.decode(inp, 0.8, seed=0,
+                       on_logits=lambda i, lg: kern_logits.append(lg.clone()) if i < N_FORCED else None)
+    counts_tf = launch_counts()
+    plain_qwen = [
+        (qwen_mod, "w8_matmul", w8_matmul_plain),
+        (qwen_mod, "w8_matmul_stacked", lambda x, w, s, l: w8_matmul_plain(x, w[l], s[l])),
+        (qwen_mod, "decode_gqa_attention_stacked", lambda q, k, v, m, l: decode_gqa_reference(q, k[l], v[l], m)),
+    ]
+    with ExitStack() as stack:
+        for module, name, fn in plain_qwen:
+            stack.enter_context(mock.patch.object(module, name, fn))
+        qwen.decode(inp, 0.8, seed=0, forced=toks.T[:N_FORCED], on_logits=lambda i, lg: plain_logits.append(lg))
+    torch.cuda.synchronize()
+    if launch_counts() != counts_tf:
+        raise AssertionError(f"[{path}] the plain Qwen run launched a kernel")
+    a, b = torch.stack(kern_logits), torch.stack(plain_logits)
+    if not bool(torch.isfinite(a).all()):
+        raise AssertionError(f"[{path}] non-finite logits")
+    d = (a - b).abs()
+    rms = float(b.square().mean().sqrt())
+    d_max, d_med = float(d.max()), float(d.median())
+    top1 = float((a.argmax(-1) == b.argmax(-1)).float().mean())
+    log(f"[{path}] teacher-forced w8 kernel path vs plain, prefill + {N_FORCED - 1} steps x {a.shape[1]} rows: "
+        f"max |d logit| {d_max:.4e}, median {d_med:.4e} (logit RMS {rms:.4f}); top-1 agreement {top1:.4f}; "
+        f"launches {counts_tf}")
+    if not (d_med <= QWEN_MEDIAN_TOL * rms and d_max <= QWEN_MAX_TOL * rms and top1 >= QWEN_TOP1):
+        raise AssertionError(f"[{path}] the w8 kernel path disagrees with its plain version")
+    return {"launches": counts_tf, "max_abs_d_logit": d_max, "median_abs_d_logit": d_med, "logit_rms": rms,
+            "top1": top1}
+
+
 def phase_pipeline(card: dict, int8: dict) -> dict:
     """Full TVC through MultiModalDetectionPipeline: Qwen2-1.5B built as the
     genref benchmark builds it (cast to bf16, then quantize_weights_int8,
@@ -2406,11 +2894,9 @@ def phase_pipeline(card: dict, int8: dict) -> dict:
     from tvc_torch.core.kernels import (
         attention_layer_i8_reference,
         consistency_scores_reference,
-        decode_gqa_reference,
         launch_counts,
         mlp_layer_i8_reference,
         reset_launch_counts,
-        w8_matmul_plain,
     )
     from tvc_torch.models.qwen import PARAPHRASE_PREFIX, PARAPHRASE_PROMPT, QwenConfig, QwenModel
     from tvc_torch.pipeline import MultiModalDetectionPipeline, PipelineConfig
@@ -2510,35 +2996,7 @@ def phase_pipeline(card: dict, int8: dict) -> dict:
 
     # -- teacher-forced logits: the w8 path vs the same path on the plain
     # versions, prefill + N_FORCED - 1 steps at decode batch 960
-    kern_logits, plain_logits = [], []
-    reset_launch_counts()
-    toks = qwen.decode(inp, 0.8, seed=0,
-                       on_logits=lambda i, lg: kern_logits.append(lg.clone()) if i < N_FORCED else None)
-    counts_tf = launch_counts()
-    plain_qwen = [
-        (qwen_mod, "w8_matmul", w8_matmul_plain),
-        (qwen_mod, "w8_matmul_stacked", lambda x, w, s, l: w8_matmul_plain(x, w[l], s[l])),
-        (qwen_mod, "decode_gqa_attention_stacked", lambda q, k, v, m, l: decode_gqa_reference(q, k[l], v[l], m)),
-    ]
-    with ExitStack() as stack:
-        for module, name, fn in plain_qwen:
-            stack.enter_context(mock.patch.object(module, name, fn))
-        qwen.decode(inp, 0.8, seed=0, forced=toks.T[:N_FORCED], on_logits=lambda i, lg: plain_logits.append(lg))
-    torch.cuda.synchronize()
-    if launch_counts() != counts_tf:
-        raise AssertionError("[pipeline] the plain Qwen run launched a kernel")
-    a, b = torch.stack(kern_logits), torch.stack(plain_logits)
-    if not bool(torch.isfinite(a).all()):
-        raise AssertionError("[pipeline] non-finite logits")
-    d = (a - b).abs()
-    rms = float(b.square().mean().sqrt())
-    d_max, d_med = float(d.max()), float(d.median())
-    top1 = float((a.argmax(-1) == b.argmax(-1)).float().mean())
-    log(f"[pipeline] teacher-forced w8 kernel path vs plain, prefill + {N_FORCED - 1} steps x {n_rows} rows: "
-        f"max |d logit| {d_max:.4e}, median {d_med:.4e} (logit RMS {rms:.4f}); top-1 agreement {top1:.4f}")
-    if not (d_med <= QWEN_MEDIAN_TOL * rms and d_max <= QWEN_MAX_TOL * rms and top1 >= QWEN_TOP1):
-        raise AssertionError("[pipeline] the w8 kernel path disagrees with its plain version")
-    del a, b, d, kern_logits, plain_logits, toks
+    forced = hold_w8_forced("pipeline", qwen, inp)
 
     # -- paraphrase decode alone at batch 960
     times = []
@@ -2596,7 +3054,8 @@ def phase_pipeline(card: dict, int8: dict) -> dict:
     log(f"[pipeline] process_stream over {len(batches)} batches of {nb} equals process_batch on each "
         f"(variants, items, scores, flags); launches {stream_counts}")
     return {"launches": counts, "qps": qps, "tok_s": tok_s, "ms_per_query": ms_q, "peak_gib": peak,
-            "top1": top1, "d_max": d_max, "d_median": d_med, "llm_share": from_llm / slots, "stages_ms": stages}
+            "top1": forced["top1"], "d_max": forced["max_abs_d_logit"],
+            "d_median": forced["median_abs_d_logit"], "llm_share": from_llm / slots, "stages_ms": stages}
 
 
 # ---------------------------------------------------------------------------
@@ -3058,6 +3517,8 @@ def main() -> int:
         attack = phase_attack(card, bf16)
     with phase("sd"):
         sd = phase_sd(card, bf16)
+    with phase("weights"):
+        weights = phase_weights(card, bf16)
     with phase("qwen"):
         qwen = phase_qwen(card)
     with phase("pipeline"):
@@ -3072,7 +3533,8 @@ def main() -> int:
         large = phase_large_bank(card)
     kres["bank_topk"]["shapes"].append(large["shape"])
     paths = {"bf16": bf16, "int8": int8, "qwen": qwen, "pipeline": pipeline, "mha": mha, "retrieval": retrieval,
-             **tiny, **{k: v for k, v in attack.items() if k in PATH_KERNELS}, "sd": sd}
+             **tiny, **{k: v for k, v in attack.items() if k in PATH_KERNELS}, "sd": sd,
+             **{k: v for k, v in weights.items() if k in PATH_KERNELS}}
     kernels = []
     for name, (source, replaces) in KERNEL_SOURCES.items():
         shapes = kres[name]["shapes"]
@@ -3112,6 +3574,14 @@ def main() -> int:
     log(f"SD references (SD-1.5 shape, bf16, 512 px, 20 steps, CFG batch {2 * N_SD * 3}): {sd['images_per_s']:.2f} "
         f"images/s, {sd['unet_step_ms']:.3f} ms per CFG UNet call, VAE decode {sd['vae_decode_ms']:.3f} ms, "
         f"detector with SD references {sd['qps']:.3f} queries/s, peak {sd['peak_gib']:.2f} GiB on {card['smi']}")
+    wt, wf, wsd = weights["weights trained"], weights["weights fixture"], weights["weights sd"]
+    log(f"weights: ViT-B/32 training {wt['pairs_per_s']:.1f} pairs/s (B={N_TRAIN}, peak {wt['peak_gib']:.2f} GiB); "
+        f"tiny_coco fixture to its stop rule at step {wf['metrics']['step']} in {wf['seconds']:.2f} s "
+        f"(retrieval {wf['metrics']['retrieval_accuracy']:.4f}, cross_text_cos {wf['metrics']['cross_text_cos']:.4f}); "
+        f"load_clip_weights {weights['weights clip']['load_s']['safetensors']:.2f} s (safetensors) / "
+        f"{weights['weights clip']['load_s']['bin']:.2f} s (bin); HF SD-1.5 {wsd['images_per_s']:.2f} images/s, "
+        f"{wsd['unet_step_ms']:.3f} ms per CFG HFUNet call, load {wsd['load_s']:.2f} s; Qwen2-1.5B load "
+        f"{weights['weights qwen']['load_s']:.2f} s on {card['smi']}")
     log(f"retrieval: native resize {retrieval['host_ms_per_image']:.3f} host ms per image; text index "
         f"{retrieval['text_index_s']:.2f} s; tie order {retrieval['ties']}; large bank_topk peak memory: the "
         f"wrapper's {large['wrapper_peak_gib']:.2f} GiB, the phase's {large['peak_gib']:.2f} GiB")

@@ -17,7 +17,7 @@ import tvc.attacks  # noqa: F401  (the JAX evaluation imports it at its first ca
 import tvc.fixtures as jf
 import tvc_torch.fixtures as tf
 from tvc_torch._flax_msgpack import MsgpackError, read_state_dict, unpackb
-from tvc_torch.models.clip import CLIPConfig, params_from_jax
+from tvc_torch.models.clip import CLIPConfig, CLIPModel, params_from_jax
 from tvc_torch.serving import ServingConfig, ServingRuntime
 
 TOL = 2e-5
@@ -135,11 +135,23 @@ def test_augmented_captions_equal_jax():
 
 
 def test_a_missing_fixture_raises(monkeypatch, tmp_path):
+    """Without the asset (and without a port-trained one) the loader
+    raises unless ``train_if_missing``; with it the fixture is trained
+    (here a stub that records the call) and saved beside the port."""
     monkeypatch.setattr(tf, "FIXTURE_PATH", tmp_path / "none.msgpack")
+    monkeypatch.setattr(tf, "TRAINED_DIR", tmp_path / "trained")
     with pytest.raises(FileNotFoundError):
         tf.load_trained_tiny(train_if_missing=False, device="cpu")
-    with pytest.raises(NotImplementedError, match="training step"):
-        tf.load_trained_tiny(device="cpu")
+    calls = []
+
+    def train(device=None):
+        calls.append(device)
+        return CLIPModel(CLIPConfig.tiny(), device=device), {"retrieval_accuracy": 1.0}
+
+    monkeypatch.setattr(tf, "train_clip_fixture", train)
+    model = tf.load_trained_tiny(device="cpu")
+    assert calls == ["cpu"] and model.config.model_name == "tiny"
+    assert (tmp_path / "trained" / "none.msgpack").exists()
 
 
 @pytest.mark.parametrize("int8_serving", [False, True])

@@ -12,7 +12,7 @@ import torch
 
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "tvc_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "msgpack", "tvc", "transformers")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "msgpack", "safetensors", "tvc", "transformers", "diffusers")
 
 
 def _port_modules():
@@ -108,17 +108,28 @@ def test_pipeline_without_device_raises_when_cuda_is_absent(no_cuda):
 def test_mesh_serving_raises_not_implemented(monkeypatch, tmp_path):
     import tvc_torch.fixtures as fixtures
     from tvc_torch.models.clip import CLIPConfig, CLIPModel
-    from tvc_torch.parallel.steps import make_serving_step
+    from tvc_torch.parallel.steps import make_serving_step, make_train_step
     from tvc_torch.serving import ServingConfig, ServingRuntime
 
     model = CLIPModel(CLIPConfig.from_name("tiny", int8_serving=True, fused_attention=True), device="cpu")
     with pytest.raises(NotImplementedError):
         make_serving_step(model, mesh=object(), qparams=model.qparams(), device="cpu")
-    # the trained fixture serves from its asset; without the asset it would
-    # have to be trained, and the training step is not ported yet
+    with pytest.raises(NotImplementedError, match="D11"):
+        make_train_step(model, mesh=object(), device="cpu")
+    # the trained fixture serves from its asset; without the asset it is
+    # trained (here a stub that records the call) and saved beside the port
     monkeypatch.setattr(fixtures, "FIXTURE_COCO_PATH", tmp_path / "missing.msgpack")
-    with pytest.raises(NotImplementedError):
-        ServingRuntime(ServingConfig(clip_model="tiny_coco_trained"), device="cpu")
+    monkeypatch.setattr(fixtures, "TRAINED_DIR", tmp_path / "trained")
+    calls = []
+
+    def train(device=None):
+        calls.append(device)
+        return CLIPModel(CLIPConfig.tiny_coco(), device=device), {"retrieval_accuracy": 1.0}
+
+    monkeypatch.setattr(fixtures, "train_clip_fixture_coco", train)
+    rt = ServingRuntime(ServingConfig(clip_model="tiny_coco_trained"), device="cpu")
+    assert len(calls) == 1 and rt.detector.model.config.model_name == "tiny_coco"
+    assert (tmp_path / "trained" / "missing.msgpack").exists()
 
 
 def test_chip_smoke_fails_without_a_card(no_cuda):
@@ -127,8 +138,9 @@ def test_chip_smoke_fails_without_a_card(no_cuda):
     assert chip_smoke.main() == 1
 
 
-#: the detect-under-attack and generative-reference modules: each port file
-#: and the JAX file it ports
+#: the detect-under-attack, generative-reference and model-lifecycle
+#: (checkpoints in, training, checkpoints out) modules: each port file and
+#: the JAX file it ports
 SLICE_PAIRS = (
     ("tvc_torch/attacks/adaptive.py", "tvc/attacks/adaptive.py"),
     ("tvc_torch/defenses/__init__.py", "tvc/defenses/__init__.py"),
@@ -137,6 +149,12 @@ SLICE_PAIRS = (
     ("tvc_torch/bank/store.py", "tvc/bank/store.py"),
     ("tvc_torch/models/sd.py", "tvc/models/sd.py"),
     ("tvc_torch/sd_ref.py", "tvc/sd_ref.py"),
+    ("tvc_torch/models/loaders.py", "tvc/models/loaders.py"),
+    ("tvc_torch/models/sd_hf.py", "tvc/models/sd_hf.py"),
+    ("tvc_torch/parallel/steps.py", "tvc/parallel/steps.py"),
+    ("tvc_torch/fixtures.py", "tvc/fixtures.py"),
+    ("tvc_torch/utils/seed.py", "tvc/utils/seed.py"),
+    ("tvc_torch/utils/checkpoint.py", "tvc/utils/checkpoint.py"),
 )
 
 
@@ -184,3 +202,26 @@ def test_sd_without_device_raises_when_cuda_is_absent(no_cuda):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         StableDiffusionModel(SDConfig.tiny())
     assert StableDiffusionModel(SDConfig.tiny(), device="cpu").device.type == "cpu"
+
+
+def test_loaders_and_training_without_device_raise_when_cuda_is_absent(no_cuda, tmp_path):
+    """A checkpoint loader given a checkout, the training step, the fixture
+    trainer and derive_key run on the card unless asked for the CPU."""
+    from tvc_torch.fixtures import train_clip_fixture
+    from tvc_torch.models.clip import CLIPConfig, CLIPModel
+    from tvc_torch.models.loaders import load_clip_weights, load_qwen_weights, load_sd_weights
+    from tvc_torch.parallel.steps import make_train_step
+    from tvc_torch.utils import derive_key
+
+    for load in (load_clip_weights, load_qwen_weights):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            load(None, str(tmp_path))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        load_sd_weights(str(tmp_path))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make_train_step(CLIPModel(CLIPConfig.tiny(), device="cpu"))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train_clip_fixture(steps=1)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        derive_key(0)
+    assert derive_key(0, device="cpu").device.type == "cpu"

@@ -106,17 +106,23 @@ def same_pads(size: int, k: int, stride: int) -> Tuple[int, int]:
 
 
 class Conv(nn.Module):
-    """flax ``nn.Conv`` with SAME padding on NHWC tensors, computed in
-    ``dtype``; kernel OIHW ``[out, in, k, k]``."""
+    """flax ``nn.Conv`` with SAME (or VALID) padding on NHWC tensors,
+    computed in ``dtype``; kernel OIHW ``[out, in, k, k]``."""
 
-    def __init__(self, cin: int, cout: int, k: int, stride: int = 1, dtype=torch.float32, device=None):
+    def __init__(self, cin: int, cout: int, k: int, stride: int = 1, dtype=torch.float32, device=None,
+                 padding: str = "SAME"):
         super().__init__()
+        if padding not in ("SAME", "VALID"):
+            raise ValueError(f"padding {padding!r}")
         self.kernel = _param(cout, cin, k, k, device=device)
         self.bias = _param(cout, device=device)
-        self.k, self.stride, self.dtype = k, stride, dtype
+        self.k, self.stride, self.dtype, self.padding = k, stride, dtype, padding
 
     def forward(self, x: Tensor) -> Tensor:
         x = x.to(self.dtype).permute(0, 3, 1, 2)  # the channels-last view
+        if self.padding == "VALID":
+            y = F.conv2d(x, self.kernel.to(self.dtype), self.bias.to(self.dtype), stride=self.stride)
+            return y.permute(0, 2, 3, 1)
         (top, bottom), (left, right) = (same_pads(n, self.k, self.stride) for n in x.shape[2:])
         if top == bottom and left == right:
             pad = (top, left)
@@ -129,14 +135,15 @@ class Conv(nn.Module):
 class Dense(nn.Module):
     """flax ``nn.Dense`` computed in ``dtype``; kernel ``[out, in]``."""
 
-    def __init__(self, din: int, dout: int, dtype=torch.float32, device=None):
+    def __init__(self, din: int, dout: int, dtype=torch.float32, device=None, bias: bool = True):
         super().__init__()
         self.kernel = _param(dout, din, device=device)
-        self.bias = _param(dout, device=device)
+        self.bias = _param(dout, device=device) if bias else None
         self.dtype = dtype
 
     def forward(self, x: Tensor) -> Tensor:
-        return F.linear(x.to(self.dtype), self.kernel.to(self.dtype), self.bias.to(self.dtype))
+        bias = None if self.bias is None else self.bias.to(self.dtype)
+        return F.linear(x.to(self.dtype), self.kernel.to(self.dtype), bias)
 
 
 def _normalize(x: Tensor, mean: Tensor, var: Tensor, scale: Tensor, bias: Tensor, eps: float) -> Tensor:
@@ -145,38 +152,42 @@ def _normalize(x: Tensor, mean: Tensor, var: Tensor, scale: Tensor, bias: Tensor
 
 
 class GroupNorm(nn.Module):
-    """flax ``nn.GroupNorm(_gn(C))`` over NHWC: statistics over (H, W,
-    C / G) in f32 (E[x^2] - E[x]^2, clamped at 0), epsilon 1e-6, the
-    result in ``dtype``."""
+    """flax ``nn.GroupNorm(groups)`` over NHWC (default ``_gn(C)`` groups):
+    statistics over (H, W, C / G) in f32 (E[x^2] - E[x]^2, clamped at 0),
+    epsilon ``eps`` (default 1e-6), the result in ``dtype``."""
 
-    def __init__(self, channels: int, dtype=torch.float32, device=None):
+    def __init__(self, channels: int, dtype=torch.float32, device=None, groups: Optional[int] = None,
+                 eps: float = 1e-6):
         super().__init__()
         self.scale = nn.Parameter(torch.ones(channels, device=device), requires_grad=False)
         self.bias = _param(channels, device=device)
-        self.groups, self.dtype = _gn(channels), dtype
+        self.groups, self.dtype, self.eps = groups or _gn(channels), dtype, eps
 
     def forward(self, x: Tensor) -> Tensor:
         B, C = x.shape[0], x.shape[-1]
         xg = x.float().reshape(B, -1, self.groups, C // self.groups)
         mean = xg.mean(dim=(1, 3), keepdim=True)
         var = torch.clamp(torch.square(xg).mean(dim=(1, 3), keepdim=True) - torch.square(mean), min=0.0)
-        y = _normalize(xg, mean, var, self.scale.reshape(self.groups, -1), self.bias.reshape(self.groups, -1), 1e-6)
+        y = _normalize(xg, mean, var, self.scale.reshape(self.groups, -1), self.bias.reshape(self.groups, -1),
+                       self.eps)
         return y.reshape(x.shape).to(self.dtype)
 
 
 class LayerNorm(nn.Module):
-    """flax ``nn.LayerNorm()`` (epsilon 1e-6, E[x^2] - E[x]^2), f32."""
+    """flax ``nn.LayerNorm(epsilon=eps)`` (default 1e-6, E[x^2] -
+    E[x]^2), f32."""
 
-    def __init__(self, width: int, device=None):
+    def __init__(self, width: int, device=None, eps: float = 1e-6):
         super().__init__()
         self.scale = nn.Parameter(torch.ones(width, device=device), requires_grad=False)
         self.bias = _param(width, device=device)
+        self.eps = eps
 
     def forward(self, x: Tensor) -> Tensor:
         xf = x.float()
         mean = xf.mean(dim=-1, keepdim=True)
         var = torch.clamp(torch.square(xf).mean(dim=-1, keepdim=True) - torch.square(mean), min=0.0)
-        return _normalize(xf, mean, var, self.scale, self.bias, 1e-6)
+        return _normalize(xf, mean, var, self.scale, self.bias, self.eps)
 
 
 class ResBlock(nn.Module):

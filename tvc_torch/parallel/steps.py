@@ -1,5 +1,6 @@
-"""The defended serving step on one device (port of ``make_serving_step``
-and its compat wrapper ``make_defense_step``, ``tvc/parallel/steps.py``).
+"""The defended serving step and the CLIP training step on one device
+(port of ``make_serving_step``, its compat wrapper ``make_defense_step``
+and ``make_train_step``, ``tvc/parallel/steps.py``).
 
 One call computes the CLIP image encode, one text-tower pass for the
 originals and the variants, the exact bank top-k by the text embedding,
@@ -7,15 +8,17 @@ the reference gather and the consistency scoring, then the two-sided band
 decision. With ``config.fused_attention`` the towers run the hand-written
 layer kernels (the W8A8 ones with ``config.int8_serving``); scoring runs the
 consistency kernel for CUDA tensors (each wrapper picks its plain version
-only for CPU tensors).
+only for CPU tensors). The training step differentiates the einsum
+module (the kernels define no backward pass).
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional, Union
+from typing import Any, Callable, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import Tensor
 
 from tvc_torch._device import resolve_device
@@ -23,7 +26,8 @@ from tvc_torch.core import consistency as C
 from tvc_torch.core.kernels.consistency_kernel import consistency_scores_reference, fused_consistency_scores
 from tvc_torch.core.kernels.topk_kernel import topk_index_order
 from tvc_torch.core.similarity import l2_normalize
-from tvc_torch.models.clip import CLIPModel, bucket_text_tokens, normalize_pixels
+from tvc_torch.models.clip import CLIPModel, _flatten, _unflatten, bucket_text_tokens, normalize_pixels
+from tvc_torch.optim import AdamW, adamw, apply_updates
 
 _SCORE_KEYS = (
     "tv_score", "sd_score", "consistency_score", "aggregated",
@@ -198,3 +202,69 @@ def make_defense_step(
         return out["is_adversarial"], out["aggregated"], out["ref_idx"]
 
     return step
+
+
+def make_train_step(
+    model: CLIPModel,
+    mesh=None,
+    optimizer: Optional[Union[AdamW, float, Callable[[int], float]]] = None,
+    extra_loss: Optional[Callable] = None,
+    device: Optional[Union[str, torch.device]] = None,
+) -> Tuple[Callable, Any]:
+    """CLIP contrastive training step on one device.
+
+    Returns ``(step, opt_state)``: ``step(params, opt_state, pixels, tokens)
+    -> (params, opt_state, loss)``. The loss is symmetric InfoNCE over the
+    batch, ``0.5 * (CE(logits, arange) + CE(logits.T, arange))``, on
+    ``normalize_pixels(pixels)`` ([B, H, W, 3] raw [0, 1]) through the
+    differentiable einsum module (``model.module``), in the config's
+    compute dtype with f32 parameters and optimizer state.
+    ``extra_loss(img_feats, txt_feats) -> scalar`` (L2-normed features) is
+    added when given, e.g. ``tvc_torch.fixtures.geometry_regularizer``.
+
+    The step is functional: it returns new tensors and mutates neither the
+    parameter tree nor the state it is given. ``CLIPModel`` caches its
+    compute-dtype copies per tree object, so install a result with
+    ``model.params = params``.
+
+    ``optimizer``: a ``tvc_torch.optim.AdamW``, or a learning rate or a
+    schedule ``count -> lr`` for ``adamw`` (optax's defaults, weight decay
+    1e-4); None is ``adamw(1e-5)``. ``opt_state`` is a tree of tensors and
+    an int count. A mesh (the data-parallel step, item D11) raises
+    ``NotImplementedError``. Runs on the card unless ``device="cpu"``; the
+    model must be on that device.
+    """
+    if mesh is not None:
+        raise NotImplementedError("make_train_step over a mesh (the data-parallel step, item D11) is not ported yet")
+    device = resolve_device(device)
+    if model.device != device:
+        raise ValueError(f"model is on {model.device}, step on {device}")
+    if optimizer is None:
+        optimizer = adamw(1e-5)
+    elif not isinstance(optimizer, AdamW):
+        optimizer = adamw(optimizer)
+    opt_state = optimizer.init(model.params)
+    module = model.module
+
+    def loss_fn(flat: Dict[str, Tensor], pixels: Tensor, tokens: Tensor) -> Tensor:
+        img, txt, logits = torch.func.functional_call(module, flat, (normalize_pixels(pixels), tokens))
+        labels = torch.arange(logits.shape[0], device=logits.device)
+        loss = 0.5 * (F.cross_entropy(logits, labels) + F.cross_entropy(logits.T, labels))
+        if extra_loss is not None:
+            loss = loss + extra_loss(img, txt)
+        return loss
+
+    def step(params: Dict, opt_state: Dict, pixels, tokens):
+        px = torch.as_tensor(np.asarray(pixels, np.float32) if not torch.is_tensor(pixels) else pixels,
+                             dtype=torch.float32, device=device)
+        tok = torch.as_tensor(np.asarray(tokens) if not torch.is_tensor(tokens) else tokens,
+                              dtype=torch.long, device=device)
+        flat = {n: t.detach().requires_grad_(True) for n, t in _flatten(params).items()}
+        with torch.enable_grad():
+            loss = loss_fn(flat, px, tok)
+            grads = torch.autograd.grad(loss, list(flat.values()))
+        grads = _unflatten(dict(zip(flat, grads)))
+        updates, opt_state = optimizer.update(grads, opt_state, params)
+        return apply_updates(params, updates), opt_state, loss.detach()
+
+    return step, opt_state
