@@ -111,6 +111,23 @@ Phases (each raises on failure; the script then exits non-zero):
      matrix, bank_topk over the text bank against text_bank.search,
      detect_adversarial twice (a cache hit), and the order of exact ties
      (raw torch.topk, EmbeddingBank.search, the serving step's top-k);
+  harness: the experiment harness and the command line (python -m
+     tvc_torch.cli, in-process): defense --experiment-mode four_scenarios at
+     ViT-B/32 (seeded random weights, 64 samples, the bank cut to 1,024,
+     PGD and hubness): set-up, attack and stage seconds, AUROC and detection
+     rate per attack, the staged overhead, fused_consistency_scores launches
+     checked against the protocol, the clean batch held against the plain
+     consistency version; every mode but comprehensive on the trained
+     tiny_coco fixture (32 samples): seconds, the result JSON and report,
+     the profiler trace, figures consistent with matplotlib's presence;
+     measure_serving_overhead() at its defaults (int8 ViT-B/32, B=256, a
+     131,072-row bank): defended / baseline ms and overhead, the launches
+     of a defended step against the code, peak memory, the defended step
+     against the plain versions; hardware-detect --probe, config-gen
+     --no-write (and a DynamicConfigManager on a temporary directory read
+     back through the port's YAML reader), deploy --detect-only, build-bank
+     at ViT-B/32 (256 samples), analyze over the phase's results; configs/
+     untouched;
   large bank: bank_topk at B=256 over a 4,194,304 x 512 f32 bank against
      its plain version, the wrapper's and the phase's peak memory, a
      profile;
@@ -1269,6 +1286,9 @@ PATH_KERNELS = {
     "weights fixture": ("fused_consistency_scores", "fused_attention_layer", "fused_mlp_layer"),
     "weights clip": ("fused_consistency_scores", "fused_attention_layer", "fused_mlp_layer"),
     "weights sd": ("fused_consistency_scores", "fused_attention_layer", "fused_mlp_layer"),
+    "harness": ("fused_consistency_scores",),
+    "harness fixture": ("fused_consistency_scores",),
+    "serving overhead": ("fused_consistency_scores", "fused_attention_layer_i8", "fused_mlp_layer_i8"),
 }
 B_DEFENDED, V_DEFENDED = 256, 6
 
@@ -3338,6 +3358,315 @@ def phase_retrieval(card: dict, mha: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase harness: the experiment harness and the command line
+# ---------------------------------------------------------------------------
+
+HARNESS_DIR = REPO / "build" / "harness"
+#: the full-width four-scenarios run: 64 samples; the retrieval bank is cut
+#: from the harness default of 4,096 to 1,024 rendered 224 px images (host
+#: render time, ~12 ms an image)
+N_HARNESS, HARNESS_BANK = 64, 1024
+HARNESS_ATTACKS = ("pgd", "hubness")
+#: every harness mode but comprehensive (which chains the others) on the
+#: trained tiny_coco fixture, the harness default model
+N_HARNESS_FIXTURE = 32
+HARNESS_FIXTURE_MODES = ("four_scenarios", "defense_effectiveness", "baseline_comparison", "ablation_study",
+                         "efficiency_analysis", "retrieval_quality", "cross_dataset", "adaptive_attack")
+#: the modes that draw figures (emit_figures or their own)
+HARNESS_FIGURE_MODES = ("four_scenarios", "defense_effectiveness", "baseline_comparison", "ablation_study")
+#: the protocol's stages, each timed by the host clock around it (each ends
+#: on host numpy)
+HARNESS_STAGES = ("scenario_1_attack_no_defense", "scenario_2_clean_no_defense", "scenario_3_clean_with_defense",
+                  "scenario_4_attack_with_defense", "epsilon_sweep")
+
+
+def run_cli(argv) -> tuple:
+    """One ``python -m tvc_torch.cli`` command in-process: (its standard
+    output, the ExperimentHarness objects it built, host seconds)."""
+    import contextlib
+    import io
+
+    from tvc_torch import cli
+    from tvc_torch.experiments.harness import ExperimentHarness
+
+    built = []
+    init = ExperimentHarness.__init__
+
+    def record(self, config):
+        init(self, config)
+        built.append(self)
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with mock.patch.object(ExperimentHarness, "__init__", record), contextlib.redirect_stdout(buf):
+        cli._module_main([str(a) for a in argv])
+    return buf.getvalue(), built, time.perf_counter() - t0
+
+
+@contextmanager
+def timed_methods(cls, names, into: dict, key=None):
+    """Add the host seconds of each call of ``cls.<name>`` into
+    ``into[key(name, args)]`` (default: the name)."""
+    with ExitStack() as stack:
+        for name in names:
+            orig = getattr(cls, name)
+
+            def wrapped(self, *args, _orig=orig, _name=name, **kw):
+                t0 = time.perf_counter()
+                try:
+                    return _orig(self, *args, **kw)
+                finally:
+                    k = key(_name, args) if key else _name
+                    into[k] = into.get(k, 0.0) + time.perf_counter() - t0
+
+            stack.enter_context(mock.patch.object(cls, name, wrapped))
+        yield
+
+
+def _harness_full_width(card: dict) -> dict:
+    """``defense --experiment-mode four_scenarios --clip-model ViT-B/32``
+    through the CLI, then the clean scenario's batch held against the same
+    harness pipeline on the plain consistency version."""
+    import torch
+
+    import tvc_torch.parallel.steps as steps_mod
+    from tvc_torch.core.kernels import consistency_scores_reference, launch_counts, reset_launch_counts
+    from tvc_torch.experiments.four_scenarios import FourScenariosConfig, FourScenariosExperiment
+
+    argv = ["defense", "--experiment-mode", "four_scenarios", "--clip-model", "ViT-B/32", "--num-samples", N_HARNESS,
+            "--bank-size", HARNESS_BANK, "--attacks", *HARNESS_ATTACKS, "--output-dir", HARNESS_DIR / "vitb32"]
+    stages, attacks = {}, {}
+    reset_launch_counts()
+    with timed_methods(FourScenariosExperiment, HARNESS_STAGES, stages), \
+            timed_methods(FourScenariosExperiment, ("_generate_adversarial_resumable",), attacks,
+                          key=lambda _, args: args[2]):
+        text, built, secs = run_cli(argv)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    h = built[0]
+    path = Path(json.loads(text)["output_path"])
+    res = json.loads(path.read_text())
+    if not path.with_suffix(".md").exists() or res["num_samples"] != N_HARNESS:
+        raise AssertionError(f"harness result incomplete: {path}")
+    # the protocol's detection batches (four_scenarios.run): the threshold
+    # calibration (clean, first attack), scenario 3, scenario 4 (clean + one
+    # per attack), one per sweep epsilon and gradient attack; one
+    # fused_consistency_scores launch each (one pipeline batch of 64)
+    fs = FourScenariosConfig()
+    n_sweep = len(fs.sweep_epsilons) * sum(a in FourScenariosExperiment.SWEEP_ATTACKS for a in HARNESS_ATTACKS)
+    want = 2 + 1 + (1 + len(HARNESS_ATTACKS)) + n_sweep
+    log(f"[harness] launches in the four-scenarios run: {counts} (fused_consistency_scores expected {want})")
+    _check_path_counts(counts, "harness", "four scenarios")
+    if counts["fused_consistency_scores"] != want:
+        raise AssertionError(f"harness: {counts['fused_consistency_scores']} consistency launches, expected {want}")
+    summ = res["summary"]
+    log(f"[harness] ViT-B/32 (seeded random weights) four scenarios, n={N_HARNESS}, bank {HARNESS_BANK} (cut from "
+        f"4,096): {secs:.2f} s in all; set-up " + ", ".join(f"{k} {v:.2f} s" for k, v in h.setup_seconds.items())
+        + "; attacks " + ", ".join(f"{k} {v:.2f} s" for k, v in attacks.items())
+        + "; stages " + ", ".join(f"{k} {v:.2f} s" for k, v in stages.items()) + f" on {card['smi']}")
+    log(f"[harness] AUROC {summ['auroc']}, detection rate {summ['detection_rate']}, clean FPR "
+        f"{summ['false_positive_rate']:.4f}, staged defense overhead {summ['defense_overhead']:.4f} "
+        f"(scenario 3 {res['scenario_3_defense_no_attack']['defense_time']:.4f} s vs scenario 2 "
+        f"{res['scenario_2_no_defense_no_attack']['baseline_time']:.4f} s)")
+    for name in HARNESS_ATTACKS:
+        if not math.isfinite(summ["auroc"][name]):
+            raise AssertionError(f"harness: AUROC of {name} is not finite")
+
+    # the clean scenario's batch on the same harness pipeline, kernel vs plain
+    pipe = h.make_pipeline()
+    got = pipe.process_batch(h.images, h.texts)
+    with mock.patch.object(steps_mod, "fused_consistency_scores", consistency_scores_reference):
+        ref = pipe.process_batch(h.images, h.texts)
+    d = np.abs(got.scores - ref.scores)
+    thr = pipe.detector.threshold_manager.get_threshold()
+    far = np.abs(ref.scores - thr) > CONSISTENCY_TOL
+    log(f"[harness] clean batch kernel vs plain: max |d aggregated| {d.max():.3e}; flags equal on "
+        f"{int(np.sum(got.is_adversarial[far] == ref.is_adversarial[far]))} / {int(far.sum())} rows off the threshold")
+    if got.scores.shape != (N_HARNESS,) or d.max() > CONSISTENCY_TOL or np.any(
+            got.is_adversarial[far] != ref.is_adversarial[far]):
+        raise AssertionError("harness: the clean batch disagrees with its plain version")
+    return {"launches": counts, "seconds": secs, "setup_s": dict(h.setup_seconds), "attack_s": attacks,
+            "stage_s": stages, "auroc": summ["auroc"], "detection_rate": summ["detection_rate"],
+            "defense_overhead": summ["defense_overhead"], "max_abs_d_aggregated": float(d.max())}
+
+
+def _harness_fixture(card: dict) -> dict:
+    """Every mode but comprehensive on the trained tiny_coco fixture, each
+    through the CLI; the launch counts cover all of them."""
+    import importlib.util
+
+    import torch
+
+    from tvc_torch.core.kernels import launch_counts, reset_launch_counts
+
+    has_mpl = importlib.util.find_spec("matplotlib") is not None
+    log(f"[harness fixture] matplotlib {'present' if has_mpl else 'missing'}: figures "
+        f"{'drawn' if has_mpl else 'skipped, each result records figures: []'}")
+    out = {"seconds": {}, "launches_by_mode": {}}
+    reset_launch_counts()
+    for mode in HARNESS_FIXTURE_MODES:
+        before = launch_counts()
+        text, built, secs = run_cli(["defense", "--experiment-mode", mode, "--num-samples", N_HARNESS_FIXTURE,
+                                     "--output-dir", HARNESS_DIR / "fixture" / mode])
+        torch.cuda.synchronize()
+        h = built[0]
+        path = Path(json.loads(text)["output_path"])
+        res = json.loads(path.read_text())
+        if not path.with_suffix(".md").exists():
+            raise AssertionError(f"{mode}: no markdown report beside {path}")
+        if mode in HARNESS_FIGURE_MODES:
+            figs = res.get("figures")
+            if has_mpl and not figs:
+                raise AssertionError(f"{mode}: matplotlib is present but no figure was drawn ({h.figure_error})")
+            if not has_mpl and (figs != [] or h.figure_error is None):
+                raise AssertionError(f"{mode}: matplotlib is missing but figures are {figs}")
+        if mode == "efficiency_analysis":
+            trace = res["profiler_trace_dir"]
+            if trace is None or not (Path(trace) / "trace.json.gz").exists():
+                raise AssertionError(f"efficiency_analysis: no profiler trace ({trace})")
+        extra = ""
+        if mode == "four_scenarios":
+            out["auroc"] = res["summary"]["auroc"]
+            extra = f"; AUROC {res['summary']['auroc']}, detection rate {res['summary']['detection_rate']}"
+        counts = launch_counts()
+        out["launches_by_mode"][mode] = {k: counts[k] - before[k] for k in counts if counts[k] != before[k]}
+        out["seconds"][mode] = secs
+        log(f"[harness fixture] {mode}: {secs:.2f} s (set-up " + ", ".join(
+            f"{k} {v:.2f}" for k, v in h.setup_seconds.items()) + f"), launches {out['launches_by_mode'][mode]}"
+            + extra)
+    out["launches"] = launch_counts()
+    _check_path_counts(out["launches"], "harness fixture", "every mode")
+    return out
+
+
+def _harness_serving_overhead(card: dict) -> dict:
+    """``measure_serving_overhead()`` at its defaults (ViT-B/32 int8 W8A8,
+    B=256, a 131,072 x 512 bank, V=6, top-k 10), its launches against the
+    code, then one defended step against the same step on the plain
+    versions."""
+    import torch
+
+    import tvc_torch.experiments.four_scenarios as fs_mod
+    import tvc_torch.models.clip as clip_mod
+    from tvc_torch.core.kernels import (
+        attention_layer_i8_reference,
+        consistency_scores_reference,
+        launch_counts,
+        mlp_layer_i8_reference,
+        reset_launch_counts,
+    )
+
+    reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = fs_mod.measure_serving_overhead()
+    secs = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    _check_path_counts(counts, "serving overhead", "measure_serving_overhead")
+
+    steps = fs_mod.serving_overhead_steps()
+    cfg = steps["model"].config
+    reset_launch_counts()
+    got = steps["defended"]()
+    torch.cuda.synchronize()
+    per_step = launch_counts()
+    layers = cfg.vision_layers + cfg.text_layers * steps["text_passes"]
+    want = {"fused_consistency_scores": 1, "fused_attention_layer_i8": layers, "fused_mlp_layer_i8": layers}
+    base = {"fused_consistency_scores": 0, "fused_attention_layer_i8": cfg.vision_layers + cfg.text_layers,
+            "fused_mlp_layer_i8": cfg.vision_layers + cfg.text_layers}
+    calls = fs_mod.SERVING_WARMUP + fs_mod.SERVING_REPEATS  # each step's calls in the measurement
+    log(f"[serving overhead] launches in one defended step: {per_step} (expected {want}; text passes "
+        f"{steps['text_passes']}); in the whole measurement: {counts}")
+    if any(per_step[k] != v for k, v in want.items()) or any(
+            counts[k] != calls * (want[k] + base[k]) for k in want):
+        raise AssertionError("serving overhead: launches differ from the code's")
+    with ExitStack() as stack:
+        for module, name, plain in ((fs_mod, "fused_consistency_scores", consistency_scores_reference),
+                                    (clip_mod, "fused_attention_layer_i8", attention_layer_i8_reference),
+                                    (clip_mod, "fused_mlp_layer_i8", mlp_layer_i8_reference)):
+            stack.enter_context(mock.patch.object(module, name, plain))
+        ref = steps["defended"]()
+    torch.cuda.synchronize()
+    same = np.all(np.sort(got["ref_idx"].cpu().numpy(), -1) == np.sort(ref["ref_idx"].cpu().numpy(), -1), -1)
+    d = (got["aggregated"] - ref["aggregated"]).abs().cpu().numpy()
+    flags = float((got["is_adversarial"] == ref["is_adversarial"]).float().mean())
+    log(f"[serving overhead] defended {1e3 * out['defense_time_serving']:.3f} ms / baseline "
+        f"{1e3 * out['baseline_time_serving']:.3f} ms a step at B={out['serving_batch_size']} (CUDA events, "
+        f"{out['serving_chained_steps']} repetitions after {fs_mod.SERVING_WARMUP} warm-up), overhead {out['defense_overhead_serving']:.4f}; "
+        f"peak {peak:.2f} GiB; {secs:.2f} s in all on {card['smi']}")
+    log(f"[serving overhead] kernel vs plain: max |d aggregated| {d[same].max():.3e} over the {int(same.sum())} rows "
+        f"with the same 10 references ({d.max():.3e} over all); flag agreement {flags:.4f}")
+    # int8 quanta that flip where an f32 sum in another order crosses a .5
+    # move the text features by ~1e-3, which can swap near-tied bank rows;
+    # the layer tolerance holds on the rows scored against the same rows
+    if same.mean() < 0.5 or d[same].max() > LAYER_TOL:
+        raise AssertionError("serving overhead: the defended step disagrees with its plain version")
+    return {**out, "launches": counts, "per_step": per_step, "peak_gib": peak, "seconds": secs,
+            "same_refs": float(same.mean()), "max_abs_d_aggregated": float(d[same].max())}
+
+
+def _harness_cli(card: dict) -> dict:
+    """hardware-detect --probe, config-gen --no-write and a
+    DynamicConfigManager on a temporary directory read back through the
+    port's YAML reader, deploy --detect-only, build-bank at ViT-B/32 and
+    analyze over every result the phase wrote."""
+    import importlib.util
+    import tempfile
+
+    from tvc_torch import _yaml
+    from tvc_torch.analysis.run_analysis import load_results, parse_results
+    from tvc_torch.utils import DynamicConfigManager
+
+    hw = json.loads(run_cli(["hardware-detect", "--probe"])[0])
+    health = hw["health"]
+    log(f"[harness cli] hardware-detect --probe: {json.dumps(hw)}")
+    if not health["healthy"] or hw["platform"] != "gpu" or health["device"] != card["name"]:
+        raise AssertionError(f"hardware-detect: {hw}")
+    gen = json.loads(run_cli(["config-gen", "--no-write"])[0])
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = DynamicConfigManager(config_dir=tmp).auto_configure_system()
+        back = _yaml.load((Path(tmp) / "dynamic" / "auto_generated_config.yaml").read_text())
+    log(f"[harness cli] config-gen --no-write: profile {gen['profile']}; written to a temporary config_dir and "
+        f"read back equal: {back == cfg}")
+    if gen["profile"] != "gpu_single_card" or back != cfg or cfg["profile"] != "gpu_single_card":
+        raise AssertionError(f"config-gen: {gen['profile']}, read back {back}")
+    dep = run_cli(["deploy", "--detect-only"])[0]
+    if not dep.startswith("hardware: "):
+        raise AssertionError(f"deploy --detect-only printed {dep!r}")
+    text, _, secs = run_cli(["build-bank", "--clip-model", "ViT-B/32", "--max-samples", 256,
+                             "--output", HARNESS_DIR / "bank"])
+    bank = json.loads(text.strip().splitlines()[-1])
+    log(f"[harness cli] build-bank ViT-B/32: {bank} in {secs:.2f} s")
+    if bank["image_bank"] != 256 or bank["text_bank"] != 256:
+        raise AssertionError(f"build-bank: {bank}")
+    charts = importlib.util.find_spec("matplotlib") is not None
+    index = json.loads(run_cli(["analyze", "--results-dir", HARNESS_DIR] + ([] if charts else ["--no-charts"]))[0])
+    parsed = parse_results(load_results(str(HARNESS_DIR)))
+    log(f"[harness cli] analyze: {index['num_experiments']} results, families {index['families']}, "
+        f"{len(parsed)} tables, {len(index['charts'])} charts; key findings {index['key_findings']}")
+    missing = {"four_scenarios", "defense_effectiveness", "baseline_comparison", "ablation_study",
+               "efficiency_analysis", "adaptive_attack"} - set(index["families"])
+    if missing:
+        raise AssertionError(f"analyze found no table of {missing}")
+    return {"profile": gen["profile"], "bank": bank, "families": index["families"]}
+
+
+def phase_harness(card: dict) -> dict:
+    """The experiment harness and the CLI on the card; configs/ untouched."""
+    auto = REPO / "configs" / "dynamic" / "auto_generated_config.yaml"
+    before = auto.read_bytes()
+    out = {"harness": _harness_full_width(card)}
+    out["harness fixture"] = _harness_fixture(card)
+    out["serving overhead"] = _harness_serving_overhead(card)
+    out["cli"] = _harness_cli(card)
+    if auto.read_bytes() != before:
+        raise AssertionError("the harness phase wrote configs/dynamic/auto_generated_config.yaml")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase large bank: bank_topk where the [B, N] scores would not fit in L2
 # ---------------------------------------------------------------------------
 
@@ -3529,12 +3858,15 @@ def main() -> int:
     with phase("retrieval"):
         retrieval = phase_retrieval(card, mha)
     del mha["model"]
+    with phase("harness"):
+        harness = phase_harness(card)
     with phase("large bank"):
         large = phase_large_bank(card)
     kres["bank_topk"]["shapes"].append(large["shape"])
     paths = {"bf16": bf16, "int8": int8, "qwen": qwen, "pipeline": pipeline, "mha": mha, "retrieval": retrieval,
              **tiny, **{k: v for k, v in attack.items() if k in PATH_KERNELS}, "sd": sd,
-             **{k: v for k, v in weights.items() if k in PATH_KERNELS}}
+             **{k: v for k, v in weights.items() if k in PATH_KERNELS},
+             **{k: v for k, v in harness.items() if k in PATH_KERNELS}}
     kernels = []
     for name, (source, replaces) in KERNEL_SOURCES.items():
         shapes = kres[name]["shapes"]
@@ -3585,6 +3917,13 @@ def main() -> int:
     log(f"retrieval: native resize {retrieval['host_ms_per_image']:.3f} host ms per image; text index "
         f"{retrieval['text_index_s']:.2f} s; tie order {retrieval['ties']}; large bank_topk peak memory: the "
         f"wrapper's {large['wrapper_peak_gib']:.2f} GiB, the phase's {large['peak_gib']:.2f} GiB")
+    hf, hso, hfx = harness["harness"], harness["serving overhead"], harness["harness fixture"]
+    log(f"harness: ViT-B/32 four scenarios (n={N_HARNESS}, bank {HARNESS_BANK}) {hf['seconds']:.2f} s (set-up "
+        + ", ".join(f"{k} {v:.2f} s" for k, v in hf["setup_s"].items()) + "), AUROC " + ", ".join(
+            f"{k} {v:.4f}" for k, v in hf["auroc"].items()) + f", staged overhead {hf['defense_overhead']:.4f}; "
+        f"measure_serving_overhead defended {1e3 * hso['defense_time_serving']:.3f} ms / baseline "
+        f"{1e3 * hso['baseline_time_serving']:.3f} ms, overhead {hso['defense_overhead_serving']:.4f}; fixture modes "
+        + ", ".join(f"{k} {v:.1f} s" for k, v in hfx["seconds"].items()) + f" on {card['smi']}")
     print(json.dumps({"kernels": kernels}))
     print(card["smi"])
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card["name"], "count": card["count"]}}))
