@@ -131,6 +131,20 @@ Phases (each raises on failure; the script then exits non-zero):
   large bank: bank_topk at B=256 over a 4,194,304 x 512 f32 bank against
      its plain version, the wrapper's and the phase's peak memory, a
      profile;
+  mesh: the mesh paths on torch.distributed, in child processes: (a) world
+     size 1 over NCCL (initialize_multihost with a 127.0.0.1 coordinator):
+     bf16 and int8 ViT-B/32 detect_batch (B=256, V=6, top-k 10) through a
+     mesh-built retriever over the 131,072 x 512 bank against the
+     single-device detector (flags and ref_idx equal, aggregated within
+     MESH1_AGG_TOL), defended q/s of both, the collectives' ms a batch; (b)
+     two gloo ranks sharing the card (left out on an exclusive compute
+     mode, the reason printed): the same serving at data = 2 over a bank
+     sharded two ways (each rank's launches checked), data-parallel
+     ViT-B/32 training (B=256, 3 steps), Qwen2-7B W8A8 at TP = 2
+     (teacher-forced logits against the single-device module path, a
+     greedy decode of 64 captions x 3) and the SD-1.5 sampler at data = 2
+     (8 captions x 3, MESH_SD_STEPS steps), each held by rank 0 against the
+     single-device run; throughputs labelled as two ranks sharing one card;
   6. summary: one JSON line of per-kernel numbers, the card's nvidia-smi
      line, then the last line {"ok": true, "device": {...}}.
 
@@ -239,12 +253,16 @@ def phase_card() -> dict:
         capture_output=True, text=True, timeout=30, check=True,
     ).stdout.strip().splitlines()[0]
     name = torch.cuda.get_device_name(0)
-    log(f"card: {smi}")
+    mode = subprocess.run(
+        ["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=30, check=True,
+    ).stdout.strip().splitlines()[0]
+    log(f"card: {smi}; compute mode {mode}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device {name} count {torch.cuda.device_count()}")
     # the plain versions are the reference: full f32, no TF32 anywhere
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    return {"smi": smi, "name": name, "count": torch.cuda.device_count()}
+    return {"smi": smi, "name": name, "count": torch.cuda.device_count(), "compute_mode": mode}
 
 
 def phase_build() -> float:
@@ -1289,6 +1307,8 @@ PATH_KERNELS = {
     "harness": ("fused_consistency_scores",),
     "harness fixture": ("fused_consistency_scores",),
     "serving overhead": ("fused_consistency_scores", "fused_attention_layer_i8", "fused_mlp_layer_i8"),
+    "mesh bf16": ("fused_consistency_scores", "fused_attention_layer", "fused_mlp_layer"),
+    "mesh int8": ("fused_consistency_scores", "fused_attention_layer_i8", "fused_mlp_layer_i8"),
 }
 B_DEFENDED, V_DEFENDED = 256, 6
 
@@ -3757,6 +3777,479 @@ def _topk_merge_ms(q, bank, k: int) -> float:
 
 #: profiler names shortened to the kernel and its template arguments
 #: (the first match wins, so longer names come first)
+# ---------------------------------------------------------------------------
+# phase mesh: the mesh paths on torch.distributed
+# ---------------------------------------------------------------------------
+
+#: (b)'s sampler steps: the SD-1.5 shapes at 10 of the config's 20 DDIM
+#: steps (the sd phase runs all 20; here both rank programs and the
+#: single-device reference sample the same batch)
+MESH_SD_STEPS = 10
+#: world size 1 over NCCL: the same kernels as one device, the text rows
+#: bucketed per shard (quantum 64) where one device buckets by 256 rows
+MESH1_AGG_TOL = 1e-6
+#: two ranks: each encodes half the batch, so the layer kernels run at
+#: other row counts (other tiles and splits), which moves bf16 features by
+#: rounding; int8 GEMMs sum exactly
+MESH_AGG_TOL = 1e-3
+#: ref_idx is held on the rows whose single-device k-th and (k+1)-th
+#: scores differ by more than this
+MESH_GAP_TOL = 1e-5
+#: the DP steps against the single-device steps on the same batch (3 steps
+#: at TRAIN_LR, ViT-B/32 bf16, B = 256), each limit about 3-4x the gap
+#: measured on the H100 (the ranks' bf16 partial gradients round apart
+#: from one device's whole-batch sums): every loss, relative (3.4e-5);
+#: each leaf's AdamW first moment, an average of the gradients that keeps
+#: their scale where Adam's update hides it, as the L2 norm of the
+#: difference over the single device's (worst leaf 2.3e-2, the token
+#: embedding; a gradient off by the data axis's 2 reads >= 0.5); the
+#: parameter change since the start over all parameters, the same norm
+#: (2.8e-2; a skipped or doubled update reads 1). The worst leaf's change is
+#: printed, not held: the key biases' gradients are 0 (softmax ignores a
+#: shift of every score), so Adam moves them by the sign of rounding noise
+#: and they read ~0.5 on any two runs.
+MESH_LOSS_TOL = 1e-4
+MESH_MU_TOL = 0.1
+MESH_UPDATE_TOL = 0.1
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _sync(dev) -> None:
+    import torch
+
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def mesh_spec(device=None) -> dict:
+    """The mesh phase's configurations and sizes (full width on the card)."""
+    import dataclasses
+
+    from tvc_torch.models.clip import CLIPConfig
+    from tvc_torch.models.qwen import QwenConfig
+    from tvc_torch.models.sd import SDConfig
+
+    return {
+        "device": device, "check_counts": True,
+        "clip": {"bf16": CLIPConfig.vit_b32(fused_attention=True),
+                 "int8": CLIPConfig.vit_b32(fused_attention=True, int8_serving=True)},
+        "bank": 131072, "B": B_DEFENDED, "V": V_DEFENDED, "train_B": N_TRAIN, "train_steps": 3,
+        "qwen": dataclasses.replace(QwenConfig.qwen2_7b(), quant_gemm="w8a8"), "qwen_captions": 64,
+        "qwen_new": MAX_NEW, "forced_rows": 64, "forced_steps": N_FORCED,
+        "sd": SDConfig(), "sd_captions": N_SD, "sd_images": 3, "sd_steps": MESH_SD_STEPS,
+    }
+
+
+def _mesh_detector(spec: dict, kind: str, mesh, model=None):
+    """(detector, model) over a 131,072-row bank built from the slice
+    phase's seeded rows, sharded over ``mesh`` (None: one device)."""
+    from tvc_torch.detector import AdversarialDetector, DetectorConfig
+    from tvc_torch.models.clip import CLIPModel
+    from tvc_torch.retrieval import MultiModalRetriever
+
+    cfg = spec["clip"][kind]
+    model = model or CLIPModel(cfg, seed=0, device=spec["device"])
+    embs = np.random.default_rng(1).standard_normal((spec["bank"], cfg.embed_dim), dtype=np.float32)
+    retriever = MultiModalRetriever(model, mesh=mesh)
+    retriever.build_image_index(embeddings=embs)
+    det = AdversarialDetector(
+        model, DetectorConfig(num_text_variants=spec["V"], num_reference_images=3, retrieval_top_k=10,
+                              text_bucket=32),
+        retriever=retriever, device=model.device,
+    )
+    return det, model
+
+
+def _mesh_batch(spec: dict, size: int):
+    texts, variants = coco_variant_batch(spec["B"], spec["V"])
+    images = np.random.default_rng(2).random((spec["B"], size, size, 3), dtype=np.float32)
+    return images, texts, variants
+
+
+def _safe_threshold(agg: np.ndarray) -> float:
+    """The midpoint of the widest gap between neighbouring scores in the
+    middle 80 % of the batch: a threshold as far from every score as the
+    batch allows, so a small score difference flips no flag."""
+    s = np.sort(np.asarray(agg, np.float64))
+    lo, hi = len(s) // 10, len(s) - len(s) // 10
+    i = lo + int(np.argmax(np.diff(s[lo:hi])))
+    return float((s[i] + s[i + 1]) / 2)
+
+
+def _mesh_detect(det, batch, spec: dict, path: str) -> tuple:
+    """One detect_batch with the launch counts set to 0 just before and read
+    just after (checked against ``path`` on the card)."""
+    from tvc_torch.core.kernels import launch_counts, reset_launch_counts
+
+    reset_launch_counts()
+    res = det.detect_batch(*batch)
+    _sync(det.model.device)
+    counts = launch_counts()
+    if spec["check_counts"]:
+        _check_path_counts(counts, path, "one mesh defended batch")
+    return res, counts
+
+
+def _timed_collectives():
+    """Patches that time every all_gather / all_reduce of the serving step
+    and the sharded bank (synchronized before and after), and the record."""
+    import tvc_torch.bank.index as bank_index
+    import tvc_torch.parallel.steps as steps_mod
+    from tvc_torch.parallel import mesh as mesh_mod
+
+    rec = {"all_gather": [0, 0.0], "all_reduce": [0, 0.0]}
+
+    def timed(name):
+        fn = getattr(mesh_mod, name)
+
+        def run(x, *a, **kw):
+            _sync(x.device)
+            t0 = time.perf_counter()
+            out = fn(x, *a, **kw)
+            _sync(x.device)
+            rec[name][0] += 1
+            rec[name][1] += 1e3 * (time.perf_counter() - t0)
+            return out
+        return run
+
+    patches = [mock.patch.object(mod, name, timed(name))
+               for mod in (steps_mod, bank_index) for name in ("all_gather", "all_reduce") if hasattr(mod, name)]
+    return patches, rec
+
+
+def _mesh_world1(rank: int, n: int, spec: dict) -> dict:
+    """(a): world size 1 over NCCL. Each path's detect_batch through a
+    mesh-built retriever against the single-device detector on the same
+    model and batch: flags and ref_idx equal, aggregated within
+    MESH1_AGG_TOL; defended q/s of both; the collectives' ms a batch."""
+    import torch
+
+    from tvc_torch.parallel.mesh import create_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = create_mesh(device=spec["device"])
+    out = {}
+    for kind in ("bf16", "int8"):
+        path = f"mesh {kind}"
+        det_m, model = _mesh_detector(spec, kind, mesh)
+        det_s, _ = _mesh_detector(spec, kind, None, model)
+        batch = _mesh_batch(spec, model.config.image_size)
+        thr = _safe_threshold(det_s.detect_batch(*batch).aggregated_score)
+        for d in (det_m, det_s):
+            d.threshold_manager.update(thr)
+        res_m, counts = _mesh_detect(det_m, batch, spec, path)
+        res_s = det_s.detect_batch(*batch)
+        d_agg = float(np.abs(res_m.aggregated_score - res_s.aggregated_score).max())
+        same_flags = bool(np.array_equal(res_m.is_adversarial, res_s.is_adversarial))
+        same_idx = bool(np.array_equal(res_m.details["ref_idx"], res_s.details["ref_idx"]))
+        log(f"[mesh world 1 {kind}] detect_batch B={spec['B']} V={spec['V']} top-k 10 over a {spec['bank']}-row "
+            f"mesh bank vs the single-device detector: max |d aggregated| {d_agg:.3e} (tol {MESH1_AGG_TOL}), "
+            f"flags equal {same_flags}, ref_idx equal {same_idx}, mesh {res_m.details['mesh']}; launches {counts}")
+        if not (d_agg <= MESH1_AGG_TOL and same_flags and same_idx and res_m.details["mesh"]):
+            raise AssertionError(f"[mesh world 1 {kind}] the mesh path parts from the single-device path")
+        qps = {}
+        for name, d in (("single", det_s), ("mesh", det_m), ("mesh", det_m), ("single", det_s)):
+            _sync(model.device)
+            t0 = time.perf_counter()
+            for _ in range(3):
+                d.detect_batch(*batch)
+            _sync(model.device)
+            qps.setdefault(name, []).append(3 * spec["B"] / (time.perf_counter() - t0))
+        qps = {k: max(v) for k, v in qps.items()}
+        patches, rec = _timed_collectives()
+        with ExitStack() as stack:
+            for p in patches:
+                stack.enter_context(p)
+            det_m.detect_batch(*batch)
+        log(f"[mesh world 1 {kind}] defended queries/s: single device {qps['single']:.1f}, mesh at world 1 "
+            f"{qps['mesh']:.1f} (x{qps['mesh'] / qps['single']:.4f}); collectives in one batch: "
+            + ", ".join(f"{k} x{c} {ms:.3f} ms" for k, (c, ms) in rec.items()))
+        out[kind] = {"launches": counts, "max_abs_d_aggregated": d_agg, "qps": qps,
+                     "collectives": {k: {"calls": c, "ms": ms} for k, (c, ms) in rec.items()}}
+        del det_m, det_s, model
+        torch.cuda.empty_cache() if torch.cuda.is_available() else None
+    return out
+
+
+def _topk_recorder(store: list):
+    """A stand-in for the serving step's top-k that also records the
+    (k+1)-th score of every row."""
+    from tvc_torch.core.kernels.topk_kernel import topk_index_order
+
+    def run(sims, k):
+        vals, idx = topk_index_order(sims, k + 1)
+        store.append(vals.float().cpu().numpy())
+        return vals[:, :k], idx[:, :k]
+    return run
+
+
+def _mesh_two_ranks(rank: int, n: int, spec: dict) -> dict:
+    """(b): two gloo ranks sharing the card. Mesh serving (bf16, int8) at
+    data = 2 over a bank sharded two ways, data-parallel ViT-B/32 training,
+    Qwen2-7B W8A8 at TP = 2 and the SD-1.5 sampler at data = 2; then rank 0
+    alone runs each single-device reference and holds the mesh results."""
+    import dataclasses
+
+    import torch
+
+    import tvc_torch.parallel.steps as steps_mod
+    from tvc_torch.data.loaders import render_caption_image
+    from tvc_torch.models.clip import _flatten
+    from tvc_torch.models.qwen import PARAPHRASE_PREFIX, PARAPHRASE_PROMPT, DecodeInputs, QwenModel
+    from tvc_torch.models.sd import StableDiffusionModel
+    from tvc_torch.parallel.mesh import MeshConfig, create_mesh
+    from tvc_torch.parallel.steps import make_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = spec["device"]
+    mesh = create_mesh(device=dev)
+    tp_mesh = create_mesh(MeshConfig(axes=("model",)), device=dev)
+    tag = f"[mesh 2 ranks, rank {rank}]"
+    out, keep = {}, {}
+
+    # -- mesh serving, data = 2 (128 queries a rank), bank sharded two ways
+    for kind in ("bf16", "int8"):
+        det, model = _mesh_detector(spec, kind, mesh)
+        batch = _mesh_batch(spec, model.config.image_size)
+        det.threshold_manager.update(_safe_threshold(det.detect_batch(*batch).aggregated_score))
+        res, counts = _mesh_detect(det, batch, spec, f"mesh {kind}")
+        _sync(model.device)
+        t0 = time.perf_counter()
+        for _ in range(3):
+            det.detect_batch(*batch)
+        _sync(model.device)
+        qps = 3 * spec["B"] / (time.perf_counter() - t0)
+        log(f"{tag} mesh {kind}: launches {counts}; {qps:.1f} defended queries/s (two ranks sharing one card)")
+        out[kind] = {"launches": counts, "qps_shared_card": qps}
+        keep[kind] = (res, det.threshold_manager.get_threshold(), model, batch)
+        del det
+
+    # -- data-parallel training, global B, a few steps
+    model = keep["bf16"][2]
+    captions, _ = coco_variant_batch(spec["train_B"], 1)
+    size = model.config.image_size
+    px = np.stack([render_caption_image(c, size, noise_seed=i) for i, c in enumerate(captions)])
+    tok = np.asarray(model.tokenize(captions))
+    step, state = make_train_step(model, mesh, TRAIN_LR)
+    p, s, losses = model.params, state, []
+    _sync(dev or "cuda")
+    t0 = time.perf_counter()
+    for _ in range(spec["train_steps"]):
+        p, s, loss = step(p, s, px, tok)
+        losses.append(float(loss))
+    train_s = time.perf_counter() - t0
+    pairs_s = spec["train_steps"] * spec["train_B"] / train_s
+    log(f"{tag} DP training B={spec['train_B']}: losses {losses}, {pairs_s:.1f} pairs/s (first step included; two "
+        f"ranks sharing one card)")
+    out["train"] = {"losses": losses, "pairs_per_s_shared_card": pairs_s}
+    keep["train"] = (p, s) if rank == 0 else None
+    del p, s, state, step
+
+    # -- Qwen2-7B W8A8 at TP = 2
+    qcfg = spec["qwen"]
+    t0 = time.perf_counter()
+    tp = QwenModel(qcfg, seed=0, max_new_tokens=spec["qwen_new"], init_int8=True, mesh=tp_mesh)
+    _sync(tp.device)
+    init_s = time.perf_counter() - t0
+    cap = coco_captions(spec["qwen_captions"])
+    rows = np.asarray(tp.tokenizer(cap[: spec["forced_rows"]]))
+    L = min(int((r != getattr(tp.tokenizer, "pad_id", 0)).sum()) for r in rows)
+    ids = torch.as_tensor(rows[:, :L], dtype=torch.long, device=tp.device)
+    forced = torch.as_tensor(np.random.default_rng(3).integers(1, min(32000, qcfg.vocab_size),
+                                                                (spec["forced_steps"], len(ids))), device=tp.device)
+    inp = DecodeInputs(prefix=torch.zeros(0, dtype=torch.long, device=tp.device), tokens=ids,
+                       lengths=torch.full((len(ids),), L, device=tp.device), plen=L, n_samples=1, allowed=None,
+                       n_real=0)
+    seen = []
+    tp.decode(inp, temperature=0.0, forced=forced, on_logits=lambda i, lg: seen.append(lg.float().cpu()))
+    prompts = [PARAPHRASE_PROMPT.format(text=t) for t in cap]
+    greedy_inp = tp.prepare(prompts, 3, shared_prefix=PARAPHRASE_PREFIX)
+    tp.decode(greedy_inp, temperature=0.0)  # warm
+    _sync(tp.device)
+    t0 = time.perf_counter()
+    tp_rows = tp.decode(greedy_inp, temperature=0.0).cpu().numpy()
+    _sync(tp.device)
+    tok_s = tp_rows.size / (time.perf_counter() - t0)
+    log(f"{tag} Qwen TP=2 ({qcfg.model_name} int8, init {init_s:.2f} s): greedy decode of {len(cap)} captions x 3 "
+        f"x {spec['qwen_new']} tokens {tok_s:.1f} tok/s (two ranks sharing one card)")
+    out["qwen"] = {"tok_per_s_shared_card": tok_s, "init_s": init_s}
+    keep["qwen"] = (ids.cpu(), forced.cpu(), torch.stack(seen), greedy_inp, tp_rows)
+    del tp
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+
+    # -- the SD sampler at data = 2
+    sd = StableDiffusionModel(spec["sd"], seed=0, mesh=mesh)
+    sd_caps = coco_captions(spec["sd_captions"])
+    sd.generate_images_batch(sd_caps[:2], 1, seed=0, num_inference_steps=2)  # warm
+    _sync(sd.device)
+    t0 = time.perf_counter()
+    imgs = sd.generate_images_batch(sd_caps, spec["sd_images"], seed=0, num_inference_steps=spec["sd_steps"])
+    _sync(sd.device)
+    n_img = len(sd_caps) * spec["sd_images"]
+    img_s = n_img / (time.perf_counter() - t0)
+    log(f"{tag} SD at data = 2: {n_img} images at {spec['sd'].image_size} px, {spec['sd_steps']} steps, "
+        f"{img_s:.3f} images/s (two ranks sharing one card)")
+    out["sd"] = {"images_per_s_shared_card": img_s}
+    keep["sd"] = np.stack([np.stack(p) for p in imgs])
+    del sd
+    if rank:
+        return out
+
+    # ---- rank 0: the single-device references, after every collective;
+    # every hold is read and printed before the first failure raises
+    failed = []
+    for kind in ("bf16", "int8"):
+        res, thr, model, batch = keep[kind]
+        det, _ = _mesh_detector(spec, kind, None, model)
+        det.threshold_manager.update(thr)
+        scores = []
+        with mock.patch.object(steps_mod, "topk_index_order", _topk_recorder(scores)):
+            ref = det.detect_batch(*batch)
+        top = scores[-1]  # [B, k + 1] single-device scores
+        clear = (top[:, -2] - top[:, -1]) > MESH_GAP_TOL
+        gi, wi = res.details["ref_idx"], ref.details["ref_idx"]
+        same_set = bool(np.array_equal(np.sort(gi[clear], -1), np.sort(wi[clear], -1)))
+        lists = float(np.mean(np.all(gi == wi, -1)))
+        d_agg = float(np.abs(res.aggregated_score - ref.aggregated_score).max())
+        flags = bool(np.array_equal(res.is_adversarial, ref.is_adversarial))
+        log(f"[mesh 2 ranks {kind}] vs the single-device detector: max |d aggregated| {d_agg:.3e} (tol "
+            f"{MESH_AGG_TOL}); flags equal {flags} (threshold {thr:.6f}); ref_idx the same rows on the "
+            f"{int(clear.sum())} of {len(clear)} rows whose k-th and (k+1)-th scores differ by > {MESH_GAP_TOL}: "
+            f"{same_set}; whole lists equal on {lists:.4f} of the rows")
+        if not (d_agg <= MESH_AGG_TOL and flags and same_set):
+            failed.append(f"[mesh 2 ranks {kind}] the mesh path parts from the single-device path")
+        out[kind].update(max_abs_d_aggregated=d_agg, ref_idx_lists_equal=lists, clear_rows=int(clear.sum()))
+        del det
+
+    model = keep["bf16"][2]
+    step, state = make_train_step(model, None, TRAIN_LR, device=model.device)
+    sp, ss, want = model.params, state, []
+    for _ in range(spec["train_steps"]):
+        sp, ss, loss = step(sp, ss, px, tok)
+        want.append(float(loss))
+    mp, ms = keep.pop("train")
+    start, mp, sp = _flatten(model.params), _flatten(mp), _flatten(sp)
+    m_mu, s_mu = _flatten(ms["mu"]), _flatten(ss["mu"])
+
+    def _gap(a, b):
+        return float((a.double() - b.double()).norm() / b.double().norm().clamp_min(1e-30))
+
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses, want))
+    mu_gap = max((_gap(m_mu[n], s_mu[n]), n) for n in s_mu)
+    up_m = torch.cat([(mp[n] - start[n]).reshape(-1) for n in start])
+    up_s = torch.cat([(sp[n] - start[n]).reshape(-1) for n in start])
+    up_gap = _gap(up_m, up_s)
+    leaves = sorted(((_gap(mp[n] - start[n], sp[n] - start[n]), n) for n in start), reverse=True)[:3]
+    log(f"[mesh 2 ranks train] {spec['train_steps']} DP steps vs {spec['train_steps']} single-device steps on the "
+        f"same batch: losses {losses} vs {want}, worst relative {loss_rel:.3e} (tol {MESH_LOSS_TOL}); AdamW first "
+        f"moment, worst leaf |d| / |single| {mu_gap[0]:.3e} ({mu_gap[1]}; tol {MESH_MU_TOL}); parameter change "
+        f"since the start, all parameters {up_gap:.3e} (tol {MESH_UPDATE_TOL}), worst leaves, not held: "
+        + ", ".join(f"{n} {g:.3e}" for g, n in leaves))
+    if not (loss_rel <= MESH_LOSS_TOL and mu_gap[0] <= MESH_MU_TOL and up_gap <= MESH_UPDATE_TOL):
+        failed.append("[mesh 2 ranks train] the data-parallel steps part from the single-device steps")
+    out["train"].update(single_losses=want, loss_rel=loss_rel, mu_gap=mu_gap[0], update_gap=up_gap,
+                        worst_update_leaves=leaves)
+    del up_m, up_s
+    del step, state, sp, ss, mp, ms, m_mu, s_mu, start, keep["bf16"], keep["int8"], model
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+
+    ids, forced, tp_logits, greedy_inp, tp_rows = keep["qwen"]
+    single = QwenModel(qcfg, seed=0, max_new_tokens=spec["qwen_new"], init_int8=True, device=dev)
+    seq = torch.cat([ids, forced.T[:, :-1]], dim=1).to(single.device)
+    T = seq.shape[1]
+    causal = torch.zeros((1, 1, T, T), device=single.device).masked_fill(
+        ~torch.ones((T, T), dtype=torch.bool, device=single.device).tril(), float("-inf"))
+    with torch.no_grad():
+        logits, _ = single.module.apply(single.params, seq, torch.arange(T, device=single.device)[None].expand_as(seq),
+                                        causal)
+    # the decode's head computes in the model dtype (the JAX decode's
+    # lm_head), the module's untied head in f32: held at bf16 logits, the
+    # f32 reading printed beside it
+    want_f32 = logits[:, ids.shape[1] - 1:].transpose(0, 1).float().cpu()
+    del logits
+    reads = {}
+    for name, want in (("bf16", want_f32.to(qcfg.dtype).float()), ("f32", want_f32)):
+        d = (tp_logits - want).abs()
+        reads[name] = {"max_abs_d_logit": float(d.max()), "median_abs_d_logit": float(d.median()),
+                       "logit_rms": float(want.square().mean().sqrt()),
+                       "top1": float((tp_logits.argmax(-1) == want.argmax(-1)).float().mean())}
+        del d, want
+    rows_single = single.decode(greedy_inp, temperature=0.0).cpu().numpy()
+    same_rows = float(np.mean(np.all(rows_single == tp_rows, -1)))
+    r = reads["bf16"]
+    log(f"[mesh 2 ranks qwen] TP=2 teacher-forced logits ({len(ids)} rows x {forced.shape[0]} steps = "
+        f"{len(ids) * forced.shape[0]} pairs) vs the single-device module path, its head rounded to bf16: max |d| "
+        f"{r['max_abs_d_logit']:.4e} (tol {QWEN_MAX_TOL * r['logit_rms']:.4e}), median {r['median_abs_d_logit']:.4e} "
+        f"(tol {QWEN_MEDIAN_TOL * r['logit_rms']:.4e}), RMS {r['logit_rms']:.4f}, top-1 {r['top1']:.4f} (tol "
+        f"{QWEN_TOP1}); its f32 head, not held: max |d| {reads['f32']['max_abs_d_logit']:.4e}, median "
+        f"{reads['f32']['median_abs_d_logit']:.4e}, top-1 {reads['f32']['top1']:.4f}; greedy rows identical to the "
+        f"single-device decode: {same_rows:.4f}")
+    if not (r["median_abs_d_logit"] <= QWEN_MEDIAN_TOL * r["logit_rms"]
+            and r["max_abs_d_logit"] <= QWEN_MAX_TOL * r["logit_rms"] and r["top1"] >= QWEN_TOP1):
+        failed.append("[mesh 2 ranks qwen] the TP logits part from the single-device module path")
+    out["qwen"].update(**r, f32_head=reads["f32"], identical_greedy_rows=same_rows)
+    del single
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+
+    sd = StableDiffusionModel(spec["sd"], seed=0, device=dev)
+    want = np.stack([np.stack(p) for p in sd.generate_images_batch(
+        sd_caps, spec["sd_images"], seed=0, num_inference_steps=spec["sd_steps"])])
+    got = keep["sd"]
+    g, w = got.reshape(n_img, -1).astype(np.float64), want.reshape(n_img, -1).astype(np.float64)
+    cos = 1 - (g * w).sum(-1) / (np.linalg.norm(g, axis=-1) * np.linalg.norm(w, axis=-1))
+    rel = np.linalg.norm(g - w, axis=-1) / np.linalg.norm(w, axis=-1)
+    log(f"[mesh 2 ranks sd] images at data = 2 vs the single-device sampler on the same latents: 1 - cos "
+        f"{cos.max():.3e} (tol {SD_DIRECTION_TOL}), relative L2 {rel.max():.3e} (tol {SD_REL_L2_TOL}); identical "
+        f"images {float(np.mean(np.all(g == w, -1))):.4f}")
+    if cos.max() > SD_DIRECTION_TOL or rel.max() > SD_REL_L2_TOL:
+        failed.append("[mesh 2 ranks sd] the sharded sampler parts from the single-device sampler")
+    out["sd"].update(one_minus_cos=float(cos.max()), rel_l2=float(rel.max()))
+    if failed:
+        raise AssertionError("; ".join(failed))
+    return out
+
+
+def phase_mesh(card: dict, spec: dict = None) -> dict:
+    """The mesh paths: (a) world size 1 over NCCL, (b) two gloo ranks
+    sharing the card (left out, with the reason printed, when the card is
+    in an exclusive compute mode), each in child processes."""
+    import torch
+
+    from tvc_torch.parallel.launch import run_ranks
+
+    spec = spec or mesh_spec()
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    one = run_ranks(_mesh_world1, 1, spec, coordinator=f"127.0.0.1:{_free_port()}", device=spec["device"],
+                    timeout=600)[0]
+    log(f"[mesh] (a) world size 1 over NCCL: {time.perf_counter() - t0:.2f} s")
+    out = {"world1": one, "mesh bf16": {"launches": one["bf16"]["launches"]},
+           "mesh int8": {"launches": one["int8"]["launches"]}}
+    if "exclusive" in card.get("compute_mode", "").lower():
+        log(f"[mesh] (b) two ranks sharing the card left out: the card's compute mode is "
+            f"{card['compute_mode']!r}, which admits one process")
+        return out
+    t0 = time.perf_counter()
+    two = run_ranks(_mesh_two_ranks, 2, spec, coordinator=f"127.0.0.1:{_free_port()}", device=spec["device"],
+                    backend="gloo", timeout=900)
+    log(f"[mesh] (b) two gloo ranks sharing the card: {time.perf_counter() - t0:.2f} s")
+    out["two"] = two
+    for kind in ("bf16", "int8"):
+        out[f"mesh {kind}"] = {"launches": two[0][kind]["launches"], "launches_rank1": two[1][kind]["launches"]}
+    return out
+
+
 PROFILE_NAMES = (
     "bf16_gemm_kernel<2, 256, 4>", "bf16_gemm_kernel<2, 192, 4>", "bf16_gemm_kernel<2, 128, 3>",
     "bf16_gemm_kernel<1, 128, 4>", "bf16_splitk_reduce_kernel", "layernorm_rows_kernel<__nv_bfloat16>",
@@ -3863,10 +4356,13 @@ def main() -> int:
     with phase("large bank"):
         large = phase_large_bank(card)
     kres["bank_topk"]["shapes"].append(large["shape"])
+    with phase("mesh"):
+        mesh = phase_mesh(card)
     paths = {"bf16": bf16, "int8": int8, "qwen": qwen, "pipeline": pipeline, "mha": mha, "retrieval": retrieval,
              **tiny, **{k: v for k, v in attack.items() if k in PATH_KERNELS}, "sd": sd,
              **{k: v for k, v in weights.items() if k in PATH_KERNELS},
-             **{k: v for k, v in harness.items() if k in PATH_KERNELS}}
+             **{k: v for k, v in harness.items() if k in PATH_KERNELS},
+             **{k: v for k, v in mesh.items() if k in PATH_KERNELS}}
     kernels = []
     for name, (source, replaces) in KERNEL_SOURCES.items():
         shapes = kres[name]["shapes"]
@@ -3924,6 +4420,19 @@ def main() -> int:
         f"measure_serving_overhead defended {1e3 * hso['defense_time_serving']:.3f} ms / baseline "
         f"{1e3 * hso['baseline_time_serving']:.3f} ms, overhead {hso['defense_overhead_serving']:.4f}; fixture modes "
         + ", ".join(f"{k} {v:.1f} s" for k, v in hfx["seconds"].items()) + f" on {card['smi']}")
+    w1 = mesh["world1"]
+    log("mesh (a) world size 1 over NCCL, defended queries/s single device / mesh: " + ", ".join(
+        f"{k} {w1[k]['qps']['single']:.1f} / {w1[k]['qps']['mesh']:.1f}" for k in ("bf16", "int8"))
+        + "; collectives a batch: " + ", ".join(
+            f"{k} " + " ".join(f"{c} x{v['calls']} {v['ms']:.3f} ms" for c, v in w1[k]["collectives"].items())
+            for k in ("bf16", "int8")) + f" on {card['smi']}")
+    if "two" in mesh:
+        r0 = mesh["two"][0]
+        log(f"mesh (b) two gloo ranks sharing one card (not scaling): defended queries/s bf16 "
+            f"{r0['bf16']['qps_shared_card']:.1f}, int8 {r0['int8']['qps_shared_card']:.1f}; DP training "
+            f"{r0['train']['pairs_per_s_shared_card']:.1f} pairs/s; Qwen2-7B TP=2 "
+            f"{r0['qwen']['tok_per_s_shared_card']:.1f} tok/s; sharded SD {r0['sd']['images_per_s_shared_card']:.3f} "
+            f"images/s on {card['smi']}")
     print(json.dumps({"kernels": kernels}))
     print(card["smi"])
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card["name"], "count": card["count"]}}))

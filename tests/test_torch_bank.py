@@ -81,12 +81,28 @@ def test_positional_parameters_follow_the_reference(data, tmp_path):
     np.testing.assert_array_equal(back._bank.numpy(), tb._bank.numpy())
 
 
-def test_a_mesh_raises_until_the_sharded_bank_is_ported(tmp_path):
-    with pytest.raises(NotImplementedError, match="mesh"):
-        EmbeddingBank(16, mesh=object(), device="cpu")
-    EmbeddingBank(16, device="cpu").build(np.ones((3, 16), np.float32)).save(str(tmp_path / "b"))
-    with pytest.raises(NotImplementedError, match="mesh"):
-        EmbeddingBank.load(str(tmp_path / "b"), mesh=object(), device="cpu")
+def test_a_mesh_raises_until_the_sharded_bank_is_ported(tmp_path, data):
+    """The sharded bank is ported: over a one-rank mesh it lives on the
+    mesh's device and searches as the single-device bank (the multi-rank
+    cases are tests/test_torch_mesh.py's); a device other than the mesh's
+    raises."""
+    from tvc_torch.parallel.launch import one_rank
+    from tvc_torch.parallel.mesh import create_mesh
+
+    bank, queries = data
+    single = EmbeddingBank(32, device="cpu").build(bank)
+    single.save(str(tmp_path / "b"))
+    with one_rank(device="cpu", run_dir=str(tmp_path)):
+        mesh = create_mesh(device="cpu")
+        tb = EmbeddingBank(32, mesh=mesh, device="cpu").build(bank)
+        assert tb.mesh is mesh and tb.device == torch.device("cpu")
+        for got in (tb.search(queries, 5), EmbeddingBank.load(str(tmp_path / "b"), mesh=mesh).search(queries, 5)):
+            want = single.search(queries, 5)
+            assert torch.equal(got[1], want[1])
+            torch.testing.assert_close(got[0], want[0], atol=2e-6, rtol=0)  # load normalizes again
+        if not torch.cuda.is_available():
+            with pytest.raises(RuntimeError, match="CUDA"):
+                EmbeddingBank(32, mesh=mesh, device="cuda")
 
 
 @pytest.mark.parametrize("pair", ["bank", "bank.load", "qwen"])
@@ -107,11 +123,17 @@ def test_signatures_keep_the_reference_order(pair):
     assert names(port) == names(ref) + ["device"]
 
 
-def test_a_positional_mesh_reaches_qwen_where_the_reference_has_it():
+def test_a_positional_mesh_reaches_qwen_where_the_reference_has_it(tmp_path):
     import tvc_torch.models.qwen as tq
+    from tvc_torch.parallel.launch import one_rank
+    from tvc_torch.parallel.mesh import MeshConfig, create_mesh
 
-    with pytest.raises(NotImplementedError, match="mesh"):
-        tq.QwenModel(tq.QwenConfig.tiny(), None, 0, None, 32, False, object(), device="cpu")
+    with one_rank(device="cpu", run_dir=str(tmp_path)):
+        mesh = create_mesh(MeshConfig(axes=("model",)), device="cpu")
+        m = tq.QwenModel(tq.QwenConfig.tiny(), None, 0, None, 4, False, mesh, device="cpu")
+        assert m.mesh is mesh
+        want = tq.QwenModel(tq.QwenConfig.tiny(), max_new_tokens=4, device="cpu").generate(["a b c"], temperature=0.0)
+        assert m.generate(["a b c"], temperature=0.0) == want
 
 
 # ---- ReferenceBank ---------------------------------------------------------

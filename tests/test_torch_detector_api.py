@@ -205,7 +205,20 @@ def test_make_defense_step_matches_jax(coco_pair):
     np.testing.assert_allclose(got_m[1].numpy(), np.asarray(want_m[1]), atol=TOL, rtol=0)
 
 
-def test_make_defense_step_raises_for_a_mesh(coco_pair):
+def test_make_defense_step_raises_for_a_mesh(coco_pair, tmp_path):
+    """A mesh no longer raises: over a one-rank mesh the compat step gives
+    the single-device step's outputs (multi-rank: test_torch_mesh_steps.py)."""
+    from tvc_torch.parallel.launch import one_rank
+    from tvc_torch.parallel.mesh import create_mesh
+
     _, tm, _ = coco_pair
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        make_defense_step(tm, object(), 64, device="cpu")
+    rng = np.random.default_rng(3)
+    px = rng.random((4, 32, 32, 3)).astype(np.float32)
+    tok = np.asarray(tm.tokenize(["a dog", "a cat on a mat", "two birds", "a red car"]))
+    vtok = np.stack([tok[::-1], tok], 1)
+    bank = rng.standard_normal((21, tm.config.embed_dim)).astype(np.float32)
+    want = make_defense_step(tm, None, 0, top_k=3, device="cpu")(tm.params, px, tok, vtok, bank)
+    with one_rank(device="cpu", run_dir=str(tmp_path)):
+        got = make_defense_step(tm, create_mesh(device="cpu"), 64, top_k=3, device="cpu")(tm.params, px, tok, vtok, bank)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), w.numpy())

@@ -140,11 +140,16 @@ def test_mesh_serving_raises_not_implemented(monkeypatch, tmp_path):
     from tvc_torch.parallel.steps import make_serving_step, make_train_step
     from tvc_torch.serving import ServingConfig, ServingRuntime
 
+    from tvc_torch.parallel.launch import one_rank
+    from tvc_torch.parallel.mesh import create_mesh
+
     model = CLIPModel(CLIPConfig.from_name("tiny", int8_serving=True, fused_attention=True), device="cpu")
-    with pytest.raises(NotImplementedError):
-        make_serving_step(model, mesh=object(), qparams=model.qparams(), device="cpu")
-    with pytest.raises(NotImplementedError, match="D11"):
-        make_train_step(model, mesh=object(), device="cpu")
+    # the mesh steps are ported (item D11): they build over a mesh
+    with one_rank(device="cpu", run_dir=str(tmp_path)):
+        mesh = create_mesh(device="cpu")
+        assert callable(make_serving_step(model, mesh=mesh, qparams=model.qparams(), device="cpu"))
+        step, state = make_train_step(model, mesh=mesh, device="cpu")
+        assert callable(step) and state["count"] == 0
     # the trained fixture serves from its asset; without the asset it is
     # trained (here a stub that records the call) and saved beside the port
     monkeypatch.setattr(fixtures, "FIXTURE_COCO_PATH", tmp_path / "missing.msgpack")
@@ -171,6 +176,10 @@ def test_chip_smoke_fails_without_a_card(no_cuda):
 #: (checkpoints in, training, checkpoints out) modules: each port file and
 #: the JAX file it ports
 SLICE_PAIRS = (
+    # the mesh paths (item D11)
+    ("tvc_torch/parallel/mesh.py", "tvc/parallel/mesh.py"),
+    ("tvc_torch/parallel/tp.py", "tvc/parallel/tp.py"),
+    ("tvc_torch/parallel/__init__.py", "tvc/parallel/__init__.py"),
     ("tvc_torch/attacks/adaptive.py", "tvc/attacks/adaptive.py"),
     ("tvc_torch/defenses/__init__.py", "tvc/defenses/__init__.py"),
     ("tvc_torch/defenses/consistency_checker.py", "tvc/defenses/consistency_checker.py"),
@@ -236,11 +245,26 @@ def test_slice_modules_have_the_reference_public_names(port, ref):
 
 
 def test_parallel_package_lacks_only_the_mesh_names():
-    """``tvc/parallel/__init__.py`` re-exports the mesh helpers, which wait
-    for item D11; the steps are re-exported (F3)."""
-    missing = _public_names(REPO / "tvc/parallel/__init__.py") - _public_names(REPO / "tvc_torch/parallel/__init__.py")
-    assert missing == {"DATA_AXIS", "MODEL_AXIS", "MeshConfig", "create_mesh", "data_sharding",
-                       "local_mesh_for_tests", "pad_to_multiple", "replicated", "shard_batch"}
+    """Item D11 is ported: ``tvc_torch.parallel`` re-exports every name of
+    ``tvc/parallel/__init__.py`` (the mesh helpers and the steps), and
+    importing its mesh and TP modules loads neither JAX nor ``tvc``."""
+    import tvc_torch.parallel as tp_pkg
+
+    want = _public_names(REPO / "tvc/parallel/__init__.py")
+    assert want == {"DATA_AXIS", "MODEL_AXIS", "MeshConfig", "create_mesh", "data_sharding", "local_mesh_for_tests",
+                    "pad_to_multiple", "replicated", "shard_batch", "make_defense_step", "make_serving_step",
+                    "make_train_step"}
+    assert want <= _public_names(REPO / "tvc_torch/parallel/__init__.py")
+    assert all(hasattr(tp_pkg, n) for n in want)
+    code = (
+        "import json, sys\n"
+        "import tvc_torch.parallel.mesh, tvc_torch.parallel.tp, tvc_torch.parallel.launch\n"
+        "print(json.dumps(sorted(sys.modules)))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120,
+                         check=True)
+    loaded = json.loads(out.stdout.strip().splitlines()[-1])
+    assert not [m for m in loaded if m.split(".")[0] in FORBIDDEN]
 
 
 def test_package_top_level_names_resolve():

@@ -279,9 +279,19 @@ def test_params_swap_rebuilds_the_decode_state(f32):
     assert m.generate(["a b c"], temperature=0.0) != out_a
 
 
-def test_what_is_not_ported_raises():
-    with pytest.raises(NotImplementedError, match="mesh"):
-        tq.QwenModel(tq.QwenConfig.tiny(), device="cpu", mesh=object())
+def test_what_is_not_ported_raises(f32, tmp_path):
+    """The tensor-parallel decode is ported: over a one-rank ``model`` mesh
+    it decodes the single-device tokens (two ranks:
+    tests/test_torch_tp.py)."""
+    from tvc_torch.parallel.launch import one_rank
+    from tvc_torch.parallel.mesh import MeshConfig, create_mesh
+
+    tm = f32[1]
+    with one_rank(device="cpu", run_dir=str(tmp_path)):
+        mesh = create_mesh(MeshConfig(axes=("model",)), device="cpu")
+        tp = tq.QwenModel(tq.QwenConfig.tiny(), params=tm.params, max_new_tokens=8, mesh=mesh)
+        assert tp.mesh is mesh and tp.device == tm.device
+        assert tp.generate(PROMPTS, temperature=0.0) == tm.generate(PROMPTS, temperature=0.0)
 
 
 def test_generate_async_and_the_paraphrase_entry_points(f32):

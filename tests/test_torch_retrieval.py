@@ -142,9 +142,25 @@ def test_cache_switch(pair, enabled):
     np.testing.assert_array_equal(first.indices, second.indices)
 
 
-def test_retriever_single_device_only(pair):
+def test_retriever_single_device_only(pair, tmp_path):
+    """No longer single device only: over a one-rank mesh the retriever's
+    banks shard over the mesh and retrieve as the single-device ones."""
+    from tvc_torch.parallel.launch import one_rank
+    from tvc_torch.parallel.mesh import create_mesh
+
     _, tr, *_ = pair
-    with pytest.raises(NotImplementedError):
-        create_retriever(tr.model, mesh=object())
+    emb = np.random.default_rng(4).standard_normal((40, tr.model.config.embed_dim)).astype(np.float32)
+    single = create_retriever(tr.model)
+    single.build_image_index(embeddings=emb)
+    with one_rank(device="cpu", run_dir=str(tmp_path)):
+        mr = create_retriever(tr.model, mesh=create_mesh(device="cpu"))
+        mr.build_image_index(embeddings=emb)
+        assert mr.image_bank.mesh is mr.mesh
+        texts = ["a dog on a bench", "two cats"]
+        got, want = mr.retrieve_images_by_text(texts, top_k=4), single.retrieve_images_by_text(texts, top_k=4)
+        np.testing.assert_array_equal(got.indices, want.indices)
+        np.testing.assert_array_equal(
+            mr.retrieve_reference_embeddings(texts, 3), single.retrieve_reference_embeddings(texts, 3)
+        )
     with pytest.raises(RuntimeError, match="text index"):
         MultiModalRetriever(tr.model).retrieve_texts_by_image(np.zeros((1, 32, 32, 3), np.float32))

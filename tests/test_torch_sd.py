@@ -350,9 +350,17 @@ def test_default_text_encoder_matches_jax():
     _close(te(texts), jenc(texts))
 
 
-def test_mesh_raises_and_module_overrides_are_kept():
-    with pytest.raises(NotImplementedError):
-        tsd.StableDiffusionModel(TC, mesh=object(), device="cpu")
+def test_mesh_raises_and_module_overrides_are_kept(tmp_path):
+    """A mesh no longer raises: over a one-rank mesh the sharded sampler
+    draws the single-device images (two ranks: tests/test_torch_tp.py)."""
+    from tvc_torch.parallel.launch import one_rank
+    from tvc_torch.parallel.mesh import create_mesh
+
+    with one_rank(device="cpu", run_dir=str(tmp_path)):
+        mesh_sd = tsd.StableDiffusionModel(TC, mesh=create_mesh(device="cpu"), device="cpu")
+        got = mesh_sd.generate_images_batch(["a cat"], 2, seed=5, num_inference_steps=1)
+    want = tsd.StableDiffusionModel(TC, device="cpu").generate_images_batch(["a cat"], 2, seed=5, num_inference_steps=1)
+    np.testing.assert_array_equal(np.stack(got[0]), np.stack(want[0]))
     unet = tsd.UNet(TC, device="cpu")
     sd = tsd.StableDiffusionModel(TC, unet=unet, device="cpu")
     assert sd.unet is unet and set(sd.params) == {"unet", "vae_enc", "vae_dec"}

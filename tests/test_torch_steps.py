@@ -123,7 +123,19 @@ def test_tensor_tokens_take_one_bucket_with_the_same_result(setup):
     np.testing.assert_allclose(a["aggregated"].numpy(), b["aggregated"].numpy(), atol=2e-5, rtol=0)
 
 
-def test_serving_step_single_device_only(setup):
-    _, tm, _, _ = setup
-    with pytest.raises(NotImplementedError):
-        make_serving_step(tm, mesh=object(), device="cpu")
+def test_serving_step_single_device_only(setup, tmp_path):
+    """No longer single device only: over a one-rank mesh (bank sharded over
+    it) the step gives the single-device outputs, through the per-shard
+    bucketed program (multi-rank: tests/test_torch_mesh_steps.py)."""
+    from tvc_torch.parallel.launch import one_rank
+    from tvc_torch.parallel.mesh import create_mesh
+
+    _, tm, d, _ = setup
+    want = _call(make_serving_step(tm, top_k=K, num_refs=R, device="cpu"), tm.params, d,
+                 np.float32(-np.inf), np.float32(0.5))
+    with one_rank(device="cpu", run_dir=str(tmp_path)):
+        step = make_serving_step(tm, mesh=create_mesh(device="cpu"), top_k=K, num_refs=R, device="cpu")
+        got = _call(step, tm.params, d, np.float32(-np.inf), np.float32(0.5))
+    assert step.bucketed_calls == 1
+    for k in KEYS:
+        assert torch.equal(got[k], want[k]), k

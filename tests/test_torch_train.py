@@ -284,10 +284,25 @@ def test_resumed_run_equals_straight_run(tmp_path):
     assert sr["count"] == s["count"] == 5
 
 
-def test_mesh_raises_and_model_device_is_checked():
+def test_mesh_raises_and_model_device_is_checked(tmp_path):
+    """A mesh no longer raises: over a one-rank mesh the data-parallel step
+    takes the single-device step (multi-rank:
+    tests/test_torch_mesh_steps.py)."""
+    from tvc_torch.parallel.launch import one_rank
+    from tvc_torch.parallel.mesh import create_mesh
+
     model = CLIPModel(CLIPConfig.tiny(), device="cpu")
-    with pytest.raises(NotImplementedError, match="D11"):
-        make_train_step(model, mesh=object(), device="cpu")
+    rng = np.random.default_rng(0)
+    px = rng.random((4, 32, 32, 3)).astype(np.float32)
+    tok = np.asarray(model.tokenize(["a dog", "a cat", "a car", "a bird"]))
+    step, state = make_train_step(model, optimizer=1e-3, device="cpu")
+    want = step(model.params, state, px, tok)
+    with one_rank(device="cpu", run_dir=str(tmp_path)):
+        mstep, mstate = make_train_step(model, mesh=create_mesh(device="cpu"), optimizer=1e-3, device="cpu")
+        got = mstep(model.params, mstate, px, tok)
+    assert float(got[2]) == float(want[2])
+    for n, t in _flatten(want[0]).items():
+        torch.testing.assert_close(_flatten(got[0])[n], t, atol=1e-6, rtol=0)
 
 
 def test_training_corpus_matches_jax():

@@ -6,7 +6,9 @@ the threshold managers, ``EnsembleDetector`` and ``create_detector``).
 
 ``detect_batch`` routes through one serving step (``make_serving_step``:
 encode + bank top-k + consistency kernel) whenever the inputs allow it;
-host stages remain only for tokenizing the variant texts.
+host stages remain only for tokenizing the variant texts. A retriever
+whose image bank is sharded over a mesh serves through the mesh step (the
+batch padded to a multiple of the ``data`` axis, the outputs trimmed).
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ from tvc_torch.core import consistency as C
 from tvc_torch.core.kernels.consistency_kernel import fused_consistency_scores
 from tvc_torch.metrics import DetectionEvaluator
 from tvc_torch.models.clip import CLIPModel, preprocess_images
+from tvc_torch.parallel.mesh import DATA_AXIS, axis_size
 
 
 @dataclasses.dataclass
@@ -281,19 +284,26 @@ class AdversarialDetector:
         cfg = self.config
         R = cfg.num_reference_images
         K = max(R, cfg.retrieval_top_k or 0)
-        key = ((with_bank, R, K) if with_bank else (False, 0, 0), self.model.params)
+        mesh = self._mesh(with_bank)
+        key = ((with_bank, R, K) if with_bank else (False, 0, 0), self.model.params, mesh)
         if self._serving is None or not (
-            self._serving[0][0] == key[0] and self._serving[0][1] is key[1]
+            self._serving[0][0] == key[0] and self._serving[0][1] is key[1] and self._serving[0][2] is key[2]
         ):
             mcfg = self.model.config
             # quantize the serving weights once per step, not per batch
             qp = self.model.qparams() if mcfg.int8_serving and mcfg.fused_attention else None
             step = make_serving_step(
-                self.model, top_k=K, num_refs=R, with_bank=with_bank, qparams=qp,
+                self.model, mesh=mesh, top_k=K, num_refs=R, with_bank=with_bank, qparams=qp,
                 device=self.device,
             )
             self._serving = (key, step)
         return self._serving[1]
+
+    def _mesh(self, with_bank: bool):
+        """The mesh of the retriever's image bank: a sharded bank serves
+        through the mesh step (batch over ``data``, bank rows where the bank
+        keeps them)."""
+        return self.retriever.image_bank.mesh if with_bank else None
 
     def _detect_batch_fused(
         self, images, texts: Sequence[str], variants: Optional[Sequence[Sequence[str]]] = None
@@ -326,6 +336,18 @@ class AdversarialDetector:
         tokens = np.ascontiguousarray(tokens[:, :T_b])
         var_tokens = np.ascontiguousarray(var_tokens[:, :, :T_b])
 
+        # mesh serving: the batch shards over ``data``; pad B up to a
+        # multiple (masked pad rows) and trim the outputs back
+        mesh = self._mesh(with_bank)
+        B_real = pixels.shape[0]
+        if mesh is not None:
+            pad = (-B_real) % axis_size(mesh, DATA_AXIS)
+            if pad:
+                pixels = np.concatenate([pixels, np.zeros_like(pixels[:pad])])
+                tokens = np.concatenate([tokens, np.zeros_like(tokens[:pad])])
+                var_tokens = np.concatenate([var_tokens, np.zeros_like(var_tokens[:pad])])
+                var_mask = np.concatenate([var_mask, np.zeros_like(var_mask[:pad])])
+
         if with_bank:
             bank_obj = self.retriever.image_bank
             bank, valid = bank_obj._bank, bank_obj.valid
@@ -338,6 +360,7 @@ class AdversarialDetector:
             self.model.params, pixels, tokens, var_tokens, var_mask, bank, valid,
             np.asarray(cfg.weights, np.float32), lower, upper,
         )
+        out = {k: v[:B_real] for k, v in out.items()}
         flags = _np(out["is_adversarial"])
         agg = _np(out["aggregated"])
         probe_scores = None
@@ -354,7 +377,7 @@ class AdversarialDetector:
             "threshold": float(upper),
             "ref_idx": _np(out["ref_idx"]) if with_bank else None,
             "fused": True,
-            "mesh": False,
+            "mesh": mesh is not None,
         }
         if probe_scores is not None:
             details.update(hub_probe_score=probe_scores, hub_probe_threshold=self._probe_threshold)

@@ -699,6 +699,86 @@ def bucket_text_tokens(
     }
 
 
+def bucket_text_tokens_sharded(
+    tokens: np.ndarray,
+    n_shards: int,
+    short_len: int = 16,
+    capacity_quantum: int = 64,
+    dedup: bool = False,
+) -> Optional[Dict[str, np.ndarray]]:
+    """Per-shard two-bucket partition for mesh serving (numpy, identical to
+    the JAX package's).
+
+    ``tokens`` [S, T] flattens a batch-sharded [B, V+1, T] block b-major, so
+    shard k of the ``data`` axis owns rows [k*g, (k+1)*g), g = S/n_shards.
+    Each shard partitions its own rows like :func:`bucket_text_tokens`, with
+    one (short, long) capacity shared by every shard: ``n_short`` is the
+    least per-shard short count quantized to ``capacity_quantum`` (a shard's
+    surplus short rows go to its full-T long bucket). ``inv`` holds LOCAL
+    indices (0..n_short+n_long), so each rank gathers its own features.
+    ``dedup=True`` dedups within each shard and keeps the cheaper plan.
+
+    Returns ``short`` [n_shards*n_short, short_len], ``long`` [n_shards*n_long,
+    T], ``inv`` [S] int32, or None when bucketing cannot help (T <=
+    short_len, rows not shardable, or too few short rows)."""
+    S, T = tokens.shape
+    if T <= short_len or n_shards < 1 or S % n_shards != 0:
+        return None
+    g = S // n_shards
+
+    def _lens(rows):
+        ln = rows.argmax(-1) + 1
+        nonzero = rows != 0
+        content = np.where(nonzero.any(axis=-1), T - nonzero[:, ::-1].argmax(-1), 0)
+        return np.maximum(ln, content)
+
+    def _plan(shard_rows, shard_inv_u, pad_to_quantum):
+        counts_short = [int((_lens(rows) <= short_len).sum()) for rows in shard_rows]
+        n_short = (min(counts_short) // capacity_quantum) * capacity_quantum
+        if n_short < capacity_quantum or any(n_short >= r.shape[0] for r in shard_rows):
+            return None
+        if pad_to_quantum:
+            n_long = max(-(-(r.shape[0] - n_short) // capacity_quantum) * capacity_quantum for r in shard_rows)
+        else:
+            n_long = max(r.shape[0] - n_short for r in shard_rows)
+        shorts, longs, invs = [], [], []
+        for k, rows in enumerate(shard_rows):
+            order = np.argsort(_lens(rows), kind="stable")
+            pos = np.empty(rows.shape[0], dtype=np.int32)
+            pos[order] = np.arange(rows.shape[0], dtype=np.int32)
+            long_rows = rows[order[n_short:], :]
+            if long_rows.shape[0] < n_long:
+                long_rows = np.concatenate([long_rows, np.zeros((n_long - long_rows.shape[0], T), rows.dtype)])
+            shorts.append(rows[order[:n_short], :short_len])
+            longs.append(long_rows)
+            inv = pos if shard_inv_u[k] is None else pos[shard_inv_u[k]]
+            invs.append(inv.astype(np.int32))
+        return {
+            "short": np.ascontiguousarray(np.concatenate(shorts)),
+            "long": np.ascontiguousarray(np.concatenate(longs)),
+            "inv": np.ascontiguousarray(np.concatenate(invs)),
+        }
+
+    def _cost(plan):
+        return plan["short"].size + plan["long"].shape[0] * T
+
+    raw_rows = [tokens[k * g : (k + 1) * g] for k in range(n_shards)]
+    best = _plan(raw_rows, [None] * n_shards, pad_to_quantum=False)
+    if dedup:
+        uniq_rows, inv_us = [], []
+        any_dup = False
+        for rows in raw_rows:
+            u, iu = np.unique(rows, axis=0, return_inverse=True)
+            any_dup = any_dup or u.shape[0] < rows.shape[0]
+            uniq_rows.append(u)
+            inv_us.append(iu.reshape(-1).astype(np.int32))
+        if any_dup:
+            dp = _plan(uniq_rows, inv_us, pad_to_quantum=True)
+            if dp is not None and (best is None or _cost(dp) < _cost(best)):
+                best = dp
+    return best
+
+
 # ---------------------------------------------------------------------------
 # user-facing wrapper
 # ---------------------------------------------------------------------------

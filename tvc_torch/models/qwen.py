@@ -26,8 +26,15 @@ package leaves it to XLA. Every decode step's attention goes through
 ``decode_gqa_attention_stacked``; the prefill attention, norms, rope, the
 tied head and sampling are plain PyTorch, as the JAX package leaves them
 to XLA. Sampling uses an explicit ``torch.Generator`` and an exact top-50:
-the draws are not ``jax.random``'s. Not ported yet: the tensor-parallel
-decode (``mesh=``).
+the draws are not ``jax.random``'s.
+
+With a ``mesh`` (a ``model`` axis) the model is tensor-parallel
+(``tvc_torch.parallel.tp``): each rank holds its Megatron slices, and the
+decode takes the JAX package's module path under TP: per layer the int8
+leaves dequantize to bf16, plain ``torch.matmul`` on the slices, the
+module attention, and the collectives of ``tp_block`` (q|k|v and gate|up
+stay unmerged). Every rank passes the same prompts and gets the same
+tokens.
 """
 
 from __future__ import annotations
@@ -505,13 +512,23 @@ class QwenModel:
         decode_only: the per-layer params are freed once the stacked decode
         tree is built; the module path (``QwenLM.apply``) cannot run after.
 
-        mesh: the tensor-parallel decode is not ported yet and raises."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "the tensor-parallel Qwen decode (mesh=) is not ported yet; it waits for the multi-GPU slice"
-            )
+        mesh: a ``DeviceMesh`` with a ``model`` axis: tensor-parallel. The
+        parameters (given, or the seeded init, built one layer at a time
+        with ``init_int8``) are cut to this rank's slices
+        (``shard_qwen_params``), so every rank holds the numbers the
+        single-device model holds; the model lives on the mesh's device."""
         self.config = c = config or QwenConfig.tiny()
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        if mesh is not None:
+            from tvc_torch.parallel.mesh import mesh_device
+            from tvc_torch.parallel.tp import check_tp_config
+
+            check_tp_config(c, mesh)
+            self.device = mesh_device(mesh)
+            if device is not None and resolve_device(device) != self.device:
+                raise ValueError(f"device {device} is not the mesh's {self.device}")
+        else:
+            self.device = resolve_device(device)
         if self.device.type == "cuda":
             # the f32 plain paths are references: full f32, no TF32
             torch.backends.cuda.matmul.allow_tf32 = False
@@ -527,6 +544,8 @@ class QwenModel:
             params = _tree_map(
                 lambda n, t: t.to(torch.bfloat16) if torch.is_tensor(t) and t.ndim >= 2 else t, params
             )
+        if mesh is not None and not init_int8:
+            params = self._shard(params)
         self.params = params
         if tokenizer is None:
             from tvc_torch.models.tokenizer import get_tokenizer
@@ -539,10 +558,30 @@ class QwenModel:
         self._decode_state_cache = None
 
     # -- int8 weights ------------------------------------------------------------
+    def _shard(self, tree: Dict) -> Dict:
+        """This rank's TP slices of a full (sub)tree of the parameters."""
+        from tvc_torch.parallel.tp import shard_qwen_params
+
+        return shard_qwen_params(tree, self.mesh)
+
     def quantize_weights_int8(self, include_embed: bool = True) -> None:
         """Per-output-channel symmetric int8 on every 2-D matrix param
-        (the embedding too unless ``include_embed`` is false)."""
-        self.params = _tree_map(lambda n, t: _quantize_leaf(n, t, include_embed), self.params)
+        (the embedding too unless ``include_embed`` is false). Under TP each
+        leaf is gathered whole, quantized and cut again, so the int8
+        weights and scales are the single-device model's."""
+        if self.mesh is None:
+            self.params = _tree_map(lambda n, t: _quantize_leaf(n, t, include_embed), self.params)
+        else:
+            from tvc_torch.parallel.tp import gather_qwen_leaf
+
+            full = {n: p.shape for n, p in QwenLM(self.config, device="meta").named_parameters()}
+            out = {}
+            for name, leaf in _flatten(self.params).items():
+                if torch.is_tensor(leaf) and leaf.ndim == 2:
+                    q = _quantize_leaf(name, gather_qwen_leaf(leaf, full[name], self.mesh), include_embed)
+                    leaf = _flatten(self._shard(_unflatten({name: q})))[name] if _is_q(q) else leaf
+                out[name] = leaf
+            self.params = _unflatten(out)
         self._decode_state_cache = None
 
     def _init_params_int8(self, seed: int) -> Dict:
@@ -566,11 +605,15 @@ class QwenModel:
                     _lecun_normal_(t, gen)
                 flat[name] = _quantize_leaf(name, t)
             params[f"layer_{i}"] = _unflatten(flat)
+            if self.mesh is not None:  # keep this rank's slices of the whole layer
+                params[f"layer_{i}"] = self._shard({f"layer_{i}": params[f"layer_{i}"]})[f"layer_{i}"]
         table = lambda *shape: 0.02 * torch.randn(shape, generator=gen, device=dev)
         params["embed"] = {"embedding": _quantize_leaf("embed.embedding", table(c.vocab_size, c.hidden_size))}
         params["ln_f"] = {"scale": torch.ones(c.hidden_size, device=dev)}
         if not c.tie_embeddings:
             params["lm_head"] = {"kernel": _quantize_leaf("lm_head.kernel", table(c.hidden_size, c.vocab_size))}
+        if self.mesh is not None:
+            params.update(self._shard({k: v for k, v in params.items() if not k.startswith("layer_")}))
         return params
 
     @staticmethod
@@ -591,6 +634,12 @@ class QwenModel:
         if self._decode_state_cache is not None and self._decode_state_cache[0] is self.params:
             return self._decode_state_cache[1]
         c, params = self.config, self.params
+        if self.mesh is not None:
+            # the TP module path runs on each layer's own (sliced) tree
+            layers = [params[f"layer_{i}"] for i in range(c.num_layers)]
+            non_layer = {k: v for k, v in params.items() if not k.startswith("layer_")}
+            self._decode_state_cache = (self.params, (non_layer, layers))
+            return non_layer, layers
         if self.decode_only and "layer_0" not in params:
             raise RuntimeError(
                 "decode_only=True freed the per-layer params when the stacked decode tree was built; "
@@ -648,6 +697,10 @@ class QwenModel:
         """Take, then dequantize: only the gathered rows are converted."""
         e = non_layer["embed"]["embedding"]
         dt = self.config.dtype
+        if self.mesh is not None:
+            from tvc_torch.parallel.tp import tp_embed
+
+            return tp_embed(e, tokens, self.config, self.mesh)
         if _is_q(e):
             return e["int8"][tokens].to(dt) * e["scale"].to(dt)
         return e[tokens].to(dt)
@@ -657,6 +710,12 @@ class QwenModel:
         for constrained decoding, over the allowed rows gathered once."""
         c = self.config
         dt = c.dtype
+        if self.mesh is not None:
+            from tvc_torch.parallel.tp import tp_logits
+
+            if allowed is None:
+                return lambda x: tp_logits(x, non_layer, c, self.mesh)
+            return lambda x: tp_logits(x, non_layer, c, self.mesh)[..., allowed]
         if c.tie_embeddings:
             e = non_layer["embed"]["embedding"]
             if allowed is not None:
@@ -702,8 +761,17 @@ class QwenModel:
         return h + self._mm_stacked(act.to(c.dtype), stacked["wd"], l)
 
     def _run_layers(self, stacked, x, positions, mask, caches, cache_index, ctx=0) -> Tensor:
+        """Every layer: mask [B, 1, T, S] (prefill) or [B, S] (one step)."""
         c = self.config
         cos, sin = rope_tables(positions, c.hidden_size // c.num_heads, c.rope_theta)
+        if self.mesh is not None:
+            from tvc_torch.parallel.tp import tp_block
+
+            m3 = mask[:, 0] if mask.ndim == 4 else mask[:, None]
+            for l in range(c.num_layers):
+                x = tp_block(stacked[l], x, cos, sin, m3, c, self.mesh, (caches[0][l], caches[1][l]),
+                             cache_index, ctx)
+            return x
         for l in range(c.num_layers):
             x = self._merged_layer(stacked, l, x, cos, sin, mask, caches[0], caches[1], cache_index, ctx)
         return x
@@ -725,6 +793,15 @@ class QwenModel:
         else:
             loc = torch.argmax(lg, dim=-1)
         return allowed[loc] if allowed is not None else loc
+
+    def _kv_heads(self) -> int:
+        """The kv heads this rank caches (its slice under TP)."""
+        c = self.config
+        if self.mesh is None:
+            return c.num_kv_heads
+        from tvc_torch.parallel.mesh import MODEL_AXIS, axis_size
+
+        return c.num_kv_heads // axis_size(self.mesh, MODEL_AXIS)
 
     @torch.no_grad()
     def decode(
@@ -751,7 +828,7 @@ class QwenModel:
         S = plen + self.max_new_tokens
         B = inp.tokens.shape[0]
         head = self._head(non_layer, inp.allowed)
-        cache_shape = (c.num_layers, B, c.num_kv_heads, S, Dh)
+        cache_shape = (c.num_layers, B, self._kv_heads(), S, Dh)
         caches = (torch.zeros(cache_shape, dtype=c.dtype, device=dev),
                   torch.zeros(cache_shape, dtype=c.dtype, device=dev))
         ks = torch.arange(S, device=dev)
@@ -763,7 +840,7 @@ class QwenModel:
             # every row's slots [0, P); then the suffixes at offset P
             kp = torch.arange(P, device=dev)
             pre_mask = torch.zeros((1, 1, P, P), device=dev).masked_fill(kp[None, :] > kp[:, None], float("-inf"))
-            pre = tuple(torch.zeros((c.num_layers, 1, c.num_kv_heads, P, Dh), dtype=c.dtype, device=dev)
+            pre = tuple(torch.zeros((c.num_layers, 1, self._kv_heads(), P, Dh), dtype=c.dtype, device=dev)
                         for _ in range(2))
             self._run_layers(stacked, self._embed(non_layer, inp.prefix[None]), kp[None], pre_mask, pre, 0)
             for cz, cp in zip(caches, pre):

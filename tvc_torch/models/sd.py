@@ -29,7 +29,9 @@ flax's ``[in, out]``.
 Noise: the sampler takes its initial latents as an argument;
 ``generate_images_batch`` draws them from a ``torch.Generator`` seeded
 from (seed, batch size), deterministic per (seed, batch) but not the JAX
-package's threefry bits. Runs on the card unless ``device="cpu"``.
+package's threefry bits. Runs on the card unless ``device="cpu"``. With
+a ``mesh`` the sampler's batch shards over ``data`` (the latents are drawn
+globally, then sliced, so the images are the single-device sampler's).
 """
 
 from __future__ import annotations
@@ -45,6 +47,7 @@ from torch import Tensor, nn
 
 from tvc_torch._device import resolve_device
 from tvc_torch.models.clip import CLIPConfig, Transformer, _flatten, _unflatten, causal_mask
+from tvc_torch.parallel.mesh import DATA_AXIS, all_gather, axis_size, mesh_device, shard_rows
 
 
 @dataclasses.dataclass(frozen=True)
@@ -608,11 +611,19 @@ class StableDiffusionModel:
         unet / vae_enc / vae_dec: module overrides with the same call
         signatures (the diffusers-layout mirrors run through this sampler).
 
-        mesh: the sharded denoising batch is not ported; a mesh raises."""
-        if mesh is not None:
-            raise NotImplementedError("StableDiffusionModel(mesh=...): the sharded sampler is not ported")
+        mesh: a ``DeviceMesh``: the denoising batch (prompts x images)
+        shards over its ``data`` axis. Every rank draws the same global
+        latents, samples its block and gathers the images, so the result
+        is the single-device sampler's; the model lives on the mesh's
+        device (every rank holds the whole weights)."""
         self.config = config or SDConfig.tiny()
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        if mesh is not None:
+            self.device = mesh_device(mesh)
+            if device is not None and resolve_device(device) != self.device:
+                raise ValueError(f"device {device} is not the mesh's {self.device}")
+        else:
+            self.device = resolve_device(device)
         c = self.config
         self.unet = unet if unet is not None else UNet(c, device=self.device)
         self.vae_enc = vae_enc if vae_enc is not None else VAEEncoder(c, device=self.device)
@@ -734,13 +745,27 @@ class StableDiffusionModel:
         sample = self.sampler(num_inference_steps, guidance_scale)
         if latents is None:
             latents = self.initial_latents(B, seed)
-        images = sample(ctx, uncond, torch.as_tensor(latents, device=self.device))
+        latents = torch.as_tensor(latents, device=self.device)
+        if self.mesh is None:
+            images = sample(ctx, uncond, latents)
+        else:
+            images = self._sample_sharded(sample, ctx, uncond, latents)
         images = (images.cpu().numpy().astype(np.float32) / 255.0).reshape(
             P, num_images, c.image_size, c.image_size, 3
         )
         self.stats["images_generated"] += B
         self.stats["batches"] += 1
         return [list(images[p]) for p in range(P)]
+
+    def _sample_sharded(self, sample, ctx: Tensor, uncond: Tensor, latents: Tensor) -> Tensor:
+        """``sample`` on this rank's ``data`` block of the global batch (padded
+        with copies of the last row to a multiple of the axis), the uint8
+        images gathered over ``data`` and trimmed back."""
+        B = latents.shape[0]
+        pad = (-B) % axis_size(self.mesh, DATA_AXIS)
+        grow = lambda t: torch.cat([t, t[-1:].expand(pad, *t.shape[1:])]) if pad else t
+        local = [shard_rows(grow(t), self.mesh, DATA_AXIS) for t in (ctx, uncond, latents)]
+        return all_gather(sample(*local), self.mesh, DATA_AXIS)[:B]
 
     # -- VAE ---------------------------------------------------------------------
     @torch.no_grad()

@@ -5,7 +5,9 @@ similarity matrix, save / load of both banks, and ``create_retriever``.
 
 Banks live on the model's device; the index is exact (``index_type``
 "flat", "ivf", "hnsw" and "pq" all mean the exact matmul top-k, as in the
-JAX package). Single device: ``mesh`` raises.
+JAX package). With a ``mesh`` both banks shard their rows over the mesh's
+bank axis (``EmbeddingBank(mesh=...)``): every rank encodes the same
+queries and gets the global results.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ import torch
 
 from tvc_torch.bank.index import EmbeddingBank
 from tvc_torch.models.clip import CLIPModel
+from tvc_torch.parallel.mesh import barrier, is_first_rank
 
 
 @dataclasses.dataclass
@@ -52,10 +55,9 @@ class MultiModalRetriever:
     """Text -> image and image -> text retrieval against CLIP banks."""
 
     def __init__(self, model: CLIPModel, config: Optional[RetrievalConfig] = None, mesh=None):
-        if mesh is not None:
-            raise NotImplementedError("mesh-sharded banks are not ported yet: single device only")
         self.model = model
         self.config = config or RetrievalConfig()
+        self.mesh = mesh
         self.image_bank: Optional[EmbeddingBank] = None
         self.text_bank: Optional[EmbeddingBank] = None
         self.image_items: List[Any] = []
@@ -65,7 +67,9 @@ class MultiModalRetriever:
 
     def _bank(self, embeddings) -> EmbeddingBank:
         emb = np.asarray(embeddings)
-        return EmbeddingBank(dim=emb.shape[1], normalize=self.config.normalize, device=self.model.device).build(emb)
+        return EmbeddingBank(
+            dim=emb.shape[1], mesh=self.mesh, normalize=self.config.normalize, device=self.model.device
+        ).build(emb)
 
     # -- index construction ------------------------------------------------------
     def build_image_index(
@@ -153,7 +157,7 @@ class MultiModalRetriever:
         k = top_k or self.config.top_k
         q = self.model.encode_text([texts] if isinstance(texts, str) else list(texts))
         _, idx = self.image_bank.search(q, k)
-        return _np(self.image_bank._bank[idx])
+        return _np(self.image_bank.rows(idx))
 
     def compute_similarity_matrix(self, texts, images=None) -> np.ndarray:
         """The full [T, N] text vs image-bank similarity (``images`` is
@@ -174,6 +178,8 @@ class MultiModalRetriever:
 
     # -- persistence -------------------------------------------------------------------
     def save(self, directory: str) -> None:
+        """Both banks and ``retriever.json``; over a mesh every rank calls
+        it and the mesh's first rank writes the files."""
         d = Path(directory)
         d.mkdir(parents=True, exist_ok=True)
         if self.image_bank is not None:
@@ -185,7 +191,10 @@ class MultiModalRetriever:
             "image_items": [str(x) for x in self.image_items],
             "text_items": [str(x) for x in self.text_items],
         }
-        (d / "retriever.json").write_text(json.dumps(meta))
+        if self.mesh is None or is_first_rank(self.mesh):
+            (d / "retriever.json").write_text(json.dumps(meta))
+        if self.mesh is not None:
+            barrier(self.mesh)
 
     def load(self, directory: str) -> None:
         d = Path(directory)
@@ -193,9 +202,13 @@ class MultiModalRetriever:
         self.config = RetrievalConfig(**meta["config"])
         device = self.model.device
         if (d / "image_bank.npz").exists():
-            self.image_bank = EmbeddingBank.load(str(d / "image_bank"), normalize=self.config.normalize, device=device)
+            self.image_bank = EmbeddingBank.load(
+                str(d / "image_bank"), mesh=self.mesh, normalize=self.config.normalize, device=device
+            )
         if (d / "text_bank.npz").exists():
-            self.text_bank = EmbeddingBank.load(str(d / "text_bank"), normalize=self.config.normalize, device=device)
+            self.text_bank = EmbeddingBank.load(
+                str(d / "text_bank"), mesh=self.mesh, normalize=self.config.normalize, device=device
+            )
         self.image_items = meta["image_items"]
         self.text_items = meta.get("text_items", [])
 
