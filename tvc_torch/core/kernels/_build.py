@@ -24,6 +24,8 @@ import time
 from pathlib import Path
 from typing import Dict, List
 
+from tvc_torch.utils import tracing
+
 CSRC_DIR = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "tvc_torch_kernels"
 NVCC_FLAGS = [
@@ -139,14 +141,24 @@ def _finish_build(name: str, job) -> None:
 
 def build_all(names: List[str] = None) -> float:
     """Build every source (one nvcc each, all started together); returns
-    the wall seconds spent."""
+    the wall seconds spent. A call that builds anything records a
+    ``kernel.build`` span (``sources``: the ones built) and adds their
+    number to the ``kernel.builds`` counter and its nanoseconds to
+    ``kernel.build_ns``: a build while serving stalls every request, and
+    ``ServingRuntime.stats()`` reports both counters."""
     names = list(SIGNATURES) if names is None else names
     t0 = time.perf_counter()
+    t0_ns = time.time_ns()
     with _LOCK:
         jobs = {n: _start_build(n) for n in names}
-        for n, job in jobs.items():
-            if job is not None:
-                _finish_build(n, job)
+        built = [n for n, job in jobs.items() if job is not None]
+        for n in built:
+            _finish_build(n, jobs[n])
+    if built:
+        t1_ns = time.time_ns()
+        tracing.record("kernel.build", t0_ns, t1_ns, sources=built)
+        tracing.count("kernel.builds", len(built))
+        tracing.count("kernel.build_ns", t1_ns - t0_ns)
     return time.perf_counter() - t0
 
 

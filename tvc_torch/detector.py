@@ -29,6 +29,7 @@ from tvc_torch.core.kernels.consistency_kernel import fused_consistency_scores
 from tvc_torch.metrics import DetectionEvaluator
 from tvc_torch.models.clip import CLIPModel, preprocess_images
 from tvc_torch.parallel.mesh import DATA_AXIS, axis_size
+from tvc_torch.utils import tracing
 
 
 @dataclasses.dataclass
@@ -315,52 +316,61 @@ class AdversarialDetector:
             and self.retriever is not None
             and self.retriever.image_bank is not None
         )
-        step = self._serving_step(with_bank)
-        pixels = self._raw_pixels(images)
-        tokens = np.asarray(self.model.tokenize(list(texts)))
-        var_tokens, var_mask = self._variant_tokens(texts, variants)
-        # real length = EOT position + 1 (EOT is the highest id)
-        real = max(int(tokens.argmax(-1).max()) + 1, int(var_tokens.argmax(-1).max()) + 1)
-        if cfg.text_bucket is not None:
-            # fixed serving bucket; pin EOT in-window for rows truncation cuts
-            T_b = min(-(-cfg.text_bucket // 8) * 8, tokens.shape[-1])
-            eot = getattr(self.model.tokenizer, "eot_id", None)
-            if eot is not None and real > T_b:
-                tokens = tokens.copy()
-                var_tokens = var_tokens.copy()
-                tokens[tokens.argmax(-1) >= T_b, T_b - 1] = eot
-                vflat = var_tokens.reshape(-1, var_tokens.shape[-1])
-                vflat[vflat.argmax(-1) >= T_b, T_b - 1] = eot
-        else:
-            T_b = min(-(-real // 8) * 8, tokens.shape[-1])
-        tokens = np.ascontiguousarray(tokens[:, :T_b])
-        var_tokens = np.ascontiguousarray(var_tokens[:, :, :T_b])
+        with tracing.span("detect.tokenize"):
+            tokens = np.asarray(self.model.tokenize(list(texts)))
+            var_tokens, var_mask = self._variant_tokens(texts, variants)
+        with tracing.span("detect.stage"):
+            step = self._serving_step(with_bank)
+            pixels = self._raw_pixels(images)
+            # real length = EOT position + 1 (EOT is the highest id)
+            real = max(int(tokens.argmax(-1).max()) + 1, int(var_tokens.argmax(-1).max()) + 1)
+            if cfg.text_bucket is not None:
+                # fixed serving bucket; pin EOT in-window for rows truncation cuts
+                T_b = min(-(-cfg.text_bucket // 8) * 8, tokens.shape[-1])
+                eot = getattr(self.model.tokenizer, "eot_id", None)
+                if eot is not None and real > T_b:
+                    tokens = tokens.copy()
+                    var_tokens = var_tokens.copy()
+                    tokens[tokens.argmax(-1) >= T_b, T_b - 1] = eot
+                    vflat = var_tokens.reshape(-1, var_tokens.shape[-1])
+                    vflat[vflat.argmax(-1) >= T_b, T_b - 1] = eot
+            else:
+                T_b = min(-(-real // 8) * 8, tokens.shape[-1])
+            tokens = np.ascontiguousarray(tokens[:, :T_b])
+            var_tokens = np.ascontiguousarray(var_tokens[:, :, :T_b])
 
-        # mesh serving: the batch shards over ``data``; pad B up to a
-        # multiple (masked pad rows) and trim the outputs back
-        mesh = self._mesh(with_bank)
-        B_real = pixels.shape[0]
-        if mesh is not None:
-            pad = (-B_real) % axis_size(mesh, DATA_AXIS)
-            if pad:
-                pixels = np.concatenate([pixels, np.zeros_like(pixels[:pad])])
-                tokens = np.concatenate([tokens, np.zeros_like(tokens[:pad])])
-                var_tokens = np.concatenate([var_tokens, np.zeros_like(var_tokens[:pad])])
-                var_mask = np.concatenate([var_mask, np.zeros_like(var_mask[:pad])])
+            # mesh serving: the batch shards over ``data``; pad B up to a
+            # multiple (masked pad rows) and trim the outputs back
+            mesh = self._mesh(with_bank)
+            B_real = pixels.shape[0]
+            if mesh is not None:
+                pad = (-B_real) % axis_size(mesh, DATA_AXIS)
+                if pad:
+                    pixels = np.concatenate([pixels, np.zeros_like(pixels[:pad])])
+                    tokens = np.concatenate([tokens, np.zeros_like(tokens[:pad])])
+                    var_tokens = np.concatenate([var_tokens, np.zeros_like(var_tokens[:pad])])
+                    var_mask = np.concatenate([var_mask, np.zeros_like(var_mask[:pad])])
 
-        if with_bank:
-            bank_obj = self.retriever.image_bank
-            bank, valid = bank_obj._bank, bank_obj.valid
-        else:
-            D = self.model.config.embed_dim
-            bank, valid = np.zeros((1, D), np.float32), np.zeros((1,), bool)
-        upper = np.float32(self.threshold_manager.get_threshold())
-        lower = np.float32(cfg.lower_threshold) if cfg.two_sided else np.float32(-np.inf)
-        out = step(
-            self.model.params, pixels, tokens, var_tokens, var_mask, bank, valid,
-            np.asarray(cfg.weights, np.float32), lower, upper,
-        )
-        out = {k: v[:B_real] for k, v in out.items()}
+            if with_bank:
+                bank_obj = self.retriever.image_bank
+                bank, valid = bank_obj._bank, bank_obj.valid
+            else:
+                D = self.model.config.embed_dim
+                bank, valid = np.zeros((1, D), np.float32), np.zeros((1,), bool)
+            upper = np.float32(self.threshold_manager.get_threshold())
+            lower = np.float32(cfg.lower_threshold) if cfg.two_sided else np.float32(-np.inf)
+        with tracing.span("detect.step"):
+            out = step(
+                self.model.params, pixels, tokens, var_tokens, var_mask, bank, valid,
+                np.asarray(cfg.weights, np.float32), lower, upper,
+            )
+            out = {k: v[:B_real] for k, v in out.items()}
+        with tracing.span("detect.readback"):
+            return self._fused_result(out, texts, upper, with_bank, mesh)
+
+    def _fused_result(self, out, texts, upper, with_bank: bool, mesh) -> DetectionResult:
+        """The step's outputs read back to the host (the first read waits on
+        the device), the hub probe applied."""
         flags = _np(out["is_adversarial"])
         agg = _np(out["aggregated"])
         probe_scores = None
@@ -397,10 +407,17 @@ class AdversarialDetector:
         self, images, texts: Sequence[str], variants: Optional[Sequence[Sequence[str]]] = None
     ) -> DetectionResult:
         """images: PIL list or [B,H,W,3] raw pixels; texts: list[str];
-        variants: optional precomputed per-query variant lists."""
+        variants: optional precomputed per-query variant lists. Runs inside
+        a ``detect.batch`` span; the fused path splits it into
+        ``detect.tokenize``, ``detect.stage``, ``detect.step`` and
+        ``detect.readback``."""
+        with tracing.span("detect.batch", rows=len(texts)):
+            if self._can_fuse():
+                return self._detect_batch_fused(images, texts, variants)
+            return self._detect_batch_staged(images, texts, variants)
+
+    def _detect_batch_staged(self, images, texts, variants) -> DetectionResult:
         cfg = self.config
-        if self._can_fuse():
-            return self._detect_batch_fused(images, texts, variants)
         dev = self.device
         img_emb = self.model.encode_image(images)
         txt_emb = self.model.encode_text(list(texts))

@@ -60,6 +60,7 @@ from tvc_torch.core.kernels.w8_matmul_kernel import (
     w8a8_matmul,
     w8a8_matmul_stacked,
 )
+from tvc_torch.utils import tracing
 
 #: the largest activation block (B * T rows) the weight-only kernels take;
 #: larger blocks dequantize, then matmul (the JAX package's VMEM limit,
@@ -820,40 +821,41 @@ class QwenModel:
         same path against each other); ``on_logits(step, logits)`` sees the
         f32 logits each step samples from. ``self.last_decode_steps`` is
         the number of steps the loop ran (fewer after an early exit)."""
-        c, dev = self.config, self.device
-        non_layer, stacked = self._decode_state()
-        Dh = c.hidden_size // c.num_heads
-        eot = getattr(self.tokenizer, "eot_id", -1)
-        P, plen = inp.P, inp.plen
-        S = plen + self.max_new_tokens
-        B = inp.tokens.shape[0]
-        head = self._head(non_layer, inp.allowed)
-        cache_shape = (c.num_layers, B, self._kv_heads(), S, Dh)
-        caches = (torch.zeros(cache_shape, dtype=c.dtype, device=dev),
-                  torch.zeros(cache_shape, dtype=c.dtype, device=dev))
-        ks = torch.arange(S, device=dev)
-        lengths = inp.lengths
-        T = plen - P
-        t_idx = torch.arange(T, device=dev)
-        if P:
-            # prefix-shared prefill: the prefix at batch 1, broadcast into
-            # every row's slots [0, P); then the suffixes at offset P
-            kp = torch.arange(P, device=dev)
-            pre_mask = torch.zeros((1, 1, P, P), device=dev).masked_fill(kp[None, :] > kp[:, None], float("-inf"))
-            pre = tuple(torch.zeros((c.num_layers, 1, self._kv_heads(), P, Dh), dtype=c.dtype, device=dev)
-                        for _ in range(2))
-            self._run_layers(stacked, self._embed(non_layer, inp.prefix[None]), kp[None], pre_mask, pre, 0)
-            for cz, cp in zip(caches, pre):
-                cz[:, :, :, :P] = cp
-        keep = (ks[None, None, :] <= P + t_idx[None, :, None]) & (ks[None, None, :] < lengths[:, None, None])
-        if P:
-            keep = keep | (ks < P)[None, None, :]
-        prefill_mask = torch.zeros(keep.shape, device=dev).masked_fill(~keep, float("-inf"))[:, None]
-        positions = (P + t_idx)[None].expand(B, T)
-        x = self._run_layers(stacked, self._embed(non_layer, inp.tokens), positions, prefill_mask, caches, P, ctx=P)
-        x = _rmsnorm(x, non_layer["ln_f"]["scale"], c.rms_eps)
-        x = x[torch.arange(B, device=dev), lengths - P - 1][:, None]
-        next_logits = head(x)[:, 0]
+        with tracing.span("qwen.prefill", rows=int(inp.tokens.shape[0])):
+            c, dev = self.config, self.device
+            non_layer, stacked = self._decode_state()
+            Dh = c.hidden_size // c.num_heads
+            eot = getattr(self.tokenizer, "eot_id", -1)
+            P, plen = inp.P, inp.plen
+            S = plen + self.max_new_tokens
+            B = inp.tokens.shape[0]
+            head = self._head(non_layer, inp.allowed)
+            cache_shape = (c.num_layers, B, self._kv_heads(), S, Dh)
+            caches = (torch.zeros(cache_shape, dtype=c.dtype, device=dev),
+                      torch.zeros(cache_shape, dtype=c.dtype, device=dev))
+            ks = torch.arange(S, device=dev)
+            lengths = inp.lengths
+            T = plen - P
+            t_idx = torch.arange(T, device=dev)
+            if P:
+                # prefix-shared prefill: the prefix at batch 1, broadcast into
+                # every row's slots [0, P); then the suffixes at offset P
+                kp = torch.arange(P, device=dev)
+                pre_mask = torch.zeros((1, 1, P, P), device=dev).masked_fill(kp[None, :] > kp[:, None], float("-inf"))
+                pre = tuple(torch.zeros((c.num_layers, 1, self._kv_heads(), P, Dh), dtype=c.dtype, device=dev)
+                            for _ in range(2))
+                self._run_layers(stacked, self._embed(non_layer, inp.prefix[None]), kp[None], pre_mask, pre, 0)
+                for cz, cp in zip(caches, pre):
+                    cz[:, :, :, :P] = cp
+            keep = (ks[None, None, :] <= P + t_idx[None, :, None]) & (ks[None, None, :] < lengths[:, None, None])
+            if P:
+                keep = keep | (ks < P)[None, None, :]
+            prefill_mask = torch.zeros(keep.shape, device=dev).masked_fill(~keep, float("-inf"))[:, None]
+            positions = (P + t_idx)[None].expand(B, T)
+            x = self._run_layers(stacked, self._embed(non_layer, inp.tokens), positions, prefill_mask, caches, P, ctx=P)
+            x = _rmsnorm(x, non_layer["ln_f"]["scale"], c.rms_eps)
+            x = x[torch.arange(B, device=dev), lengths - P - 1][:, None]
+            next_logits = head(x)[:, 0]
 
         n = inp.n_samples
         if n > 1:  # each prompt's prefilled cache serves n sampling chains
@@ -872,22 +874,23 @@ class QwenModel:
         for i in range(steps):
             if early_exit and i and i % chunk == 0 and bool(done.all()):
                 break  # every sequence has ended: the rest is the EOT fill
-            self.last_decode_steps = i + 1
-            if on_logits is not None:
-                on_logits(i, next_logits)
-            if forced is not None:
-                tok = forced[i].to(dev, torch.long)
-            else:
-                tok = self._sample(next_logits, gen, temperature, top_k, inp.allowed, inp.n_real)
-            tok = torch.where(done, torch.full_like(tok, eot), tok)
-            done = done | (tok == eot)
-            tokens[i] = tok
-            cache_pos = plen + i
-            valid = (ks[None] < lengths[:, None]) | ((ks[None] >= plen) & (ks[None] <= cache_pos))
-            step_mask = torch.zeros(valid.shape, device=dev).masked_fill(~valid, float("-inf"))
-            x = self._run_layers(stacked, self._embed(non_layer, tok[:, None]), (lengths + i)[:, None],
-                                 step_mask, caches, cache_pos)
-            next_logits = head(_rmsnorm(x, non_layer["ln_f"]["scale"], c.rms_eps))[:, 0]
+            with tracing.span("qwen.decode_step", step=i, rows=Bn):
+                self.last_decode_steps = i + 1
+                if on_logits is not None:
+                    on_logits(i, next_logits)
+                if forced is not None:
+                    tok = forced[i].to(dev, torch.long)
+                else:
+                    tok = self._sample(next_logits, gen, temperature, top_k, inp.allowed, inp.n_real)
+                tok = torch.where(done, torch.full_like(tok, eot), tok)
+                done = done | (tok == eot)
+                tokens[i] = tok
+                cache_pos = plen + i
+                valid = (ks[None] < lengths[:, None]) | ((ks[None] >= plen) & (ks[None] <= cache_pos))
+                step_mask = torch.zeros(valid.shape, device=dev).masked_fill(~valid, float("-inf"))
+                x = self._run_layers(stacked, self._embed(non_layer, tok[:, None]), (lengths + i)[:, None],
+                                     step_mask, caches, cache_pos)
+                next_logits = head(_rmsnorm(x, non_layer["ln_f"]["scale"], c.rms_eps))[:, 0]
         return tokens.T
 
     # -- host side -----------------------------------------------------------------------
@@ -980,16 +983,21 @@ class QwenModel:
         card's stream, but its early-exit check every DECODE_CHUNK steps
         waits for the device, so this call returns after the decode's
         last chunk is queued; only the readback and the detokenization
-        are left to the callable."""
-        rows = self.decode(self.prepare(prompts, n_samples, token_mask, shared_prefix), temperature, seed)
+        are left to the callable. Spans: ``qwen.prepare`` (tokenizing),
+        ``qwen.prefill`` and one ``qwen.decode_step`` a step (``decode``),
+        ``qwen.readback`` (the callable)."""
+        with tracing.span("qwen.prepare", rows=len(prompts)):
+            inp = self.prepare(prompts, n_samples, token_mask, shared_prefix)
+        rows = self.decode(inp, temperature, seed)
 
         def result() -> List[str]:
-            out = rows.cpu().numpy()
-            batch_decode = getattr(self.tokenizer, "decode_batch", None)
-            if batch_decode is not None:
-                eot = getattr(self.tokenizer, "eot_id", -1)
-                return batch_decode([[i for i in row if i != eot] for row in out.tolist()])
-            return [self._detokenize(row) for row in out]
+            with tracing.span("qwen.readback"):
+                out = rows.cpu().numpy()
+                batch_decode = getattr(self.tokenizer, "decode_batch", None)
+                if batch_decode is not None:
+                    eot = getattr(self.tokenizer, "eot_id", -1)
+                    return batch_decode([[i for i in row if i != eot] for row in out.tolist()])
+                return [self._detokenize(row) for row in out]
 
         return result
 

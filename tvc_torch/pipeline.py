@@ -7,10 +7,17 @@ step's top-k indices.
 Batch-first: each stage consumes the whole batch and ``process_single``
 is a B = 1 wrapper. Runs on the card unless ``device="cpu"`` (the model
 must be on the same device).
+
+Each stage runs inside a span (``tvc_torch.utils.tracing``):
+``pipeline.text_augment`` (in ``process_stream`` the decode's dispatch,
+then ``pipeline.text_augment.finalize``), ``pipeline.detection`` and
+``pipeline.retrieval``; a result's ``timings`` and the profiler's stats
+come from those spans.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import threading
@@ -26,6 +33,7 @@ from tvc_torch.augment import TextAugmenter
 from tvc_torch.detector import AdversarialDetector, DetectionResult, DetectorConfig
 from tvc_torch.models.clip import CLIPModel
 from tvc_torch.retrieval import MultiModalRetriever
+from tvc_torch.utils import tracing
 
 
 @dataclasses.dataclass
@@ -72,40 +80,44 @@ class BatchProcessingResult:
 
 
 class PipelineProfiler:
-    """Thread-safe per-step wall-clock stats (reference src/pipeline.py:179-253)."""
+    """Thread-safe per-step wall-clock stats (reference src/pipeline.py:179-253)
+    of one pipeline, kept as running sums. Step ``name`` is recorded as the
+    span ``pipeline.<name>``, whose duration the stats take."""
 
     def __init__(self, enabled: bool = True):
         self.enabled = enabled
         self._lock = threading.Lock()
-        self._records: Dict[str, List[float]] = {}
-        self._open: Dict[str, float] = {}
+        self._stats: Dict[str, tracing.RunningStats] = {}
+        self._open: Dict[str, Any] = {}
+
+    def _add(self, name: str, seconds: float) -> None:
+        if self.enabled:
+            with self._lock:
+                self._stats.setdefault(name, tracing.RunningStats()).add(seconds)
+
+    @contextlib.contextmanager
+    def step(self, name: str):
+        """Run the body as step ``name``; yields the open span."""
+        with tracing.span("pipeline." + name) as s:
+            yield s
+        self._add(name, s.seconds)
 
     def start_step(self, name: str) -> None:
-        if self.enabled:
-            with self._lock:
-                self._open[name] = time.time()
+        """Open ``step(name)``; ``end_step(name)``, on the same thread, closes it."""
+        cm = self.step(name)
+        cm.__enter__()
+        with self._lock:
+            self._open[name] = cm
 
     def end_step(self, name: str) -> None:
-        if self.enabled:
-            with self._lock:
-                t0 = self._open.pop(name, None)
-                if t0 is not None:
-                    self._records.setdefault(name, []).append(time.time() - t0)
+        with self._lock:
+            cm = self._open.pop(name, None)
+        if cm is not None:
+            cm.__exit__(None, None, None)
 
     def get_stats(self) -> Dict[str, Dict[str, float]]:
         with self._lock:
-            out = {}
-            for name, vals in self._records.items():
-                arr = np.asarray(vals)
-                out[name] = {
-                    "mean": float(arr.mean()),
-                    "std": float(arr.std()),
-                    "min": float(arr.min()),
-                    "max": float(arr.max()),
-                    "count": int(arr.size),
-                    "total": float(arr.sum()),
-                }
-            return out
+            return {name: st.summary() for name, st in self._stats.items()}
 
 
 class MultiModalDetectionPipeline:
@@ -170,16 +182,9 @@ class MultiModalDetectionPipeline:
         )
 
     def process_batch(self, images, texts: Sequence[str]) -> PipelineResult:
-        timings: Dict[str, float] = {}
-        errors: List[str] = []
-
-        self.profiler.start_step("text_augment")
-        t0 = time.time()
-        variants = self._generate_variants(texts)
-        timings["text_augment"] = time.time() - t0
-        self.profiler.end_step("text_augment")
-
-        return self._detect_and_retrieve(images, texts, variants, timings, errors)
+        with self.profiler.step("text_augment") as s:
+            variants = self._generate_variants(texts)
+        return self._detect_and_retrieve(images, texts, variants, {"text_augment": s.seconds}, [])
 
     def _generate_variants_async(self, texts: Sequence[str]):
         """Dispatch-now/finalize-later form of _generate_variants (see
@@ -198,69 +203,73 @@ class MultiModalDetectionPipeline:
         (``QwenModel.generate_async``), so the host does not yet overlap
         batch i's detection with batch i+1's decode; the results equal
         ``process_batch`` on each batch (with an empty variant cache).
-        Results return in input order."""
+        Results return in input order; a result's ``text_augment`` timing
+        is its dispatch and its finalize together."""
         out: List[PipelineResult] = []
         it = iter(batches)
         try:
             images, texts = next(it)
         except StopIteration:
             return out
-        texts = list(texts)
-        pending = (images, texts, self._generate_variants_async(texts))
+        pending = self._dispatch(images, texts)
         for nxt_images, nxt_texts in it:
-            nxt_texts = list(nxt_texts)
-            nxt_handle = self._generate_variants_async(nxt_texts)  # dispatch i+1
-            images, texts, handle = pending
-            out.append(self._detect_and_retrieve(images, texts, handle(), {}, []))
-            pending = (nxt_images, nxt_texts, nxt_handle)
-        images, texts, handle = pending
-        out.append(self._detect_and_retrieve(images, texts, handle(), {}, []))
+            nxt = self._dispatch(nxt_images, nxt_texts)  # dispatch i+1
+            out.append(self._finalize(*pending))
+            pending = nxt
+        out.append(self._finalize(*pending))
         return out
+
+    def _dispatch(self, images, texts):
+        texts = list(texts)
+        with self.profiler.step("text_augment") as s:
+            handle = self._generate_variants_async(texts)
+        return images, texts, handle, s.seconds
+
+    def _finalize(self, images, texts, handle, dispatch_s: float) -> PipelineResult:
+        with self.profiler.step("text_augment.finalize") as s:
+            variants = handle()
+        return self._detect_and_retrieve(images, texts, variants, {"text_augment": dispatch_s + s.seconds}, [])
 
     def _detect_and_retrieve(
         self, images, texts, variants, timings, errors
     ) -> PipelineResult:
-        self.profiler.start_step("detection")
-        t0 = time.time()
-        det: DetectionResult = self.detector.detect_batch(
-            images,
-            texts,
-            # reuse the text_augment step's output — regenerating inside the
-            # detector would run the batched LLM decode twice per batch AND
-            # score different variants than the ones reported
-            variants=variants if "text_augment" in self.config.steps else None,
-        )
-        timings["detection"] = time.time() - t0
-        self.profiler.end_step("detection")
+        with self.profiler.step("detection") as s:
+            det: DetectionResult = self.detector.detect_batch(
+                images,
+                texts,
+                # reuse the text_augment step's output — regenerating inside the
+                # detector would run the batched LLM decode twice per batch AND
+                # score different variants than the ones reported
+                variants=variants if "text_augment" in self.config.steps else None,
+            )
+        timings["detection"] = s.seconds
 
         retrieved = None
         if "retrieval" in self.config.steps and self.retriever is not None:
-            self.profiler.start_step("retrieval")
-            t0 = time.time()
-            ref_idx = det.details.get("ref_idx")
-            if (
-                ref_idx is not None
-                and self.retriever.image_items
-                and ref_idx.shape[1] >= self.config.retrieval_top_k
-            ):
-                # the fused detection program already ran the bank top-k —
-                # map its indices to items with zero extra device dispatches
-                items = self.retriever.image_items
-                k = min(self.config.retrieval_top_k, ref_idx.shape[1])
-                retrieved = [
-                    [items[int(j)] for j in row[:k] if 0 <= int(j) < len(items)]
-                    for row in ref_idx
-                ]
-            else:
-                try:
-                    r = self.retriever.retrieve_images_by_text(
-                        list(texts), top_k=self.config.retrieval_top_k
-                    )
-                    retrieved = r.items
-                except Exception as e:  # degraded-mode continue (reference :389-392)
-                    errors.append(f"retrieval: {e}")
-            timings["retrieval"] = time.time() - t0
-            self.profiler.end_step("retrieval")
+            with self.profiler.step("retrieval") as s:
+                ref_idx = det.details.get("ref_idx")
+                if (
+                    ref_idx is not None
+                    and self.retriever.image_items
+                    and ref_idx.shape[1] >= self.config.retrieval_top_k
+                ):
+                    # the fused detection program already ran the bank top-k —
+                    # map its indices to items with zero extra device dispatches
+                    items = self.retriever.image_items
+                    k = min(self.config.retrieval_top_k, ref_idx.shape[1])
+                    retrieved = [
+                        [items[int(j)] for j in row[:k] if 0 <= int(j) < len(items)]
+                        for row in ref_idx
+                    ]
+                else:
+                    try:
+                        r = self.retriever.retrieve_images_by_text(
+                            list(texts), top_k=self.config.retrieval_top_k
+                        )
+                        retrieved = r.items
+                    except Exception as e:  # degraded-mode continue (reference :389-392)
+                        errors.append(f"retrieval: {e}")
+            timings["retrieval"] = s.seconds
 
         self.stats["batches"] += 1
         self.stats["queries"] += len(texts)

@@ -6,7 +6,14 @@ detection path (port of ``tvc/serving.py``).
   always runs at batch size.
 - ``start()`` / ``stop()`` / ``warmup()`` (runs every bucket once).
 - ``/health`` and ``/stats`` (uptime, counters, batch-size histogram,
-  P50/P99 latency) and a rolling KS score-drift monitor.
+  P50/P99 latency, kernel builds, the batcher's wait share) and a rolling
+  KS score-drift monitor.
+- Spans (``tvc_torch.utils.tracing``): ``serve.request`` (a request from
+  enqueue to answer, on the client's thread), and on the batcher's thread
+  ``serve.wait`` (blocked on an empty queue), ``serve.queue`` (a request's
+  enqueue to its pickup), ``serve.form`` (first pickup to the batch
+  closed) and ``serve.batch`` with its children ``serve.assemble``,
+  ``detect.batch`` and ``serve.deliver``.
 
 The HTTP layer is stdlib-only and binds localhost by default; ``submit()``
 serves embedded users.
@@ -15,6 +22,7 @@ serves embedded users.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import json
 import queue
 import threading
@@ -27,6 +35,13 @@ import numpy as np
 import torch
 
 from tvc_torch._device import resolve_device
+from tvc_torch.utils import tracing
+
+#: requests of ``stats()``'s latency percentiles (the newest)
+LATENCY_WINDOW = 1024
+#: seconds of the newest history that ``stats()``'s ``batcher_wait_share`` covers
+WAIT_WINDOW_S = 10.0
+_RUNTIME_IDS = itertools.count()
 
 
 @dataclasses.dataclass
@@ -59,15 +74,16 @@ class ServingConfig:
 
 
 class _Request:
-    __slots__ = ("images", "texts", "event", "result", "error", "t_enqueue", "cancelled")
+    __slots__ = ("id", "images", "texts", "event", "result", "error", "t_enqueue", "cancelled")
 
-    def __init__(self, images: np.ndarray, texts: List[str]):
+    def __init__(self, rid: int, images: np.ndarray, texts: List[str]):
+        self.id = rid
         self.images = images
         self.texts = texts
         self.event = threading.Event()
         self.result: Optional[Dict[str, Any]] = None
         self.error: Optional[str] = None
-        self.t_enqueue = time.time()
+        self.t_enqueue = time.time_ns()  # the recorder's clock
         self.cancelled = False  # set by a timed-out submit(); batcher skips
 
 
@@ -101,7 +117,12 @@ class ServingRuntime:
         self._warm = False
         self._lock = threading.Lock()
         self._enqueue_lock = threading.Lock()
-        self._latencies: deque = deque(maxlen=1024)  # seconds, per request
+        # request and batch ids in this runtime's spans; ``_rt`` tells its
+        # requests from another runtime's in the shared recorder
+        self._rt = next(_RUNTIME_IDS)
+        self._request_ids = itertools.count()
+        self._batch_ids = itertools.count()
+        self._t_wait: Optional[int] = None  # since when the batcher has found the queue empty
         self.counters: Dict[str, Any] = {
             "requests": 0,
             "queries": 0,
@@ -228,6 +249,7 @@ class ServingRuntime:
     def start(self, http: bool = True) -> None:
         self._stop.clear()
         self._t_start = time.time()
+        self._t_wait = None
         self._batcher = threading.Thread(target=self._batch_loop, name="tvc-batcher", daemon=True)
         self._batcher.start()
         if http:
@@ -275,7 +297,7 @@ class ServingRuntime:
                 f"need images [B, H, W, C] with len(texts) == B; got "
                 f"images {images.shape} and {len(texts)} texts"
             )
-        req = _Request(images, texts)
+        req = _Request(next(self._request_ids), images, texts)
         with self._enqueue_lock:
             if self._batcher is None or self._stop.is_set():
                 raise RuntimeError("serving runtime is not running")
@@ -285,9 +307,13 @@ class ServingRuntime:
             raise TimeoutError("serving request timed out")
         if req.error is not None:
             raise RuntimeError(req.error)
-        with self._lock:
-            self._latencies.append(time.time() - req.t_enqueue)
+        tracing.record("serve.request", req.t_enqueue, time.time_ns(), req=req.id, rt=self._rt)
         return req.result
+
+    @staticmethod
+    def _picked(req: _Request) -> _Request:
+        tracing.record("serve.queue", req.t_enqueue, time.time_ns(), req=req.id)
+        return req
 
     def _batch_loop(self) -> None:
         cfg = self.config
@@ -297,34 +323,41 @@ class ServingRuntime:
             if carry is not None:
                 first, carry = carry, None
             else:
+                if self._t_wait is None:
+                    self._t_wait = time.time_ns()
                 try:
                     first = self._queue.get(timeout=0.05)
                 except queue.Empty:
                     continue
+                # one span for the whole wait, however many timeouts it took
+                tracing.record("serve.wait", self._t_wait, time.time_ns())
+                self._t_wait = None
+                self._picked(first)
             if first.cancelled:
                 continue
             batch = [first]
             total = first.images.shape[0]
-            deadline = first.t_enqueue + cfg.batch_max_wait_ms / 1e3
-            while total < cap:
-                try:
-                    # drain already-queued requests even past the deadline
-                    nxt = self._queue.get_nowait()
-                except queue.Empty:
-                    wait = deadline - time.time()
-                    if wait <= 0:
-                        break
+            deadline = first.t_enqueue + int(cfg.batch_max_wait_ms * 1e6)
+            with tracing.span("serve.form"):
+                while total < cap:
                     try:
-                        nxt = self._queue.get(timeout=wait)
+                        # drain already-queued requests even past the deadline
+                        nxt = self._picked(self._queue.get_nowait())
                     except queue.Empty:
+                        wait = (deadline - time.time_ns()) * 1e-9
+                        if wait <= 0:
+                            break
+                        try:
+                            nxt = self._picked(self._queue.get(timeout=wait))
+                        except queue.Empty:
+                            break
+                    if nxt.cancelled:
+                        continue
+                    if total + nxt.images.shape[0] > cap:
+                        carry = nxt
                         break
-                if nxt.cancelled:
-                    continue
-                if total + nxt.images.shape[0] > cap:
-                    carry = nxt
-                    break
-                batch.append(nxt)
-                total += nxt.images.shape[0]
+                    batch.append(nxt)
+                    total += nxt.images.shape[0]
             self._run_batch(batch)
         if carry is not None:
             carry.error = "serving runtime stopped"
@@ -340,43 +373,51 @@ class ServingRuntime:
 
     def _run_batch(self, batch: List[_Request]) -> None:
         try:
-            images = np.concatenate([r.images for r in batch])
-            texts: List[str] = sum((r.texts for r in batch), [])
-            n = images.shape[0]
-            cap = self._max_bucket
-            scores = np.empty((n,), np.float64)
-            is_adv = np.empty((n,), bool)
-            # chunk to the largest bucket, padding each chunk to a power of two
-            for off in range(0, n, cap):
-                part_img = images[off : off + cap]
-                part_txt = texts[off : off + cap]
-                m = part_img.shape[0]
-                b = self._bucket(m)
-                if b > m:
-                    pad_img = np.zeros((b - m,) + part_img.shape[1:], part_img.dtype)
-                    part_img = np.concatenate([part_img, pad_img])
-                    part_txt = part_txt + ["pad"] * (b - m)
-                det = self.detector.detect_batch(part_img, part_txt)
-                scores[off : off + m] = np.asarray(det.aggregated_score)[:m]
-                is_adv[off : off + m] = np.asarray(det.is_adversarial)[:m]
-                self._drift_feed(scores[off : off + m])
-                with self._lock:
-                    self.counters["batches"] += 1
-                    self.counters["batch_size_sum"] += m
-                    hist = self.counters["batch_bucket_counts"]
-                    hist[b] = hist.get(b, 0) + 1
-            off = 0
-            for r in batch:
-                k = r.images.shape[0]
-                r.result = {
-                    "scores": scores[off : off + k].tolist(),
-                    "is_adversarial": is_adv[off : off + k].tolist(),
-                }
-                off += k
-                r.event.set()
-            with self._lock:
-                self.counters["requests"] += len(batch)
-                self.counters["queries"] += n
+            with tracing.span("serve.batch", batch=next(self._batch_ids), reqs=[r.id for r in batch]) as sb:
+                with tracing.span("serve.assemble"):
+                    images = np.concatenate([r.images for r in batch])
+                    texts: List[str] = sum((r.texts for r in batch), [])
+                n = images.shape[0]
+                cap = self._max_bucket
+                scores = np.empty((n,), np.float64)
+                is_adv = np.empty((n,), bool)
+                padded = 0
+                # chunk to the largest bucket, padding each chunk to a power of two
+                for off in range(0, n, cap):
+                    with tracing.span("serve.assemble"):
+                        part_img = images[off : off + cap]
+                        part_txt = texts[off : off + cap]
+                        m = part_img.shape[0]
+                        b = self._bucket(m)
+                        if b > m:
+                            pad_img = np.zeros((b - m,) + part_img.shape[1:], part_img.dtype)
+                            part_img = np.concatenate([part_img, pad_img])
+                            part_txt = part_txt + ["pad"] * (b - m)
+                    padded += b
+                    det = self.detector.detect_batch(part_img, part_txt)
+                    with tracing.span("serve.deliver"):
+                        scores[off : off + m] = np.asarray(det.aggregated_score)[:m]
+                        is_adv[off : off + m] = np.asarray(det.is_adversarial)[:m]
+                        self._drift_feed(scores[off : off + m])
+                        with self._lock:
+                            self.counters["batches"] += 1
+                            self.counters["batch_size_sum"] += m
+                            hist = self.counters["batch_bucket_counts"]
+                            hist[b] = hist.get(b, 0) + 1
+                sb.set(rows=n, bucket=padded)
+                with tracing.span("serve.deliver"):
+                    off = 0
+                    for r in batch:
+                        k = r.images.shape[0]
+                        r.result = {
+                            "scores": scores[off : off + k].tolist(),
+                            "is_adversarial": is_adv[off : off + k].tolist(),
+                        }
+                        off += k
+                        r.event.set()
+                    with self._lock:
+                        self.counters["requests"] += len(batch)
+                        self.counters["queries"] += n
         except Exception as e:  # deliver the failure to every waiter
             with self._lock:
                 self.counters["errors"] += 1
@@ -386,8 +427,9 @@ class ServingRuntime:
 
     # -- observability --------------------------------------------------------------------
     def stats(self) -> Dict[str, Any]:
+        served = [s for s in tracing.spans(names=("serve.request",)) if s.attrs.get("rt") == self._rt]
+        lat = sorted(s.seconds for s in served[-LATENCY_WINDOW:])
         with self._lock:
-            lat = sorted(self._latencies)
             c = dict(self.counters)
             c["batch_bucket_counts"] = {
                 str(k): v for k, v in sorted(c["batch_bucket_counts"].items())
@@ -403,8 +445,31 @@ class ServingRuntime:
         if lat:
             out["latency_p50_ms"] = round(1e3 * lat[len(lat) // 2], 3)
             out["latency_p99_ms"] = round(1e3 * lat[min(len(lat) - 1, int(len(lat) * 0.99))], 3)
+        built = tracing.counters()
+        out["kernel_builds"] = {
+            "sources": built.get("kernel.builds", 0),
+            "seconds": round(built.get("kernel.build_ns", 0) * 1e-9, 3),
+        }
+        out["batcher_wait_share"] = self._wait_share()
         out["drift"] = self.drift_status()
         return out
+
+
+    def _wait_share(self) -> float:
+        """Share of the last ``WAIT_WINDOW_S`` seconds (since ``start()`` if
+        later) the batcher spent blocked on an empty queue: its ``serve.wait``
+        spans and the wait it is in now. Near 0, the batcher is the limit."""
+        batcher = self._batcher
+        now = time.time_ns()
+        lo = max(now - int(WAIT_WINDOW_S * 1e9), int(self._t_start * 1e9))
+        if batcher is None or now <= lo:
+            return 0.0
+        waited = sum(min(s.t1, now) - max(s.t0, lo) for s in tracing.spans(since_ns=lo, names=("serve.wait",))
+                     if s.tid == batcher.ident)
+        t_wait = self._t_wait
+        if t_wait is not None:
+            waited += now - max(t_wait, lo)
+        return round(waited / (now - lo), 4)
 
 
 def _make_handler(runtime: ServingRuntime):
