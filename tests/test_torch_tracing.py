@@ -56,6 +56,33 @@ def test_nesting_parents_and_threads():
     assert outer.seconds == got["outer"].seconds > 0
 
 
+def test_explicit_parent_across_threads():
+    """A span for work another span started names that span: on another
+    thread, or nested elsewhere on this one, without changing what the
+    thread's next span nests in."""
+    rec = tracing.Recorder()
+    assert rec.current() == 0
+    with rec.span("batch") as batch:
+        origin = rec.current()
+        with rec.span("step") as step:
+            with rec.span("wait", parent=origin):
+                assert rec.current() not in (0, origin, step.id)
+            with rec.span("next"):
+                pass
+
+    def other():
+        with rec.span("upload", parent=origin):
+            pass
+
+    t = threading.Thread(target=other)
+    t.start()
+    t.join(timeout=10)
+    assert not t.is_alive() and rec.current() == 0 and origin == batch.id
+    got = {s.name: s for s in rec.spans()}
+    assert got["wait"].parent == got["upload"].parent == batch.id
+    assert got["next"].parent == step.id and got["step"].parent == batch.id
+
+
 def test_ring_bound_dropped_and_running_aggregates():
     rec = tracing.Recorder(capacity=8)
     for i in range(20):
@@ -203,9 +230,10 @@ def test_serving_spans_share_request_ids(clip):
     for name, each in (("serve.assemble", 2), ("detect.batch", 1), ("serve.deliver", 2)):
         kids = [s for s in mine if s.name == name]
         assert len(kids) == each * len(batches) and all(by_id[s.parent].name == "serve.batch" for s in kids)
-    for name in ("detect.tokenize", "detect.stage", "detect.step", "detect.readback"):
+    # the pixels staged, then the tokens: a detect.stage each
+    for name, each in (("detect.tokenize", 1), ("detect.stage", 2), ("detect.step", 1), ("detect.readback", 1)):
         kids = [s for s in mine if s.name == name]
-        assert len(kids) == len(batches) and all(by_id[s.parent].name == "detect.batch" for s in kids)
+        assert len(kids) == each * len(batches) and all(by_id[s.parent].name == "detect.batch" for s in kids)
     batcher = {s.tid for s in batches}
     assert len(batcher) == 1 and {s.tid for s in mine if s.name in ("serve.form", "serve.wait")} <= batcher
     st = rt.stats()

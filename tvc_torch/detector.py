@@ -6,7 +6,9 @@ the threshold managers, ``EnsembleDetector`` and ``create_detector``).
 
 ``detect_batch`` routes through one serving step (``make_serving_step``:
 encode + bank top-k + consistency kernel) whenever the inputs allow it;
-host stages remain only for tokenizing the variant texts. A retriever
+host stages remain only for tokenizing the variant texts and staging
+the tokens, the latter while the pixels go to the device
+(``tvc_torch.core.staging``). A retriever
 whose image bank is sharded over a mesh serves through the mesh step (the
 batch padded to a multiple of the ``data`` axis, the outputs trimmed).
 """
@@ -26,6 +28,7 @@ import torch
 from tvc_torch._device import resolve_device
 from tvc_torch.core import consistency as C
 from tvc_torch.core.kernels.consistency_kernel import fused_consistency_scores
+from tvc_torch.core.staging import stager
 from tvc_torch.metrics import DetectionEvaluator
 from tvc_torch.models.clip import CLIPModel, preprocess_images
 from tvc_torch.parallel.mesh import DATA_AXIS, axis_size
@@ -316,12 +319,25 @@ class AdversarialDetector:
             and self.retriever is not None
             and self.retriever.image_bank is not None
         )
+        mesh = self._mesh(with_bank)
         with tracing.span("detect.tokenize"):
             tokens = np.asarray(self.model.tokenize(list(texts)))
             var_tokens, var_mask = self._variant_tokens(texts, variants)
         with tracing.span("detect.stage"):
-            step = self._serving_step(with_bank)
             pixels = self._raw_pixels(images)
+            B_real = pixels.shape[0]
+            # mesh serving: the batch shards over ``data``; pad B up to a
+            # multiple (masked pad rows) and trim the outputs back
+            pad = (-B_real) % axis_size(mesh, DATA_AXIS) if mesh is not None else 0
+            if pad:
+                pixels = np.concatenate([pixels, np.zeros_like(pixels[:pad])])
+        # the pixels go to the device while the host stages the tokens,
+        # buckets them and launches the text tower (the tokenizer's own
+        # threads fill every core, so the copy waits for it); the upload's
+        # spans are children of detect.batch
+        pixels = stager(self.device).start(pixels)
+        with tracing.span("detect.stage"):
+            step = self._serving_step(with_bank)
             # real length = EOT position + 1 (EOT is the highest id)
             real = max(int(tokens.argmax(-1).max()) + 1, int(var_tokens.argmax(-1).max()) + 1)
             if cfg.text_bucket is not None:
@@ -339,17 +355,10 @@ class AdversarialDetector:
             tokens = np.ascontiguousarray(tokens[:, :T_b])
             var_tokens = np.ascontiguousarray(var_tokens[:, :, :T_b])
 
-            # mesh serving: the batch shards over ``data``; pad B up to a
-            # multiple (masked pad rows) and trim the outputs back
-            mesh = self._mesh(with_bank)
-            B_real = pixels.shape[0]
-            if mesh is not None:
-                pad = (-B_real) % axis_size(mesh, DATA_AXIS)
-                if pad:
-                    pixels = np.concatenate([pixels, np.zeros_like(pixels[:pad])])
-                    tokens = np.concatenate([tokens, np.zeros_like(tokens[:pad])])
-                    var_tokens = np.concatenate([var_tokens, np.zeros_like(var_tokens[:pad])])
-                    var_mask = np.concatenate([var_mask, np.zeros_like(var_mask[:pad])])
+            if pad:
+                tokens = np.concatenate([tokens, np.zeros_like(tokens[:pad])])
+                var_tokens = np.concatenate([var_tokens, np.zeros_like(var_tokens[:pad])])
+                var_mask = np.concatenate([var_mask, np.zeros_like(var_mask[:pad])])
 
             if with_bank:
                 bank_obj = self.retriever.image_bank
@@ -409,8 +418,10 @@ class AdversarialDetector:
         """images: PIL list or [B,H,W,3] raw pixels; texts: list[str];
         variants: optional precomputed per-query variant lists. Runs inside
         a ``detect.batch`` span; the fused path splits it into
-        ``detect.tokenize``, ``detect.stage``, ``detect.step`` and
-        ``detect.readback``."""
+        ``detect.tokenize``, ``detect.stage`` (the pixels; their upload
+        starts after it), ``detect.stage`` (the tokens), ``detect.step``
+        (in it the step's ``detect.upload_wait``, recorded as a child of
+        ``detect.batch``) and ``detect.readback``."""
         with tracing.span("detect.batch", rows=len(texts)):
             if self._can_fuse():
                 return self._detect_batch_fused(images, texts, variants)

@@ -2,10 +2,11 @@
 over a mesh (port of ``make_serving_step``, its compat wrapper
 ``make_defense_step`` and ``make_train_step``, ``tvc/parallel/steps.py``).
 
-One call computes the CLIP image encode, one text-tower pass for the
-originals and the variants, the exact bank top-k by the text embedding,
-the reference gather and the consistency scoring, then the two-sided band
-decision. With ``config.fused_attention`` the towers run the hand-written
+One call computes one text-tower pass for the originals and the variants,
+the exact bank top-k by the text embedding and the reference gather, the
+CLIP image encode (last of the three, so the pixels' upload overlaps the
+rest), the consistency scoring, then the two-sided band decision. With
+``config.fused_attention`` the towers run the hand-written
 layer kernels (the W8A8 ones with ``config.int8_serving``); scoring runs the
 consistency kernel for CUDA tensors (each wrapper picks its plain version
 only for CPU tensors). The training step differentiates the einsum
@@ -34,6 +35,7 @@ from tvc_torch._device import resolve_device
 from tvc_torch.core import consistency as C
 from tvc_torch.core.kernels.consistency_kernel import consistency_scores_reference, fused_consistency_scores
 from tvc_torch.core.kernels.topk_kernel import topk_index_order
+from tvc_torch.core.staging import Upload, stager
 from tvc_torch.core.similarity import l2_normalize
 from tvc_torch.models.clip import (
     CLIPModel,
@@ -93,8 +95,12 @@ def make_serving_step(
     Returns ``serve(params, pixels, tokens, variant_tokens, variant_mask,
     bank, valid, weights, lower, upper) -> dict``:
 
-    * ``pixels`` [B,H,W,3] raw [0, 1]; ``tokens`` [B,T]; ``variant_tokens``
-      [B,V,T] + ``variant_mask`` [B,V] bool;
+    * ``pixels`` [B,H,W,3] raw [0, 1]: a host array or tensor (a host array
+      goes to the device through the device's pinned stager,
+      ``tvc_torch.core.staging``, while the text tower and the bank top-k
+      are launched), or an ``Upload`` that the caller started earlier;
+      ``tokens`` [B,T]; ``variant_tokens`` [B,V,T] + ``variant_mask`` [B,V]
+      bool;
     * ``bank`` [N,D] + ``valid`` [N] bool masking pad rows (pass
       zeros((1, D)) / zeros(1) with ``with_bank=False``);
     * ``weights`` [3] and the ``lower`` / ``upper`` thresholds are run-time
@@ -154,8 +160,10 @@ def make_serving_step(
         k = axis_index(mesh, DATA_AXIS)
         return ref_idx, refs[k * b : (k + 1) * b]
 
-    def _finish(img, allf, variant_mask, bank, valid, weights, lower, upper):
-        b = img.shape[0]
+    def _finish(params, pixels, allf, variant_mask, bank, valid, weights, lower, upper):
+        """The bank top-k (text features only), then the image encode once
+        the pixels are on the device, then the scoring."""
+        b = allf.shape[0]
         txt = allf[:, 0].contiguous()
         var = allf[:, 1:].contiguous()
         if with_bank:
@@ -165,9 +173,10 @@ def make_serving_step(
             ref_mask = torch.ones((b, num_refs), dtype=torch.bool, device=device)
             ref_idx = ref_idx.to(torch.int32)
         else:
-            refs = torch.zeros((b, 1, img.shape[-1]), dtype=torch.float32, device=device)
+            refs = torch.zeros((b, 1, allf.shape[-1]), dtype=torch.float32, device=device)
             ref_mask = torch.zeros((b, 1), dtype=torch.bool, device=device)
             ref_idx = torch.full((b * dp, top_k), -1, dtype=torch.int32, device=device)
+        img = _encode_image(params, pixels)
         score = consistency_scores_reference if use_kernel is False else fused_consistency_scores
         scores = score(
             img, txt, var, refs,
@@ -186,13 +195,14 @@ def make_serving_step(
         out["ref_idx"] = ref_idx
         return out
 
-    def _encode_image(params, pixels):
-        px = normalize_pixels(_local(pixels, torch.float32))
-        return l2_normalize(model.infer_image_features(params, px, qparams=qparams))
+    def _encode_image(params, pixels: Upload):
+        px = pixels.wait().to(device)
+        if mesh is not None:
+            px = shard_rows(px, mesh, DATA_AXIS)
+        return l2_normalize(model.infer_image_features(params, normalize_pixels(px), qparams=qparams))
 
     @torch.no_grad()
     def step(params, pixels, tokens, variant_tokens, variant_mask, bank, valid, weights, lower, upper):
-        img = _encode_image(params, pixels)
         tokens = _local(tokens, torch.long)
         variant_tokens = _local(variant_tokens, torch.long)
         b, V, T = variant_tokens.shape
@@ -200,7 +210,7 @@ def make_serving_step(
         all_tok = torch.cat([tokens[:, None, :], variant_tokens], dim=1).reshape(b * (V + 1), T)
         allf = l2_normalize(model.infer_text_features(params, all_tok, qparams=qparams))
         allf = allf.reshape(b, V + 1, -1)
-        return _finish(img, allf, variant_mask, bank, valid, weights, lower, upper)
+        return _finish(params, pixels, allf, variant_mask, bank, valid, weights, lower, upper)
 
     @torch.no_grad()
     def step_bucketed(params, pixels, short_tok, long_tok, inv_perm, variant_mask,
@@ -209,19 +219,20 @@ def make_serving_step(
         (exact: the tower is length-polymorphic); over a mesh each bucket
         array stacks the shards' blocks and ``inv_perm`` holds local
         indices."""
-        img = _encode_image(params, pixels)
-        b = img.shape[0]
+        b = pixels.shape[0] // dp
         V = variant_mask.shape[1]
         allf = model.infer_text_features_bucketed(
             params, _local(short_tok, torch.long), _local(long_tok, torch.long),
             _local(inv_perm, torch.long), qparams=qparams,
         )
         allf = l2_normalize(allf).reshape(b, V + 1, -1)
-        return _finish(img, allf, variant_mask, bank, valid, weights, lower, upper)
+        return _finish(params, pixels, allf, variant_mask, bank, valid, weights, lower, upper)
 
     def serve(params, pixels, tokens, variant_tokens, variant_mask, bank, valid, weights, lower, upper):
         if pixels.shape[0] % dp:
             raise ValueError(f"batch {pixels.shape[0]} is not divisible by the {dp} ranks of the data axis")
+        if not isinstance(pixels, Upload):
+            pixels = stager(device).start(pixels)
         if isinstance(tokens, np.ndarray) and isinstance(variant_tokens, np.ndarray):
             B, V, T = variant_tokens.shape
             all_tok = np.concatenate([tokens[:, None, :], variant_tokens], axis=1).reshape(B * (V + 1), T)

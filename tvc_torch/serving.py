@@ -6,7 +6,8 @@ detection path (port of ``tvc/serving.py``).
   always runs at batch size.
 - ``start()`` / ``stop()`` / ``warmup()`` (runs every bucket once).
 - ``/health`` and ``/stats`` (uptime, counters, batch-size histogram,
-  P50/P99 latency, kernel builds, the batcher's wait share) and a rolling
+  P50/P99 latency, kernel builds, the pixel uploads staged through pinned
+  memory and those that were not, the batcher's wait share) and a rolling
   KS score-drift monitor.
 - Spans (``tvc_torch.utils.tracing``): ``serve.request`` (a request from
   enqueue to answer, on the client's thread), and on the batcher's thread
@@ -450,6 +451,8 @@ class ServingRuntime:
             "sources": built.get("kernel.builds", 0),
             "seconds": round(built.get("kernel.build_ns", 0) * 1e-9, 3),
         }
+        # pixel uploads through the pinned stager, and those that took the plain copy
+        out["upload"] = {k: built.get(f"upload.{k}", 0) for k in ("staged", "staged_bytes", "fallback")}
         out["batcher_wait_share"] = self._wait_share()
         out["drift"] = self.drift_status()
         return out

@@ -22,6 +22,10 @@ it opens none (a range costs several microseconds even with no profiler).
     tracing.count("kernel.builds", 2)
     tracing.spans(since_ns, until_ns, names=("serve.queue",))
 
+A span opened for work that another span started, on another thread or
+later, names that span as its parent (``span(name, parent=tracing.current())``
+taken where the work was started).
+
 ``set_enabled(False)`` stops the ring, the counters and the ranges; a span still stamps its own times, so callers that read its
 ``seconds`` keep working.
 """
@@ -94,10 +98,10 @@ class RunningStats:
 class OpenSpan:
     """What ``span()`` returns: a context manager that records on exit."""
 
-    __slots__ = ("_rec", "name", "attrs", "id", "parent", "t0", "t1", "_rf")
+    __slots__ = ("_rec", "name", "attrs", "id", "parent", "_outer", "t0", "t1", "_rf")
 
-    def __init__(self, rec: "Recorder", name: str, attrs: Dict[str, Any]):
-        self._rec, self.name, self.attrs = rec, name, attrs
+    def __init__(self, rec: "Recorder", name: str, attrs: Dict[str, Any], parent: Optional[int] = None):
+        self._rec, self.name, self.attrs, self.parent = rec, name, attrs, parent
         self.t1 = 0
         self._rf = None
 
@@ -105,7 +109,9 @@ class OpenSpan:
         rec = self._rec
         if rec.enabled:
             local = rec._local
-            self.parent = local.current
+            self._outer = local.current
+            if self.parent is None:
+                self.parent = self._outer
             local.current = self.id = next(rec._ids)
             if _profiler_enabled():
                 self._rf = record_function(self.name)
@@ -121,7 +127,7 @@ class OpenSpan:
             rec = self._rec
             if self._rf is not None:
                 self._rf.__exit__(*exc)
-            rec._local.current = self.parent
+            rec._local.current = self._outer
             rec._add(self.name, self.t0, self.t1, threading.get_ident(), self.id, self.parent, self.attrs)
         return False
 
@@ -160,8 +166,10 @@ class Recorder:
             self._n += 1
 
     # -- writing ------------------------------------------------------------------------
-    def span(self, name: str, **attrs) -> OpenSpan:
-        return OpenSpan(self, name, attrs)
+    def span(self, name: str, parent: Optional[int] = None, **attrs) -> OpenSpan:
+        """A span, the child of the innermost open span on this thread, or
+        of the span whose id ``parent`` gives."""
+        return OpenSpan(self, name, attrs, parent)
 
     def record(self, name: str, t0_ns: int, t1_ns: int, **attrs) -> None:
         """A span whose start was stamped earlier (``time.time_ns()``)."""
@@ -175,6 +183,10 @@ class Recorder:
                 self._counters[name] = self._counters.get(name, 0) + n
 
     # -- reading ------------------------------------------------------------------------
+    def current(self) -> int:
+        """The id of the innermost open span on this thread, 0 for none."""
+        return self._local.current
+
     def spans(self, since_ns: Optional[int] = None, until_ns: Optional[int] = None,
               names: Optional[Iterable[str]] = None) -> List[Span]:
         """The ring's spans that overlap ``[since_ns, until_ns]`` (either end
@@ -203,6 +215,7 @@ class Recorder:
 
 RECORDER = Recorder()
 span = RECORDER.span
+current = RECORDER.current
 record = RECORDER.record
 count = RECORDER.count
 spans = RECORDER.spans
