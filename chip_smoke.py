@@ -17,7 +17,10 @@ Phases (each raises on failure; the script then exits non-zero):
      tiled kernels do not ("F1" rows: head widths off 32 / 64, widths off
      the GEMMs' 16-byte rows, decode R > 8 and D off {16, 32, 64, 128},
      bank_topk D % 8 != 0 and k > 128), with the copies and launches a
-     call makes;
+     call makes; DeepSeek-V2-Lite's grouped w8 expert GEMM (5,760 rows over
+     64 experts, unevenly) and latent decode attention (B 960, S 64) at
+     the tvc-dsv2-lite-w8.fresh decode step's shapes, bounds from
+     perfbench/work_moe.py;
   4. slice: ViT-B/32 bf16 with the fused layers and seeded random weights,
      a 131,072 x 512 bank, an AdversarialDetector behind a ServingRuntime:
      warmup, requests through submit() and HTTP, then detect_batch at
@@ -101,6 +104,11 @@ Phases (each raises on failure; the script then exits non-zero):
      paraphrase tok/s, pipeline queries/s and stage times, the share of
      variant slots the LLM filled, peak memory, a profile, and
      process_stream over three batches equal to process_batch on each;
+  dsv2: DeepSeek-V2-Lite at its published shape (w8, seeded random
+     weights) decoding 192 COCO paraphrase prompts x 5 samples (decode
+     batch 960): the launches of one decode step, counted in that step
+     under set_sync_debug_mode("error"), checked against the code,
+     paraphrase tok/s and peak memory;
   mha: CLIPModel(CLIPConfig.vit_b32(fused_attention=True)) through
      inference_module.encode_image at B=256 (one fused_mha launch a vision
      layer, held against the einsum module on the same parameters), the
@@ -578,6 +586,7 @@ def phase_kernels() -> dict:
         results[name] = {"shapes": shapes}
     results.update(phase_qwen_kernels(rng, dev))
     results.update(phase_w8_kernels(dev))
+    results.update(phase_dsv2_kernels(dev))
     results.update(phase_mha_topk_kernels(dev))
     for name, shapes in phase_f1_shapes(dev).items():
         results[name]["shapes"] += shapes
@@ -1030,6 +1039,88 @@ def phase_w8_kernels(dev) -> dict:
     return out
 
 
+# DeepSeek-V2's grouped expert GEMM against its plain version: W8_TOL's
+# reasoning holds for each expert's rows (the same exact products summed in
+# f32 in another order, rounded once to bf16); a row sent through another
+# expert's weights, or a tile that drops its rows, is O(1). The latent
+# attention: DECODE_TOL's (the kernel rounds the softmax weights to bf16
+# before the product); a missed rope term or a wrong scale moves the
+# weights by O(1).
+DSV2_ROWS, DSV2_TOPK, DSV2_EXPERTS = 960, 6, 64
+DSV2_BUSIEST = 650  # rows of the busiest expert of a layer-step in the cell (expert_load.moe ~7.25)
+
+
+def phase_dsv2_kernels(dev) -> dict:
+    """DeepSeek-V2-Lite's two kernels at the tvc-dsv2-lite-w8.fresh decode
+    step's shapes, each held against its plain version on the same card
+    inputs, two calls bit-equal, timed beside the bound from
+    perfbench/work_moe.py's counts: the grouped w8 expert GEMM, gate|up (K
+    2,048, N 2,816) and down (K 1,408, N 2,048), over 5,760 rows (960
+    decode rows x 6 experts) split unevenly over 64 experts (one with
+    DSV2_BUSIEST rows, two with none, the rest drawn evenly); the latent
+    decode attention at B 960, S 64 over layer 26 of a 27-layer cache, 12
+    slots masked."""
+    import torch
+
+    from perfbench import work, work_moe
+    from tvc_torch.core.kernels import (
+        mla_decode_attention,
+        mla_decode_reference,
+        moe_w8_grouped_gemm,
+        moe_w8_grouped_reference,
+        quantize_linear,
+    )
+    from tvc_torch.models.deepseek_v2 import DeepseekV2Config
+
+    bf = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(21)
+    t = lambda *shape: torch.randn(shape, generator=gen, device=dev)
+    out = {"moe_w8_grouped_gemm": {"shapes": []}, "mla_decode_attention": {"shapes": []}}
+
+    def hold(name, shape, run_k, run_p, tol, ops, nbytes):
+        got, want = run_k(), run_p()
+        again = run_k()
+        torch.cuda.synchronize()
+        abs_err, rel_err = _layer_error(got, want)
+        if not rel_err <= tol:
+            raise AssertionError(f"{name} {shape} disagrees with its plain version: {abs_err:.3e} abs, "
+                                 f"{rel_err:.3e} scaled (tol {tol})")
+        if not torch.equal(got, again):
+            raise AssertionError(f"{name} {shape}: two calls differ")
+        k_ms, p_ms = time_ms(run_k), time_ms(run_p, iters=5, warmup=1)
+        bms, by = bound_ms_of(nbytes, work.peak_seconds(ops))
+        out[name]["shapes"].append({"shape": shape, "ms": k_ms, "plain_ms": p_ms, "bound_ms": bms, "bound_by": by,
+                                    "max_abs_err": abs_err})
+        log(f"kernel {name} {shape}: kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} bound_ms={bms:.5f} ({by}) "
+            f"kernel at {100 * bms / k_ms:.1f}% of the bound, max_abs_err={abs_err:.3e} scaled_err={rel_err:.3e}")
+
+    E, M = DSV2_EXPERTS, DSV2_ROWS * DSV2_TOPK
+    counts = np.zeros(E, np.int64)
+    counts[0] = DSV2_BUSIEST
+    rest = [e for e in range(1, E) if e not in (17, 40)]
+    counts[rest] = np.random.default_rng(21).multinomial(M - DSV2_BUSIEST, np.full(len(rest), 1 / len(rest)))
+    offsets = torch.tensor(np.concatenate([[0], np.cumsum(counts)]), dtype=torch.int32, device=dev)
+    busy = int((counts > 0).sum())
+    for tag, K, N in (("gate|up", 2048, 2816), ("down", 1408, 2048)):
+        x = t(M, K).to(bf)
+        w_q, scale = quantize_linear(t(E, K, N) / math.sqrt(K))
+        hold("moe_w8_grouped_gemm", f"{tag} M={M} K={K} N={N} E={E} (rows {DSV2_BUSIEST} to 0 an expert)",
+             lambda: moe_w8_grouped_gemm(x, w_q, scale, offsets),
+             lambda: moe_w8_grouped_reference(x, w_q, scale, offsets), W8_TOL, *work_moe.expert_gemm(M, K, N, busy))
+        del x, w_q, scale
+    B, S, L = DSV2_ROWS, 64, 27
+    q_lat, q_pe = t(B, 16, 512).to(bf), t(B, 16, 64).to(bf)
+    cache = t(L, B, S, 576).to(bf)
+    mask = torch.zeros((B, S), device=dev)
+    mask[:, 48:60] = float("-inf")
+    sm = DeepseekV2Config.deepseek_v2_lite().softmax_scale
+    hold("mla_decode_attention", f"B={B} S={S} H=16 latent 512 rope 64, layer {L - 1} of {L}",
+         lambda: mla_decode_attention(q_lat, q_pe, cache, mask, L - 1, sm),
+         lambda: mla_decode_reference(q_lat, q_pe, cache, mask, L - 1, sm), DECODE_TOL, *work_moe.mla_decode(B, S))
+    del q_lat, q_pe, cache
+    return out
+
+
 class _WordTokenizer:
     """A word-level tokenizer for QwenConfig.tiny()'s 512-token vocabulary
     (each word hashed to an id; 0 pads, 511 ends a sequence)."""
@@ -1283,6 +1374,9 @@ KERNEL_SOURCES = {
         "tvc_torch/csrc/mha.cu", "tvc/core/pallas/attention_kernel.py:58"),
     "bank_topk": (
         "tvc_torch/csrc/bank_topk.cu", "tvc/core/pallas/topk_kernel.py:103"),
+    # no TPU kernel: the JAX package runs no mixture of experts or latent attention
+    "moe_w8_grouped_gemm": ("tvc_torch/csrc/moe_w8.cu", None),
+    "mla_decode_attention": ("tvc_torch/csrc/mla_decode.cu", None),
 }
 #: the kernels each path launches; it launches no other
 PATH_KERNELS = {
@@ -1291,6 +1385,7 @@ PATH_KERNELS = {
     "qwen": ("w8a8_matmul", "w8a8_matmul_stacked", "decode_gqa_attention", "decode_gqa_attention_stacked"),
     "pipeline": ("fused_consistency_scores", "fused_attention_layer_i8", "fused_mlp_layer_i8", "w8_matmul",
                  "w8_matmul_stacked", "decode_gqa_attention", "decode_gqa_attention_stacked"),
+    "dsv2": ("w8_matmul", "moe_w8_grouped_gemm", "mla_decode_attention"),
     "mha": ("fused_mha",),
     "retrieval": ("fused_consistency_scores", "fused_attention_layer", "fused_mlp_layer", "bank_topk"),
     "tiny int8": ("fused_consistency_scores", "fused_attention_layer_i8", "fused_mlp_layer_i8"),
@@ -2730,6 +2825,19 @@ def qwen_expected_launches(cfg, prefix_len: int, steps: int, prompts: int = 1, s
             "decode_gqa_attention": L * steps, "decode_gqa_attention_stacked": L * steps}
 
 
+def dsv2_step_launches(cfg, rows: int) -> dict:
+    """Launches of one DeepseekV2Model decode step at ``rows`` rows, read
+    off its _attention, _layer, _moe and _head: in every layer the q|kv_a
+    and o GEMMs and one latent attention; the dense layers' gate|up and
+    down, the MoE layers' shared gate|up and down and their two grouped
+    expert GEMMs; the untied head. A w8 GEMM launches its kernel only at
+    most W8_MAX_ROWS rows (a larger block dequantizes, then matmuls)."""
+    from tvc_torch.models.deepseek_v2 import W8_MAX_ROWS
+
+    w8 = (4 * cfg.num_layers + 1) if rows <= W8_MAX_ROWS else 0
+    return {"w8_matmul": w8, "moe_w8_grouped_gemm": 2 * cfg.n_moe_layers, "mla_decode_attention": cfg.num_layers}
+
+
 def phase_qwen(card: dict) -> dict:
     """Qwen2-7B W8A8 at full width, seeded random weights, 192 COCO
     captions x 3 paraphrases x 16 new tokens."""
@@ -3096,6 +3204,83 @@ def phase_pipeline(card: dict, int8: dict) -> dict:
     return {"launches": counts, "qps": qps, "tok_s": tok_s, "ms_per_query": ms_q, "peak_gib": peak,
             "top1": forced["top1"], "d_max": forced["max_abs_d_logit"],
             "d_median": forced["median_abs_d_logit"], "llm_share": from_llm / slots, "stages_ms": stages}
+
+
+def phase_dsv2(card: dict) -> dict:
+    """DeepSeek-V2-Lite as the tvc-dsv2-lite-w8.fresh cell builds it
+    (DeepseekV2Config.deepseek_v2_lite(), w8, seeded random weights drawn on
+    the card a part at a time), decoding 192 COCO paraphrase prompts x 5
+    samples: the launches of its second decode step, reset as the step
+    opens and read as the next one opens, with the step under
+    set_sync_debug_mode("error"), against dsv2_step_launches; then the
+    paraphrase decode's tok/s and the peak memory. The model is freed."""
+    import gc
+
+    import torch
+
+    from tvc_torch.core.kernels import launch_counts, reset_launch_counts
+    from tvc_torch.models.decoding import PARAPHRASE_PREFIX, PARAPHRASE_PROMPT
+    from tvc_torch.models.deepseek_v2 import DeepseekV2Config, DeepseekV2Model
+    from tvc_torch.pipeline import PipelineConfig
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg = DeepseekV2Config.deepseek_v2_lite()
+    model = DeepseekV2Model(cfg, seed=0, max_new_tokens=MAX_NEW)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    log(f"[dsv2] model: {cfg.model_name} w8, {cfg.num_layers} x {cfg.hidden_size}, {cfg.n_routed_experts} routed "
+        f"experts (top {cfg.num_experts_per_tok}) + {cfg.n_shared_experts} shared, seeded random weights, init "
+        f"{init_s:.2f} s, {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    V = PipelineConfig().num_text_variants
+    texts = coco_captions(PIPE_PROMPTS)
+    rows = PIPE_PROMPTS * V
+    inp = model.prepare([PARAPHRASE_PROMPT.format(text=x) for x in texts], V, None, PARAPHRASE_PREFIX)
+    step = {}
+
+    def at_step(i, logits):
+        if i == 1:
+            reset_launch_counts()
+            torch.cuda.set_sync_debug_mode("error")
+        elif i == 2:
+            torch.cuda.set_sync_debug_mode("default")
+            step.update(launch_counts())
+
+    try:
+        model.decode(inp, seed=0, on_logits=at_step)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    if not step:
+        raise AssertionError(f"[dsv2] the decode ran {model.last_decode_steps} steps: no second step to count")
+    want = dsv2_step_launches(cfg, rows)
+    log(f"[dsv2] launches in decode step 1 at {rows} rows (prefix {inp.P} tokens, prompt {inp.plen} slots), no "
+        f"host synchronisation: {step}; expected {want}")
+    _check_path_counts(step, "dsv2", "one decode step")
+    if any(step[k] != n for k, n in want.items()):
+        raise AssertionError(f"[dsv2] launch counts {step}, expected {want}")
+
+    times = []
+    for i in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.generate_paraphrases_batch(texts, V, seed=i)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    t_med = statistics.median(times)
+    tok_s = rows * MAX_NEW / t_med
+    ms_q = 1e3 * t_med / PIPE_PROMPTS
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[dsv2] paraphrase decode {PIPE_PROMPTS} x {V} x {MAX_NEW} new tokens (batch {rows}): calls "
+        f"{[round(x, 4) for x in times]} s, median {t_med:.4f} s: {tok_s:.1f} tok/s, {ms_q:.3f} ms/query; peak "
+        f"memory {peak:.2f} GiB on {card['smi']}")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": step, "rows": rows, "init_s": init_s, "tok_s": tok_s, "ms_per_query": ms_q,
+            "peak_gib": peak}
 
 
 # ---------------------------------------------------------------------------
@@ -4346,6 +4531,8 @@ def main() -> int:
     with phase("pipeline"):
         pipeline = phase_pipeline(card, int8)
     del bf16["detector"], int8["detector"]  # their models and banks
+    with phase("dsv2"):
+        dsv2 = phase_dsv2(card)
     with phase("mha"):
         mha = phase_mha(card)
     with phase("retrieval"):
@@ -4358,7 +4545,8 @@ def main() -> int:
     kres["bank_topk"]["shapes"].append(large["shape"])
     with phase("mesh"):
         mesh = phase_mesh(card)
-    paths = {"bf16": bf16, "int8": int8, "qwen": qwen, "pipeline": pipeline, "mha": mha, "retrieval": retrieval,
+    paths = {"bf16": bf16, "int8": int8, "qwen": qwen, "pipeline": pipeline, "dsv2": dsv2, "mha": mha,
+             "retrieval": retrieval,
              **tiny, **{k: v for k, v in attack.items() if k in PATH_KERNELS}, "sd": sd,
              **{k: v for k, v in weights.items() if k in PATH_KERNELS},
              **{k: v for k, v in harness.items() if k in PATH_KERNELS},
@@ -4384,6 +4572,8 @@ def main() -> int:
     log(f"full TVC pipeline (Qwen2-1.5B w8 + int8 ViT-B/32): {pipeline['qps']:.2f} queries/s, paraphrase decode "
         f"{pipeline['tok_s']:.1f} tok/s, {pipeline['ms_per_query']:.3f} ms/query, peak {pipeline['peak_gib']:.2f} "
         f"GiB on {card['smi']}")
+    log(f"DeepSeek-V2-Lite w8 paraphrase decode (batch {dsv2['rows']}): {dsv2['tok_s']:.1f} tok/s, "
+        f"{dsv2['ms_per_query']:.3f} ms/query, peak {dsv2['peak_gib']:.2f} GiB on {card['smi']}")
     log(f"ViT-B/32 vision images/s at B={B_MHA}: " + ", ".join(f"{k} {v:.1f}" for k, v in mha["images_per_s"].items())
         + f"; ViT-L/14 with fused_mha at B={B_MHA_L14}: {mha['l14_images_per_s']:.1f} on {card['smi']}")
     full = attack["attack"]

@@ -21,6 +21,8 @@ from tvc_torch.core.kernels.decode_attention_kernel import (
     decode_gqa_attention_stacked,
     decode_gqa_reference,
 )
+from tvc_torch.core.kernels.mla_kernel import mla_decode_attention, mla_decode_reference
+from tvc_torch.core.kernels.moe_kernel import moe_w8_grouped_gemm, moe_w8_grouped_reference
 from tvc_torch.core.kernels.quantized_layer_kernel import (
     attention_layer_i8_reference,
     fused_attention_layer_i8,
@@ -53,6 +55,8 @@ KERNELS = (
     w8_matmul_stacked,
     bank_topk,
     fused_mha,
+    moe_w8_grouped_gemm,
+    mla_decode_attention,
 )
 
 

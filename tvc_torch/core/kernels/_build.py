@@ -80,6 +80,16 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         # x (f32), w (int8), scale (f32), out (f32), M, N, K, stream
         "tvc_w8_matmul_f32": [_P, _P, _P, _P, _I, _I, _I, _P],
     },
+    "moe_w8": {
+        # x (bf16), w (int8 [E, K, N]), scale (f32 [E, N]), offsets (int32
+        # [E + 1]), out (bf16), M, E, N, K, stream
+        "tvc_moe_w8_grouped": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    },
+    "mla_decode": {
+        # q_lat, q_pe, cache (one layer's [B, S, 576]), mask, out, B, S,
+        # scale, stream
+        "tvc_mla_decode": [_P, _P, _P, _P, _P, _I, _I, _F, _P],
+    },
     "mha": {
         # q, k, v, out, ld, B, T, H, D, is_bf16, causal, scale, stream
         "tvc_mha": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P],

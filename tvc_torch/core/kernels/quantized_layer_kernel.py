@@ -63,11 +63,12 @@ def over_127(t: Tensor) -> Tensor:
 
 
 def quantize_linear(w: Tensor) -> Tuple[Tensor, Tensor]:
-    """Symmetric per-output-channel int8 quantization of a ``[K, N]``
-    weight: ``(w_q int8 [K, N], scale f32 [N])`` with ``w ~= w_q * scale``."""
+    """Symmetric per-output-channel int8 quantization of a ``[..., K, N]``
+    weight (a stack of experts too): ``(w_q int8 [..., K, N], scale f32
+    [..., N])`` with ``w ~= w_q * scale``."""
     wf = w.float()
-    scale = over_127(wf.abs().amax(dim=0).clamp(min=1e-12))
-    w_q = torch.clamp(torch.round(wf / scale), -127, 127).to(torch.int8)
+    scale = over_127(wf.abs().amax(dim=-2).clamp(min=1e-12))
+    w_q = torch.clamp(torch.round(wf / scale.unsqueeze(-2)), -127, 127).to(torch.int8)
     return w_q.contiguous(), scale.contiguous()
 
 

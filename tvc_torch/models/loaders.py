@@ -4,7 +4,9 @@
 The converters map HF ``CLIPModel`` and ``Qwen2ForCausalLM`` state dicts,
 and diffusers ``UNet2DConditionModel`` / ``AutoencoderKL`` ones, onto the
 flax layouts the JAX package's models take, leaf for leaf: the same
-names, shapes and bits as the JAX converters give (numpy leaves). The
+names, shapes and bits as the JAX converters give (numpy leaves).
+``DeepseekV2ForCausalLM`` state dicts (the JAX package has no such model)
+map onto the names of ``DeepseekV2Model``'s own tree. The
 port keeps those layouts in its own trees (``params_from_jax``,
 ``qwen_params_from_jax``, ``module_tree_from_jax``), so the loaders build
 the port's models from them directly. Point the loaders at a local
@@ -273,6 +275,105 @@ def load_qwen_weights(config=None, path: Optional[str] = None, device=None, **mo
     del sd
     model = QwenModel(config, params=qwen_params_from_jax(params, config), device=device, **model_kwargs)
     _warn_hash_tokenizer(model.tokenizer, "Qwen", "$TVC_QWEN_TOKENIZER")
+    return model
+
+
+# ---------------------------------------------------------------------------
+# DeepSeek-V2
+# ---------------------------------------------------------------------------
+
+
+def convert_deepseek_v2_state_dict(sd: Dict[str, np.ndarray], config) -> Dict[str, np.ndarray]:
+    """HF ``DeepseekV2ForCausalLM`` state dict -> the flat names of
+    ``DeepseekV2Model``'s tree: kernels ``[in, out]``, each gate and up
+    projection merged along the output (gate first), the routed experts
+    stacked ``[E, in, out]``, ``mlp.gate`` as the router."""
+    c = config
+    out: Dict[str, np.ndarray] = {
+        "embed.embedding": sd["model.embed_tokens.weight"],
+        "ln_f.scale": sd["model.norm.weight"],
+        "lm_head.kernel": _t(sd["lm_head.weight"]),
+    }
+
+    def gate_up(prefix: str) -> np.ndarray:
+        return np.concatenate([_t(sd[f"{prefix}.gate_proj.weight"]), _t(sd[f"{prefix}.up_proj.weight"])], axis=1)
+
+    for i in range(c.num_layers):
+        lp, b = f"model.layers.{i}", f"layer_{i}"
+        a = f"{lp}.self_attn"
+        out.update({
+            f"{b}.ln_attn.scale": sd[f"{lp}.input_layernorm.weight"],
+            f"{b}.ln_mlp.scale": sd[f"{lp}.post_attention_layernorm.weight"],
+            f"{b}.attn.q.kernel": _t(sd[f"{a}.q_proj.weight"]),
+            f"{b}.attn.kv_a.kernel": _t(sd[f"{a}.kv_a_proj_with_mqa.weight"]),
+            f"{b}.attn.kv_norm.scale": sd[f"{a}.kv_a_layernorm.weight"],
+            f"{b}.attn.kv_b.kernel": _t(sd[f"{a}.kv_b_proj.weight"]),
+            f"{b}.attn.o.kernel": _t(sd[f"{a}.o_proj.weight"]),
+        })
+        m = f"{lp}.mlp"
+        if i < c.first_k_dense:
+            out[f"{b}.mlp.gate_up.kernel"] = gate_up(m)
+            out[f"{b}.mlp.down.kernel"] = _t(sd[f"{m}.down_proj.weight"])
+            continue
+        E = c.n_routed_experts
+        out[f"{b}.moe.router.kernel"] = _t(sd[f"{m}.gate.weight"])
+        out[f"{b}.moe.experts.gate_up.kernel"] = np.stack([gate_up(f"{m}.experts.{e}") for e in range(E)])
+        out[f"{b}.moe.experts.down.kernel"] = np.stack([_t(sd[f"{m}.experts.{e}.down_proj.weight"]) for e in range(E)])
+        out[f"{b}.moe.shared.gate_up.kernel"] = gate_up(f"{m}.shared_experts")
+        out[f"{b}.moe.shared.down.kernel"] = _t(sd[f"{m}.shared_experts.down_proj.weight"])
+    return out
+
+
+def deepseek_v2_state_dict_shapes(config) -> Dict[str, tuple]:
+    """The names and shapes of an HF ``DeepseekV2ForCausalLM`` state dict at
+    ``config`` (no q-LoRA)."""
+    c = config
+    H, nh, r = c.hidden_size, c.num_heads, c.kv_lora_rank
+    out: Dict[str, tuple] = {"model.embed_tokens.weight": (c.vocab_size, H), "model.norm.weight": (H,),
+                             "lm_head.weight": (c.vocab_size, H)}
+
+    def mlp(prefix: str, width: int) -> None:
+        out[f"{prefix}.gate_proj.weight"] = out[f"{prefix}.up_proj.weight"] = (width, H)
+        out[f"{prefix}.down_proj.weight"] = (H, width)
+
+    for i in range(c.num_layers):
+        lp = f"model.layers.{i}"
+        a = f"{lp}.self_attn"
+        out[f"{lp}.input_layernorm.weight"] = out[f"{lp}.post_attention_layernorm.weight"] = (H,)
+        out[f"{a}.q_proj.weight"] = (nh * (c.qk_nope_head_dim + c.qk_rope_head_dim), H)
+        out[f"{a}.kv_a_proj_with_mqa.weight"] = (r + c.qk_rope_head_dim, H)
+        out[f"{a}.kv_a_layernorm.weight"] = (r,)
+        out[f"{a}.kv_b_proj.weight"] = (nh * (c.qk_nope_head_dim + c.v_head_dim), r)
+        out[f"{a}.o_proj.weight"] = (H, nh * c.v_head_dim)
+        if i < c.first_k_dense:
+            mlp(f"{lp}.mlp", c.intermediate_size)
+            continue
+        out[f"{lp}.mlp.gate.weight"] = (c.n_routed_experts, H)
+        for e in range(c.n_routed_experts):
+            mlp(f"{lp}.mlp.experts.{e}", c.moe_intermediate_size)
+        mlp(f"{lp}.mlp.shared_experts", c.moe_intermediate_size * c.n_shared_experts)
+    return out
+
+
+def load_deepseek_v2_weights(config=None, path: Optional[str] = None, device=None, **model_kwargs):
+    """Build a DeepseekV2Model (w8) with converted HF weights from ``path``
+    (or $TVC_DEEPSEEK_V2_WEIGHTS), on the card unless ``device="cpu"``;
+    ``model_kwargs`` go to ``DeepseekV2Model``. Returns None if no
+    checkpoint is available."""
+    import torch
+
+    from tvc_torch._device import resolve_device
+    from tvc_torch.models.deepseek_v2 import DeepseekV2Config, DeepseekV2Model
+
+    path = path or os.environ.get("TVC_DEEPSEEK_V2_WEIGHTS")
+    if not path or not Path(path).exists():
+        return None
+    device = resolve_device(device)
+    config = config or DeepseekV2Config.deepseek_v2_lite()
+    params = convert_deepseek_v2_state_dict(load_state_dict(path), config)
+    model = DeepseekV2Model(config, params={k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in params.items()},
+                            device=device, **model_kwargs)
+    _warn_hash_tokenizer(model.tokenizer, "DeepSeek-V2", "the bundled Qwen2 tokenizer files")
     return model
 
 

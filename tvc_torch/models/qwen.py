@@ -60,12 +60,23 @@ from tvc_torch.core.kernels.w8_matmul_kernel import (
     w8a8_matmul,
     w8a8_matmul_stacked,
 )
-from tvc_torch.utils import tracing
-
-#: the largest activation block (B * T rows) the weight-only kernels take;
-#: larger blocks dequantize, then matmul (the JAX package's VMEM limit,
-#: ``tvc/models/qwen.py`` ``mm`` / ``mm_stacked``)
-W8_MAX_ROWS = 1024
+from tvc_torch.models import decoding as _decoding
+from tvc_torch.models.decoding import (  # noqa: F401  (the names this module has always offered)
+    PARAPHRASE_PREFIX,
+    PARAPHRASE_PROMPT,
+    TRANSLATE_PREFIX,
+    TRANSLATE_PROMPT,
+    W8_MAX_ROWS,
+    CausalDecoder,
+    DecodeInputs,
+    ParaphraseAdapter,
+    _flatten,
+    _is_q,
+    _rmsnorm,
+    _stable_seed,
+    _to,
+    _unflatten,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -116,12 +127,6 @@ class QwenConfig:
 # ---------------------------------------------------------------------------
 # shared math
 # ---------------------------------------------------------------------------
-
-
-def _rmsnorm(x: Tensor, scale: Tensor, eps: float) -> Tensor:
-    x32 = x.float()
-    var = x32.square().mean(dim=-1, keepdim=True)
-    return (x32 * torch.rsqrt(var + eps) * scale).to(x.dtype)
 
 
 def rope_tables(positions: Tensor, head_dim: int, theta: float) -> Tuple[Tensor, Tensor]:
@@ -286,33 +291,6 @@ class QwenLM(nn.Module):
 # ---------------------------------------------------------------------------
 
 
-def _is_q(x) -> bool:
-    return isinstance(x, Mapping) and "int8" in x
-
-
-def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, Any]:
-    """Dotted names -> leaves; an ``{"int8", "scale"}`` dict is one leaf."""
-    out = {}
-    for k, v in tree.items():
-        name = f"{prefix}{k}"
-        if isinstance(v, Mapping) and not _is_q(v):
-            out.update(_flatten(v, name + "."))
-        else:
-            out[name] = v
-    return out
-
-
-def _unflatten(flat: Dict[str, Any]) -> Dict:
-    tree: Dict = {}
-    for name, v in flat.items():
-        node = tree
-        *path, leaf = name.split(".")
-        for p in path:
-            node = node.setdefault(p, {})
-        node[leaf] = v
-    return tree
-
-
 def _tree_map(fn: Callable[[str, Any], Any], tree: Mapping) -> Dict:
     return _unflatten({n: fn(n, v) for n, v in _flatten(tree).items()})
 
@@ -424,71 +402,17 @@ def _stack_group(layers: List[Dict], paths: Sequence[str], free: bool):
     return outs[None] if keys == (None,) else outs
 
 
-#: early-exit decode granularity: the decode loop checks the
-#: all-sequences-done flag every DECODE_CHUNK steps, when max_new_tokens is
-#: a larger multiple of it
-DECODE_CHUNK = 4
+#: early-exit decode granularity (see ``decoding.DECODE_CHUNK``); read at
+#: each decode call, so a test may patch it here
+DECODE_CHUNK = _decoding.DECODE_CHUNK
 
 
-def _stable_seed(text: str) -> int:
-    """FNV-1a digest -> [0, 2^31): stable across processes, unlike hash()."""
-    h = 0xCBF29CE484222325
-    for b in text.encode("utf-8"):
-        h ^= b
-        h = (h * 0x100000001B3) & 0xFFFFFFFFFFFFFFFF
-    return h % (2**31)
-
-
-#: the instruction prefix shared by every paraphrase prompt (prefilled once
-#: at batch 1); it ends on a byte-level-BPE pre-tokenizer boundary, so
-#: tokenize(prefix) + tokenize(suffix) == tokenize(prefix + suffix)
-PARAPHRASE_PREFIX = (
-    "Rewrite the following sentence with the same meaning but different "
-    "wording.\nSentence:"
-)
-PARAPHRASE_PROMPT = PARAPHRASE_PREFIX + " {text}\nRewrite:"
-
-TRANSLATE_PREFIX = (
-    "Translate the following sentence from {src} to {dst}. Reply with only "
-    "the translation.\nSentence:"
-)
-TRANSLATE_PROMPT = TRANSLATE_PREFIX + " {text}\nTranslation:"
-
-_LANG_NAMES = {
-    "en": "English",
-    "de": "German",
-    "fr": "French",
-    "es": "Spanish",
-    "zh": "Chinese",
-    "ja": "Japanese",
-}
-
-
-@dataclasses.dataclass
-class DecodeInputs:
-    """One decode call's prompt block, built on the host by
-    :meth:`QwenModel.prepare`: ``prefix`` [P] shared ids (P may be 0),
-    ``tokens`` [B, plen - P] padded suffixes (or whole prompts), ``lengths``
-    [B] real lengths counting the prefix, ``plen`` the cache slots the
-    prompt takes, ``allowed`` the padded allowed-id list (or None) with its
-    ``n_real`` real entries."""
-
-    prefix: Tensor
-    tokens: Tensor
-    lengths: Tensor
-    plen: int
-    n_samples: int
-    allowed: Optional[Tensor]
-    n_real: int
-
-    @property
-    def P(self) -> int:
-        return int(self.prefix.shape[0])
-
-
-class QwenModel:
+class QwenModel(CausalDecoder):
     """User-facing wrapper: parameters, tokenizer, the decode and
-    ``generate_paraphrases(text, num_paraphrases, temperature)``."""
+    ``generate_paraphrases(text, num_paraphrases, temperature)`` (the
+    decode loop and the host side are :class:`CausalDecoder`'s)."""
+
+    SPANS = ("qwen.prepare", "qwen.prefill", "qwen.decode_step", "qwen.readback")
 
     def __init__(
         self,
@@ -761,8 +685,9 @@ class QwenModel:
         act = F.silu(gu[..., : c.intermediate_size]) * gu[..., c.intermediate_size :]
         return h + self._mm_stacked(act.to(c.dtype), stacked["wd"], l)
 
-    def _run_layers(self, stacked, x, positions, mask, caches, cache_index, ctx=0) -> Tensor:
-        """Every layer: mask [B, 1, T, S] (prefill) or [B, S] (one step)."""
+    def _run_layers(self, stacked, x, positions, mask, caches, cache_index, ctx=0, step=None) -> Tensor:
+        """Every layer: mask [B, 1, T, S] (prefill) or [B, S] (one step);
+        ``step`` is not read."""
         c = self.config
         cos, sin = rope_tables(positions, c.hidden_size // c.num_heads, c.rope_theta)
         if self.mesh is not None:
@@ -777,24 +702,6 @@ class QwenModel:
             x = self._merged_layer(stacked, l, x, cos, sin, mask, caches[0], caches[1], cache_index, ctx)
         return x
 
-    @staticmethod
-    def _sample(lg: Tensor, gen: torch.Generator, temperature: float, top_k: int,
-                allowed: Optional[Tensor], n_real: int) -> Tensor:
-        """Top-k (exact) sampling at ``temperature`` by the Gumbel-max trick
-        (``jax.random.categorical``'s method), or argmax at or below 1e-4;
-        padded allowed-id slots are never chosen."""
-        if allowed is not None:
-            pad = torch.arange(lg.shape[-1], device=lg.device) >= n_real
-            lg = lg.masked_fill(pad, float("-inf"))
-        if temperature > 1e-4:
-            topv, topi = torch.topk(lg, top_k, dim=-1)
-            u = torch.rand(topv.shape, generator=gen, device=lg.device).clamp_(min=torch.finfo(torch.float32).tiny)
-            choice = torch.argmax(topv / max(temperature, 1e-4) - torch.log(-torch.log(u)), dim=-1)
-            loc = topi.gather(1, choice[:, None])[:, 0]
-        else:
-            loc = torch.argmax(lg, dim=-1)
-        return allowed[loc] if allowed is not None else loc
-
     def _kv_heads(self) -> int:
         """The kv heads this rank caches (its slice under TP)."""
         c = self.config
@@ -804,333 +711,25 @@ class QwenModel:
 
         return c.num_kv_heads // axis_size(self.mesh, MODEL_AXIS)
 
-    @torch.no_grad()
-    def decode(
-        self,
-        inp: DecodeInputs,
-        temperature: float = 0.8,
-        seed: int = 0,
-        forced: Optional[Tensor] = None,
-        on_logits: Optional[Callable[[int, Tensor], None]] = None,
-    ) -> Tensor:
-        """Prefill + the token loop on the device; returns the tokens
-        ``[B * n_samples, max_new_tokens]`` (EOT after a sequence ends).
+    # -- the decode loop's hooks (``CausalDecoder``) ---------------------------------------
+    def _chunk(self) -> int:
+        return DECODE_CHUNK
 
-        ``forced`` [n, B * n_samples]: take these tokens instead of sampling
-        and stop after n steps (teacher forcing, to hold two runs of the
-        same path against each other); ``on_logits(step, logits)`` sees the
-        f32 logits each step samples from. ``self.last_decode_steps`` is
-        the number of steps the loop ran (fewer after an early exit)."""
-        with tracing.span("qwen.prefill", rows=int(inp.tokens.shape[0])):
-            c, dev = self.config, self.device
-            non_layer, stacked = self._decode_state()
-            Dh = c.hidden_size // c.num_heads
-            eot = getattr(self.tokenizer, "eot_id", -1)
-            P, plen = inp.P, inp.plen
-            S = plen + self.max_new_tokens
-            B = inp.tokens.shape[0]
-            head = self._head(non_layer, inp.allowed)
-            cache_shape = (c.num_layers, B, self._kv_heads(), S, Dh)
-            caches = (torch.zeros(cache_shape, dtype=c.dtype, device=dev),
-                      torch.zeros(cache_shape, dtype=c.dtype, device=dev))
-            ks = torch.arange(S, device=dev)
-            lengths = inp.lengths
-            T = plen - P
-            t_idx = torch.arange(T, device=dev)
-            if P:
-                # prefix-shared prefill: the prefix at batch 1, broadcast into
-                # every row's slots [0, P); then the suffixes at offset P
-                kp = torch.arange(P, device=dev)
-                pre_mask = torch.zeros((1, 1, P, P), device=dev).masked_fill(kp[None, :] > kp[:, None], float("-inf"))
-                pre = tuple(torch.zeros((c.num_layers, 1, self._kv_heads(), P, Dh), dtype=c.dtype, device=dev)
-                            for _ in range(2))
-                self._run_layers(stacked, self._embed(non_layer, inp.prefix[None]), kp[None], pre_mask, pre, 0)
-                for cz, cp in zip(caches, pre):
-                    cz[:, :, :, :P] = cp
-            keep = (ks[None, None, :] <= P + t_idx[None, :, None]) & (ks[None, None, :] < lengths[:, None, None])
-            if P:
-                keep = keep | (ks < P)[None, None, :]
-            prefill_mask = torch.zeros(keep.shape, device=dev).masked_fill(~keep, float("-inf"))[:, None]
-            positions = (P + t_idx)[None].expand(B, T)
-            x = self._run_layers(stacked, self._embed(non_layer, inp.tokens), positions, prefill_mask, caches, P, ctx=P)
-            x = _rmsnorm(x, non_layer["ln_f"]["scale"], c.rms_eps)
-            x = x[torch.arange(B, device=dev), lengths - P - 1][:, None]
-            next_logits = head(x)[:, 0]
+    def _final_norm(self, non_layer: Dict, x: Tensor) -> Tensor:
+        return _rmsnorm(x, non_layer["ln_f"]["scale"], self.config.rms_eps)
 
-        n = inp.n_samples
-        if n > 1:  # each prompt's prefilled cache serves n sampling chains
-            caches = tuple(t.repeat_interleave(n, dim=1) for t in caches)
-            next_logits = next_logits.repeat_interleave(n, dim=0)
-            lengths = lengths.repeat_interleave(n, dim=0)
-        top_k = min(50, inp.allowed.shape[0] if inp.allowed is not None else c.vocab_size)
-        gen = torch.Generator(device=dev).manual_seed(int(seed))
-        Bn = next_logits.shape[0]
-        done = torch.zeros(Bn, dtype=torch.bool, device=dev)
-        tokens = torch.full((self.max_new_tokens, Bn), eot, dtype=torch.long, device=dev)
-        steps = self.max_new_tokens if forced is None else min(self.max_new_tokens, forced.shape[0])
-        chunk = DECODE_CHUNK
-        early_exit = self.max_new_tokens > chunk and self.max_new_tokens % chunk == 0
-        self.last_decode_steps = 0
-        for i in range(steps):
-            if early_exit and i and i % chunk == 0 and bool(done.all()):
-                break  # every sequence has ended: the rest is the EOT fill
-            with tracing.span("qwen.decode_step", step=i, rows=Bn):
-                self.last_decode_steps = i + 1
-                if on_logits is not None:
-                    on_logits(i, next_logits)
-                if forced is not None:
-                    tok = forced[i].to(dev, torch.long)
-                else:
-                    tok = self._sample(next_logits, gen, temperature, top_k, inp.allowed, inp.n_real)
-                tok = torch.where(done, torch.full_like(tok, eot), tok)
-                done = done | (tok == eot)
-                tokens[i] = tok
-                cache_pos = plen + i
-                valid = (ks[None] < lengths[:, None]) | ((ks[None] >= plen) & (ks[None] <= cache_pos))
-                step_mask = torch.zeros(valid.shape, device=dev).masked_fill(~valid, float("-inf"))
-                x = self._run_layers(stacked, self._embed(non_layer, tok[:, None]), (lengths + i)[:, None],
-                                     step_mask, caches, cache_pos)
-                next_logits = head(_rmsnorm(x, non_layer["ln_f"]["scale"], c.rms_eps))[:, 0]
-        return tokens.T
+    def _new_cache(self, B: int, S: int) -> Tuple[Tensor, Tensor]:
+        """The KV-major caches ``[L, B, KV, S, Dh]``, zeroed."""
+        c = self.config
+        shape = (c.num_layers, B, self._kv_heads(), S, c.hidden_size // c.num_heads)
+        return (torch.zeros(shape, dtype=c.dtype, device=self.device),
+                torch.zeros(shape, dtype=c.dtype, device=self.device))
 
-    # -- host side -----------------------------------------------------------------------
-    def _prefix_ids(self, prefix: str) -> np.ndarray:
-        """Token ids of a shared prompt prefix (a few fixed strings, cached)."""
-        cache = self.__dict__.setdefault("_prefix_ids_cache", {})
-        ids = cache.get(prefix)
-        if ids is None:
-            row = self.tokenizer([prefix])[0]
-            pad = getattr(self.tokenizer, "pad_id", 0)
-            ids = row[: int((row != pad).sum())].astype(np.int32)
-            if len(cache) >= 8:
-                cache.clear()
-            cache[prefix] = ids
-        return ids
+    @staticmethod
+    def _put_prefix(cache, pre, P: int) -> None:
+        for cz, cp in zip(cache, pre):
+            cz[:, :, :, :P] = cp
 
-    def prepare(
-        self,
-        prompts: List[str],
-        n_samples: int = 1,
-        token_mask: Optional[np.ndarray] = None,
-        shared_prefix: Optional[str] = None,
-    ) -> DecodeInputs:
-        """Tokenize, split off the shared prefix where the split is
-        token-exact (checked on the first prompt, verdict cached per
-        prefix), bucket the prompt length to a multiple of 8 and turn the
-        vocabulary mask into a padded allowed-id list."""
-        pad = getattr(self.tokenizer, "pad_id", 0)
-        prefix_ids = np.zeros((0,), np.int32)
-        if shared_prefix:
-            bad = next((p for p in prompts if not p.startswith(shared_prefix)), None)
-            if bad is not None:
-                raise ValueError(f"shared_prefix {shared_prefix!r} is not a prefix of prompt {bad!r}")
-            ok_cache = self.__dict__.setdefault("_prefix_ok_cache", {})
-            if ok_cache.get(shared_prefix, True):
-                prefix_ids = self._prefix_ids(shared_prefix)
-                tok = self.tokenizer([p[len(shared_prefix):] for p in prompts])
-                if prompts and shared_prefix not in ok_cache:
-                    full0 = self.tokenizer([prompts[0]])[0]
-                    n0 = int((full0 != pad).sum())
-                    split0 = np.concatenate([prefix_ids, tok[0, : int((tok[0] != pad).sum())]])
-                    ok_cache[shared_prefix] = bool(n0 == len(split0) and np.array_equal(full0[:n0], split0))
-            if not ok_cache.get(shared_prefix, True):
-                prefix_ids = np.zeros((0,), np.int32)  # not token-exact: plain prefill
-                tok = self.tokenizer(prompts)
-        else:
-            tok = self.tokenizer(prompts)
-        P = len(prefix_ids)
-        lengths = (tok != pad).sum(axis=1)
-        plen = min(-(-max(int(lengths.max()), 4) // 8) * 8, self.config.max_seq_len - self.max_new_tokens - P)
-        tok = tok[:, :plen]
-        allowed, n_real = None, 0
-        if token_mask is not None:
-            m_np = np.asarray(token_mask, bool)
-            if m_np.shape != (self.config.vocab_size,):
-                raise ValueError(f"token_mask must be bool [{self.config.vocab_size}], got shape {m_np.shape}")
-            if not m_np.any():
-                raise ValueError("token_mask allows no vocabulary ids")
-            if not m_np.all():
-                key = m_np.tobytes()
-                cached = self.__dict__.get("_allowed_cache")
-                if cached is not None and cached[0] == key:
-                    _, allowed, n_real = cached
-                else:
-                    ids = np.nonzero(m_np)[0]
-                    n_real = len(ids)
-                    va = -(-n_real // 128) * 128  # padded with copies of ids[0], never sampled
-                    ids = np.pad(ids, (0, va - n_real), constant_values=int(ids[0]))
-                    allowed = torch.as_tensor(ids, dtype=torch.long, device=self.device)
-                    self._allowed_cache = (key, allowed, n_real)
-        dev = self.device
-        return DecodeInputs(
-            prefix=torch.as_tensor(prefix_ids, dtype=torch.long, device=dev),
-            tokens=torch.as_tensor(tok, dtype=torch.long, device=dev),
-            lengths=torch.as_tensor(np.minimum(lengths, plen) + P, dtype=torch.long, device=dev),
-            plen=plen + P, n_samples=n_samples, allowed=allowed, n_real=n_real,
-        )
-
-    def generate_async(
-        self,
-        prompts: List[str],
-        temperature: float = 0.8,
-        seed: int = 0,
-        n_samples: int = 1,
-        token_mask: Optional[np.ndarray] = None,
-        shared_prefix: Optional[str] = None,
-    ) -> Callable[[], List[str]]:
-        """Run the batched decode and return a zero-arg callable that reads
-        the tokens back and detokenizes them. The decode is queued on the
-        card's stream, but its early-exit check every DECODE_CHUNK steps
-        waits for the device, so this call returns after the decode's
-        last chunk is queued; only the readback and the detokenization
-        are left to the callable. Spans: ``qwen.prepare`` (tokenizing),
-        ``qwen.prefill`` and one ``qwen.decode_step`` a step (``decode``),
-        ``qwen.readback`` (the callable)."""
-        with tracing.span("qwen.prepare", rows=len(prompts)):
-            inp = self.prepare(prompts, n_samples, token_mask, shared_prefix)
-        rows = self.decode(inp, temperature, seed)
-
-        def result() -> List[str]:
-            with tracing.span("qwen.readback"):
-                out = rows.cpu().numpy()
-                batch_decode = getattr(self.tokenizer, "decode_batch", None)
-                if batch_decode is not None:
-                    eot = getattr(self.tokenizer, "eot_id", -1)
-                    return batch_decode([[i for i in row if i != eot] for row in out.tolist()])
-                return [self._detokenize(row) for row in out]
-
-        return result
-
-    def generate(
-        self,
-        prompts: List[str],
-        temperature: float = 0.8,
-        seed: int = 0,
-        n_samples: int = 1,
-        token_mask: Optional[np.ndarray] = None,
-        shared_prefix: Optional[str] = None,
-    ) -> List[str]:
-        """Batched prompt -> continuation decode; ``n_samples > 1`` gives n
-        sampled continuations per prompt (rows ``i*n .. (i+1)*n`` belong to
-        prompt i) from one shared prefill; ``token_mask`` (bool [vocab])
-        constrains sampling to the allowed ids (see ascii_token_mask)."""
-        return self.generate_async(prompts, temperature, seed, n_samples, token_mask, shared_prefix)()
-
-    def ascii_token_mask(self) -> np.ndarray:
-        """Bool [vocab] mask of the ids whose decoded text is printable
-        ASCII (or empty), plus EOT; all True for a tokenizer that cannot
-        decode single ids. Cached per instance."""
-        cached = self.__dict__.get("_ascii_mask")
-        if cached is not None:
-            return cached
-        vocab = self.config.vocab_size
-        mask = np.ones((vocab,), bool)
-        token_texts = getattr(self.tokenizer, "token_texts", None)
-        if token_texts is not None:
-            n = min(vocab, len(self.tokenizer))
-            mask = np.zeros((vocab,), bool)
-            mask[:n] = np.fromiter(
-                ((t.isascii() and t.isprintable()) or t == "" for t in token_texts(n)), bool, count=n
-            )
-        eot = getattr(self.tokenizer, "eot_id", None)
-        if eot is not None:
-            mask[int(eot)] = True  # chains must be able to terminate
-        self._ascii_mask = mask
-        return mask
-
-    def _detokenize(self, ids: np.ndarray) -> str:
-        eot = getattr(self.tokenizer, "eot_id", -1)
-        ids = [int(i) for i in ids if int(i) != eot]
-        decode = getattr(self.tokenizer, "decode", None)
-        if decode is not None:
-            return decode(ids)
-        # the hash tokenizer is not invertible: deterministic placeholder words
-        return " ".join(f"tok{i}" for i in ids)
-
-    def generate_paraphrases(self, text: str, num_paraphrases: int = 3, temperature: float = 0.8) -> List[str]:
-        """N samples of the paraphrase prompt, batched into one decode."""
-        outs = self.generate(
-            [PARAPHRASE_PROMPT.format(text=text)], temperature=temperature,
-            seed=_stable_seed(text), n_samples=num_paraphrases,
-        )
-        return [o.strip() for o in outs if o.strip()]
-
-    def generate_paraphrases_batch(
-        self,
-        texts: List[str],
-        num_paraphrases: int = 3,
-        temperature: float = 0.8,
-        seed: int = 0,
-        token_mask: Optional[np.ndarray] = None,
-    ) -> List[List[str]]:
-        """Every query's paraphrases in one decode batch of B * N sequences."""
-        return self.generate_paraphrases_batch_async(texts, num_paraphrases, temperature, seed, token_mask)()
-
-    def generate_paraphrases_batch_async(
-        self,
-        texts: List[str],
-        num_paraphrases: int = 3,
-        temperature: float = 0.8,
-        seed: int = 0,
-        token_mask: Optional[np.ndarray] = None,
-    ) -> Callable[[], List[List[str]]]:
-        """:meth:`generate_paraphrases_batch` through :meth:`generate_async`:
-        one prefill per prompt (the instruction prefix once for the batch),
-        n sampling chains each."""
-        n = num_paraphrases
-        if not texts:
-            return lambda: []
-        handle = self.generate_async(
-            [PARAPHRASE_PROMPT.format(text=t) for t in texts], temperature=temperature, seed=seed,
-            n_samples=n, token_mask=token_mask, shared_prefix=PARAPHRASE_PREFIX,
-        )
-
-        def result() -> List[List[str]]:
-            outs = handle()
-            return [[o.strip() for o in outs[i * n : (i + 1) * n] if o.strip()] for i in range(len(texts))]
-
-        return result
-
-    def translate(self, texts: List[str], src: str, dst: str, temperature: float = 0.0) -> List[str]:
-        """Batched prompt-based translation (greedy by default); an empty
-        output keeps its input, so outputs align with inputs."""
-        sn, dn = _LANG_NAMES.get(src, src), _LANG_NAMES.get(dst, dst)
-        outs = self.generate(
-            [TRANSLATE_PROMPT.format(src=sn, dst=dn, text=t) for t in texts], temperature=temperature,
-            seed=_stable_seed(f"{src}->{dst}:" + "\x00".join(texts)),
-            shared_prefix=TRANSLATE_PREFIX.format(src=sn, dst=dn),
-        )
-        return [o.strip() or texts[i] for i, o in enumerate(outs)]
-
-    def as_translator(self):
-        """Callable ``(texts, src, dst) -> list[str]``."""
-        return self.translate
-
-    def as_paraphrase_generator(self) -> "ParaphraseAdapter":
-        return ParaphraseAdapter(self)
-
-
-class ParaphraseAdapter:
-    """Callable ``(text, n) -> list[str]`` plus ``batch(texts, n)`` so a
-    text augmenter can run one decode across a whole query batch."""
-
-    def __init__(self, model: QwenModel, temperature: float = 0.8):
-        self.model = model
-        self.temperature = temperature
-
-    def __call__(self, text: str, n: int) -> List[str]:
-        return self.model.generate_paraphrases(text, n, self.temperature)
-
-    def batch(self, texts: List[str], n: int) -> List[List[str]]:
-        return self.batch_async(texts, n)()
-
-    def batch_async(self, texts: List[str], n: int) -> Callable[[], List[List[str]]]:
-        return self.model.generate_paraphrases_batch_async(
-            texts, n, self.temperature, seed=_stable_seed("\x00".join(texts))
-        )
-
-
-def _to(t, device):
-    if _is_q(t):
-        return {"int8": t["int8"].to(device), "scale": t["scale"].to(device)}
-    return t.to(device) if torch.is_tensor(t) else torch.as_tensor(np.asarray(t), device=device)
+    @staticmethod
+    def _tile_cache(cache, n: int):
+        return tuple(t.repeat_interleave(n, dim=1) for t in cache)

@@ -11,6 +11,9 @@
   ``tvc/assets/qwen_tokenizer`` files, in pure Python: the port's
   counterpart of the JAX package's ``HFTokenizerWrapper`` (which needs
   ``transformers``), with the same ids and the same decoded text.
+* ``CutQwenBPETokenizer`` — that BPE cut to DeepSeek-V2's vocabulary of
+  102,400 with its BOS / EOS ids, which stands in for DeepSeek-V2's own
+  tokenizer (its files are not in the repository).
 * ``HashTokenizer`` — deterministic FNV-1a word hashing into the vocab
   (tiny test configs and any vocab without bundled assets).
 
@@ -331,6 +334,48 @@ class QwenBPETokenizer:
 #: the real Qwen2 tokenizer's vocab size (bundled assets)
 QWEN2_VOCAB = 151936
 
+#: DeepSeek-V2's vocabulary and its BOS / EOS ids
+DEEPSEEK_V2_VOCAB, DEEPSEEK_V2_BOS, DEEPSEEK_V2_EOS = 102400, 100000, 100001
+
+
+class CutQwenBPETokenizer(QwenBPETokenizer):
+    """The Qwen2 byte-level BPE cut to ids below 100,000: every merge whose
+    result has an id at or above it dropped, no added tokens split out, a
+    BOS prepended to every text. It stands in for DeepSeek-V2's own
+    tokenizer (vocabulary 102,400, BOS 100,000, EOS 100,001), whose files
+    the repository does not hold; ``without_bos`` tokenizes without the BOS
+    (a prompt's suffix after a shared prefix)."""
+
+    def __init__(self, path: str, context_length: int = 512):
+        super().__init__(path, context_length)
+        cut, bos, eos = DEEPSEEK_V2_BOS, DEEPSEEK_V2_BOS, DEEPSEEK_V2_EOS
+        self.bpe_ranks = {p: r for p, r in self.bpe_ranks.items() if self.encoder.get(p[0] + p[1], cut) < cut}
+        self.encoder = {t: i for t, i in self.encoder.items() if i < cut}
+        self.added = {bos: "<\uff5cbegin\u2581of\u2581sentence\uff5c>", eos: "<\uff5cend\u2581of\u2581sentence\uff5c>"}
+        self.special_ids = {bos, eos}
+        self._added_ids = {}
+        self._added_split = re.compile("((?!))")  # nothing is split out
+        self.decoder = {i: t for t, i in self.encoder.items()}
+        self.decoder.update(self.added)
+        self.sot_id = self.bos_id = bos
+        self.eot_id = self.pad_id = eos
+        self.vocab_size = len(self)
+        self._cache = {}
+
+    def _rows(self, texts: Sequence[str], bos: bool) -> np.ndarray:
+        out = np.full((len(texts), self.context_length), self.pad_id, dtype=np.int32)
+        head = [self.bos_id] if bos else []
+        for i, t in enumerate(texts):
+            ids = (head + self.encode(t))[: self.context_length]
+            out[i, : len(ids)] = ids
+        return out
+
+    def __call__(self, texts: Sequence[str]) -> np.ndarray:
+        return self._rows(texts, True)
+
+    def without_bos(self, texts: Sequence[str]) -> np.ndarray:
+        return self._rows(texts, False)
+
 
 def get_tokenizer(
     vocab_size: int = 49408,
@@ -340,7 +385,9 @@ def get_tokenizer(
     """The real CLIP BPE for vocab 49408 (bundled assets, overridable by
     argument or ``$TVC_CLIP_BPE``); the Qwen2 BPE for vocab 151936
     (``merges_path`` or ``$TVC_QWEN_TOKENIZER``, a directory or a
-    ``merges.txt`` in one, then the bundled assets); the hash tokenizer
+    ``merges.txt`` in one, then the bundled assets); for DeepSeek-V2's
+    vocab 102400 the Qwen2 BPE cut to it (``CutQwenBPETokenizer``, from
+    ``merges_path`` or the bundled assets); the hash tokenizer
     otherwise."""
     if vocab_size == 49408:
         merges_path = merges_path or os.environ.get("TVC_CLIP_BPE")
@@ -365,4 +412,11 @@ def get_tokenizer(
                 p = p.parent
             if (p / "vocab.json").exists():
                 return QwenBPETokenizer(str(p), context_length)
+    if vocab_size == DEEPSEEK_V2_VOCAB:
+        for cand in (merges_path, ASSET_DIR / "qwen_tokenizer"):
+            p = Path(cand) if cand else None
+            if p is not None and p.is_file():
+                p = p.parent
+            if p is not None and (p / "vocab.json").exists():
+                return CutQwenBPETokenizer(str(p), context_length)
     return HashTokenizer(vocab_size, context_length)
