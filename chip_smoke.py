@@ -587,6 +587,7 @@ def phase_kernels() -> dict:
     results.update(phase_qwen_kernels(rng, dev))
     results.update(phase_w8_kernels(dev))
     results.update(phase_dsv2_kernels(dev))
+    results.update(phase_decode_fused_kernels(dev))
     results.update(phase_mha_topk_kernels(dev))
     for name, shapes in phase_f1_shapes(dev).items():
         results[name]["shapes"] += shapes
@@ -1121,6 +1122,81 @@ def phase_dsv2_kernels(dev) -> dict:
     return out
 
 
+def phase_decode_fused_kernels(dev) -> dict:
+    """The fused elementwise kernels of the decoder layers at the decode
+    step's shapes (960 rows), each against its plain version on the same
+    card inputs: the norms (Qwen2-1.5B's hidden 1,536, DeepSeek-V2-Lite's
+    2,048 and its latent norm over a strided slice of the q|kv_a output,
+    with the residual stream), the q|k|v epilogue (Qwen2-1.5B: 12 / 2
+    heads of 128, layer 27 of a 28-layer cache of 64 slots) and the
+    SiLU-gated products (Qwen2-1.5B's 8,960; DeepSeek-V2-Lite's 1,408 over
+    5,760 routed rows, its 2,816 shared and 10,944 dense), every output
+    bit-equal; two calls bit-equal; timed beside the bound from their
+    bytes at 3.35 TB/s."""
+    import torch
+
+    import tvc_torch.models.qwen as qwen_mod
+    from tvc_torch.core.kernels import decode_fused_kernel as fused
+
+    bf = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(22)
+    t = lambda *shape: torch.randn(shape, generator=gen, device=dev)  # noqa: E731
+    out = {n: {"shapes": []} for n in DECODE_FUSED}
+
+    def hold(name, shape, run_k, run_p, nbytes):
+        as_tuple = lambda r: r if isinstance(r, tuple) else (r,)  # noqa: E731
+        got, want = as_tuple(run_k()), as_tuple(run_p())
+        again = as_tuple(run_k())
+        torch.cuda.synchronize()
+        abs_err = max(float((a.float() - b.float()).abs().max()) for a, b in zip(got, want))
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"{name} {shape} disagrees with its plain version: max |d| {abs_err:.3e}")
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"{name} {shape}: two calls differ")
+        k_ms, p_ms = time_ms(run_k), time_ms(run_p)
+        bms, by = bound_ms_of(nbytes, 0.0)
+        out[name]["shapes"].append({"shape": shape, "ms": k_ms, "plain_ms": p_ms, "bound_ms": bms, "bound_by": by,
+                                    "max_abs_err": abs_err})
+        log(f"kernel {name} {shape}: kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} bound_ms={bms:.5f} ({by}) "
+            f"kernel at {100 * bms / k_ms:.1f}% of the bound, bit-equal")
+
+    R, eps = DSV2_ROWS, 1e-6
+    for W in (1536, 2048):
+        x, y, sc = (4 * t(R, W)).to(bf), t(R, W).to(bf), 1 + 0.1 * t(W)
+        hold("rmsnorm", f"rows={R} W={W} bf16", lambda: fused.rmsnorm(x, sc, eps),
+             lambda: fused.rmsnorm_reference(x, sc, eps), 2 * 2 * R * W + 4 * W)
+        hold("add_rmsnorm", f"rows={R} W={W} bf16", lambda: fused.add_rmsnorm(x, y, sc, eps),
+             lambda: fused.add_rmsnorm_reference(x, y, sc, eps), 4 * 2 * R * W + 4 * W)
+    qa, sc = (4 * t(R, 3648)).to(bf), 1 + 0.1 * t(512)
+    lat = qa[:, 3072:3584]
+    hold("rmsnorm", f"rows={R} W=512 bf16, rows 3,648 apart (the latent norm)", lambda: fused.rmsnorm(lat, sc, eps),
+         lambda: fused.rmsnorm_reference(lat, sc, eps), 2 * 2 * R * 512 + 4 * 512)
+
+    nh, kv, D, L, S = 12, 2, 128, 28, 64
+    Wq = (nh + 2 * kv) * D
+    qkv, bias = (3 * t(R, 1, Wq)).to(bf), t(Wq)
+    cos, sin = qwen_mod.rope_tables((torch.arange(R, device=dev)[:, None] % 61) + 3, D, 1_000_000.0)
+    ck, cv = t(L, R, kv, S, D).to(bf), t(L, R, kv, S, D).to(bf)
+    rk, rv = ck.clone(), cv.clone()
+
+    def qkv_kernel():
+        return fused.qkv_rope_cache(qkv, bias, cos, sin, ck, cv, L - 1, 40), ck[L - 1, :, :, 40], cv[L - 1, :, :, 40]
+
+    def qkv_plain():
+        q = fused.qkv_rope_cache_reference(qkv, bias, cos, sin, rk, rv, L - 1, 40)
+        return q, rk[L - 1, :, :, 40], rv[L - 1, :, :, 40]
+
+    hold("qkv_rope_cache", f"rows={R} heads {nh} / {kv} of {D}, layer {L - 1} of {L}, slot 40 of {S} bf16",
+         qkv_kernel, qkv_plain, 2 * 2 * R * Wq + 4 * Wq + 2 * 4 * R * D // 2)
+    del ck, cv, rk, rv
+    for tag, rows, I in (("Qwen2-1.5B", R, 8960), ("DeepSeek-V2-Lite routed", R * DSV2_TOPK, 1408),
+                         ("DeepSeek-V2-Lite shared", R, 2816), ("DeepSeek-V2-Lite dense", R, 10944)):
+        gu = (3 * t(rows, 2 * I)).to(bf)
+        hold("silu_mul", f"{tag} rows={rows} I={I} bf16", lambda: fused.silu_mul(gu, I),
+             lambda: fused.silu_mul_reference(gu, I), 3 * 2 * rows * I)
+    return out
+
+
 class _WordTokenizer:
     """A word-level tokenizer for QwenConfig.tiny()'s 512-token vocabulary
     (each word hashed to an id; 0 pads, 511 ends a sequence)."""
@@ -1178,6 +1254,7 @@ def qwen_tiny_f32() -> dict:
         (qwen_mod, "w8_matmul", w8_matmul_plain),
         (qwen_mod, "w8_matmul_stacked", lambda x, w, s, l: w8_matmul_plain(x, w[l], s[l])),
         (qwen_mod, "decode_gqa_attention_stacked", lambda q, k, v, m, l: decode_gqa_reference(q, k[l], v[l], m)),
+        *plain_fused(qwen_mod),
     ]
     with ExitStack() as stack:
         for module, name, fn in patches:
@@ -1377,15 +1454,23 @@ KERNEL_SOURCES = {
     # no TPU kernel: the JAX package runs no mixture of experts or latent attention
     "moe_w8_grouped_gemm": ("tvc_torch/csrc/moe_w8.cu", None),
     "mla_decode_attention": ("tvc_torch/csrc/mla_decode.cu", None),
+    # no TPU kernel: the JAX package leaves a layer's elementwise steps to XLA
+    "rmsnorm": ("tvc_torch/csrc/decode_fused.cu", None),
+    "add_rmsnorm": ("tvc_torch/csrc/decode_fused.cu", None),
+    "qkv_rope_cache": ("tvc_torch/csrc/decode_fused.cu", None),
+    "silu_mul": ("tvc_torch/csrc/decode_fused.cu", None),
 }
+#: the fused elementwise kernels of the decoder layers
+DECODE_FUSED = ("rmsnorm", "add_rmsnorm", "qkv_rope_cache", "silu_mul")
 #: the kernels each path launches; it launches no other
 PATH_KERNELS = {
     "bf16": ("fused_consistency_scores", "fused_attention_layer", "fused_mlp_layer"),
     "int8": ("fused_consistency_scores", "fused_attention_layer_i8", "fused_mlp_layer_i8"),
-    "qwen": ("w8a8_matmul", "w8a8_matmul_stacked", "decode_gqa_attention", "decode_gqa_attention_stacked"),
+    "qwen": ("w8a8_matmul", "w8a8_matmul_stacked", "decode_gqa_attention", "decode_gqa_attention_stacked",
+             *DECODE_FUSED),
     "pipeline": ("fused_consistency_scores", "fused_attention_layer_i8", "fused_mlp_layer_i8", "w8_matmul",
-                 "w8_matmul_stacked", "decode_gqa_attention", "decode_gqa_attention_stacked"),
-    "dsv2": ("w8_matmul", "moe_w8_grouped_gemm", "mla_decode_attention"),
+                 "w8_matmul_stacked", "decode_gqa_attention", "decode_gqa_attention_stacked", *DECODE_FUSED),
+    "dsv2": ("w8_matmul", "moe_w8_grouped_gemm", "mla_decode_attention", "rmsnorm", "add_rmsnorm", "silu_mul"),
     "mha": ("fused_mha",),
     "retrieval": ("fused_consistency_scores", "fused_attention_layer", "fused_mlp_layer", "bank_topk"),
     "tiny int8": ("fused_consistency_scores", "fused_attention_layer_i8", "fused_mlp_layer_i8"),
@@ -1442,6 +1527,14 @@ def _check_path_counts(counts: dict, path: str, what: str) -> None:
     stray = [k for k, n in counts.items() if n and k not in PATH_KERNELS[path]]
     if missing or stray:
         raise AssertionError(f"{path} path, {what}: not launched {missing}, launched off the path {stray}: {counts}")
+
+
+def plain_fused(module) -> list:
+    """(module, name, plain version) of each fused decode kernel the model
+    module calls, for a run on the plain versions."""
+    from tvc_torch.core.kernels import decode_fused_kernel as fused
+
+    return [(module, n, getattr(fused, n + "_reference")) for n in DECODE_FUSED if hasattr(module, n)]
 
 
 def hold_defended_batch(path: str, det, images, texts, variants, plain_patches) -> dict:
@@ -2741,7 +2834,7 @@ def _weights_qwen(card: dict) -> dict:
                        PARAPHRASE_PREFIX)
     held = hold_w8_forced("weights qwen", qwen, inp)
     launched = {k for k, v in held["launches"].items() if v}
-    qwen_kernels = {k for k in PATH_KERNELS["pipeline"] if k.startswith(("w8_", "decode_"))}
+    qwen_kernels = {k for k in PATH_KERNELS["pipeline"] if k.startswith(("w8_", "decode_")) or k in DECODE_FUSED}
     if not launched or not launched <= qwen_kernels or not {"w8_matmul_stacked", "decode_gqa_attention_stacked"} \
             <= launched:
         raise AssertionError(f"[weights qwen] the decode launched {sorted(launched)}")
@@ -2812,7 +2905,12 @@ def qwen_expected_launches(cfg, prefix_len: int, steps: int, prompts: int = 1, s
     is a plain matmul) after the suffix prefill (prompts rows) and after
     each step; one decode attention a layer in each step. Under "w8a8"
     every GEMM launches its kernel; under "w8" a block launches it only at
-    most W8_MAX_ROWS rows (a larger one dequantizes, then matmuls)."""
+    most W8_MAX_ROWS rows (a larger one dequantizes, then matmuls). The
+    fused kernels, in every run of the layers (the prefix prefill, the
+    suffix prefill, each step): the first layer's norm (rmsnorm), every
+    other norm after its residual add (add_rmsnorm: 2 L - 1, and the
+    final norm's after the suffix prefill and each step), a SiLU-gated
+    product a layer; and in each step a q|k|v epilogue a layer."""
     from tvc_torch.models.qwen import W8_MAX_ROWS
 
     w8a8 = cfg.quant_gemm == "w8a8"
@@ -2821,8 +2919,11 @@ def qwen_expected_launches(cfg, prefix_len: int, steps: int, prompts: int = 1, s
     stacked = 4 * L * (runs(prefix_len) + runs(prompts * suffix_len) + steps * runs(decode_rows))
     head = 0 if cfg.tie_embeddings else runs(prompts) + steps * runs(decode_rows)
     gemm = "w8a8_matmul" if w8a8 else "w8_matmul"
+    runs_of_layers = int(prefix_len > 0) + 1 + steps
     return {gemm: stacked + head, gemm + "_stacked": stacked,
-            "decode_gqa_attention": L * steps, "decode_gqa_attention_stacked": L * steps}
+            "decode_gqa_attention": L * steps, "decode_gqa_attention_stacked": L * steps,
+            "rmsnorm": runs_of_layers, "add_rmsnorm": (2 * L - 1) * runs_of_layers + 1 + steps,
+            "qkv_rope_cache": L * steps, "silu_mul": L * runs_of_layers}
 
 
 def dsv2_step_launches(cfg, rows: int) -> dict:
@@ -2831,11 +2932,17 @@ def dsv2_step_launches(cfg, rows: int) -> dict:
     and o GEMMs and one latent attention; the dense layers' gate|up and
     down, the MoE layers' shared gate|up and down and their two grouped
     expert GEMMs; the untied head. A w8 GEMM launches its kernel only at
-    most W8_MAX_ROWS rows (a larger block dequantizes, then matmuls)."""
+    most W8_MAX_ROWS rows (a larger block dequantizes, then matmuls). The
+    fused kernels: the first layer's norm and every layer's latent norm
+    (rmsnorm), every other norm after its residual add, the final one
+    too (add_rmsnorm), the dense layers' SiLU-gated products and the MoE
+    layers' two (routed, shared)."""
     from tvc_torch.models.deepseek_v2 import W8_MAX_ROWS
 
-    w8 = (4 * cfg.num_layers + 1) if rows <= W8_MAX_ROWS else 0
-    return {"w8_matmul": w8, "moe_w8_grouped_gemm": 2 * cfg.n_moe_layers, "mla_decode_attention": cfg.num_layers}
+    L = cfg.num_layers
+    w8 = (4 * L + 1) if rows <= W8_MAX_ROWS else 0
+    return {"w8_matmul": w8, "moe_w8_grouped_gemm": 2 * cfg.n_moe_layers, "mla_decode_attention": L,
+            "rmsnorm": 1 + L, "add_rmsnorm": 2 * L, "silu_mul": cfg.first_k_dense + 2 * cfg.n_moe_layers}
 
 
 def phase_qwen(card: dict) -> dict:
@@ -2922,6 +3029,7 @@ def phase_qwen(card: dict) -> dict:
         (qwen_mod, "w8a8_matmul", w8a8_matmul_reference),
         (qwen_mod, "w8a8_matmul_stacked", lambda x, w, s, l: w8a8_matmul_reference(x, w[l], s[l])),
         (qwen_mod, "decode_gqa_attention_stacked", lambda q, k, v, m, l: decode_gqa_reference(q, k[l], v[l], m)),
+        *plain_fused(qwen_mod),
     ]
     with ExitStack() as stack:
         for module, name, fn in plain:
@@ -3001,6 +3109,7 @@ def hold_w8_forced(path: str, qwen, inp) -> dict:
         (qwen_mod, "w8_matmul", w8_matmul_plain),
         (qwen_mod, "w8_matmul_stacked", lambda x, w, s, l: w8_matmul_plain(x, w[l], s[l])),
         (qwen_mod, "decode_gqa_attention_stacked", lambda q, k, v, m, l: decode_gqa_reference(q, k[l], v[l], m)),
+        *plain_fused(qwen_mod),
     ]
     with ExitStack() as stack:
         for module, name, fn in plain_qwen:
@@ -3104,6 +3213,16 @@ def phase_pipeline(card: dict, int8: dict) -> dict:
     log(f"[pipeline] first batch {warm_s:.2f} s; variants of {texts[0]!r}: {res.variants[0]}; retrieved "
         f"{res.retrieved[0]}; flagged {int(res.is_adversarial.sum())} of {PIPE_PROMPTS}")
 
+    # -- one decode step at n_rows rows: its launches, no host sync
+    step = step_launches("[pipeline]", qwen, inp)
+    want_step = {k: n - qwen_expected_launches(cfg, P, 0, prompts=PIPE_PROMPTS, suffix_len=T, n_samples=V)[k]
+                 for k, n in qwen_expected_launches(cfg, P, 1, prompts=PIPE_PROMPTS, suffix_len=T,
+                                                    n_samples=V).items()}
+    log(f"[pipeline] launches in decode step 1 at {n_rows} rows, no host synchronisation: {step}; expected "
+        f"{want_step}")
+    if any(step[k] != n for k, n in want_step.items()) or any(n for k, n in step.items() if k not in want_step):
+        raise AssertionError(f"[pipeline] step launch counts {step}, expected {want_step}")
+
     # -- the share of variant slots the paraphrase strategy filled (the
     # adapter's seed is a digest of the texts, so this decode repeats the
     # pipeline's)
@@ -3201,9 +3320,37 @@ def phase_pipeline(card: dict, int8: dict) -> dict:
             raise AssertionError(f"[pipeline] process_stream batch {k} differs from process_batch")
     log(f"[pipeline] process_stream over {len(batches)} batches of {nb} equals process_batch on each "
         f"(variants, items, scores, flags); launches {stream_counts}")
-    return {"launches": counts, "qps": qps, "tok_s": tok_s, "ms_per_query": ms_q, "peak_gib": peak,
-            "top1": forced["top1"], "d_max": forced["max_abs_d_logit"],
+    return {"launches": counts, "step_launches": step, "qps": qps, "tok_s": tok_s, "ms_per_query": ms_q,
+            "peak_gib": peak, "top1": forced["top1"], "d_max": forced["max_abs_d_logit"],
             "d_median": forced["median_abs_d_logit"], "llm_share": from_llm / slots, "stages_ms": stages}
+
+
+def step_launches(tag: str, model, inp) -> dict:
+    """The launches of decode step 1 of ``model.decode(inp)``: the counts
+    reset as the step opens and read as step 2 opens, the step under
+    set_sync_debug_mode("error") (a host synchronisation inside raises)."""
+    import torch
+
+    from tvc_torch.core.kernels import launch_counts, reset_launch_counts
+
+    step = {}
+
+    def at_step(i, logits):
+        if i == 1:
+            reset_launch_counts()
+            torch.cuda.set_sync_debug_mode("error")
+        elif i == 2:
+            torch.cuda.set_sync_debug_mode("default")
+            step.update(launch_counts())
+
+    try:
+        model.decode(inp, seed=0, on_logits=at_step)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    if not step:
+        raise AssertionError(f"{tag} the decode ran {model.last_decode_steps} steps: no second step to count")
+    return step
 
 
 def phase_dsv2(card: dict) -> dict:
@@ -3218,7 +3365,6 @@ def phase_dsv2(card: dict) -> dict:
 
     import torch
 
-    from tvc_torch.core.kernels import launch_counts, reset_launch_counts
     from tvc_torch.models.decoding import PARAPHRASE_PREFIX, PARAPHRASE_PROMPT
     from tvc_torch.models.deepseek_v2 import DeepseekV2Config, DeepseekV2Model
     from tvc_torch.pipeline import PipelineConfig
@@ -3238,23 +3384,7 @@ def phase_dsv2(card: dict) -> dict:
     texts = coco_captions(PIPE_PROMPTS)
     rows = PIPE_PROMPTS * V
     inp = model.prepare([PARAPHRASE_PROMPT.format(text=x) for x in texts], V, None, PARAPHRASE_PREFIX)
-    step = {}
-
-    def at_step(i, logits):
-        if i == 1:
-            reset_launch_counts()
-            torch.cuda.set_sync_debug_mode("error")
-        elif i == 2:
-            torch.cuda.set_sync_debug_mode("default")
-            step.update(launch_counts())
-
-    try:
-        model.decode(inp, seed=0, on_logits=at_step)
-    finally:
-        torch.cuda.set_sync_debug_mode("default")
-    torch.cuda.synchronize()
-    if not step:
-        raise AssertionError(f"[dsv2] the decode ran {model.last_decode_steps} steps: no second step to count")
+    step = step_launches("[dsv2]", model, inp)
     want = dsv2_step_launches(cfg, rows)
     log(f"[dsv2] launches in decode step 1 at {rows} rows (prefix {inp.P} tokens, prompt {inp.plen} slots), no "
         f"host synchronisation: {step}; expected {want}")

@@ -262,12 +262,13 @@ def test_chip_smoke_step_launch_formula_matches_the_decode(tiny, max_rows):
     """chip_smoke's launches of one decode step, read off the code, equal
     the calls one step makes to the three wrappers (spied on the CPU, where
     they compute their plain versions), also under a row limit the step's
-    rows exceed; and give 109 w8 GEMMs, 52 grouped GEMMs and 27 latent
-    attentions a step at DeepSeek-V2-Lite's 960 rows."""
+    rows exceed; and give 109 w8 GEMMs, 52 grouped GEMMs, 27 latent
+    attentions, 28 norms, 54 norms after a residual add and 53 SiLU-gated
+    products a step at DeepSeek-V2-Lite's 960 rows."""
     import chip_smoke
 
     cfg, m, _ = tiny
-    names = ("w8_matmul", "moe_w8_grouped_gemm", "mla_decode_attention")
+    names = ("w8_matmul", "moe_w8_grouped_gemm", "mla_decode_attention", "rmsnorm", "add_rmsnorm", "silu_mul")
     calls, at = dict.fromkeys(names, 0), {}
 
     def spy(name, fn):
@@ -286,7 +287,8 @@ def test_chip_smoke_step_launch_formula_matches_the_decode(tiny, max_rows):
     assert {n: at[2][n] - at[1][n] for n in names} == want
     assert want["w8_matmul"] == (0 if max_rows < 4 else 4 * cfg.num_layers + 1)
     assert chip_smoke.dsv2_step_launches(ds.DeepseekV2Config.deepseek_v2_lite(), 960) == \
-        {"w8_matmul": 109, "moe_w8_grouped_gemm": 52, "mla_decode_attention": 27}
+        {"w8_matmul": 109, "moe_w8_grouped_gemm": 52, "mla_decode_attention": 27, "rmsnorm": 28, "add_rmsnorm": 54,
+         "silu_mul": 53}
 
 
 def test_process_stream_with_the_tiny_model_as_paraphraser():

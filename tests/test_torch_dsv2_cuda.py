@@ -152,6 +152,9 @@ def test_one_decode_step_syncs_nothing_and_launches_the_kernels_once_a_layer(lit
     got = launch_counts()
     assert got["moe_w8_grouped_gemm"] - at_step["moe_w8_grouped_gemm"] == 2 * cfg.n_moe_layers
     assert got["mla_decode_attention"] - at_step["mla_decode_attention"] == cfg.num_layers
+    fused = {k: got[k] - at_step[k] for k in ("rmsnorm", "add_rmsnorm", "silu_mul")}
+    assert fused == {"rmsnorm": 1 + cfg.num_layers, "add_rmsnorm": 2 * cfg.num_layers,
+                     "silu_mul": cfg.first_k_dense + 2 * cfg.n_moe_layers}
 
 
 def test_published_widths_prefill_and_decode_match_the_reference(lite):

@@ -331,6 +331,7 @@ def _spies(gemm: str, rows: dict):
         mock.patch.object(tq, "w8_matmul_reference", spy("w8_matmul_reference", w8_matmul_reference)),
         mock.patch.object(tq, "decode_gqa_attention_stacked",
                           spy("decode_gqa_attention_stacked", lambda q, k, v, mk, l: decode_gqa_reference(q, k[l], v[l], mk))),
+        *[mock.patch.object(tq, n, spy(n, getattr(tq, n))) for n in chip_smoke.DECODE_FUSED],
     ]
 
 
@@ -343,7 +344,8 @@ def test_launch_formula_matches_the_decode(quant_gemm, tied, max_rows):
     prefill and the decode steps exceed; and give 2,033 GEMMs and 448
     attentions at Qwen2-7B W8A8 and 1,904 weight-only GEMMs at Qwen2-1.5B
     w8 paraphrasing 192 captions x 5 (suffix prefill 192 x 32 rows: the
-    dequant fallback)."""
+    dequant fallback); the fused elementwise kernels counted the same way
+    (57 norms, 28 q|k|v epilogues and 28 SiLU-gated products a step)."""
     cfg = dataclasses.replace(tq.QwenConfig.tiny(), tie_embeddings=tied, quant_gemm=quant_gemm)
     m = tq.QwenModel(cfg, seed=0, max_new_tokens=8, init_int8=True, tokenizer=WordTok(), device="cpu")
     gemm = f"{quant_gemm}_matmul"
@@ -364,6 +366,7 @@ def test_launch_formula_matches_the_decode(quant_gemm, tied, max_rows):
     assert n.get(gemm + "_stacked", 0) == want[gemm + "_stacked"]
     assert n.get(gemm, 0) + n.get(gemm + "_stacked", 0) == want[gemm]
     assert n["decode_gqa_attention_stacked"] == want["decode_gqa_attention_stacked"] == want["decode_gqa_attention"]
+    assert {k: n[k] for k in chip_smoke.DECODE_FUSED} == {k: want[k] for k in chip_smoke.DECODE_FUSED}
     # every GEMM of the decode went through the kernel or, above the row
     # limit under "w8", through the dequant fallback
     L, steps = cfg.num_layers, m.last_decode_steps
@@ -374,12 +377,13 @@ def test_launch_formula_matches_the_decode(quant_gemm, tied, max_rows):
     if quant_gemm == "w8":
         assert all(r <= max_rows for k in (gemm, gemm + "_stacked") for r in rows.get(k, []))
     big = chip_smoke.qwen_expected_launches(dataclasses.replace(tq.QwenConfig.qwen2_7b(), quant_gemm="w8a8"), 15, 16)
+    fused = {"rmsnorm": 18, "add_rmsnorm": 1007, "qkv_rope_cache": 448, "silu_mul": 504}
     assert big == {"w8a8_matmul": 2033, "w8a8_matmul_stacked": 2016,
-                   "decode_gqa_attention": 448, "decode_gqa_attention_stacked": 448}
+                   "decode_gqa_attention": 448, "decode_gqa_attention_stacked": 448, **fused}
     small = chip_smoke.qwen_expected_launches(tq.QwenConfig.qwen2_1_5b(), 15, 16, prompts=192, suffix_len=32,
                                               n_samples=5)
     assert small == {"w8_matmul": 1904, "w8_matmul_stacked": 1904,
-                     "decode_gqa_attention": 448, "decode_gqa_attention_stacked": 448}
+                     "decode_gqa_attention": 448, "decode_gqa_attention_stacked": 448, **fused}
 
 
 def test_greedy_generate_matches_jax_w8(w8):

@@ -21,6 +21,16 @@ from tvc_torch.core.kernels.decode_attention_kernel import (
     decode_gqa_attention_stacked,
     decode_gqa_reference,
 )
+from tvc_torch.core.kernels.decode_fused_kernel import (
+    add_rmsnorm,
+    add_rmsnorm_reference,
+    qkv_rope_cache,
+    qkv_rope_cache_reference,
+    rmsnorm,
+    rmsnorm_reference,
+    silu_mul,
+    silu_mul_reference,
+)
 from tvc_torch.core.kernels.mla_kernel import mla_decode_attention, mla_decode_reference
 from tvc_torch.core.kernels.moe_kernel import moe_w8_grouped_gemm, moe_w8_grouped_reference
 from tvc_torch.core.kernels.quantized_layer_kernel import (
@@ -57,6 +67,10 @@ KERNELS = (
     fused_mha,
     moe_w8_grouped_gemm,
     mla_decode_attention,
+    rmsnorm,
+    add_rmsnorm,
+    qkv_rope_cache,
+    silu_mul,
 )
 
 

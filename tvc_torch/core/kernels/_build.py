@@ -90,6 +90,16 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         # scale, stream
         "tvc_mla_decode": [_P, _P, _P, _P, _P, _I, _I, _F, _P],
     },
+    "decode_fused": {
+        # x, y (or null), scale (f32), h_out (or null), out, rows, W, ldx,
+        # eps, factor (1 / W), lanes a row, is_f32, stream
+        "tvc_rmsnorm_rows": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _I, _I, _P],
+        # qkv, bias (f32), cos, sin (f32), ck, cv (the layer's), q, B, nh,
+        # kv, D, S, slot, is_f32, stream
+        "tvc_qkv_rope_cache": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+        # gu, out, rows, I, is_f32, stream
+        "tvc_silu_mul": [_P, _P, _I, _I, _I, _P],
+    },
     "mha": {
         # q, k, v, out, ld, B, T, H, D, is_bf16, causal, scale, stream
         "tvc_mha": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P],

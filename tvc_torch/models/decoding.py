@@ -13,7 +13,8 @@ A model supplies its cache and its layers through these methods:
 * ``_decode_state()`` -> ``(non_layer, stacked)``: the weights the decode
   reads;
 * ``_embed(non_layer, tokens)``, ``_head(non_layer, allowed)`` (a callable
-  from the final hidden state to f32 logits) and ``_final_norm(non_layer, x)``;
+  from the final hidden state to f32 logits) and ``_final_norm(non_layer,
+  h, y)``: the final RMSNorm of ``h + y`` (of ``h`` where ``y`` is None);
 * ``_new_cache(B, S)``: a zeroed cache of B rows and S slots;
   ``_put_prefix(cache, pre, P)``: the batch-1 prefix cache ``pre`` into
   every row's slots ``[0, P)``; ``_tile_cache(cache, n)``: each row
@@ -22,7 +23,9 @@ A model supplies its cache and its layers through these methods:
   step=None)``: every layer on ``x [B, T, H]``, writing slots
   ``cache_index .. cache_index + T`` (mask ``[B, 1, T, S]`` for a block,
   ``[B, S]`` for one step; ``ctx`` cached slots ahead of the block;
-  ``step`` the decode step, None in the prefill).
+  ``step`` the decode step, None in the prefill); returns ``(h, y)``, the
+  residual stream and the last layer's branch output not yet added to it
+  (None where it is), so that the add goes into the final norm's launch.
 
 ``SPANS`` names the model's four spans (prepare, prefill, one decode step,
 readback); ``_begin_decode(steps)`` runs before the first step;
@@ -30,7 +33,7 @@ readback); ``_begin_decode(steps)`` runs before the first step;
 ``_decode_aux()`` gave right after the decode call was queued).
 
 Both models also share the weight-tree helpers below (dotted names, w8
-leaves ``{"int8", "scale"}``), the RMSNorm and ``W8_MAX_ROWS``."""
+leaves ``{"int8", "scale"}``) and ``W8_MAX_ROWS``."""
 
 from __future__ import annotations
 
@@ -62,12 +65,6 @@ def _stable_seed(text: str) -> int:
         h ^= b
         h = (h * 0x100000001B3) & 0xFFFFFFFFFFFFFFFF
     return h % (2**31)
-
-
-def _rmsnorm(x: Tensor, scale: Tensor, eps: float) -> Tensor:
-    x32 = x.float()
-    var = x32.square().mean(dim=-1, keepdim=True)
-    return (x32 * torch.rsqrt(var + eps) * scale).to(x.dtype)
 
 
 def _is_q(x) -> bool:
@@ -232,8 +229,8 @@ class CausalDecoder:
                 keep = keep | (ks < P)[None, None, :]
             prefill_mask = torch.zeros(keep.shape, device=dev).masked_fill(~keep, float("-inf"))[:, None]
             positions = (P + t_idx)[None].expand(B, T)
-            x = self._run_layers(stacked, self._embed(non_layer, inp.tokens), positions, prefill_mask, cache, P, ctx=P)
-            x = self._final_norm(non_layer, x)
+            x = self._final_norm(non_layer, *self._run_layers(
+                stacked, self._embed(non_layer, inp.tokens), positions, prefill_mask, cache, P, ctx=P))
             x = x[torch.arange(B, device=dev), lengths - P - 1][:, None]
             next_logits = head(x)[:, 0]
 
@@ -269,9 +266,9 @@ class CausalDecoder:
                 cache_pos = plen + i
                 valid = (ks[None] < lengths[:, None]) | ((ks[None] >= plen) & (ks[None] <= cache_pos))
                 step_mask = torch.zeros(valid.shape, device=dev).masked_fill(~valid, float("-inf"))
-                x = self._run_layers(stacked, self._embed(non_layer, tok[:, None]), (lengths + i)[:, None],
-                                     step_mask, cache, cache_pos, step=i)
-                next_logits = head(self._final_norm(non_layer, x))[:, 0]
+                h, y = self._run_layers(stacked, self._embed(non_layer, tok[:, None]), (lengths + i)[:, None],
+                                        step_mask, cache, cache_pos, step=i)
+                next_logits = head(self._final_norm(non_layer, h, y))[:, 0]
         return tokens.T
 
     # -- host side -----------------------------------------------------------------------

@@ -39,6 +39,9 @@ loop and host side (``decoding.CausalDecoder``).
   grouped weight-only GEMM (``moe_w8_grouped_gemm``: gate|up, then down);
   the routing (gate, softmax, top-k, counts, offsets, the sort, the
   combine) stays on the device, with no host read inside a step.
+  Each RMSNorm, with the residual add before it, and each SiLU-gated
+  product is one launch of the fused kernels (``decode_fused_kernel``):
+  the layer loop carries each residual branch's output into the next norm.
 
 Spans ``dsv2.prepare``, ``dsv2.prefill``, ``dsv2.decode_step`` (``step``,
 ``rows``) and ``dsv2.readback``; counters ``moe.assignments`` (row-expert
@@ -60,12 +63,12 @@ import torch.nn.functional as F
 from torch import Tensor
 
 from tvc_torch._device import resolve_device
+from tvc_torch.core.kernels.decode_fused_kernel import add_rmsnorm, apply_rope, rmsnorm, silu_mul
 from tvc_torch.core.kernels.mla_kernel import mla_decode_attention
 from tvc_torch.core.kernels.moe_kernel import moe_w8_grouped_gemm
 from tvc_torch.core.kernels.quantized_layer_kernel import quantize_linear
 from tvc_torch.core.kernels.w8_matmul_kernel import w8_matmul, w8_matmul_reference
-from tvc_torch.models.decoding import W8_MAX_ROWS, CausalDecoder, _flatten, _is_q, _rmsnorm, _to, _unflatten
-from tvc_torch.models.qwen import apply_rope
+from tvc_torch.models.decoding import W8_MAX_ROWS, CausalDecoder, _flatten, _is_q, _to, _unflatten
 from tvc_torch.utils import tracing
 
 
@@ -386,8 +389,9 @@ class DeepseekV2Model(CausalDecoder):
             kern = {"int8": kern["int8"][:, allowed].contiguous(), "scale": kern["scale"][allowed].contiguous()}
         return lambda x: self._mm(x, kern).float()
 
-    def _final_norm(self, non_layer: Dict, x: Tensor) -> Tensor:
-        return _rmsnorm(x, non_layer["ln_f"]["scale"], self.config.rms_eps)
+    def _final_norm(self, non_layer: Dict, h: Tensor, y: Optional[Tensor]) -> Tensor:
+        scale, eps = non_layer["ln_f"]["scale"], self.config.rms_eps
+        return rmsnorm(h, scale, eps) if y is None else add_rmsnorm(h, y, scale, eps)[1]
 
     def _new_cache(self, B: int, S: int) -> Tensor:
         """The latent cache ``[L, B, S, r + rope]``, zeroed."""
@@ -417,7 +421,7 @@ class DeepseekV2Model(CausalDecoder):
         q = qa[..., :nq].reshape(B, T, nh, c.q_head_dim)
         q_nope = q[..., :dn]
         q_pe = rope_interleaved(q[..., dn:], cos, sin)
-        cache[l, :, cache_index : cache_index + T, :r] = _rmsnorm(qa[..., nq : nq + r], L["kv_norm"], c.rms_eps)
+        cache[l, :, cache_index : cache_index + T, :r] = rmsnorm(qa[..., nq : nq + r], L["kv_norm"], c.rms_eps)
         cache[l, :, cache_index : cache_index + T, r:] = rope_interleaved(qa[..., None, nq + r :], cos, sin)[:, :, 0]
         if absorbed if absorbed is not None else T == 1:  # the absorbed form over the latent cache
             qn = (q_nope[:, 0].float() * L["suk"]).to(dt).transpose(0, 1)  # [nh, B, nope]
@@ -465,34 +469,38 @@ class DeepseekV2Model(CausalDecoder):
         order = torch.argsort(ids, stable=True)
         xs = xf.index_select(0, torch.div(order, k, rounding_mode="floor")).contiguous()
         gu = moe_w8_grouped_gemm(xs, L["egu"]["int8"], L["egu"]["scale"], offsets)
-        act = (F.silu(gu[:, :Ie]) * gu[:, Ie:]).to(dt)
-        yd = moe_w8_grouped_gemm(act, L["ed"]["int8"], L["ed"]["scale"], offsets)
+        yd = moe_w8_grouped_gemm(silu_mul(gu, Ie), L["ed"]["int8"], L["ed"]["scale"], offsets)
         y = torch.empty_like(yd)
         y[order] = yd
         routed = (y.view(N, k, H).float() * (topv * c.routed_scaling_factor)[:, :, None]).sum(dim=1)
         sgu = self._mm(xf, L["sgu"])
-        Is = sgu.shape[-1] // 2
-        shared = self._mm((F.silu(sgu[:, :Is]) * sgu[:, Is:]).to(dt), L["sd"])
+        shared = self._mm(silu_mul(sgu, sgu.shape[-1] // 2), L["sd"])
         return (routed + shared.float()).to(dt).reshape(B, T, H)
 
-    def _layer(self, L: Dict, l: int, h: Tensor, cos, sin, mask, cache, cache_index, ctx, step) -> Tensor:
-        c, dt = self.config, self.config.dtype
-        x = _rmsnorm(h, L["ln_attn"], c.rms_eps)
-        h = h + self._attention(L, l, x, cos, sin, mask, cache, cache_index, ctx)
-        x = _rmsnorm(h, L["ln_mlp"], c.rms_eps)
+    def _layer(self, L: Dict, l: int, h: Tensor, y: Optional[Tensor], cos, sin, mask, cache, cache_index, ctx,
+               step) -> Tuple[Tensor, Tensor]:
+        """One layer on the residual stream ``h`` and the previous layer's
+        FFN output ``y`` not yet added to it (None before the first);
+        returns ``(h, y)`` of this layer, its FFN output not added."""
+        eps = self.config.rms_eps
+        if y is None:
+            x = rmsnorm(h, L["ln_attn"], eps)
+        else:
+            h, x = add_rmsnorm(h, y, L["ln_attn"], eps)
+        h, x = add_rmsnorm(h, self._attention(L, l, x, cos, sin, mask, cache, cache_index, ctx), L["ln_mlp"], eps)
         if "wgu" in L:
             gu = self._mm(x, L["wgu"])
-            I = gu.shape[-1] // 2
-            return h + self._mm((F.silu(gu[..., :I]) * gu[..., I:]).to(dt), L["wd"])
-        return h + self._moe(L, x, step)
+            return h, self._mm(silu_mul(gu, gu.shape[-1] // 2), L["wd"])
+        return h, self._moe(L, x, step)
 
-    def _run_layers(self, layers, x, positions, mask, cache, cache_index, ctx=0, step=None) -> Tensor:
+    def _run_layers(self, layers, x, positions, mask, cache, cache_index, ctx=0, step=None):
         """Every layer: mask [B, 1, T, S] (prefill) or [B, S] (decode step
-        ``step``)."""
+        ``step``). Returns ``(h, y)`` (``CausalDecoder``)."""
         cos, sin = yarn_tables(positions, self.config, self._inv_freq)
+        y = None
         for l, L in enumerate(layers):
-            x = self._layer(L, l, x, cos, sin, mask, cache, cache_index, ctx, step)
-        return x
+            x, y = self._layer(L, l, x, y, cos, sin, mask, cache, cache_index, ctx, step)
+        return x, y
 
     # -- the routing counters ------------------------------------------------------------
     def _begin_decode(self, steps: int) -> None:

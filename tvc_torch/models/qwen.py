@@ -23,10 +23,16 @@ block); under the default ``"w8"`` an activation block of at most
 ``w8_matmul_stacked``) and a larger one (the suffix prefill) through the
 dequantize-then-matmul ``w8_matmul_reference``, a plain matmul as the JAX
 package leaves it to XLA. Every decode step's attention goes through
-``decode_gqa_attention_stacked``; the prefill attention, norms, rope, the
-tied head and sampling are plain PyTorch, as the JAX package leaves them
-to XLA. Sampling uses an explicit ``torch.Generator`` and an exact top-50:
-the draws are not ``jax.random``'s.
+``decode_gqa_attention_stacked``. The elementwise steps between the GEMMs
+go through the fused kernels of ``decode_fused_kernel``: each RMSNorm with
+the residual add before it (``add_rmsnorm``, ``rmsnorm`` where no add comes
+first; the layer loop carries each residual branch's output into the next
+norm), the SiLU-gated product (``silu_mul``) and, in a decode step, the
+q|k|v bias, rotary embedding and cache write (``qkv_rope_cache``). The
+prefill attention and rotary embedding, the tied head and sampling are
+plain PyTorch, as the JAX package leaves them to XLA. Sampling uses an
+explicit ``torch.Generator`` and an exact top-50: the draws are not
+``jax.random``'s.
 
 With a ``mesh`` (a ``model`` axis) the model is tensor-parallel
 (``tvc_torch.parallel.tp``): each rank holds its Megatron slices, and the
@@ -52,6 +58,14 @@ from torch import Tensor, nn
 
 from tvc_torch._device import resolve_device
 from tvc_torch.core.kernels.decode_attention_kernel import decode_gqa_attention_stacked
+from tvc_torch.core.kernels.decode_fused_kernel import (
+    add_rmsnorm,
+    apply_rope,
+    qkv_rope_cache,
+    rmsnorm,
+    rmsnorm_reference,
+    silu_mul,
+)
 from tvc_torch.core.kernels.quantized_layer_kernel import quantize_linear
 from tvc_torch.core.kernels.w8_matmul_kernel import (
     w8_matmul,
@@ -72,7 +86,6 @@ from tvc_torch.models.decoding import (  # noqa: F401  (the names this module ha
     ParaphraseAdapter,
     _flatten,
     _is_q,
-    _rmsnorm,
     _stable_seed,
     _to,
     _unflatten,
@@ -137,12 +150,6 @@ def rope_tables(positions: Tensor, head_dim: int, theta: float) -> Tuple[Tensor,
     return torch.cos(angles)[:, :, None, :], torch.sin(angles)[:, :, None, :]
 
 
-def apply_rope(x: Tensor, cos: Tensor, sin: Tensor) -> Tensor:
-    half = x.shape[-1] // 2
-    x1, x2 = x[..., :half], x[..., half:]
-    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
-
-
 def rope(x: Tensor, positions: Tensor, theta: float) -> Tensor:
     """Rotary embedding in f32. x: [B, T, H, Dh]; positions: [B, T]."""
     return apply_rope(x, *rope_tables(positions, x.shape[-1], theta))
@@ -189,7 +196,7 @@ class RMSNorm(nn.Module):
         self.eps = eps
 
     def forward(self, x: Tensor) -> Tensor:
-        return _rmsnorm(x, self.scale, self.eps)
+        return rmsnorm_reference(x, self.scale, self.eps)
 
 
 class QwenAttention(nn.Module):
@@ -654,40 +661,46 @@ class QwenModel(CausalDecoder):
                 if _is_q(kern) else kern[:, allowed]
         return lambda x: self._mm(x, kern).float()
 
-    def _merged_layer(self, stacked, l, h, cos, sin, mask, ck, cv, cache_index, ctx):
-        """QwenBlock with q|k|v and gate|up as single GEMMs. The cache is
-        KV-major ``[L, B, KV, S, Dh]``; this step's k / v are written into
-        it in place. T == 1 (decode): the decode attention kernel over
-        layer l of the stacked cache, mask [B, S]; else (prefill): plain
-        attention over the block plus the ``ctx`` cached prefix slots, mask
-        [B, 1, T, S]."""
+    def _merged_layer(self, stacked, l, h, y, cos, sin, mask, ck, cv, cache_index, ctx):
+        """QwenBlock with q|k|v and gate|up as single GEMMs, on the residual
+        stream ``h`` and the previous layer's MLP output ``y`` not yet added
+        to it (None before the first layer); returns ``(h, y)`` of this
+        layer, its MLP output not added. The cache is KV-major ``[L, B, KV,
+        S, Dh]``; this step's k / v are written into it in place. T == 1
+        (decode): the fused q|k|v epilogue and the decode attention kernel
+        over layer l of the stacked cache, mask [B, S]; else (prefill):
+        plain attention over the block plus the ``ctx`` cached prefix slots,
+        mask [B, 1, T, S]."""
         c = self.config
         B, T, _ = h.shape
         Dh = c.hidden_size // c.num_heads
         nq, nkv, R = c.num_heads * Dh, c.num_kv_heads * Dh, c.num_heads // c.num_kv_heads
-        x = _rmsnorm(h, stacked["ln_attn"][l], c.rms_eps)
-        qkv = self._mm_stacked(x, stacked["wqkv"], l) + stacked["bqkv"][l].to(c.dtype)
-        q = apply_rope(qkv[..., :nq].reshape(B, T, c.num_heads, Dh), cos, sin)
-        k = apply_rope(qkv[..., nq : nq + nkv].reshape(B, T, c.num_kv_heads, Dh), cos, sin)
-        v = qkv[..., nq + nkv :].reshape(B, T, c.num_kv_heads, Dh)
-        k_t, v_t = k.transpose(1, 2), v.transpose(1, 2)  # [B, KV, T, Dh]
-        ck[l, :, :, cache_index : cache_index + T] = k_t
-        cv[l, :, :, cache_index : cache_index + T] = v_t
-        if T == 1:
-            out = decode_gqa_attention_stacked(q.reshape(B, c.num_kv_heads, R, Dh).contiguous(), ck, cv, mask, l)
-            out = out.reshape(B, 1, nq)
+        if y is None:
+            x = rmsnorm(h, stacked["ln_attn"][l], c.rms_eps)
         else:
+            h, x = add_rmsnorm(h, y, stacked["ln_attn"][l], c.rms_eps)
+        qkv = self._mm_stacked(x, stacked["wqkv"], l)
+        if T == 1:
+            q = qkv_rope_cache(qkv, stacked["bqkv"][l], cos, sin, ck, cv, l, cache_index)
+            out = decode_gqa_attention_stacked(q, ck, cv, mask, l).reshape(B, 1, nq)
+        else:
+            qkv = qkv + stacked["bqkv"][l].to(c.dtype)
+            q = apply_rope(qkv[..., :nq].reshape(B, T, c.num_heads, Dh), cos, sin)
+            k = apply_rope(qkv[..., nq : nq + nkv].reshape(B, T, c.num_kv_heads, Dh), cos, sin)
+            v = qkv[..., nq + nkv :].reshape(B, T, c.num_kv_heads, Dh)
+            k_t, v_t = k.transpose(1, 2), v.transpose(1, 2)  # [B, KV, T, Dh]
+            ck[l, :, :, cache_index : cache_index + T] = k_t
+            cv[l, :, :, cache_index : cache_index + T] = v_t
             kk, vv = (ck[l, :, :, : ctx + T], cv[l, :, :, : ctx + T]) if ctx else (k_t, v_t)
             qg = q.reshape(B, T, c.num_kv_heads, R, Dh)
             out = _gqa_attention(qg, kk, vv, mask[:, 0, :, : ctx + T], c.dtype).reshape(B, T, nq)
-        h = h + self._mm_stacked(out, stacked["wo"], l)
-        gu = self._mm_stacked(_rmsnorm(h, stacked["ln_mlp"][l], c.rms_eps), stacked["wgu"], l)
-        act = F.silu(gu[..., : c.intermediate_size]) * gu[..., c.intermediate_size :]
-        return h + self._mm_stacked(act.to(c.dtype), stacked["wd"], l)
+        h, x = add_rmsnorm(h, self._mm_stacked(out, stacked["wo"], l), stacked["ln_mlp"][l], c.rms_eps)
+        gu = self._mm_stacked(x, stacked["wgu"], l)
+        return h, self._mm_stacked(silu_mul(gu, c.intermediate_size), stacked["wd"], l)
 
-    def _run_layers(self, stacked, x, positions, mask, caches, cache_index, ctx=0, step=None) -> Tensor:
+    def _run_layers(self, stacked, x, positions, mask, caches, cache_index, ctx=0, step=None):
         """Every layer: mask [B, 1, T, S] (prefill) or [B, S] (one step);
-        ``step`` is not read."""
+        ``step`` is not read. Returns ``(h, y)`` (``CausalDecoder``)."""
         c = self.config
         cos, sin = rope_tables(positions, c.hidden_size // c.num_heads, c.rope_theta)
         if self.mesh is not None:
@@ -697,10 +710,11 @@ class QwenModel(CausalDecoder):
             for l in range(c.num_layers):
                 x = tp_block(stacked[l], x, cos, sin, m3, c, self.mesh, (caches[0][l], caches[1][l]),
                              cache_index, ctx)
-            return x
+            return x, None
+        y = None
         for l in range(c.num_layers):
-            x = self._merged_layer(stacked, l, x, cos, sin, mask, caches[0], caches[1], cache_index, ctx)
-        return x
+            x, y = self._merged_layer(stacked, l, x, y, cos, sin, mask, caches[0], caches[1], cache_index, ctx)
+        return x, y
 
     def _kv_heads(self) -> int:
         """The kv heads this rank caches (its slice under TP)."""
@@ -715,8 +729,9 @@ class QwenModel(CausalDecoder):
     def _chunk(self) -> int:
         return DECODE_CHUNK
 
-    def _final_norm(self, non_layer: Dict, x: Tensor) -> Tensor:
-        return _rmsnorm(x, non_layer["ln_f"]["scale"], self.config.rms_eps)
+    def _final_norm(self, non_layer: Dict, h: Tensor, y: Optional[Tensor]) -> Tensor:
+        scale, eps = non_layer["ln_f"]["scale"], self.config.rms_eps
+        return rmsnorm(h, scale, eps) if y is None else add_rmsnorm(h, y, scale, eps)[1]
 
     def _new_cache(self, B: int, S: int) -> Tuple[Tensor, Tensor]:
         """The KV-major caches ``[L, B, KV, S, Dh]``, zeroed."""

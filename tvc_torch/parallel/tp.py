@@ -36,7 +36,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 from torch import Tensor
 
-from tvc_torch.models.qwen import _gqa_attention, _rmsnorm, apply_rope, rope_tables
+from tvc_torch.models.qwen import _gqa_attention, apply_rope, rmsnorm, rope_tables
 from tvc_torch.parallel.mesh import MODEL_AXIS, all_gather, all_reduce, axis_index, axis_size, mesh_device
 
 Spec = Tuple[Optional[str], ...]
@@ -235,7 +235,7 @@ def tp_block(lp: Dict, h: Tensor, cos: Tensor, sin: Tensor, mask: Tensor, cfg, m
         y = x.to(dt) @ tp_weight(lp["attn"][name]["kernel"], dt, r)
         return y + lp["attn"][name]["bias"].to(dt) if bias else y
 
-    x = _rmsnorm(h, lp["ln_attn"]["scale"], c.rms_eps)
+    x = rmsnorm(h, lp["ln_attn"]["scale"], c.rms_eps)
     q, k, v = dense(x, "q"), dense(x, "k"), dense(x, "v")
     nh, nkv = q.shape[-1] // Dh, k.shape[-1] // Dh  # this rank's heads
     q = apply_rope(q.reshape(B, T, nh, Dh), cos, sin)
@@ -251,7 +251,7 @@ def tp_block(lp: Dict, h: Tensor, cos: Tensor, sin: Tensor, mask: Tensor, cfg, m
     qg = q.reshape(B, T, nkv, nh // nkv, Dh)
     out = _gqa_attention(qg, k, v, mask[..., : k.shape[2]], dt).reshape(B, T, nh * Dh)
     h = h + _row_reduce(dense(out, "o", bias=False), mesh)
-    x2 = _rmsnorm(h, lp["ln_mlp"]["scale"], c.rms_eps)
+    x2 = rmsnorm(h, lp["ln_mlp"]["scale"], c.rms_eps)
     mlp = lp["mlp"]
     gate = x2.to(dt) @ tp_weight(mlp["gate"]["kernel"], dt, r)
     up = x2.to(dt) @ tp_weight(mlp["up"]["kernel"], dt, r)
@@ -287,7 +287,7 @@ def make_tp_forward(model, mesh):
         x = tp_embed(params["embed"]["embedding"], tok, cfg, mesh)
         for i in range(cfg.num_layers):
             x = tp_block(params[f"layer_{i}"], x, cos, sin, mask, cfg, mesh)
-        x = _rmsnorm(x, params["ln_f"]["scale"], cfg.rms_eps)
+        x = rmsnorm(x, params["ln_f"]["scale"], cfg.rms_eps)
         return tp_logits(x, params, cfg, mesh)
 
     return forward
