@@ -1531,10 +1531,13 @@ def _check_path_counts(counts: dict, path: str, what: str) -> None:
 
 def plain_fused(module) -> list:
     """(module, name, plain version) of each fused decode kernel the model
-    module calls, for a run on the plain versions."""
+    module calls, and the final norm's in ``decoding`` (``CausalDecoder``
+    writes it once for both models), for a run on the plain versions."""
     from tvc_torch.core.kernels import decode_fused_kernel as fused
+    from tvc_torch.models import decoding
 
-    return [(module, n, getattr(fused, n + "_reference")) for n in DECODE_FUSED if hasattr(module, n)]
+    return [(m, n, getattr(fused, n + "_reference")) for m in (module, decoding) for n in DECODE_FUSED
+            if hasattr(m, n)]
 
 
 def hold_defended_batch(path: str, det, images, texts, variants, plain_patches) -> dict:

@@ -28,6 +28,7 @@ import torch
 import torch.nn.functional as F
 
 import chip_smoke
+import tvc_torch.models.decoding as decoding
 import tvc_torch.models.deepseek_v2 as ds
 import tvc_torch.models.qwen as tq
 from tvc_torch.core.kernels import (
@@ -76,7 +77,7 @@ def _old_qwen_layers(self, stacked, x, positions, mask, caches, cache_index, ctx
         Dh = c.hidden_size // c.num_heads
         nq, nkv, R = c.num_heads * Dh, c.num_kv_heads * Dh, c.num_heads // c.num_kv_heads
         x = _old_rmsnorm(h, stacked["ln_attn"][l], c.rms_eps)
-        qkv = self._mm_stacked(x, stacked["wqkv"], l) + stacked["bqkv"][l].to(c.dtype)
+        qkv = self._mm(x, stacked["wqkv"], l) + stacked["bqkv"][l].to(c.dtype)
         q = _old_rope(qkv[..., :nq].reshape(B, T, c.num_heads, Dh), cos, sin)
         k = _old_rope(qkv[..., nq : nq + nkv].reshape(B, T, c.num_kv_heads, Dh), cos, sin)
         v = qkv[..., nq + nkv :].reshape(B, T, c.num_kv_heads, Dh)
@@ -90,10 +91,10 @@ def _old_qwen_layers(self, stacked, x, positions, mask, caches, cache_index, ctx
             kk, vv = (ck[l, :, :, : ctx + T], cv[l, :, :, : ctx + T]) if ctx else (k_t, v_t)
             qg = q.reshape(B, T, c.num_kv_heads, R, Dh)
             out = tq._gqa_attention(qg, kk, vv, mask[:, 0, :, : ctx + T], c.dtype).reshape(B, T, nq)
-        h = h + self._mm_stacked(out, stacked["wo"], l)
-        gu = self._mm_stacked(_old_rmsnorm(h, stacked["ln_mlp"][l], c.rms_eps), stacked["wgu"], l)
+        h = h + self._mm(out, stacked["wo"], l)
+        gu = self._mm(_old_rmsnorm(h, stacked["ln_mlp"][l], c.rms_eps), stacked["wgu"], l)
         act = F.silu(gu[..., : c.intermediate_size]) * gu[..., c.intermediate_size :]
-        x = h + self._mm_stacked(act.to(c.dtype), stacked["wd"], l)
+        x = h + self._mm(act.to(c.dtype), stacked["wd"], l)
     return x, None
 
 
@@ -270,7 +271,7 @@ def test_one_qwen_step_calls_each_fused_wrapper_as_the_card_counts():
     formula counts a step."""
     cfg = dataclasses.replace(tq.QwenConfig.tiny(), num_layers=28)
     m = tq.QwenModel(cfg, seed=0, max_new_tokens=8, init_int8=True, tokenizer=WordTok(), device="cpu")
-    step = _spied_step_calls(m, [tq])
+    step = _spied_step_calls(m, [tq, decoding])  # the final norm is CausalDecoder's
     assert step == {"rmsnorm": 1, "add_rmsnorm": 56, "qkv_rope_cache": 28, "silu_mul": 28}
     want = chip_smoke.qwen_expected_launches(cfg, 5, 1)
     assert {n: want[n] - chip_smoke.qwen_expected_launches(cfg, 5, 0)[n] for n in FUSED} == step
@@ -281,7 +282,7 @@ def test_one_deepseek_v2_step_calls_each_fused_wrapper_as_the_card_counts():
     dense layer's and each MoE layer's two SiLU-gated products."""
     cfg = ds.DeepseekV2Config.tiny()
     m = ds.DeepseekV2Model(cfg, seed=0, tokenizer=WordTok(), max_new_tokens=8, device="cpu")
-    step = _spied_step_calls(m, [ds])
+    step = _spied_step_calls(m, [ds, decoding])
     L = cfg.num_layers
     assert step == {"rmsnorm": 1 + L, "add_rmsnorm": 2 * L, "qkv_rope_cache": 0,
                     "silu_mul": cfg.first_k_dense + 2 * cfg.n_moe_layers}

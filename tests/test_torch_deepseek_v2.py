@@ -19,6 +19,7 @@ import pytest
 import torch
 
 import tests.reference_deepseek_v2 as ref
+import tvc_torch.models.decoding as decoding
 import tvc_torch.models.deepseek_v2 as ds
 from tvc_torch.core.kernels import launch_counts, mla_decode_attention, moe_w8_grouped_gemm, moe_w8_grouped_reference
 from tvc_torch.models.decoding import PARAPHRASE_PREFIX, PARAPHRASE_PROMPT, _stable_seed
@@ -257,19 +258,22 @@ def test_routing_counters_are_read_back_with_the_tokens(tiny):
         d["moe.layer_steps"] * 4
 
 
-@pytest.mark.parametrize("max_rows", [1024, 2])
+@pytest.mark.parametrize("max_rows", [1024, 4, 2])
 def test_chip_smoke_step_launch_formula_matches_the_decode(tiny, max_rows):
     """chip_smoke's launches of one decode step, read off the code, equal
     the calls one step makes to the three wrappers (spied on the CPU, where
     they compute their plain versions), also under a row limit the step's
     rows exceed; and give 109 w8 GEMMs, 52 grouped GEMMs, 27 latent
     attentions, 28 norms, 54 norms after a residual add and 53 SiLU-gated
-    products a step at DeepSeek-V2-Lite's 960 rows."""
+    products a step at DeepSeek-V2-Lite's 960 rows. The names the
+    benchmark's ranges wrap are called too: ``_moe`` once a MoE layer of a
+    step, and ``w8_matmul_reference`` in a prefill above the row limit
+    (4: the step's 4 rows take the kernel, the prefill's blocks do not)."""
     import chip_smoke
 
     cfg, m, _ = tiny
     names = ("w8_matmul", "moe_w8_grouped_gemm", "mla_decode_attention", "rmsnorm", "add_rmsnorm", "silu_mul")
-    calls, at = dict.fromkeys(names, 0), {}
+    calls, at = dict.fromkeys(names + ("w8_matmul_reference", "_moe"), 0), {}
 
     def spy(name, fn):
         def f(*a, **k):
@@ -279,13 +283,23 @@ def test_chip_smoke_step_launch_formula_matches_the_decode(tiny, max_rows):
 
     inp = m.prepare(PROMPTS, n_samples=2, shared_prefix=PARAPHRASE_PREFIX)
     with contextlib.ExitStack() as stack:
+        # the decode routes by decoding's limit; the formula reads the one deepseek_v2.py re-exports
+        stack.enter_context(mock.patch.object(decoding, "W8_MAX_ROWS", max_rows))
         stack.enter_context(mock.patch.object(ds, "W8_MAX_ROWS", max_rows))
-        for n in names:
-            stack.enter_context(mock.patch.object(ds, n, spy(n, getattr(ds, n))))
+        for mod in (ds, decoding):  # the final norm is CausalDecoder's
+            for n in names + ("w8_matmul_reference",):
+                if hasattr(mod, n):
+                    stack.enter_context(mock.patch.object(mod, n, spy(n, getattr(mod, n))))
+        stack.enter_context(mock.patch.object(ds.DeepseekV2Model, "_moe", spy("_moe", ds.DeepseekV2Model._moe)))
         m.decode(inp, forced=torch.full((3, 4), 5), on_logits=lambda i, lg: at.__setitem__(i, dict(calls)))
         want = chip_smoke.dsv2_step_launches(cfg, 4)
-    assert {n: at[2][n] - at[1][n] for n in names} == want
+    step = {n: at[2][n] - at[1][n] for n in calls}
+    assert {n: step[n] for n in names} == want
     assert want["w8_matmul"] == (0 if max_rows < 4 else 4 * cfg.num_layers + 1)
+    assert step["_moe"] == cfg.n_moe_layers
+    assert step["w8_matmul_reference"] == 4 * cfg.num_layers + 1 - want["w8_matmul"]
+    prefill_rows = max(inp.P, inp.tokens.numel())
+    assert (at[0]["w8_matmul_reference"] > 0) == (max_rows < prefill_rows) and prefill_rows > 4
     assert chip_smoke.dsv2_step_launches(ds.DeepseekV2Config.deepseek_v2_lite(), 960) == \
         {"w8_matmul": 109, "moe_w8_grouped_gemm": 52, "mla_decode_attention": 27, "rmsnorm": 28, "add_rmsnorm": 54,
          "silu_mul": 53}

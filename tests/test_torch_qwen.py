@@ -17,6 +17,7 @@ import pytest
 import torch
 
 import chip_smoke
+import tvc_torch.models.decoding as decoding
 import tvc_torch.models.qwen as tq
 from tvc.models import qwen as jq
 from tvc_torch.core.kernels import decode_gqa_reference, w8_matmul_plain, w8_matmul_reference, w8a8_matmul_reference
@@ -316,7 +317,9 @@ def test_ascii_token_mask_with_the_hash_tokenizer(f32):
 
 def _spies(gemm: str, rows: dict):
     """Plain versions in place of the decode's kernels, each call counted
-    (and its activation rows recorded) under its name in ``rows``."""
+    (and its activation rows recorded) under its name in ``rows``; the
+    prefill attention and the fused norms counted too, the final norm
+    where ``CausalDecoder`` calls it."""
     plain = w8a8_matmul_reference if gemm == "w8a8_matmul" else w8_matmul_plain
 
     def spy(name, fn):
@@ -331,12 +334,14 @@ def _spies(gemm: str, rows: dict):
         mock.patch.object(tq, "w8_matmul_reference", spy("w8_matmul_reference", w8_matmul_reference)),
         mock.patch.object(tq, "decode_gqa_attention_stacked",
                           spy("decode_gqa_attention_stacked", lambda q, k, v, mk, l: decode_gqa_reference(q, k[l], v[l], mk))),
-        *[mock.patch.object(tq, n, spy(n, getattr(tq, n))) for n in chip_smoke.DECODE_FUSED],
+        mock.patch.object(tq, "_gqa_attention", spy("_gqa_attention", tq._gqa_attention)),
+        *[mock.patch.object(mod, n, spy(n, getattr(mod, n)))
+          for mod in (tq, decoding) for n in chip_smoke.DECODE_FUSED if hasattr(mod, n)],
     ]
 
 
-@pytest.mark.parametrize("quant_gemm,tied,max_rows", [("w8a8", False, 1024), ("w8", False, 1024), ("w8", True, 1024),
-                                                      ("w8", False, 8)])
+@pytest.mark.parametrize("quant_gemm,tied,max_rows", [("w8a8", False, 1024), ("w8a8", True, 1024), ("w8", False, 1024),
+                                                      ("w8", True, 1024), ("w8", False, 8)])
 def test_launch_formula_matches_the_decode(quant_gemm, tied, max_rows):
     """chip_smoke's expected launch counts, read off the code, equal the
     calls the decode makes (counted here on the CPU through the plain
@@ -345,13 +350,16 @@ def test_launch_formula_matches_the_decode(quant_gemm, tied, max_rows):
     attentions at Qwen2-7B W8A8 and 1,904 weight-only GEMMs at Qwen2-1.5B
     w8 paraphrasing 192 captions x 5 (suffix prefill 192 x 32 rows: the
     dequant fallback); the fused elementwise kernels counted the same way
-    (57 norms, 28 q|k|v epilogues and 28 SiLU-gated products a step)."""
+    (57 norms, 28 q|k|v epilogues and 28 SiLU-gated products a step); and
+    the plain prefill attention (``_gqa_attention``, the benchmark's
+    ``prefill_attention`` range) once a layer in each prefill."""
     cfg = dataclasses.replace(tq.QwenConfig.tiny(), tie_embeddings=tied, quant_gemm=quant_gemm)
     m = tq.QwenModel(cfg, seed=0, max_new_tokens=8, init_int8=True, tokenizer=WordTok(), device="cpu")
     gemm = f"{quant_gemm}_matmul"
     rows = {}
     texts = ["a cat sat on the mat", "two dogs"]
-    with mock.patch.object(tq, "W8_MAX_ROWS", max_rows):
+    # the decode routes by decoding's limit; the formula reads the one qwen.py re-exports
+    with mock.patch.object(decoding, "W8_MAX_ROWS", max_rows), mock.patch.object(tq, "W8_MAX_ROWS", max_rows):
         for p in _spies(gemm, rows):
             p.start()
         try:
@@ -367,6 +375,7 @@ def test_launch_formula_matches_the_decode(quant_gemm, tied, max_rows):
     assert n.get(gemm, 0) + n.get(gemm + "_stacked", 0) == want[gemm]
     assert n["decode_gqa_attention_stacked"] == want["decode_gqa_attention_stacked"] == want["decode_gqa_attention"]
     assert {k: n[k] for k in chip_smoke.DECODE_FUSED} == {k: want[k] for k in chip_smoke.DECODE_FUSED}
+    assert n["_gqa_attention"] == 2 * cfg.num_layers  # the prefix prefill and the suffix prefill
     # every GEMM of the decode went through the kernel or, above the row
     # limit under "w8", through the dequant fallback
     L, steps = cfg.num_layers, m.last_decode_steps
@@ -446,12 +455,16 @@ def test_chip_smoke_captions_follow_the_jax_loader():
     assert chip_smoke.coco_captions(192) == [c for _, c in load_coco_captions()[:192]]
 
 
-def test_cast_params_bf16_matches_jax(f32):
+@pytest.mark.parametrize("init_int8", [False, True])
+def test_cast_params_bf16_matches_jax(f32, init_int8):
     """bf16 matrix storage (norms and biases stay f32), computing in the
-    config's f32: the same greedy tokens as the JAX package's cast tree."""
-    jm = jq.QwenModel(jq.QwenConfig.tiny(), params=f32[0].params, max_new_tokens=8, cast_params_bf16=True)
+    config's f32: the same greedy tokens as the JAX package's cast tree.
+    Given parameters are cast whatever ``init_int8`` says, as the JAX
+    package casts them (it only initializes without them)."""
+    jm = jq.QwenModel(jq.QwenConfig.tiny(), params=f32[0].params, max_new_tokens=8, cast_params_bf16=True,
+                      init_int8=init_int8)
     tm = tq.QwenModel(tq.QwenConfig.tiny(), params=f32[1].params, device="cpu", max_new_tokens=8,
-                      cast_params_bf16=True)
+                      cast_params_bf16=True, init_int8=init_int8)
     assert tm.params["layer_0"]["attn"]["q"]["kernel"].dtype == torch.bfloat16
     assert tm.params["layer_0"]["attn"]["q"]["bias"].dtype == torch.float32
     assert tm.generate(PROMPTS, temperature=0.0) == jm.generate(PROMPTS, temperature=0.0)

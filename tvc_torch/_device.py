@@ -1,4 +1,5 @@
-"""Device resolution shared by the port's entry points."""
+"""Device resolution and the f32 matmul policy shared by the port's entry
+points."""
 
 from __future__ import annotations
 
@@ -20,3 +21,13 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+def disable_tf32(device: torch.device) -> None:
+    """On the card, every f32 matmul and convolution in full f32: no TF32.
+    The f32 plain paths are the references the kernels are held against,
+    and TF32's 10-bit mantissa would move them by far more than the f32
+    tolerances. Process-wide flags, set by each model built on the card."""
+    if device.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False

@@ -29,7 +29,7 @@ import numpy as np
 import torch
 from torch import Tensor, nn
 
-from tvc_torch._device import resolve_device
+from tvc_torch._device import disable_tf32, resolve_device
 from tvc_torch.core.kernels.attention_kernel import fused_mha
 from tvc_torch.core.kernels.attention_layer_kernel import (
     fused_attention_layer,
@@ -802,10 +802,7 @@ class CLIPModel:
     ):
         self.config = config or CLIPConfig()
         self.device = resolve_device(device)
-        if self.device.type == "cuda":
-            # the f32 plain paths are references: full f32, no TF32
-            torch.backends.cuda.matmul.allow_tf32 = False
-            torch.backends.cudnn.allow_tf32 = False
+        disable_tf32(self.device)
         # the differentiable module (einsum attention); the inference module
         # below runs fused_mha in its vision tower when fused_attention is on
         self.module = CLIPModule(dataclasses.replace(self.config, fused_attention=False), device=self.device)

@@ -8,13 +8,12 @@ early exit, teacher forcing), ``generate_async`` and the paraphrase and
 translation entry points, and :class:`ParaphraseAdapter`, the batched
 paraphrase generator a text augmenter takes.
 
-A model supplies its cache and its layers through these methods:
+A model supplies its weights, its GEMM, its cache and its layers through
+these methods:
 
 * ``_decode_state()`` -> ``(non_layer, stacked)``: the weights the decode
-  reads;
-* ``_embed(non_layer, tokens)``, ``_head(non_layer, allowed)`` (a callable
-  from the final hidden state to f32 logits) and ``_final_norm(non_layer,
-  h, y)``: the final RMSNorm of ``h + y`` (of ``h`` where ``y`` is None);
+  reads; ``_mm(x3, leaf)``: ``x [..., K]`` @ a weight leaf, an int8 leaf
+  through the model's own kernel where :func:`takes_kernel` says so;
 * ``_new_cache(B, S)``: a zeroed cache of B rows and S slots;
   ``_put_prefix(cache, pre, P)``: the batch-1 prefix cache ``pre`` into
   every row's slots ``[0, P)``; ``_tile_cache(cache, n)``: each row
@@ -27,13 +26,20 @@ A model supplies its cache and its layers through these methods:
   residual stream and the last layer's branch output not yet added to it
   (None where it is), so that the add goes into the final norm's launch.
 
+The hooks both models share are written here once, for a model to
+override where it differs (Qwen2's tied head, ``tvc_torch.parallel.tp``'s
+tensor-parallel Qwen2): ``_embed(non_layer, tokens)``, ``_head(non_layer,
+allowed)`` (a callable from the final hidden state to f32 logits) and
+``_final_norm(non_layer, h, y)`` (the final RMSNorm of ``h + y``, of ``h``
+where ``y`` is None).
+
 ``SPANS`` names the model's four spans (prepare, prefill, one decode step,
 readback); ``_begin_decode(steps)`` runs before the first step;
 ``_readback(rows, aux)`` reads the tokens back (``aux`` is what
 ``_decode_aux()`` gave right after the decode call was queued).
 
 Both models also share the weight-tree helpers below (dotted names, w8
-leaves ``{"int8", "scale"}``) and ``W8_MAX_ROWS``."""
+leaves ``{"int8", "scale"}``)."""
 
 from __future__ import annotations
 
@@ -45,11 +51,13 @@ import numpy as np
 import torch
 from torch import Tensor
 
+from tvc_torch.core.kernels.decode_fused_kernel import add_rmsnorm, rmsnorm
 from tvc_torch.utils import tracing
 
 #: the largest activation block (B * T rows) the weight-only kernels take;
 #: larger blocks dequantize, then matmul (the JAX package's VMEM limit,
-#: ``tvc/models/qwen.py`` ``mm`` / ``mm_stacked``)
+#: ``tvc/models/qwen.py`` ``mm`` / ``mm_stacked``); read at each call of
+#: :func:`takes_kernel`, so a test may patch it here
 W8_MAX_ROWS = 1024
 
 #: early-exit decode granularity: the decode loop checks the
@@ -69,6 +77,13 @@ def _stable_seed(text: str) -> int:
 
 def _is_q(x) -> bool:
     return isinstance(x, Mapping) and "int8" in x
+
+
+def takes_kernel(rows: int, quant_gemm: str = "w8") -> bool:
+    """Whether an int8 GEMM of ``rows`` activation rows runs its kernel:
+    every W8A8 one; a weight-only one up to ``W8_MAX_ROWS`` rows (a larger
+    block dequantizes, then multiplies, as the JAX package routes it)."""
+    return quant_gemm == "w8a8" or rows <= W8_MAX_ROWS
 
 
 def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, Any]:
@@ -166,6 +181,27 @@ class CausalDecoder:
 
     def _readback(self, rows: Tensor, aux: Any) -> np.ndarray:
         return rows.cpu().numpy()
+
+    def _embed(self, non_layer: Dict, tokens: Tensor) -> Tensor:
+        """Take, then dequantize: only the gathered rows are converted."""
+        e = non_layer["embed"]["embedding"]
+        dt = self.config.dtype
+        if _is_q(e):
+            return e["int8"][tokens].to(dt) * e["scale"].to(dt)
+        return e[tokens].to(dt)
+
+    def _head(self, non_layer: Dict, allowed: Optional[Tensor]) -> Callable[[Tensor], Tensor]:
+        """The f32 logits of the untied head: over the whole vocabulary or,
+        for constrained decoding, over the allowed columns gathered once."""
+        kern = non_layer["lm_head"]["kernel"]
+        if allowed is not None:
+            kern = {"int8": kern["int8"][:, allowed].contiguous(), "scale": kern["scale"][allowed].contiguous()} \
+                if _is_q(kern) else kern[:, allowed]
+        return lambda x: self._mm(x, kern).float()
+
+    def _final_norm(self, non_layer: Dict, h: Tensor, y: Optional[Tensor]) -> Tensor:
+        scale, eps = non_layer["ln_f"]["scale"], self.config.rms_eps
+        return rmsnorm(h, scale, eps) if y is None else add_rmsnorm(h, y, scale, eps)[1]
 
     @staticmethod
     def _sample(lg: Tensor, gen: torch.Generator, temperature: float, top_k: int,

@@ -62,13 +62,14 @@ import torch
 import torch.nn.functional as F
 from torch import Tensor
 
-from tvc_torch._device import resolve_device
+from tvc_torch._device import disable_tf32, resolve_device
 from tvc_torch.core.kernels.decode_fused_kernel import add_rmsnorm, apply_rope, rmsnorm, silu_mul
 from tvc_torch.core.kernels.mla_kernel import mla_decode_attention
 from tvc_torch.core.kernels.moe_kernel import moe_w8_grouped_gemm
 from tvc_torch.core.kernels.quantized_layer_kernel import quantize_linear
 from tvc_torch.core.kernels.w8_matmul_kernel import w8_matmul, w8_matmul_reference
-from tvc_torch.models.decoding import W8_MAX_ROWS, CausalDecoder, _flatten, _is_q, _to, _unflatten
+from tvc_torch.models.decoding import W8_MAX_ROWS  # noqa: F401  (the names this module has always offered)
+from tvc_torch.models.decoding import CausalDecoder, _flatten, _is_q, _to, _unflatten, takes_kernel
 from tvc_torch.utils import tracing
 
 
@@ -271,23 +272,17 @@ class DeepseekV2Model(CausalDecoder):
         seed: int = 0,
         tokenizer: Optional[Callable] = None,
         max_new_tokens: int = 32,
-        init_int8: bool = True,
         device: Optional[Union[str, torch.device]] = None,
     ):
         """params: None (seeded random f32 weights, one part at a time from
         one generator), a tree (nested or dotted names, f32 / bf16 or
         already w8 leaves), or a callable ``part -> tree`` of that part
         (:func:`part_names`). Every part is quantized to w8 as it arrives,
-        on the device, so the transient is one part's.
-
-        init_int8: the model serves w8 weights only; False is refused."""
-        if not init_int8:
-            raise ValueError("DeepseekV2Model serves w8 weights only (init_int8=True)")
+        on the device, so the transient is one part's: the model serves w8
+        weights only."""
         self.config = c = config or DeepseekV2Config.tiny()
         self.device = resolve_device(device)
-        if self.device.type == "cuda":
-            torch.backends.cuda.matmul.allow_tf32 = False
-            torch.backends.cudnn.allow_tf32 = False
+        disable_tf32(self.device)
         self.max_new_tokens = max_new_tokens
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(int(seed))
@@ -366,32 +361,18 @@ class DeepseekV2Model(CausalDecoder):
 
     # -- the decode math ----------------------------------------------------------------
     def _mm(self, x3: Tensor, leaf) -> Tensor:
-        """x [..., K] @ a w8 leaf: the weight-only kernel up to W8_MAX_ROWS
-        rows, dequantize-then-matmul above (as Qwen2's "w8"). Each model
-        module calls its own ``w8_matmul`` / ``w8_matmul_reference``, the
-        names a profiler's ranges wrap per model."""
+        """x [..., K] @ a w8 leaf: the weight-only kernel where
+        :func:`takes_kernel` says so, else dequantize-then-matmul (as
+        Qwen2's "w8"). Each model module calls its own ``w8_matmul`` /
+        ``w8_matmul_reference``, the names a profiler's ranges wrap per
+        model."""
         dt = self.config.dtype
         lead, K = x3.shape[:-1], x3.shape[-1]
         n = math.prod(lead)
-        if n > W8_MAX_ROWS:
+        if not takes_kernel(n):
             return w8_matmul_reference(x3.to(dt), leaf["int8"], leaf["scale"])
         y = w8_matmul(x3.reshape(n, K).to(dt).contiguous(), leaf["int8"], leaf["scale"])
         return y.reshape(*lead, -1)
-
-    def _embed(self, non_layer: Dict, tokens: Tensor) -> Tensor:
-        e = non_layer["embed"]["embedding"]
-        dt = self.config.dtype
-        return e["int8"][tokens].to(dt) * e["scale"].to(dt)
-
-    def _head(self, non_layer: Dict, allowed: Optional[Tensor]) -> Callable[[Tensor], Tensor]:
-        kern = non_layer["lm_head"]["kernel"]
-        if allowed is not None:
-            kern = {"int8": kern["int8"][:, allowed].contiguous(), "scale": kern["scale"][allowed].contiguous()}
-        return lambda x: self._mm(x, kern).float()
-
-    def _final_norm(self, non_layer: Dict, h: Tensor, y: Optional[Tensor]) -> Tensor:
-        scale, eps = non_layer["ln_f"]["scale"], self.config.rms_eps
-        return rmsnorm(h, scale, eps) if y is None else add_rmsnorm(h, y, scale, eps)[1]
 
     def _new_cache(self, B: int, S: int) -> Tensor:
         """The latent cache ``[L, B, S, r + rope]``, zeroed."""

@@ -34,10 +34,11 @@ plain PyTorch, as the JAX package leaves them to XLA. Sampling uses an
 explicit ``torch.Generator`` and an exact top-50: the draws are not
 ``jax.random``'s.
 
-With a ``mesh`` (a ``model`` axis) the model is tensor-parallel
-(``tvc_torch.parallel.tp``): each rank holds its Megatron slices, and the
-decode takes the JAX package's module path under TP: per layer the int8
-leaves dequantize to bf16, plain ``torch.matmul`` on the slices, the
+With a ``mesh`` (a ``model`` axis) ``QwenModel(...)`` builds a
+``TPQwenModel`` (``tvc_torch.parallel.tp``), the tensor-parallel
+implementation of the same hooks: each rank holds its Megatron slices, and
+the decode takes the JAX package's module path under TP: per layer the
+int8 leaves dequantize to bf16, plain ``torch.matmul`` on the slices, the
 module attention, and the collectives of ``tp_block`` (q|k|v and gate|up
 stay unmerged). Every rank passes the same prompts and gets the same
 tokens.
@@ -46,6 +47,7 @@ tokens.
 from __future__ import annotations
 
 import dataclasses
+import inspect
 import math
 import os
 from collections.abc import Mapping
@@ -56,7 +58,7 @@ import torch
 import torch.nn.functional as F
 from torch import Tensor, nn
 
-from tvc_torch._device import resolve_device
+from tvc_torch._device import disable_tf32, resolve_device
 from tvc_torch.core.kernels.decode_attention_kernel import decode_gqa_attention_stacked
 from tvc_torch.core.kernels.decode_fused_kernel import (
     add_rmsnorm,
@@ -89,6 +91,7 @@ from tvc_torch.models.decoding import (  # noqa: F401  (the names this module ha
     _stable_seed,
     _to,
     _unflatten,
+    takes_kernel,
 )
 
 
@@ -421,6 +424,16 @@ class QwenModel(CausalDecoder):
 
     SPANS = ("qwen.prepare", "qwen.prefill", "qwen.decode_step", "qwen.readback")
 
+    def __new__(cls, *args, **kwargs):
+        """Given a ``mesh`` (by keyword or by position), the model is the
+        tensor-parallel :class:`tvc_torch.parallel.tp.TPQwenModel`."""
+        mesh = inspect.signature(cls.__init__).bind(None, *args, **kwargs).arguments.get("mesh")
+        if cls is QwenModel and mesh is not None:
+            from tvc_torch.parallel.tp import TPQwenModel
+
+            cls = TPQwenModel
+        return super().__new__(cls)
+
     def __init__(
         self,
         config: Optional[QwenConfig] = None,
@@ -444,40 +457,30 @@ class QwenModel(CausalDecoder):
         decode_only: the per-layer params are freed once the stacked decode
         tree is built; the module path (``QwenLM.apply``) cannot run after.
 
-        mesh: a ``DeviceMesh`` with a ``model`` axis: tensor-parallel. The
-        parameters (given, or the seeded init, built one layer at a time
-        with ``init_int8``) are cut to this rank's slices
-        (``shard_qwen_params``), so every rank holds the numbers the
+        mesh: a ``DeviceMesh`` with a ``model`` axis: tensor-parallel
+        (``TPQwenModel``). The parameters (given, or the seeded init, built
+        one layer at a time with ``init_int8``) are cut to this rank's
+        slices (``shard_qwen_params``), so every rank holds the numbers the
         single-device model holds; the model lives on the mesh's device."""
         self.config = c = config or QwenConfig.tiny()
         self.mesh = mesh
-        if mesh is not None:
-            from tvc_torch.parallel.mesh import mesh_device
-            from tvc_torch.parallel.tp import check_tp_config
-
-            check_tp_config(c, mesh)
-            self.device = mesh_device(mesh)
-            if device is not None and resolve_device(device) != self.device:
-                raise ValueError(f"device {device} is not the mesh's {self.device}")
-        else:
-            self.device = resolve_device(device)
-        if self.device.type == "cuda":
-            # the f32 plain paths are references: full f32, no TF32
-            torch.backends.cuda.matmul.allow_tf32 = False
-            torch.backends.cudnn.allow_tf32 = False
+        self.device = self._device_for(device)
+        disable_tf32(self.device)
         self.module = QwenLM(c, device="meta")
         self.max_new_tokens = max_new_tokens
         self.decode_only = decode_only
-        if params is None:
-            params = self._init_params_int8(seed) if init_int8 else init_params(c, seed, self.device)
+        if params is None and init_int8:
+            params = self._init_params_int8(seed)  # placed one layer at a time
         else:
-            params = _tree_map(lambda n, t: _to(t, self.device), params)
-        if cast_params_bf16 and not init_int8:
-            params = _tree_map(
-                lambda n, t: t.to(torch.bfloat16) if torch.is_tensor(t) and t.ndim >= 2 else t, params
-            )
-        if mesh is not None and not init_int8:
-            params = self._shard(params)
+            if params is None:
+                params = init_params(c, seed, self.device)
+            else:
+                params = _tree_map(lambda n, t: _to(t, self.device), params)
+            if cast_params_bf16:
+                params = _tree_map(
+                    lambda n, t: t.to(torch.bfloat16) if torch.is_tensor(t) and t.ndim >= 2 else t, params
+                )
+            params = self._place(params)
         self.params = params
         if tokenizer is None:
             from tvc_torch.models.tokenizer import get_tokenizer
@@ -489,32 +492,24 @@ class QwenModel(CausalDecoder):
         self.tokenizer = tokenizer
         self._decode_state_cache = None
 
+    # -- where the parameters live ----------------------------------------------------
+    def _device_for(self, device) -> torch.device:
+        """The device the model runs on."""
+        return resolve_device(device)
+
+    def _place(self, tree: Dict) -> Dict:
+        """What this process holds of a full (sub)tree of the parameters:
+        all of it."""
+        return tree
+
     # -- int8 weights ------------------------------------------------------------
-    def _shard(self, tree: Dict) -> Dict:
-        """This rank's TP slices of a full (sub)tree of the parameters."""
-        from tvc_torch.parallel.tp import shard_qwen_params
-
-        return shard_qwen_params(tree, self.mesh)
-
     def quantize_weights_int8(self, include_embed: bool = True) -> None:
         """Per-output-channel symmetric int8 on every 2-D matrix param
-        (the embedding too unless ``include_embed`` is false). Under TP each
-        leaf is gathered whole, quantized and cut again, so the int8
-        weights and scales are the single-device model's."""
-        if self.mesh is None:
-            self.params = _tree_map(lambda n, t: _quantize_leaf(n, t, include_embed), self.params)
-        else:
-            from tvc_torch.parallel.tp import gather_qwen_leaf
-
-            full = {n: p.shape for n, p in QwenLM(self.config, device="meta").named_parameters()}
-            out = {}
-            for name, leaf in _flatten(self.params).items():
-                if torch.is_tensor(leaf) and leaf.ndim == 2:
-                    q = _quantize_leaf(name, gather_qwen_leaf(leaf, full[name], self.mesh), include_embed)
-                    leaf = _flatten(self._shard(_unflatten({name: q})))[name] if _is_q(q) else leaf
-                out[name] = leaf
-            self.params = _unflatten(out)
+        (the embedding too unless ``include_embed`` is false)."""
+        self.params = _tree_map(lambda n, t: self._quantized(n, t, include_embed), self.params)
         self._decode_state_cache = None
+
+    _quantized = staticmethod(_quantize_leaf)  # one leaf of quantize_weights_int8
 
     def _init_params_int8(self, seed: int) -> Dict:
         """Layer-wise random init straight into int8 serving form, with the
@@ -536,16 +531,13 @@ class QwenModel(CausalDecoder):
                 else:
                     _lecun_normal_(t, gen)
                 flat[name] = _quantize_leaf(name, t)
-            params[f"layer_{i}"] = _unflatten(flat)
-            if self.mesh is not None:  # keep this rank's slices of the whole layer
-                params[f"layer_{i}"] = self._shard({f"layer_{i}": params[f"layer_{i}"]})[f"layer_{i}"]
+            params.update(self._place({f"layer_{i}": _unflatten(flat)}))  # placed whole, before the next layer
         table = lambda *shape: 0.02 * torch.randn(shape, generator=gen, device=dev)
-        params["embed"] = {"embedding": _quantize_leaf("embed.embedding", table(c.vocab_size, c.hidden_size))}
-        params["ln_f"] = {"scale": torch.ones(c.hidden_size, device=dev)}
+        rest = {"embed": {"embedding": _quantize_leaf("embed.embedding", table(c.vocab_size, c.hidden_size))},
+                "ln_f": {"scale": torch.ones(c.hidden_size, device=dev)}}
         if not c.tie_embeddings:
-            params["lm_head"] = {"kernel": _quantize_leaf("lm_head.kernel", table(c.hidden_size, c.vocab_size))}
-        if self.mesh is not None:
-            params.update(self._shard({k: v for k, v in params.items() if not k.startswith("layer_")}))
+            rest["lm_head"] = {"kernel": _quantize_leaf("lm_head.kernel", table(c.hidden_size, c.vocab_size))}
+        params.update(self._place(rest))
         return params
 
     @staticmethod
@@ -566,12 +558,6 @@ class QwenModel(CausalDecoder):
         if self._decode_state_cache is not None and self._decode_state_cache[0] is self.params:
             return self._decode_state_cache[1]
         c, params = self.config, self.params
-        if self.mesh is not None:
-            # the TP module path runs on each layer's own (sliced) tree
-            layers = [params[f"layer_{i}"] for i in range(c.num_layers)]
-            non_layer = {k: v for k, v in params.items() if not k.startswith("layer_")}
-            self._decode_state_cache = (self.params, (non_layer, layers))
-            return non_layer, layers
         if self.decode_only and "layer_0" not in params:
             raise RuntimeError(
                 "decode_only=True freed the per-layer params when the stacked decode tree was built; "
@@ -597,69 +583,42 @@ class QwenModel(CausalDecoder):
         return non_layer, stacked
 
     # -- the decode math ---------------------------------------------------------------
-    def _mm(self, x3: Tensor, leaf) -> Tensor:
-        """x [B, T, K] @ weight leaf; int8 leaves through the W8A8 kernel,
-        or under "w8" through the weight-only kernel up to W8_MAX_ROWS rows
-        and dequantize-then-matmul above."""
+    def _mm(self, x3: Tensor, leaf, layer: Optional[int] = None) -> Tensor:
+        """x [B, T, K] @ a weight leaf, or @ layer ``layer`` of a stacked
+        one. An int8 leaf goes through the W8A8 or the weight-only kernel
+        (the stacked one on a stacked leaf) where :func:`takes_kernel`
+        says so, else through dequantize-then-matmul."""
         c = self.config
         B, T = x3.shape[:2]
-        if _is_q(leaf):
-            if c.quant_gemm != "w8a8" and B * T > W8_MAX_ROWS:
-                return w8_matmul_reference(x3.to(c.dtype), leaf["int8"], leaf["scale"])
-            kern = w8a8_matmul if c.quant_gemm == "w8a8" else w8_matmul
-            y = kern(x3.reshape(B * T, -1).to(c.dtype).contiguous(), leaf["int8"], leaf["scale"])
-            return y.reshape(B, T, -1)
-        return x3.to(c.dtype) @ leaf.to(c.dtype)
-
-    def _mm_stacked(self, x3: Tensor, leaf, l: int) -> Tensor:
-        """x [B, T, K] @ (stacked weight leaf)[l]: int8 leaves through the
-        stacked kernels where :meth:`_mm` would take a kernel, else
-        :meth:`_mm` on layer l's slice."""
-        c = self.config
-        B, T = x3.shape[:2]
-        if _is_q(leaf):
-            if c.quant_gemm == "w8a8" or B * T <= W8_MAX_ROWS:
-                kern = w8a8_matmul_stacked if c.quant_gemm == "w8a8" else w8_matmul_stacked
-                y = kern(x3.reshape(B * T, -1).to(c.dtype).contiguous(), leaf["int8"], leaf["scale"], l)
-                return y.reshape(B, T, -1)
-            return self._mm(x3, {"int8": leaf["int8"][l], "scale": leaf["scale"][l]})
-        return self._mm(x3, leaf[l])
-
-    def _embed(self, non_layer: Dict, tokens: Tensor) -> Tensor:
-        """Take, then dequantize: only the gathered rows are converted."""
-        e = non_layer["embed"]["embedding"]
-        dt = self.config.dtype
-        if self.mesh is not None:
-            from tvc_torch.parallel.tp import tp_embed
-
-            return tp_embed(e, tokens, self.config, self.mesh)
-        if _is_q(e):
-            return e["int8"][tokens].to(dt) * e["scale"].to(dt)
-        return e[tokens].to(dt)
+        if not _is_q(leaf):
+            return x3.to(c.dtype) @ (leaf if layer is None else leaf[layer]).to(c.dtype)
+        w, s = leaf["int8"], leaf["scale"]
+        if not takes_kernel(B * T, c.quant_gemm):
+            if layer is not None:
+                w, s = w[layer], s[layer]
+            return w8_matmul_reference(x3.to(c.dtype), w, s)
+        x2 = x3.reshape(B * T, -1).to(c.dtype).contiguous()
+        if layer is None:
+            y = (w8a8_matmul if c.quant_gemm == "w8a8" else w8_matmul)(x2, w, s)
+        else:
+            y = (w8a8_matmul_stacked if c.quant_gemm == "w8a8" else w8_matmul_stacked)(x2, w, s, layer)
+        return y.reshape(B, T, -1)
 
     def _head(self, non_layer: Dict, allowed: Optional[Tensor]) -> Callable[[Tensor], Tensor]:
         """The f32 logits of the last hidden state: over the whole vocab or,
-        for constrained decoding, over the allowed rows gathered once."""
+        for constrained decoding, over the allowed rows gathered once; a
+        tied head is the embedding table's (plain PyTorch), an untied one
+        :class:`CausalDecoder`'s."""
         c = self.config
         dt = c.dtype
-        if self.mesh is not None:
-            from tvc_torch.parallel.tp import tp_logits
-
-            if allowed is None:
-                return lambda x: tp_logits(x, non_layer, c, self.mesh)
-            return lambda x: tp_logits(x, non_layer, c, self.mesh)[..., allowed]
-        if c.tie_embeddings:
-            e = non_layer["embed"]["embedding"]
-            if allowed is not None:
-                tbl = (e["int8"][allowed].to(dt) * e["scale"].to(dt)) if _is_q(e) else e[allowed].to(dt)
-            else:
-                tbl = (e["int8"].to(torch.bfloat16) * e["scale"].to(torch.bfloat16) if _is_q(e) else e).to(dt)
-            return lambda x: (x.to(dt) @ tbl.T).float()
-        kern = non_layer["lm_head"]["kernel"]
+        if not c.tie_embeddings:
+            return super()._head(non_layer, allowed)
+        e = non_layer["embed"]["embedding"]
         if allowed is not None:
-            kern = {"int8": kern["int8"][:, allowed].contiguous(), "scale": kern["scale"][allowed].contiguous()} \
-                if _is_q(kern) else kern[:, allowed]
-        return lambda x: self._mm(x, kern).float()
+            tbl = self._embed(non_layer, allowed)
+        else:
+            tbl = (e["int8"].to(torch.bfloat16) * e["scale"].to(torch.bfloat16) if _is_q(e) else e).to(dt)
+        return lambda x: (x.to(dt) @ tbl.T).float()
 
     def _merged_layer(self, stacked, l, h, y, cos, sin, mask, ck, cv, cache_index, ctx):
         """QwenBlock with q|k|v and gate|up as single GEMMs, on the residual
@@ -679,7 +638,7 @@ class QwenModel(CausalDecoder):
             x = rmsnorm(h, stacked["ln_attn"][l], c.rms_eps)
         else:
             h, x = add_rmsnorm(h, y, stacked["ln_attn"][l], c.rms_eps)
-        qkv = self._mm_stacked(x, stacked["wqkv"], l)
+        qkv = self._mm(x, stacked["wqkv"], l)
         if T == 1:
             q = qkv_rope_cache(qkv, stacked["bqkv"][l], cos, sin, ck, cv, l, cache_index)
             out = decode_gqa_attention_stacked(q, ck, cv, mask, l).reshape(B, 1, nq)
@@ -694,49 +653,28 @@ class QwenModel(CausalDecoder):
             kk, vv = (ck[l, :, :, : ctx + T], cv[l, :, :, : ctx + T]) if ctx else (k_t, v_t)
             qg = q.reshape(B, T, c.num_kv_heads, R, Dh)
             out = _gqa_attention(qg, kk, vv, mask[:, 0, :, : ctx + T], c.dtype).reshape(B, T, nq)
-        h, x = add_rmsnorm(h, self._mm_stacked(out, stacked["wo"], l), stacked["ln_mlp"][l], c.rms_eps)
-        gu = self._mm_stacked(x, stacked["wgu"], l)
-        return h, self._mm_stacked(silu_mul(gu, c.intermediate_size), stacked["wd"], l)
+        h, x = add_rmsnorm(h, self._mm(out, stacked["wo"], l), stacked["ln_mlp"][l], c.rms_eps)
+        gu = self._mm(x, stacked["wgu"], l)
+        return h, self._mm(silu_mul(gu, c.intermediate_size), stacked["wd"], l)
 
     def _run_layers(self, stacked, x, positions, mask, caches, cache_index, ctx=0, step=None):
         """Every layer: mask [B, 1, T, S] (prefill) or [B, S] (one step);
         ``step`` is not read. Returns ``(h, y)`` (``CausalDecoder``)."""
         c = self.config
         cos, sin = rope_tables(positions, c.hidden_size // c.num_heads, c.rope_theta)
-        if self.mesh is not None:
-            from tvc_torch.parallel.tp import tp_block
-
-            m3 = mask[:, 0] if mask.ndim == 4 else mask[:, None]
-            for l in range(c.num_layers):
-                x = tp_block(stacked[l], x, cos, sin, m3, c, self.mesh, (caches[0][l], caches[1][l]),
-                             cache_index, ctx)
-            return x, None
         y = None
         for l in range(c.num_layers):
             x, y = self._merged_layer(stacked, l, x, y, cos, sin, mask, caches[0], caches[1], cache_index, ctx)
         return x, y
 
-    def _kv_heads(self) -> int:
-        """The kv heads this rank caches (its slice under TP)."""
-        c = self.config
-        if self.mesh is None:
-            return c.num_kv_heads
-        from tvc_torch.parallel.mesh import MODEL_AXIS, axis_size
-
-        return c.num_kv_heads // axis_size(self.mesh, MODEL_AXIS)
-
     # -- the decode loop's hooks (``CausalDecoder``) ---------------------------------------
     def _chunk(self) -> int:
         return DECODE_CHUNK
 
-    def _final_norm(self, non_layer: Dict, h: Tensor, y: Optional[Tensor]) -> Tensor:
-        scale, eps = non_layer["ln_f"]["scale"], self.config.rms_eps
-        return rmsnorm(h, scale, eps) if y is None else add_rmsnorm(h, y, scale, eps)[1]
-
     def _new_cache(self, B: int, S: int) -> Tuple[Tensor, Tensor]:
         """The KV-major caches ``[L, B, KV, S, Dh]``, zeroed."""
         c = self.config
-        shape = (c.num_layers, B, self._kv_heads(), S, c.hidden_size // c.num_heads)
+        shape = (c.num_layers, B, c.num_kv_heads, S, c.hidden_size // c.num_heads)
         return (torch.zeros(shape, dtype=c.dtype, device=self.device),
                 torch.zeros(shape, dtype=c.dtype, device=self.device))
 

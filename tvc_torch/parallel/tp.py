@@ -16,8 +16,9 @@ gives each leaf a PartitionSpec as a tuple: ``()`` replicated, ``(None,
 
 The JAX package lets XLA insert the collectives; here each rank keeps its
 slice (``shard_qwen_params``) and the forward (:func:`tp_block`,
-:func:`make_tp_forward`) runs the module path on the slices with explicit
-collectives over the ``model`` axis: an ``all_reduce`` after the
+:func:`make_tp_forward`, and the decode of :class:`TPQwenModel`, which
+``QwenModel(..., mesh=...)`` builds) runs the module path on the slices
+with explicit collectives over the ``model`` axis: an ``all_reduce`` after the
 row-parallel o and down projections, a masked lookup in the vocab-sharded
 embedding plus an ``all_reduce``, and an ``all_gather`` of the
 column-parallel head's logits. The partial sums are reduced in f32. int8
@@ -31,12 +32,15 @@ from __future__ import annotations
 
 import math
 from collections.abc import Mapping
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 from torch import Tensor
 
-from tvc_torch.models.qwen import _gqa_attention, apply_rope, rmsnorm, rope_tables
+from tvc_torch._device import resolve_device
+from tvc_torch.core.kernels.decode_fused_kernel import apply_rope, rmsnorm
+from tvc_torch.models.decoding import _flatten, _is_q, _unflatten
+from tvc_torch.models.qwen import QwenModel, _gqa_attention, rope_tables
 from tvc_torch.parallel.mesh import MODEL_AXIS, all_gather, all_reduce, axis_index, axis_size, mesh_device
 
 Spec = Tuple[Optional[str], ...]
@@ -150,10 +154,6 @@ def gather_qwen_leaf(leaf: Tensor, full_shape, mesh) -> Tensor:
 # ---------------------------------------------------------------------------
 # the tensor-parallel module path
 # ---------------------------------------------------------------------------
-
-
-def _is_q(x) -> bool:
-    return isinstance(x, Mapping) and "int8" in x
 
 
 def tp_weight(leaf, dtype, r: int) -> Tensor:
@@ -291,3 +291,64 @@ def make_tp_forward(model, mesh):
         return tp_logits(x, params, cfg, mesh)
 
     return forward
+
+
+class TPQwenModel(QwenModel):
+    """``QwenModel(..., mesh=...)``: the tensor-parallel implementation of
+    the decode's hooks. Each rank holds its slices of every parameter and
+    caches its kv heads; the decode runs :func:`tp_embed`, :func:`tp_block`
+    on each layer's own tree and :func:`tp_logits`."""
+
+    # -- where the parameters live ----------------------------------------------------
+    def _device_for(self, device) -> torch.device:
+        check_tp_config(self.config, self.mesh)
+        dev = mesh_device(self.mesh)
+        if device is not None and resolve_device(device) != dev:
+            raise ValueError(f"device {device} is not the mesh's {dev}")
+        return dev
+
+    def _place(self, tree: Dict) -> Dict:
+        """This rank's TP slices of a full (sub)tree of the parameters."""
+        return shard_qwen_params(tree, self.mesh)
+
+    def _quantized(self, name: str, leaf, include_embed: bool):
+        """A matrix is gathered whole, quantized and cut again, so the int8
+        weights and scales are the single-device model's."""
+        if not (torch.is_tensor(leaf) and leaf.ndim == 2):
+            return leaf
+        whole = gather_qwen_leaf(leaf, self.module.get_parameter(name).shape, self.mesh)
+        q = super()._quantized(name, whole, include_embed)
+        return _flatten(self._place(_unflatten({name: q})))[name] if _is_q(q) else leaf
+
+    # -- the decode's hooks ------------------------------------------------------------
+    def _decode_state(self) -> Tuple[Dict, List[Dict]]:
+        """(non-layer params, each layer's own tree, q / k / v and gate / up
+        unmerged)."""
+        p = self.params
+        return ({k: v for k, v in p.items() if not k.startswith("layer_")},
+                [p[f"layer_{i}"] for i in range(self.config.num_layers)])
+
+    def _embed(self, non_layer: Dict, tokens: Tensor) -> Tensor:
+        return tp_embed(non_layer["embed"]["embedding"], tokens, self.config, self.mesh)
+
+    def _head(self, non_layer: Dict, allowed: Optional[Tensor]) -> Callable[[Tensor], Tensor]:
+        head = lambda x: tp_logits(x, non_layer, self.config, self.mesh)  # noqa: E731
+        return head if allowed is None else lambda x: head(x)[..., allowed]
+
+    def _run_layers(self, layers, x, positions, mask, caches, cache_index, ctx=0, step=None):
+        """Every layer through :func:`tp_block` (mask as ``QwenModel``'s);
+        returns ``(h, None)``: each residual add is the layer's."""
+        c = self.config
+        cos, sin = rope_tables(positions, c.hidden_size // c.num_heads, c.rope_theta)
+        m3 = mask[:, 0] if mask.ndim == 4 else mask[:, None]
+        for l, lp in enumerate(layers):
+            x = tp_block(lp, x, cos, sin, m3, c, self.mesh, (caches[0][l], caches[1][l]), cache_index, ctx)
+        return x, None
+
+    def _new_cache(self, B: int, S: int) -> Tuple[Tensor, Tensor]:
+        """The KV-major caches of this rank's kv heads, zeroed."""
+        c = self.config
+        kv = c.num_kv_heads // axis_size(self.mesh, MODEL_AXIS)
+        shape = (c.num_layers, B, kv, S, c.hidden_size // c.num_heads)
+        return (torch.zeros(shape, dtype=c.dtype, device=self.device),
+                torch.zeros(shape, dtype=c.dtype, device=self.device))
