@@ -588,6 +588,7 @@ def phase_kernels() -> dict:
     results.update(phase_w8_kernels(dev))
     results.update(phase_dsv2_kernels(dev))
     results.update(phase_decode_fused_kernels(dev))
+    results.update(phase_dsv2_fused_kernels(dev))
     results.update(phase_mha_topk_kernels(dev))
     for name, shapes in phase_f1_shapes(dev).items():
         results[name]["shapes"] += shapes
@@ -1122,6 +1123,31 @@ def phase_dsv2_kernels(dev) -> dict:
     return out
 
 
+def hold_bit_equal(out: dict, name: str, shape: str, run_k, run_p, nbytes: float) -> None:
+    """A kernel against its plain version on the same card inputs: every
+    output bit-equal (an int64 output of the plain version, such as
+    torch.topk's ids, against the kernel's int32), two calls bit-equal;
+    then both timed, beside the bound from ``nbytes`` at 3.35 TB/s, into
+    ``out[name]``."""
+    import torch
+
+    as_tuple = lambda r: r if isinstance(r, tuple) else (r,)  # noqa: E731
+    got, want = as_tuple(run_k()), as_tuple(run_p())
+    again = as_tuple(run_k())
+    torch.cuda.synchronize()
+    abs_err = max(float((a.float() - b.float()).abs().max()) for a, b in zip(got, want))
+    if not all(torch.equal(a, b.to(a.dtype)) for a, b in zip(got, want)):
+        raise AssertionError(f"{name} {shape} disagrees with its plain version: max |d| {abs_err:.3e}")
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"{name} {shape}: two calls differ")
+    k_ms, p_ms = time_ms(run_k), time_ms(run_p)
+    bms, by = bound_ms_of(nbytes, 0.0)
+    out[name]["shapes"].append({"shape": shape, "ms": k_ms, "plain_ms": p_ms, "bound_ms": bms, "bound_by": by,
+                                "max_abs_err": abs_err})
+    log(f"kernel {name} {shape}: kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} bound_ms={bms:.5f} ({by}) "
+        f"kernel at {100 * bms / k_ms:.1f}% of the bound, bit-equal")
+
+
 def phase_decode_fused_kernels(dev) -> dict:
     """The fused elementwise kernels of the decoder layers at the decode
     step's shapes (960 rows), each against its plain version on the same
@@ -1142,23 +1168,7 @@ def phase_decode_fused_kernels(dev) -> dict:
     gen = torch.Generator(device=dev).manual_seed(22)
     t = lambda *shape: torch.randn(shape, generator=gen, device=dev)  # noqa: E731
     out = {n: {"shapes": []} for n in DECODE_FUSED}
-
-    def hold(name, shape, run_k, run_p, nbytes):
-        as_tuple = lambda r: r if isinstance(r, tuple) else (r,)  # noqa: E731
-        got, want = as_tuple(run_k()), as_tuple(run_p())
-        again = as_tuple(run_k())
-        torch.cuda.synchronize()
-        abs_err = max(float((a.float() - b.float()).abs().max()) for a, b in zip(got, want))
-        if not all(torch.equal(a, b) for a, b in zip(got, want)):
-            raise AssertionError(f"{name} {shape} disagrees with its plain version: max |d| {abs_err:.3e}")
-        if not all(torch.equal(a, b) for a, b in zip(got, again)):
-            raise AssertionError(f"{name} {shape}: two calls differ")
-        k_ms, p_ms = time_ms(run_k), time_ms(run_p)
-        bms, by = bound_ms_of(nbytes, 0.0)
-        out[name]["shapes"].append({"shape": shape, "ms": k_ms, "plain_ms": p_ms, "bound_ms": bms, "bound_by": by,
-                                    "max_abs_err": abs_err})
-        log(f"kernel {name} {shape}: kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} bound_ms={bms:.5f} ({by}) "
-            f"kernel at {100 * bms / k_ms:.1f}% of the bound, bit-equal")
+    hold = lambda *a: hold_bit_equal(out, *a)  # noqa: E731
 
     R, eps = DSV2_ROWS, 1e-6
     for W in (1536, 2048):
@@ -1194,6 +1204,61 @@ def phase_decode_fused_kernels(dev) -> dict:
         gu = (3 * t(rows, 2 * I)).to(bf)
         hold("silu_mul", f"{tag} rows={rows} I={I} bf16", lambda: fused.silu_mul(gu, I),
              lambda: fused.silu_mul_reference(gu, I), 3 * 2 * rows * I)
+    return out
+
+
+def phase_dsv2_fused_kernels(dev) -> dict:
+    """DeepSeek-V2-Lite's own decode-layer kernels at the
+    tvc-dsv2-lite-w8.fresh decode step's shapes (960 rows), each against
+    its plain version on the same card inputs, every output bit-equal, two
+    calls bit-equal, timed beside the bound from their bytes at 3.35 TB/s:
+    the q|kv_a epilogue (16 heads, latent 512, rope 64, cache layer 26 of
+    27, slot 40 of 64), the output scales (16 heads of 128), the routing at
+    960 rows and at a prefill's 3,072 (64 experts, top 6, hidden 2,048;
+    logits drawn at unit scale) and the combine."""
+    import torch
+
+    from tvc_torch.core.kernels import dsv2_fused_kernel as dk
+    from tvc_torch.models.deepseek_v2 import DeepseekV2Config, yarn_inv_freq, yarn_tables
+
+    bf = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(24)
+    t = lambda *shape: torch.randn(shape, generator=gen, device=dev)  # noqa: E731
+    out = {n: {"shapes": []} for n in DSV2_FUSED}
+    hold = lambda *a: hold_bit_equal(out, *a)  # noqa: E731
+
+    c = DeepseekV2Config.deepseek_v2_lite()
+    R, nh, dn, dr, dv, r, H, E, k = (DSV2_ROWS, c.num_heads, c.qk_nope_head_dim, c.qk_rope_head_dim, c.v_head_dim,
+                                     c.kv_lora_rank, c.hidden_size, c.n_routed_experts, c.num_experts_per_tok)
+    L, S, slot = c.num_layers, 64, 40
+    W = nh * (dn + dr) + r + dr
+    qa, suk, kvn = (3 * t(R, 1, W)).to(bf), 1e-2 * t(nh, dn).abs(), 1 + 0.1 * t(r)
+    cos, sin = yarn_tables((torch.arange(R, device=dev)[:, None] % 61) + 3, c, yarn_inv_freq(c).to(dev))
+    ck = t(L, R, S, r + dr).to(bf)
+    cp = ck.clone()
+
+    def rope_k():
+        qn, qpe = dk.mla_rope_cache(qa, cos, sin, suk, kvn, c.rms_eps, ck, L - 1, slot)
+        return qn, qpe, ck[L - 1, :, slot]
+
+    def rope_p():
+        qn, qpe = dk.mla_rope_cache_reference(qa, cos, sin, suk, kvn, c.rms_eps, cp, L - 1, slot)
+        return qn, qpe, cp[L - 1, :, slot]
+
+    hold("mla_rope_cache", f"rows={R} heads {nh} nope {dn} rope {dr} latent {r}, layer {L - 1} of {L}, slot {slot} "
+         f"of {S} bf16", rope_k, rope_p, 2 * 2 * R * W + 4 * (nh * dn + r + dr))
+    del ck, cp
+    o, suv = (3 * t(nh, R, dv)).to(bf), 1e-2 * t(nh, dv).abs()
+    hold("mla_out", f"rows={R} heads {nh} of {dv} bf16", lambda: dk.mla_out(o, suv),
+         lambda: dk.mla_out_reference(o, suv), 2 * 2 * R * nh * dv + 4 * nh * dv)
+    for N in (R, 3072):
+        lg, x = t(N, E), t(N, H).to(bf)
+        hold("moe_route", f"rows={N} experts {E} top {k} hidden {H} bf16", lambda: dk.moe_route(lg, x, k),
+             lambda: dk.moe_route_reference(lg, x, k), 4 * N * E + 2 * N * H + 2 * N * k * H + 16 * N * k)
+    topv, _, pos, _, _ = dk.moe_route_reference(t(R, E), t(R, H).to(bf), k)
+    yd, sh = t(R * k, H).to(bf), t(R, H).to(bf)
+    hold("moe_combine", f"rows={R} top {k} hidden {H} bf16", lambda: dk.moe_combine(yd, pos, topv, sh, 1.0),
+         lambda: dk.moe_combine_reference(yd, pos, topv, sh, 1.0), 2 * (R * k * H + 2 * R * H) + 8 * R * k)
     return out
 
 
@@ -1455,6 +1520,10 @@ KERNEL_SOURCES = {
     "moe_w8_grouped_gemm": ("tvc_torch/csrc/moe_w8.cu", None),
     "mla_decode_attention": ("tvc_torch/csrc/mla_decode.cu", None),
     # no TPU kernel: the JAX package leaves a layer's elementwise steps to XLA
+    "mla_rope_cache": ("tvc_torch/csrc/dsv2_fused.cu", None),
+    "mla_out": ("tvc_torch/csrc/dsv2_fused.cu", None),
+    "moe_route": ("tvc_torch/csrc/dsv2_fused.cu", None),
+    "moe_combine": ("tvc_torch/csrc/dsv2_fused.cu", None),
     "rmsnorm": ("tvc_torch/csrc/decode_fused.cu", None),
     "add_rmsnorm": ("tvc_torch/csrc/decode_fused.cu", None),
     "qkv_rope_cache": ("tvc_torch/csrc/decode_fused.cu", None),
@@ -1462,6 +1531,8 @@ KERNEL_SOURCES = {
 }
 #: the fused elementwise kernels of the decoder layers
 DECODE_FUSED = ("rmsnorm", "add_rmsnorm", "qkv_rope_cache", "silu_mul")
+#: DeepSeek-V2's own: the latent attention's and the MoE block's glue
+DSV2_FUSED = ("mla_rope_cache", "mla_out", "moe_route", "moe_combine")
 #: the kernels each path launches; it launches no other
 PATH_KERNELS = {
     "bf16": ("fused_consistency_scores", "fused_attention_layer", "fused_mlp_layer"),
@@ -1470,7 +1541,8 @@ PATH_KERNELS = {
              *DECODE_FUSED),
     "pipeline": ("fused_consistency_scores", "fused_attention_layer_i8", "fused_mlp_layer_i8", "w8_matmul",
                  "w8_matmul_stacked", "decode_gqa_attention", "decode_gqa_attention_stacked", *DECODE_FUSED),
-    "dsv2": ("w8_matmul", "moe_w8_grouped_gemm", "mla_decode_attention", "rmsnorm", "add_rmsnorm", "silu_mul"),
+    "dsv2": ("w8_matmul", "moe_w8_grouped_gemm", "mla_decode_attention", "rmsnorm", "add_rmsnorm", "silu_mul",
+             *DSV2_FUSED),
     "mha": ("fused_mha",),
     "retrieval": ("fused_consistency_scores", "fused_attention_layer", "fused_mlp_layer", "bank_topk"),
     "tiny int8": ("fused_consistency_scores", "fused_attention_layer_i8", "fused_mlp_layer_i8"),
@@ -2936,16 +3008,19 @@ def dsv2_step_launches(cfg, rows: int) -> dict:
     down, the MoE layers' shared gate|up and down and their two grouped
     expert GEMMs; the untied head. A w8 GEMM launches its kernel only at
     most W8_MAX_ROWS rows (a larger block dequantizes, then matmuls). The
-    fused kernels: the first layer's norm and every layer's latent norm
-    (rmsnorm), every other norm after its residual add, the final one
-    too (add_rmsnorm), the dense layers' SiLU-gated products and the MoE
-    layers' two (routed, shared)."""
+    fused kernels: the first layer's norm (rmsnorm), every other norm
+    after its residual add, the final one too (add_rmsnorm), the dense
+    layers' SiLU-gated products and the MoE layers' two (routed, shared);
+    in every layer the q|kv_a epilogue (mla_rope_cache: rope, the latent
+    norm, the cache writes) and the output scales (mla_out); in every MoE
+    layer the routing (moe_route) and the combine (moe_combine)."""
     from tvc_torch.models.deepseek_v2 import W8_MAX_ROWS
 
-    L = cfg.num_layers
+    L, n_moe = cfg.num_layers, cfg.n_moe_layers
     w8 = (4 * L + 1) if rows <= W8_MAX_ROWS else 0
-    return {"w8_matmul": w8, "moe_w8_grouped_gemm": 2 * cfg.n_moe_layers, "mla_decode_attention": L,
-            "rmsnorm": 1 + L, "add_rmsnorm": 2 * L, "silu_mul": cfg.first_k_dense + 2 * cfg.n_moe_layers}
+    return {"w8_matmul": w8, "moe_w8_grouped_gemm": 2 * n_moe, "mla_decode_attention": L,
+            "rmsnorm": 1, "add_rmsnorm": 2 * L, "silu_mul": cfg.first_k_dense + 2 * n_moe,
+            "mla_rope_cache": L, "mla_out": L, "moe_route": n_moe, "moe_combine": n_moe}
 
 
 def phase_qwen(card: dict) -> dict:
@@ -3356,6 +3431,33 @@ def step_launches(tag: str, model, inp) -> dict:
     return step
 
 
+def hold_dsv2_fused(model, inp, steps: int = 4) -> int:
+    """``steps`` sampled decode steps of ``inp`` through DeepSeek-V2's own
+    fused kernels, then the same tokens teacher-forced with each of them
+    patched to its plain version: every step's logits bit-equal (the
+    kernels return their plain versions' bits, so the layers' outputs
+    agree exactly). Returns the steps held."""
+    import torch
+
+    import tvc_torch.models.deepseek_v2 as ds_mod
+    from tvc_torch.core.kernels import dsv2_fused_kernel as dk
+
+    got, plain = [], []
+    toks = model.decode(inp, seed=0, forced=None, on_logits=lambda i, lg: got.append(lg.clone()))[:, :steps]
+    with ExitStack() as stack:
+        for n in DSV2_FUSED:
+            stack.enter_context(mock.patch.object(ds_mod, n, getattr(dk, n + "_reference")))
+        model.decode(inp, seed=0, forced=toks.T, on_logits=lambda i, lg: plain.append(lg))
+    torch.cuda.synchronize()
+    bad = [i for i in range(steps) if not torch.equal(got[i], plain[i])]
+    log(f"[dsv2] {steps} decode steps at {toks.shape[0]} rows, fused kernels against their plain versions "
+        f"(teacher-forced): logits bit-equal in {steps - len(bad)} of {steps} steps")
+    if bad:
+        worst = max(float((got[i].float() - plain[i].float()).abs().max()) for i in bad)
+        raise AssertionError(f"[dsv2] steps {bad} differ from the plain versions (max |d| {worst:.3e})")
+    return steps
+
+
 def phase_dsv2(card: dict) -> dict:
     """DeepSeek-V2-Lite as the tvc-dsv2-lite-w8.fresh cell builds it
     (DeepseekV2Config.deepseek_v2_lite(), w8, seeded random weights drawn on
@@ -3394,6 +3496,7 @@ def phase_dsv2(card: dict) -> dict:
     _check_path_counts(step, "dsv2", "one decode step")
     if any(step[k] != n for k, n in want.items()):
         raise AssertionError(f"[dsv2] launch counts {step}, expected {want}")
+    held = hold_dsv2_fused(model, inp)
 
     times = []
     for i in range(3):
@@ -3413,7 +3516,7 @@ def phase_dsv2(card: dict) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     return {"launches": step, "rows": rows, "init_s": init_s, "tok_s": tok_s, "ms_per_query": ms_q,
-            "peak_gib": peak}
+            "peak_gib": peak, "fused_held_steps": held}
 
 
 # ---------------------------------------------------------------------------

@@ -5,8 +5,9 @@ On the CPU: each wrapper's plain version equals the expression the models
 ran before it, bit for bit (bf16 and f32, the configurations' widths);
 ``qkv_rope_cache`` writes exactly one slot of one layer of both caches;
 tiny Qwen2 and DeepSeek-V2 decodes through the fused layer loops give the
-tokens and logits of the unfused loops they replaced; one Qwen2 decode step
-calls each wrapper as often as the card test counts its launches; a call
+tokens and logits of the unfused loops they replaced (DeepSeek-V2's with its
+own fused kernels, ``dsv2_fused_kernel``, too); one decode step of each
+calls each wrapper as often as the card counts its launches; a call
 off the CPU with a dtype the kernels do not take raises.
 
 Marked ``cuda`` (each skips without a GPU; on the card, without JAX):
@@ -98,23 +99,81 @@ def _old_qwen_layers(self, stacked, x, positions, mask, caches, cache_index, ctx
     return x, None
 
 
+def _old_rope_interleaved(x, cos, sin):
+    d = x.shape[-1]
+    return _old_rope(x.unflatten(-1, (d // 2, 2)).transpose(-1, -2).flatten(-2), cos, sin)
+
+
+def _old_ds_attention(self, L, l, x, cos, sin, mask, cache, cache_index, ctx):
+    """DeepseekV2Model._attention before the fused kernels."""
+    c, dt = self.config, self.config.dtype
+    B, T, _ = x.shape
+    nh, dn, dv, r = c.num_heads, c.qk_nope_head_dim, c.v_head_dim, c.kv_lora_rank
+    nq = nh * c.q_head_dim
+    qa = self._mm(x, L["wqa"])
+    q = qa[..., :nq].reshape(B, T, nh, c.q_head_dim)
+    q_nope = q[..., :dn]
+    q_pe = _old_rope_interleaved(q[..., dn:], cos, sin)
+    cache[l, :, cache_index : cache_index + T, :r] = _old_rmsnorm(qa[..., nq : nq + r], L["kv_norm"], c.rms_eps)
+    cache[l, :, cache_index : cache_index + T, r:] = _old_rope_interleaved(qa[..., None, nq + r :], cos, sin)[:, :, 0]
+    if T == 1:
+        qn = (q_nope[:, 0].float() * L["suk"]).to(dt).transpose(0, 1)
+        q_lat = torch.bmm(qn, L["wuk"]).transpose(0, 1).contiguous()
+        o_lat = ds.mla_decode_attention(q_lat, q_pe[:, 0].contiguous(), cache, mask, l, c.softmax_scale)
+        o = torch.bmm(o_lat.transpose(0, 1), L["wuv"])
+        out = (o.float() * L["suv"][:, None, :]).to(dt).transpose(0, 1).reshape(B, 1, nh * dv)
+    else:
+        lat = cache[l, :, : ctx + T]
+        kv = self._mm(lat[..., :r], L["wkb"]).reshape(B, ctx + T, nh, dn + dv)
+        lg = (torch.einsum("bthd,bshd->bhts", q_nope.float(), kv[..., :dn].float())
+              + torch.einsum("bthd,bsd->bhts", q_pe.float(), lat[..., r:].float())) * c.softmax_scale
+        w = torch.softmax(lg + mask[:, :, :, : ctx + T], dim=-1).to(dt)
+        out = torch.einsum("bhts,bshd->bthd", w.float(), kv[..., dn:].float()).to(dt).reshape(B, T, nh * dv)
+    return self._mm(out, L["wo"])
+
+
+def _old_ds_moe(self, L, x, step):
+    """DeepseekV2Model._moe before the fused kernels."""
+    c, dt = self.config, self.config.dtype
+    B, T, H = x.shape
+    N, k, E, Ie = B * T, c.num_experts_per_tok, c.n_routed_experts, c.moe_intermediate_size
+    xf = x.reshape(N, H)
+    topv, topi = torch.topk(torch.softmax(xf.float() @ L["router"], dim=-1), k, dim=-1)
+    ids = topi.reshape(-1)
+    counts = self._counts[step, L["moe_index"]] if step is not None else torch.zeros(E, dtype=torch.int32)
+    counts.scatter_add_(0, ids, torch.ones(N * k, dtype=torch.int32))
+    offsets = F.pad(torch.cumsum(counts, 0, dtype=torch.int32), (1, 0))
+    order = torch.argsort(ids, stable=True)
+    xs = xf.index_select(0, torch.div(order, k, rounding_mode="floor")).contiguous()
+    gu = ds.moe_w8_grouped_gemm(xs, L["egu"]["int8"], L["egu"]["scale"], offsets)
+    act = (F.silu(gu[..., :Ie]) * gu[..., Ie:]).to(dt)
+    yd = ds.moe_w8_grouped_gemm(act, L["ed"]["int8"], L["ed"]["scale"], offsets)
+    y = torch.empty_like(yd)
+    y[order] = yd
+    routed = (y.view(N, k, H).float() * (topv * c.routed_scaling_factor)[:, :, None]).sum(dim=1)
+    sgu = self._mm(xf, L["sgu"])
+    Is = sgu.shape[-1] // 2
+    shared = self._mm((F.silu(sgu[..., :Is]) * sgu[..., Is:]).to(dt), L["sd"])
+    return (routed + shared.float()).to(dt).reshape(B, T, H)
+
+
 def _old_ds_layers(self, layers, x, positions, mask, cache, cache_index, ctx=0, step=None):
-    """DeepseekV2Model's layer loop before the fused kernels (the latent
-    norm and the MoE's products go through the wrappers, whose CPU plain
-    versions are those expressions)."""
+    """DeepseekV2Model's layer loop before the fused kernels: the norms,
+    the rope, the latent norm, the absorbed scales, the routing and the
+    combine as the plain expressions they replaced."""
     c, dt = self.config, self.config.dtype
     cos, sin = ds.yarn_tables(positions, c, self._inv_freq)
     for l, L in enumerate(layers):
         h = x
         x = _old_rmsnorm(h, L["ln_attn"], c.rms_eps)
-        h = h + self._attention(L, l, x, cos, sin, mask, cache, cache_index, ctx)
+        h = h + _old_ds_attention(self, L, l, x, cos, sin, mask, cache, cache_index, ctx)
         x = _old_rmsnorm(h, L["ln_mlp"], c.rms_eps)
         if "wgu" in L:
             gu = self._mm(x, L["wgu"])
             I = gu.shape[-1] // 2
             x = h + self._mm((F.silu(gu[..., :I]) * gu[..., I:]).to(dt), L["wd"])
         else:
-            x = h + self._moe(L, x, step)
+            x = h + _old_ds_moe(self, L, x, step)
     return x, None
 
 
@@ -243,10 +302,10 @@ def test_tiny_deepseek_v2_decode_equals_the_unfused_layer_loop(dtype):
     assert torch.equal(t_new, t_old) and torch.equal(lg_new, lg_old)
 
 
-def _spied_step_calls(model, modules, forced_steps=3):
+def _spied_step_calls(model, modules, forced_steps=3, names=FUSED):
     """Calls of each fused wrapper in decode step 1 (spied on the CPU,
     where they compute their plain versions)."""
-    calls, at = dict.fromkeys(FUSED, 0), {}
+    calls, at = dict.fromkeys(names, 0), {}
 
     def spy(name, fn):
         def f(*a, **k):
@@ -257,12 +316,12 @@ def _spied_step_calls(model, modules, forced_steps=3):
     inp = model.prepare(PROMPTS, n_samples=2, shared_prefix=PARAPHRASE_PREFIX)
     with contextlib.ExitStack() as stack:
         for mod in modules:
-            for n in FUSED:
+            for n in names:
                 if hasattr(mod, n):
                     stack.enter_context(mock.patch.object(mod, n, spy(n, getattr(mod, n))))
         model.decode(inp, forced=torch.full((forced_steps, 4), 5),
                      on_logits=lambda i, lg: at.__setitem__(i, dict(calls)))
-    return {n: at[2][n] - at[1][n] for n in FUSED}
+    return {n: at[2][n] - at[1][n] for n in names}
 
 
 def test_one_qwen_step_calls_each_fused_wrapper_as_the_card_counts():
@@ -278,14 +337,22 @@ def test_one_qwen_step_calls_each_fused_wrapper_as_the_card_counts():
 
 
 def test_one_deepseek_v2_step_calls_each_fused_wrapper_as_the_card_counts():
-    """Per layer two norms after residual adds and the latent norm; the
-    dense layer's and each MoE layer's two SiLU-gated products."""
+    """The first layer's norm, per layer two norms after residual adds,
+    the q|kv_a epilogue (the latent norm in it) and the output scales; the
+    dense layer's and each MoE layer's two SiLU-gated products; each MoE
+    layer's routing and combine; as chip_smoke's launch formula counts a
+    step."""
     cfg = ds.DeepseekV2Config.tiny()
     m = ds.DeepseekV2Model(cfg, seed=0, tokenizer=WordTok(), max_new_tokens=8, device="cpu")
-    step = _spied_step_calls(m, [ds, decoding])
-    L = cfg.num_layers
-    assert step == {"rmsnorm": 1 + L, "add_rmsnorm": 2 * L, "qkv_rope_cache": 0,
-                    "silu_mul": cfg.first_k_dense + 2 * cfg.n_moe_layers}
+    names = FUSED + chip_smoke.DSV2_FUSED
+    step = _spied_step_calls(m, [ds, decoding], names=names)
+    L, n_moe = cfg.num_layers, cfg.n_moe_layers
+    assert step == {"rmsnorm": 1, "add_rmsnorm": 2 * L, "qkv_rope_cache": 0,
+                    "silu_mul": cfg.first_k_dense + 2 * n_moe, "mla_rope_cache": L, "mla_out": L,
+                    "moe_route": n_moe, "moe_combine": n_moe}
+    want = chip_smoke.dsv2_step_launches(cfg, 4)
+    assert {n: want[n] for n in names if n != "qkv_rope_cache"} == \
+        {n: step[n] for n in names if n != "qkv_rope_cache"}
 
 
 def test_cpu_wrappers_launch_nothing():

@@ -126,23 +126,20 @@ def test_routed_top_k_sets_match_reference(tiny):
     """Each prompt's prefill routes, layer by layer, against the
     reference's, wherever its k-th and (k+1)-th probabilities are apart."""
     cfg, m, part = tiny
-    got, route = [], m._route
+    got, route = [], ds.moe_route
 
-    def spy(L, xf):
-        out = route(L, xf)
-        if xf.shape[0] > 1:  # the prefill's, not the step's
+    def spy(logits, x, k, counts=None):
+        out = route(logits, x, k, counts)
+        if x.shape[0] > 1:  # the prefill's, not the step's
             got.append(out[1])
         return out
 
-    m._route = spy
-    try:
-        seqs = []
+    seqs = []
+    with mock.patch.object(ds, "moe_route", spy):
         for p in PROMPTS:
             inp = m.prepare([p])
             seqs.append(inp.tokens[0, : int(inp.lengths[0])].tolist())
             m.decode(inp, forced=torch.full((1, 1), 5))
-    finally:
-        del m._route
     rf = ref.DeepseekV2(published(cfg), part)
     rf.logits(seqs)
     n_moe = cfg.n_moe_layers
@@ -261,18 +258,20 @@ def test_routing_counters_are_read_back_with_the_tokens(tiny):
 @pytest.mark.parametrize("max_rows", [1024, 4, 2])
 def test_chip_smoke_step_launch_formula_matches_the_decode(tiny, max_rows):
     """chip_smoke's launches of one decode step, read off the code, equal
-    the calls one step makes to the three wrappers (spied on the CPU, where
-    they compute their plain versions), also under a row limit the step's
-    rows exceed; and give 109 w8 GEMMs, 52 grouped GEMMs, 27 latent
-    attentions, 28 norms, 54 norms after a residual add and 53 SiLU-gated
-    products a step at DeepSeek-V2-Lite's 960 rows. The names the
+    the calls one step makes to the wrappers (spied on the CPU, where they
+    compute their plain versions), also under a row limit the step's rows
+    exceed; and give 109 w8 GEMMs, 52 grouped GEMMs, 27 latent attentions,
+    1 norm, 54 norms after a residual add, 53 SiLU-gated products, 27 q|kv_a
+    epilogues and output scales, 26 routings and combines a step at
+    DeepSeek-V2-Lite's 960 rows. The names the
     benchmark's ranges wrap are called too: ``_moe`` once a MoE layer of a
     step, and ``w8_matmul_reference`` in a prefill above the row limit
     (4: the step's 4 rows take the kernel, the prefill's blocks do not)."""
     import chip_smoke
 
     cfg, m, _ = tiny
-    names = ("w8_matmul", "moe_w8_grouped_gemm", "mla_decode_attention", "rmsnorm", "add_rmsnorm", "silu_mul")
+    names = ("w8_matmul", "moe_w8_grouped_gemm", "mla_decode_attention", "rmsnorm", "add_rmsnorm", "silu_mul",
+             *chip_smoke.DSV2_FUSED)
     calls, at = dict.fromkeys(names + ("w8_matmul_reference", "_moe"), 0), {}
 
     def spy(name, fn):
@@ -301,8 +300,8 @@ def test_chip_smoke_step_launch_formula_matches_the_decode(tiny, max_rows):
     prefill_rows = max(inp.P, inp.tokens.numel())
     assert (at[0]["w8_matmul_reference"] > 0) == (max_rows < prefill_rows) and prefill_rows > 4
     assert chip_smoke.dsv2_step_launches(ds.DeepseekV2Config.deepseek_v2_lite(), 960) == \
-        {"w8_matmul": 109, "moe_w8_grouped_gemm": 52, "mla_decode_attention": 27, "rmsnorm": 28, "add_rmsnorm": 54,
-         "silu_mul": 53}
+        {"w8_matmul": 109, "moe_w8_grouped_gemm": 52, "mla_decode_attention": 27, "rmsnorm": 1, "add_rmsnorm": 54,
+         "silu_mul": 53, "mla_rope_cache": 27, "mla_out": 27, "moe_route": 26, "moe_combine": 26}
 
 
 def test_process_stream_with_the_tiny_model_as_paraphraser():

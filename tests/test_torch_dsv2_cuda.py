@@ -1,8 +1,15 @@
 """DeepSeek-V2's kernels and decode on the card: the grouped w8 expert GEMM
 and the latent decode attention against their plain versions at the
-published widths with uneven offsets, one decode step under
-``torch.cuda.set_sync_debug_mode("error")`` with its launches counted, and
-four prompts' prefill and teacher-forced decode through all 27 layers of
+published widths with uneven offsets (the attention also on a strided
+q_lat); the fused decode-layer glue (``dsv2_fused_kernel``: the q|kv_a
+epilogue, the output scales, the routing with ties placed as torch.topk
+places them, the combine) bit-equal to its plain versions at 960 decode
+rows and a prefill's 3,072; one decode step under
+``torch.cuda.set_sync_debug_mode("error")`` with its launches counted, one
+at 960 rows with its device kernels counted by ``torch.profiler``; 960
+rows decoded through the fused glue and through its plain versions, every
+step's logits and the routing counters bit-equal; and four prompts'
+prefill and teacher-forced decode through all 27 layers of
 DeepSeek-V2-Lite against the plain reference (``reference_deepseek_v2.py``),
 whose int4 control the tolerance refuses.
 
@@ -10,6 +17,7 @@ Marked ``cuda``: each test skips without a GPU. On the card:
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_dsv2_cuda.py
 """
 
+import contextlib
 import math
 import sys
 from pathlib import Path
@@ -18,13 +26,16 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import DSV2_FUSED
 from tvc_torch.core.kernels import (
     launch_counts,
     mla_decode_attention,
     mla_decode_reference,
     moe_w8_grouped_gemm,
     moe_w8_grouped_reference,
+    reset_launch_counts,
 )
+from tvc_torch.core.kernels import dsv2_fused_kernel as dk
 from tvc_torch.models import deepseek_v2 as ds
 from tvc_torch.models.decoding import PARAPHRASE_PREFIX, PARAPHRASE_PROMPT
 
@@ -39,6 +50,8 @@ pytestmark = pytest.mark.cuda
 #: residual stream and of every GEMM's output compounds over 27 layers;
 #: the int4 control's gap is far above it (both read on the card, PERF.md)
 LOGIT_GAP = 0.35
+#: the most device kernels a decode step of 960 rows may launch
+STEP_KERNELS = 650
 
 
 @pytest.fixture
@@ -95,6 +108,105 @@ def test_latent_attention_matches_plain(dev, B, S):
     got = mla_decode_attention(q_lat, q_pe, cache, mask, 1, scale)
     want = mla_decode_reference(q_lat, q_pe, cache, mask, 1, scale)
     torch.testing.assert_close(got.float(), want.float(), atol=1e-2, rtol=1e-2)
+    strided = q_lat.transpose(0, 1).contiguous().transpose(0, 1)  # as the absorbed product's output is read
+    assert not strided.is_contiguous()
+    assert torch.equal(mla_decode_attention(strided, q_pe, cache, mask, 1, scale), got)
+
+
+def _bf(shape, dev, seed, scale=1.0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return (torch.randn(shape, generator=g, device=dev) * scale).to(torch.bfloat16)
+
+
+def _same(got, want):
+    """Every output's bits (topk's int64 ids against the kernel's int32)."""
+    return all(torch.equal(a, b.to(a.dtype)) and a.shape == b.shape for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("B", [960, 7, 1])
+def test_mla_rope_cache_bit_equal_on_the_card(dev, B):
+    """The q|kv_a epilogue at the published widths: q_nope's scales, q_pe
+    roped, the latent norm (row counts that give its sum 32, 128 and 128
+    lanes) and k_pe in slot 40 of layer 26, against the plain version."""
+    c = ds.DeepseekV2Config.deepseek_v2_lite()
+    W = c.num_heads * c.q_head_dim + c.latent_width
+    qa = _bf((B, 1, W), dev, 3, 3.0)
+    cos, sin = ds.yarn_tables((torch.arange(B, device=dev)[:, None] % 61) + 3, c, ds.yarn_inv_freq(c).to(dev))
+    g = torch.Generator(device=dev).manual_seed(4)
+    suk = torch.rand((c.num_heads, c.qk_nope_head_dim), generator=g, device=dev) * 1e-2
+    kvn = 1 + 0.1 * torch.randn(c.kv_lora_rank, generator=g, device=dev)
+    cache = _bf((c.num_layers, B, 64, c.latent_width), dev, 5)
+    plain = cache.clone()
+    got = dk.mla_rope_cache(qa, cos, sin, suk, kvn, c.rms_eps, cache, 26, 40)
+    want = dk.mla_rope_cache_reference(qa, cos, sin, suk, kvn, c.rms_eps, plain, 26, 40)
+    assert _same(got, want) and torch.equal(cache, plain)
+    assert _same(dk.mla_rope_cache(qa, cos, sin, suk, kvn, c.rms_eps, cache, 26, 40), got)
+
+
+@pytest.mark.parametrize("B", [960, 7])
+def test_mla_out_bit_equal_on_the_card(dev, B):
+    o = _bf((16, B, 128), dev, 6, 3.0)
+    suv = torch.rand((16, 128), generator=torch.Generator(device=dev).manual_seed(7), device=dev) * 1e-2
+    got = dk.mla_out(o, suv)
+    assert got.shape == (B, 1, 2048) and torch.equal(got, dk.mla_out_reference(o, suv))
+
+
+@pytest.mark.parametrize("N", [960, 3072, 5])
+def test_moe_route_bit_equal_on_the_card(dev, N):
+    """Router logits of unit scale at 960 decode rows, a prefill's 3,072
+    and a few rows: weights, ids, positions, the sorted rows and the
+    offsets identical to the plain version's, the counter row incremented
+    identically; a second call gives the same bits."""
+    E, k, H = 64, 6, 2048
+    logits = torch.randn((N, E), generator=torch.Generator(device=dev).manual_seed(8), device=dev)
+    x = _bf((N, H), dev, 9)
+    prior = torch.arange(E, dtype=torch.int32, device=dev) % 5
+    c_k, c_p = prior.clone(), prior.clone()
+    got = dk.moe_route(logits, x, k, c_k)
+    want = dk.moe_route_reference(logits, x, k, c_p)
+    assert _same(got, want) and torch.equal(c_k, c_p)
+    fresh = dk.moe_route(logits, x, k)  # the prefill's form: no counter row
+    assert _same(fresh, dk.moe_route_reference(logits, x, k))
+    assert _same(fresh, dk.moe_route(logits, x, k))
+
+
+def test_moe_route_places_ties_as_torch_topk(dev):
+    """Rows whose probabilities tie (equal logits): inside the top k, at
+    its boundary, a whole row equal, pairs of equal values everywhere; the
+    ids and weights come in torch.topk's order."""
+    E, k, H = 64, 6, 64
+    g = torch.Generator(device=dev).manual_seed(10)
+    base = torch.randn((64, E), generator=g, device=dev)
+    rows = [base[0], torch.zeros(E, device=dev)]
+    for a, b in ((3, 40), (63, 0), (5, 6), (17, 33)):
+        r = base[len(rows)].clone()
+        r[b] = r[a] = r.max() + 1  # a tied pair on top
+        rows.append(r)
+    for n in range(4):  # ties at the k-th place
+        r = base[10 + n].clone()
+        top = torch.topk(r, k + 2).indices
+        r[top[k - 1 - n % 2 :]] = r[top[k - 1 - n % 2]].clone()
+        rows.append(r)
+    rows.append(torch.arange(E, device=dev).float().remainder(4))  # 16 copies of each of four values
+    rows.append(torch.arange(E, device=dev).float().div(2).floor())  # equal pairs
+    rows.append(-torch.arange(E, device=dev).float().div(3).floor())
+    logits = torch.stack(rows).contiguous()
+    x = _bf((logits.shape[0], H), dev, 11)
+    got, want = dk.moe_route(logits, x, k), dk.moe_route_reference(logits, x, k)
+    assert torch.equal(got[0], want[0])
+    assert torch.equal(got[1].long(), want[1]), (got[1], want[1])
+    assert _same(got, want)
+
+
+@pytest.mark.parametrize("N", [960, 3072])
+def test_moe_combine_bit_equal_on_the_card(dev, N):
+    E, k, H = 64, 6, 2048
+    logits = torch.randn((N, E), generator=torch.Generator(device=dev).manual_seed(12), device=dev)
+    topv, _, pos, _, _ = dk.moe_route_reference(logits, _bf((N, 8), dev, 13), k)
+    yd, shared = _bf((N * k, H), dev, 14), _bf((N, H), dev, 15)
+    for scale in (1.0, 0.75):
+        got = dk.moe_combine(yd, pos, topv, shared, scale)
+        assert torch.equal(got, dk.moe_combine_reference(yd, pos, topv, shared, scale))
 
 
 def _cfg_dict():
@@ -152,9 +264,77 @@ def test_one_decode_step_syncs_nothing_and_launches_the_kernels_once_a_layer(lit
     got = launch_counts()
     assert got["moe_w8_grouped_gemm"] - at_step["moe_w8_grouped_gemm"] == 2 * cfg.n_moe_layers
     assert got["mla_decode_attention"] - at_step["mla_decode_attention"] == cfg.num_layers
-    fused = {k: got[k] - at_step[k] for k in ("rmsnorm", "add_rmsnorm", "silu_mul")}
-    assert fused == {"rmsnorm": 1 + cfg.num_layers, "add_rmsnorm": 2 * cfg.num_layers,
-                     "silu_mul": cfg.first_k_dense + 2 * cfg.n_moe_layers}
+    fused = {k: got[k] - at_step[k] for k in ("rmsnorm", "add_rmsnorm", "silu_mul") + DSV2_FUSED}
+    L, n_moe = cfg.num_layers, cfg.n_moe_layers
+    assert fused == {"rmsnorm": 1, "add_rmsnorm": 2 * L, "silu_mul": cfg.first_k_dense + 2 * n_moe,
+                     "mla_rope_cache": L, "mla_out": L, "moe_route": n_moe, "moe_combine": n_moe}
+
+
+def _prompts_960(m):
+    caps = [f"caption number {i} of a man riding a wave" for i in range(192)]
+    return m.prepare([PARAPHRASE_PROMPT.format(text=t) for t in caps], 5, None, PARAPHRASE_PREFIX)
+
+
+def test_one_step_at_960_rows_launches_at_most_650_kernels_and_syncs_nothing(lite):
+    """Decode step 1 of 192 prompts x 5 samples: each layer's glue through
+    the fused kernels, no host synchronisation, and at most STEP_KERNELS
+    device kernels in all (torch.profiler; ~1,850 before the fused glue)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg, m, dev = lite
+    inp = _prompts_960(m)
+    at, prof = {}, profile(activities=[ProfilerActivity.CUDA])
+
+    def start(i, lg):
+        if i == 1:
+            torch.cuda.synchronize()
+            prof.__enter__()
+            reset_launch_counts()
+            torch.cuda.set_sync_debug_mode("error")
+
+    try:
+        m.decode(inp, forced=torch.full((2, 960), 100, device=dev), on_logits=start)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    at.update(launch_counts())
+    torch.cuda.synchronize()
+    prof.__exit__(None, None, None)
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+               and "memcpy" not in e.name.lower() and "memset" not in e.name.lower()]
+    names = {}
+    for e in kernels:
+        names[e.name[:60]] = names.get(e.name[:60], 0) + 1
+    print(f"one DeepSeek-V2-Lite decode step at 960 rows: {len(kernels)} device kernels, launch counts {at}; "
+          f"by name {sorted(names.items(), key=lambda kv: -kv[1])}")
+    L, n_moe = cfg.num_layers, cfg.n_moe_layers
+    assert {n: at[n] for n in DSV2_FUSED} == {"mla_rope_cache": L, "mla_out": L, "moe_route": n_moe,
+                                              "moe_combine": n_moe}
+    assert at["moe_w8_grouped_gemm"] == 2 * n_moe and at["mla_decode_attention"] == L
+    assert len(kernels) <= STEP_KERNELS
+
+
+def test_960_rows_decode_is_bit_equal_to_the_plain_glue(lite):
+    """The prefill (its routing and combine) and three decode steps of 192
+    prompts x 5 samples through the fused glue, then the same tokens
+    teacher-forced with each fused wrapper patched to its plain version:
+    every step's logits and the routing counters identical."""
+    from unittest import mock
+
+    cfg, m, dev = lite
+    inp = _prompts_960(m)
+    forced = torch.randint(0, 100000, (3, 960), generator=torch.Generator(device=dev).manual_seed(16), device=dev)
+    runs = []
+    for plain in (False, True):
+        seen = []
+        with contextlib.ExitStack() as stack:
+            if plain:
+                for n in DSV2_FUSED:
+                    stack.enter_context(mock.patch.object(ds, n, getattr(dk, n + "_reference")))
+            m.decode(inp, forced=forced, on_logits=lambda i, lg: seen.append(lg.clone()))
+        runs.append((torch.stack(seen), m._counts[:3].clone()))
+    (lg_k, c_k), (lg_p, c_p) = runs
+    assert torch.equal(c_k, c_p) and int(c_k.sum()) == 3 * cfg.n_moe_layers * 960 * cfg.num_experts_per_tok
+    assert torch.equal(lg_k, lg_p)
 
 
 def test_published_widths_prefill_and_decode_match_the_reference(lite):

@@ -31,6 +31,16 @@ from tvc_torch.core.kernels.decode_fused_kernel import (
     silu_mul,
     silu_mul_reference,
 )
+from tvc_torch.core.kernels.dsv2_fused_kernel import (
+    mla_out,
+    mla_out_reference,
+    mla_rope_cache,
+    mla_rope_cache_reference,
+    moe_combine,
+    moe_combine_reference,
+    moe_route,
+    moe_route_reference,
+)
 from tvc_torch.core.kernels.mla_kernel import mla_decode_attention, mla_decode_reference
 from tvc_torch.core.kernels.moe_kernel import moe_w8_grouped_gemm, moe_w8_grouped_reference
 from tvc_torch.core.kernels.quantized_layer_kernel import (
@@ -71,6 +81,10 @@ KERNELS = (
     add_rmsnorm,
     qkv_rope_cache,
     silu_mul,
+    mla_rope_cache,
+    mla_out,
+    moe_route,
+    moe_combine,
 )
 
 

@@ -87,8 +87,20 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     },
     "mla_decode": {
         # q_lat, q_pe, cache (one layer's [B, S, 576]), mask, out, B, S,
-        # scale, stream
-        "tvc_mla_decode": [_P, _P, _P, _P, _P, _I, _I, _F, _P],
+        # q_lat's row and head strides, scale, stream
+        "tvc_mla_decode": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    },
+    "dsv2_fused": {
+        # qa, cos, sin, suk, kv_norm (f32), cache (the layer's), qn, qpe, B,
+        # nh, nope, rope, r, S, slot, eps, factor (1 / r), lanes a row, stream
+        "tvc_mla_rope_cache": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _I, _P],
+        # o, suv (f32), out, B, nh, v, stream
+        "tvc_mla_out": [_P, _P, _P, _I, _I, _I, _P],
+        # logits (f32), x, ldx, counts (or null), ticket, ws (int32), topv
+        # (f32), xs, N, E, k, H, ws words, stream
+        "tvc_moe_route": [_P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_longlong, _P],
+        # yd, pos (int32), topv (f32), shared, out, N, k, H, scale, stream
+        "tvc_moe_combine": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
     },
     "decode_fused": {
         # x, y (or null), scale (f32), h_out (or null), out, rows, W, ldx,

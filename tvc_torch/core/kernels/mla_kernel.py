@@ -9,7 +9,8 @@ over layer ``layer`` of the latent cache (each row the normed latent c,
 then the roped key k_pe shared by the heads): logits
 ``(q_lat . c + q_pe . k_pe) * scale + mask`` in f32, an f32 softmax over
 the slots, and the weighted sum of the latents. For CUDA tensors (bf16, 16
-heads, the published widths) the wrapper launches
+heads, the published widths; q_lat may be strided, as the transpose of the
+absorbed product's output is) the wrapper launches
 ``tvc_torch/csrc/mla_decode.cu`` once (each latent row read once for all
 heads, an online softmax whose weights are rounded to bf16 before the
 product); for CPU tensors it computes :func:`mla_decode_reference`.
@@ -45,9 +46,14 @@ def _check_mla(q_lat: Tensor, q_pe: Tensor, cache: Tensor, mask: Tensor, layer: 
     H, C, R = MLA_HEADS, MLA_LATENT, MLA_ROPE
     B = q_lat.shape[0] if q_lat.ndim == 3 else -1
     for name, t, shape in (("q_lat", q_lat, (B, H, C)), ("q_pe", q_pe, (B, H, R))):
-        if t.dtype != torch.bfloat16 or tuple(t.shape) != shape or not t.is_contiguous() or t.device != cache.device:
-            raise ValueError(f"{name} must be a contiguous bf16 {list(shape)} tensor on {cache.device}, got "
+        if t.dtype != torch.bfloat16 or tuple(t.shape) != shape or t.device != cache.device:
+            raise ValueError(f"{name} must be a bf16 {list(shape)} tensor on {cache.device}, got "
                              f"{t.dtype} {tuple(t.shape)}")
+    if not q_pe.is_contiguous():
+        raise ValueError("q_pe must be contiguous")
+    if q_lat.stride(2) != 1 or q_lat.stride(0) % 8 or q_lat.stride(1) % 8 or q_lat.data_ptr() % 16:
+        raise ValueError(f"q_lat's latents must be unit-stride rows 16 bytes aligned, with row and head strides a "
+                         f"multiple of 8, got strides {q_lat.stride()}")
     if cache.dtype != torch.bfloat16 or cache.ndim != 4 or cache.shape[1] != B or cache.shape[3] != C + R \
             or not cache.is_contiguous() or not 0 <= layer < cache.shape[0]:
         raise ValueError(f"cache must be a contiguous bf16 [L, {B}, S, {C + R}] tensor holding layer {layer}, got "
@@ -69,11 +75,11 @@ def mla_decode_attention(q_lat: Tensor, q_pe: Tensor, cache: Tensor, mask: Tenso
         raise ValueError(f"unsupported device {q_lat.device}")
     _check_mla(q_lat, q_pe, cache, mask, layer)
     B, S = q_lat.shape[0], cache.shape[2]
-    out = torch.empty_like(q_lat)
+    out = torch.empty((B, MLA_HEADS, MLA_LATENT), dtype=q_lat.dtype, device=q_lat.device)
     _build.check(
         _build.load("mla_decode").tvc_mla_decode(
             q_lat.data_ptr(), q_pe.data_ptr(), cache[layer].data_ptr(), mask.data_ptr(), out.data_ptr(),
-            B, S, float(scale), torch.cuda.current_stream(q_lat.device).cuda_stream,
+            B, S, q_lat.stride(0), q_lat.stride(1), float(scale), torch.cuda.current_stream(q_lat.device).cuda_stream,
         ),
         "tvc_mla_decode",
     )

@@ -107,7 +107,7 @@ __global__ void __launch_bounds__(kThreads) mla_decode_kernel(const bf16* __rest
                                                               const bf16* __restrict__ q_pe,
                                                               const bf16* __restrict__ cache,
                                                               const float* __restrict__ mask, bf16* __restrict__ out,
-                                                              int S, float scale) {
+                                                              int S, int q_sb, int q_sh, float scale) {
   const int b = blockIdx.x;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -123,7 +123,7 @@ __global__ void __launch_bounds__(kThreads) mla_decode_kernel(const bf16* __rest
   constexpr int kChunks = kRowW / 8;  // 16-byte pieces of a row
   for (int c = tid; c < kHeads * kChunks; c += kThreads) {
     const int h = c / kChunks, ch = c % kChunks;
-    const bf16* src = ch < kLat / 8 ? q_lat + ((size_t)b * kHeads + h) * kLat + ch * 8
+    const bf16* src = ch < kLat / 8 ? q_lat + (size_t)b * q_sb + (size_t)h * q_sh + ch * 8
                                     : q_pe + ((size_t)b * kHeads + h) * kRope + (ch - kLat / 8) * 8;
     cp_async16(smem_u32(q + h * kRow + ch * 8), src, true);
   }
@@ -231,12 +231,14 @@ __global__ void __launch_bounds__(kThreads) mla_decode_kernel(const bf16* __rest
 
 }  // namespace
 
-// out bf16 [B, 16, 512] = latent attention of q_lat bf16 [B, 16, 512] and
-// q_pe bf16 [B, 16, 64] over cache bf16 [B, S, 576] (one layer's rows: c
-// then k_pe) with the additive f32 mask [B, S] and the logit scale.
+// out bf16 [B, 16, 512] = latent attention of q_lat bf16 [B, 16, 512] (its
+// rows q_sb and its heads q_sh values apart, multiples of 8, the latents
+// unit-stride) and q_pe bf16 [B, 16, 64] over cache bf16 [B, S, 576] (one
+// layer's rows: c then k_pe) with the additive f32 mask [B, S] and the
+// logit scale.
 extern "C" int tvc_mla_decode(const void* q_lat, const void* q_pe, const void* cache, const void* mask, void* out,
-                              int B, int S, float scale, void* stream) {
-  if (S < 1) return (int)cudaErrorInvalidValue;
+                              int B, int S, int q_sb, int q_sh, float scale, void* stream) {
+  if (S < 1 || q_sb % 8 || q_sh % 8) return (int)cudaErrorInvalidValue;
   if (B < 1) return (int)cudaGetLastError();
   static bool attr = false;
   if (!attr) {
@@ -246,6 +248,6 @@ extern "C" int tvc_mla_decode(const void* q_lat, const void* q_pe, const void* c
     attr = true;
   }
   mla_decode_kernel<<<B, kThreads, kSmem, (cudaStream_t)stream>>>(
-      (const bf16*)q_lat, (const bf16*)q_pe, (const bf16*)cache, (const float*)mask, (bf16*)out, S, scale);
+      (const bf16*)q_lat, (const bf16*)q_pe, (const bf16*)cache, (const float*)mask, (bf16*)out, S, q_sb, q_sh, scale);
   return (int)cudaGetLastError();
 }

@@ -42,6 +42,16 @@ loop and host side (``decoding.CausalDecoder``).
   Each RMSNorm, with the residual add before it, and each SiLU-gated
   product is one launch of the fused kernels (``decode_fused_kernel``):
   the layer loop carries each residual branch's output into the next norm.
+  The glue around the GEMMs is DeepSeek's own kernels
+  (``dsv2_fused_kernel``): in a decode step the rope of q_pe and k_pe, the
+  latent norm, both cache writes and q_nope's W_UK scales are one launch
+  (``mla_rope_cache``), W_UV's scales and the o GEMM's layout one
+  (``mla_out``; the latent attention reads the first absorbed product's
+  transposed output as it is); in every MoE layer, prefill too, the
+  softmax, top-k, counts, offsets, stable sort and gather of the expert
+  rows are two (``moe_route``) and the weighted combine with the shared
+  experts' output one (``moe_combine``). A decode step of DeepSeek-V2-Lite
+  at 960 rows launches 638 device kernels, ~24 a layer.
 
 Spans ``dsv2.prepare``, ``dsv2.prefill``, ``dsv2.decode_step`` (``step``,
 ``rows``) and ``dsv2.readback``; counters ``moe.assignments`` (row-expert
@@ -59,11 +69,17 @@ from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 from torch import Tensor
 
 from tvc_torch._device import disable_tf32, resolve_device
-from tvc_torch.core.kernels.decode_fused_kernel import add_rmsnorm, apply_rope, rmsnorm, silu_mul
+from tvc_torch.core.kernels.decode_fused_kernel import add_rmsnorm, rmsnorm, silu_mul
+from tvc_torch.core.kernels.dsv2_fused_kernel import (  # noqa: F401  (rope_interleaved: the names this module offers)
+    mla_out,
+    mla_rope_cache,
+    moe_combine,
+    moe_route,
+    rope_interleaved,
+)
 from tvc_torch.core.kernels.mla_kernel import mla_decode_attention
 from tvc_torch.core.kernels.moe_kernel import moe_w8_grouped_gemm
 from tvc_torch.core.kernels.quantized_layer_kernel import quantize_linear
@@ -171,14 +187,6 @@ def yarn_tables(positions: Tensor, cfg: DeepseekV2Config, inv_freq: Tensor) -> T
     m = yarn_get_mscale(cfg.rope_factor, cfg.rope_mscale) / yarn_get_mscale(cfg.rope_factor, cfg.rope_mscale_all_dim)
     angles = positions[..., None].float() * inv_freq.to(positions.device)
     return (torch.cos(angles) * m)[:, :, None, :], (torch.sin(angles) * m)[:, :, None, :]
-
-
-def rope_interleaved(x: Tensor, cos: Tensor, sin: Tensor) -> Tensor:
-    """The published rope of ``x [..., rope]``: de-interleave the pairs
-    (2i, 2i + 1) into halves, then rotate-half."""
-    d = x.shape[-1]
-    x = x.unflatten(-1, (d // 2, 2)).transpose(-1, -2).flatten(-2)
-    return apply_rope(x, cos, sin)
 
 
 # ---------------------------------------------------------------------------
@@ -314,7 +322,6 @@ class DeepseekV2Model(CausalDecoder):
         self.tokenizer = tokenizer
         self._inv_freq = yarn_inv_freq(c).to(self.device)
         self._state = None
-        self._ones: Dict[int, Tensor] = {}
         self._counts = None
 
     # -- the decode state ------------------------------------------------------------
@@ -399,18 +406,18 @@ class DeepseekV2Model(CausalDecoder):
         nh, dn, dr, dv, r = c.num_heads, c.qk_nope_head_dim, c.qk_rope_head_dim, c.v_head_dim, c.kv_lora_rank
         nq = nh * c.q_head_dim
         qa = self._mm(x, L["wqa"])
-        q = qa[..., :nq].reshape(B, T, nh, c.q_head_dim)
-        q_nope = q[..., :dn]
-        q_pe = rope_interleaved(q[..., dn:], cos, sin)
-        cache[l, :, cache_index : cache_index + T, :r] = rmsnorm(qa[..., nq : nq + r], L["kv_norm"], c.rms_eps)
-        cache[l, :, cache_index : cache_index + T, r:] = rope_interleaved(qa[..., None, nq + r :], cos, sin)[:, :, 0]
         if absorbed if absorbed is not None else T == 1:  # the absorbed form over the latent cache
-            qn = (q_nope[:, 0].float() * L["suk"]).to(dt).transpose(0, 1)  # [nh, B, nope]
-            q_lat = torch.bmm(qn, L["wuk"]).transpose(0, 1).contiguous()  # [B, nh, r]
-            o_lat = mla_decode_attention(q_lat, q_pe[:, 0].contiguous(), cache, mask, l, c.softmax_scale)
-            o = torch.bmm(o_lat.transpose(0, 1), L["wuv"])  # [nh, B, v]
-            out = (o.float() * L["suv"][:, None, :]).to(dt).transpose(0, 1).reshape(B, 1, nh * dv)
+            qn, q_pe = mla_rope_cache(qa, cos, sin, L["suk"], L["kv_norm"], c.rms_eps, cache, l, cache_index)
+            q_lat = torch.bmm(qn, L["wuk"]).transpose(0, 1)  # [B, nh, r], read strided
+            o_lat = mla_decode_attention(q_lat, q_pe, cache, mask, l, c.softmax_scale)
+            out = mla_out(torch.bmm(o_lat.transpose(0, 1), L["wuv"]), L["suv"])  # [B, 1, nh v]
         else:  # the decompressed form over the block and the ctx cached slots
+            q = qa[..., :nq].reshape(B, T, nh, c.q_head_dim)
+            q_nope = q[..., :dn]
+            q_pe = rope_interleaved(q[..., dn:], cos, sin)
+            cache[l, :, cache_index : cache_index + T, :r] = rmsnorm(qa[..., nq : nq + r], L["kv_norm"], c.rms_eps)
+            k_pe = rope_interleaved(qa[..., None, nq + r :], cos, sin)[:, :, 0]
+            cache[l, :, cache_index : cache_index + T, r:] = k_pe
             lat = cache[l, :, : ctx + T]
             kv = self._mm(lat[..., :r], L["wkb"]).reshape(B, ctx + T, nh, dn + dv)
             lg = (torch.einsum("bthd,bshd->bhts", q_nope.float(), kv[..., :dn].float())
@@ -419,44 +426,21 @@ class DeepseekV2Model(CausalDecoder):
             out = torch.einsum("bhts,bshd->bthd", w.float(), kv[..., dn:].float()).to(dt).reshape(B, T, nh * dv)
         return self._mm(out, L["wo"])
 
-    def _ones_for(self, n: int) -> Tensor:
-        t = self._ones.get(n)
-        if t is None:
-            t = self._ones[n] = torch.ones(n, dtype=torch.int32, device=self.device)
-        return t
-
-    def _route(self, L: Dict, xf: Tensor) -> Tuple[Tensor, Tensor]:
-        """The router: f32 softmax over the experts, the top k by value
-        ``(weights, ids)`` [N, k]."""
-        probs = torch.softmax(xf.float() @ L["router"], dim=-1)
-        return torch.topk(probs, self.config.num_experts_per_tok, dim=-1)
-
     def _moe(self, L: Dict, x: Tensor, step: Optional[int] = None) -> Tensor:
         """The routed experts (two grouped GEMM launches) and the shared
         ones; everything on the device. In decode step ``step`` the
         routing counts add into that step's row of the call's counters."""
-        c, dt = self.config, self.config.dtype
+        c = self.config
         B, T, H = x.shape
-        N, k, E, Ie = B * T, c.num_experts_per_tok, c.n_routed_experts, c.moe_intermediate_size
+        N = B * T
         xf = x.reshape(N, H)
-        topv, topi = self._route(L, xf)
-        ids = topi.reshape(-1)
-        if step is not None:
-            counts = self._counts[step, L["moe_index"]]
-        else:
-            counts = torch.zeros(E, dtype=torch.int32, device=x.device)
-        counts.scatter_add_(0, ids, self._ones_for(N * k))
-        offsets = F.pad(torch.cumsum(counts, 0, dtype=torch.int32), (1, 0))
-        order = torch.argsort(ids, stable=True)
-        xs = xf.index_select(0, torch.div(order, k, rounding_mode="floor")).contiguous()
+        counts = None if step is None else self._counts[step, L["moe_index"]]
+        topv, _, pos, xs, offsets = moe_route(xf.float() @ L["router"], xf, c.num_experts_per_tok, counts)
         gu = moe_w8_grouped_gemm(xs, L["egu"]["int8"], L["egu"]["scale"], offsets)
-        yd = moe_w8_grouped_gemm(silu_mul(gu, Ie), L["ed"]["int8"], L["ed"]["scale"], offsets)
-        y = torch.empty_like(yd)
-        y[order] = yd
-        routed = (y.view(N, k, H).float() * (topv * c.routed_scaling_factor)[:, :, None]).sum(dim=1)
+        yd = moe_w8_grouped_gemm(silu_mul(gu, c.moe_intermediate_size), L["ed"]["int8"], L["ed"]["scale"], offsets)
         sgu = self._mm(xf, L["sgu"])
         shared = self._mm(silu_mul(sgu, sgu.shape[-1] // 2), L["sd"])
-        return (routed + shared.float()).to(dt).reshape(B, T, H)
+        return moe_combine(yd, pos, topv, shared, c.routed_scaling_factor).reshape(B, T, H)
 
     def _layer(self, L: Dict, l: int, h: Tensor, y: Optional[Tensor], cos, sin, mask, cache, cache_index, ctx,
                step) -> Tuple[Tensor, Tensor]:
