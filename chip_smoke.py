@@ -20,7 +20,11 @@ Phases (each raises on failure; the script then exits non-zero):
      call makes; DeepSeek-V2-Lite's grouped w8 expert GEMM (5,760 rows over
      64 experts, unevenly) and latent decode attention (B 960, S 64) at
      the tvc-dsv2-lite-w8.fresh decode step's shapes, bounds from
-     perfbench/work_moe.py;
+     perfbench/work_moe.py; Kimi-Linear's KDA kernels (the preparation,
+     the recurrence on the f32 state, the gated norm), its sigmoid routing
+     over 256 experts and its 32-head latent attention at the
+     tvc-kimi-linear-48b-w8.fresh96 cell's shapes (480 decode rows, a
+     prefill of 96, the prefix at batch 1), bounds from perfbench/work_kda.py;
   4. slice: ViT-B/32 bf16 with the fused layers and seeded random weights,
      a 131,072 x 512 bank, an AdversarialDetector behind a ServingRuntime:
      warmup, requests through submit() and HTTP, then detect_batch at
@@ -109,6 +113,9 @@ Phases (each raises on failure; the script then exits non-zero):
      batch 960): the launches of one decode step, counted in that step
      under set_sync_debug_mode("error"), checked against the code,
      paraphrase tok/s and peak memory;
+  kimi: Kimi-Linear-48B-A3B at its published shape (w8, seeded random
+     weights) decoding 96 COCO paraphrase prompts x 5 samples (decode
+     batch 480), as dsv2;
   mha: CLIPModel(CLIPConfig.vit_b32(fused_attention=True)) through
      inference_module.encode_image at B=256 (one fused_mha launch a vision
      layer, held against the einsum module on the same parameters), the
@@ -589,6 +596,10 @@ def phase_kernels() -> dict:
     results.update(phase_dsv2_kernels(dev))
     results.update(phase_decode_fused_kernels(dev))
     results.update(phase_dsv2_fused_kernels(dev))
+    kimi = phase_kda_kernels(dev)
+    for name in ("moe_route", "mla_decode_attention"):  # beside DeepSeek-V2's shapes
+        results[name]["shapes"] += kimi.pop(name)["shapes"]
+    results.update(kimi)
     results.update(phase_mha_topk_kernels(dev))
     for name, shapes in phase_f1_shapes(dev).items():
         results[name]["shapes"] += shapes
@@ -1262,6 +1273,136 @@ def phase_dsv2_fused_kernels(dev) -> dict:
     return out
 
 
+# Kimi-Linear's kernels against their plain versions, each tolerance the
+# card test's (tests/test_torch_kimi_cuda.py): kda_prepare's window and
+# beta bit-equal, q, k, v, g within f32 rounding (KDA_PREP_TOL: the L2 norms
+# summed in another order); kda_recurrent's state within KDA_STATE_TOL of
+# values of scale ~1 (its two products over 128 summed in another order,
+# ~1e-7 a token) and its bf16 output within one bf16 step (KDA_BF16_TOL
+# relative); kda_gated_norm within one bf16 step. A dropped decay, a
+# wrong beta or a missed pad moves them by O(0.1). The routing at 256
+# experts bit-equal; the latent attention at 32 heads DECODE_TOL's.
+KIMI_ROWS, KIMI_PROMPTS, KIMI_SUFFIX, KIMI_PREFIX = 480, 96, 24, 14
+KDA_PREP_TOL, KDA_STATE_TOL, KDA_BF16_TOL = (2e-6, 1e-6), 2e-5, 2 ** -7
+
+
+def phase_kda_kernels(dev) -> dict:
+    """Kimi-Linear's kernels at the tvc-kimi-linear-48b-w8.fresh96 cell's
+    shapes, each held against its plain version on the same card inputs
+    and timed beside the bound from perfbench/work_kda.py (bytes, or the
+    f32 products at 67 TF/s: the larger): kda_prepare and kda_recurrent at
+    a decode step (480 rows, one token), the prompts' suffixes (96 rows of
+    up to 24 tokens, real lengths 1..24) and the shared prefix (one row of
+    14), 32 heads of 128 and a 128 x 128 f32 state; kda_gated_norm at 480
+    and 96 x 24 rows; the sigmoid routing with the correction bias and
+    renormalisation at 256 experts, top 8, hidden 2,304 (480 rows and a
+    prefill's 2,304), every output bit-equal; the latent attention at 32
+    heads, B 480, S 64."""
+    import torch
+
+    from perfbench import work, work_kda, work_moe
+    from tvc_torch.core.kernels import dsv2_fused_kernel as dk
+    from tvc_torch.core.kernels import kda_kernel as kk
+    from tvc_torch.core.kernels import mla_decode_attention, mla_decode_reference
+    from tvc_torch.models.kimi_linear import KimiLinearConfig
+
+    c = KimiLinearConfig.kimi_linear_48b()
+    nh, d, K, H = c.kda_heads, c.kda_head_dim, c.conv_size, c.hidden_size
+    HD = nh * d
+    b_col = 3 * HD + 2 * d
+    bf = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(25)
+    t = lambda *shape: torch.randn(shape, generator=gen, device=dev)  # noqa: E731
+    out = {n: {"shapes": []} for n in (*KDA, "moe_route", "mla_decode_attention")}
+
+    def record(name, shape, run_k, run_p, ops_bytes, err):
+        k_ms, p_ms = time_ms(run_k), time_ms(run_p, iters=5, warmup=1)
+        bms, by = bound_ms_of(ops_bytes[1], work.peak_seconds(ops_bytes[0]))
+        out[name]["shapes"].append({"shape": shape, "ms": k_ms, "plain_ms": p_ms, "bound_ms": bms, "bound_by": by,
+                                    "max_abs_err": err})
+        log(f"kernel {name} {shape}: kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} bound_ms={bms:.5f} ({by}) "
+            f"kernel at {100 * bms / k_ms:.1f}% of the bound, max_abs_err={err:.3e}")
+
+    def close(name, shape, got, want, rtol, atol):
+        bad = (got.float() - want.float()).abs() > atol + rtol * want.float().abs()
+        if bad.any():
+            raise AssertionError(f"{name} {shape}: {int(bad.sum())} elements beyond rtol {rtol} atol {atol}, max |d| "
+                                 f"{float((got.float() - want.float()).abs().max()):.3e}")
+        return float((got.float() - want.float()).abs().max())
+
+    for tag, (B, T, ragged) in {"decode": (KIMI_ROWS, 1, False), "suffix": (KIMI_PROMPTS, KIMI_SUFFIX, True),
+                                "prefix": (1, KIMI_PREFIX, False)}.items():
+        y = t(B, T, b_col + nh).to(bf)
+        f = (t(B, T, 2 * HD) - 3.0).to(bf)
+        conv_w, a_log, dt_bias = 0.5 * t(3 * HD, K), torch.log(1 + 15 * torch.rand(nh, generator=gen, device=dev)), \
+            0.5 * t(HD)
+        window, state = t(B, K - 1, 3 * HD).to(bf), 0.05 * t(B, nh, d, d)
+        lengths = torch.randint(1, T + 1, (B,), generator=gen, device=dev) if ragged else None
+        shape = f"{tag}: rows={B} T={T}{' real lengths 1..' + str(T) if ragged else ''} heads {nh} of {d}"
+        n = int(lengths.sum()) if ragged else B * T
+        w_k, w_p = window.clone(), window.clone()
+        got = kk.kda_prepare(y, f, conv_w, a_log, dt_bias, w_k, lengths, nh, b_col)
+        want = kk.kda_prepare_reference(y, f, conv_w, a_log, dt_bias, w_p, lengths, nh, b_col)
+        torch.cuda.synchronize()
+        if not (torch.equal(w_k, w_p) and torch.equal(got[1], want[1])):
+            raise AssertionError(f"kda_prepare {shape}: the window or beta differs from the plain version")
+        err = close("kda_prepare", shape, got[0], want[0], *KDA_PREP_TOL)
+        w_t = window.clone()
+        record("kda_prepare", shape, lambda: kk.kda_prepare(y, f, conv_w, a_log, dt_bias, w_t, lengths, nh, b_col),
+               lambda: kk.kda_prepare_reference(y, f, conv_w, a_log, dt_bias, w_t, lengths, nh, b_col),
+               work_kda.prepare(B, T, nh, 3 * HD, K, n), err)
+        qkvg, beta = want
+        s_k, s_p = state.clone(), state.clone()
+        o_k = kk.kda_recurrent(qkvg, beta, s_k, lengths, bf)
+        o_p = kk.kda_recurrent_reference(qkvg, beta, s_p, lengths, bf)
+        torch.cuda.synchronize()
+        err = max(close("kda_recurrent", shape + " (o)", o_k, o_p, KDA_BF16_TOL, 1e-6),
+                  close("kda_recurrent", shape + " (state)", s_k, s_p, 0.0, KDA_STATE_TOL))
+        if ragged and o_k[torch.arange(T, device=dev)[None] >= lengths[:, None]].any():
+            raise AssertionError(f"kda_recurrent {shape}: a pad's output is not zero")
+        s_t = state.clone()
+        record("kda_recurrent", shape, lambda: kk.kda_recurrent(qkvg, beta, s_t, lengths, bf),
+               lambda: kk.kda_recurrent_reference(qkvg, beta, s_t, lengths, bf), work_kda.recurrent(B, T, nh, d, n),
+               err)
+        if tag != "prefix":
+            o, fg, w = t(B, T, nh, d).to(bf), t(B, T, 2 * HD).to(bf), 1 + 0.1 * t(d)
+            gate = fg[..., HD:]
+            err = close("kda_gated_norm", shape, kk.kda_gated_norm(o, gate, w, c.rms_eps),
+                        kk.kda_gated_norm_reference(o, gate, w, c.rms_eps), KDA_BF16_TOL, 1e-6)
+            record("kda_gated_norm", shape, lambda: kk.kda_gated_norm(o, gate, w, c.rms_eps),
+                   lambda: kk.kda_gated_norm_reference(o, gate, w, c.rms_eps), work_kda.gated_norm(B, T, nh, d), err)
+        del y, f, window, state, qkvg, beta, s_k, s_p, s_t, o_k, o_p
+    E, k = c.n_routed_experts, c.num_experts_per_tok
+    for N in (KIMI_ROWS, KIMI_PROMPTS * KIMI_SUFFIX):
+        lg, x, bias = 2 * t(N, E), t(N, H).to(bf), 0.1 * t(E)
+        hold_bit_equal(out, "moe_route", f"rows={N} experts {E} top {k} hidden {H} sigmoid, bias, renormalised bf16",
+                       lambda: dk.moe_route(lg, x, k, None, "sigmoid", bias, True),
+                       lambda: dk.moe_route_reference(lg, x, k, None, "sigmoid", bias, True),
+                       4 * N * E + 4 * E + 2 * N * H + 2 * N * k * H + 16 * N * k)
+    B, S, L = KIMI_ROWS, 64, len(c.mla_layers)
+    q_lat, q_pe = t(B, c.num_heads, c.kv_lora_rank).to(bf), t(B, c.num_heads, c.qk_rope_head_dim).to(bf)
+    cache = t(L, B, S, c.latent_width).to(bf)
+    mask = torch.zeros((B, S), device=dev)
+    mask[:, 48:60] = float("-inf")
+    got = mla_decode_attention(q_lat, q_pe, cache, mask, L - 1, c.softmax_scale)
+    want = mla_decode_reference(q_lat, q_pe, cache, mask, L - 1, c.softmax_scale)
+    abs_err, rel_err = _layer_error(got, want)
+    if not rel_err <= DECODE_TOL:
+        raise AssertionError(f"mla_decode_attention at {c.num_heads} heads disagrees with its plain version: "
+                             f"{abs_err:.3e} abs, {rel_err:.3e} scaled (tol {DECODE_TOL})")
+    ops, nbytes = work_moe.mla_decode(B, S, c.num_heads, c.kv_lora_rank, c.qk_rope_head_dim)
+    k_ms = time_ms(lambda: mla_decode_attention(q_lat, q_pe, cache, mask, L - 1, c.softmax_scale))
+    p_ms = time_ms(lambda: mla_decode_reference(q_lat, q_pe, cache, mask, L - 1, c.softmax_scale), iters=5, warmup=1)
+    bms, by = bound_ms_of(nbytes, work.peak_seconds(ops))
+    shape = (f"B={B} S={S} H={c.num_heads} latent {c.kv_lora_rank} rope {c.qk_rope_head_dim}, layer {L - 1} of {L} "
+             f"(NoPE)")
+    out["mla_decode_attention"]["shapes"].append({"shape": shape, "ms": k_ms, "plain_ms": p_ms, "bound_ms": bms,
+                                                     "bound_by": by, "max_abs_err": abs_err})
+    log(f"kernel mla_decode_attention {shape}: kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} bound_ms={bms:.5f} ({by}) "
+        f"kernel at {100 * bms / k_ms:.1f}% of the bound, max_abs_err={abs_err:.3e} scaled_err={rel_err:.3e}")
+    return out
+
+
 class _WordTokenizer:
     """A word-level tokenizer for QwenConfig.tiny()'s 512-token vocabulary
     (each word hashed to an id; 0 pads, 511 ends a sequence)."""
@@ -1524,6 +1665,10 @@ KERNEL_SOURCES = {
     "mla_out": ("tvc_torch/csrc/dsv2_fused.cu", None),
     "moe_route": ("tvc_torch/csrc/dsv2_fused.cu", None),
     "moe_combine": ("tvc_torch/csrc/dsv2_fused.cu", None),
+    # no TPU kernel: the JAX package runs no linear attention
+    "kda_prepare": ("tvc_torch/csrc/kda.cu", None),
+    "kda_recurrent": ("tvc_torch/csrc/kda.cu", None),
+    "kda_gated_norm": ("tvc_torch/csrc/kda.cu", None),
     "rmsnorm": ("tvc_torch/csrc/decode_fused.cu", None),
     "add_rmsnorm": ("tvc_torch/csrc/decode_fused.cu", None),
     "qkv_rope_cache": ("tvc_torch/csrc/decode_fused.cu", None),
@@ -1533,6 +1678,8 @@ KERNEL_SOURCES = {
 DECODE_FUSED = ("rmsnorm", "add_rmsnorm", "qkv_rope_cache", "silu_mul")
 #: DeepSeek-V2's own: the latent attention's and the MoE block's glue
 DSV2_FUSED = ("mla_rope_cache", "mla_out", "moe_route", "moe_combine")
+#: Kimi-Linear's own: Kimi Delta Attention's preparation, recurrence and gated norm
+KDA = ("kda_prepare", "kda_recurrent", "kda_gated_norm")
 #: the kernels each path launches; it launches no other
 PATH_KERNELS = {
     "bf16": ("fused_consistency_scores", "fused_attention_layer", "fused_mlp_layer"),
@@ -1543,6 +1690,8 @@ PATH_KERNELS = {
                  "w8_matmul_stacked", "decode_gqa_attention", "decode_gqa_attention_stacked", *DECODE_FUSED),
     "dsv2": ("w8_matmul", "moe_w8_grouped_gemm", "mla_decode_attention", "rmsnorm", "add_rmsnorm", "silu_mul",
              *DSV2_FUSED),
+    "kimi": ("w8_matmul", "moe_w8_grouped_gemm", "mla_decode_attention", "rmsnorm", "add_rmsnorm", "silu_mul",
+             *DSV2_FUSED, *KDA),
     "mha": ("fused_mha",),
     "retrieval": ("fused_consistency_scores", "fused_attention_layer", "fused_mlp_layer", "bank_topk"),
     "tiny int8": ("fused_consistency_scores", "fused_attention_layer_i8", "fused_mlp_layer_i8"),
@@ -3023,6 +3172,25 @@ def dsv2_step_launches(cfg, rows: int) -> dict:
             "mla_rope_cache": L, "mla_out": L, "moe_route": n_moe, "moe_combine": n_moe}
 
 
+def kimi_step_launches(cfg, rows: int) -> dict:
+    """Launches of one KimiLinearModel decode step at ``rows`` rows, read
+    off its _layer, _kda and DeepSeek-V2's _attention, _ffn, _moe and
+    _head: DeepSeek-V2's (dsv2_step_launches) in the latent layers; in each
+    KDA layer three w8 GEMMs (q|k|v|f_a|g_a|b, f_b|g_b, o) and its three
+    kernels (kda_prepare, kda_recurrent, kda_gated_norm) in place of the
+    latent attention's two GEMMs and three kernels; the norms, FFNs, MoE
+    blocks and head as DeepSeek-V2's."""
+    from tvc_torch.models.deepseek_v2 import W8_MAX_ROWS
+
+    L, nk, n_moe = cfg.num_layers, len(cfg.kda_layers), cfg.n_moe_layers
+    nm = L - nk
+    w8 = (2 * nm + 3 * nk + 2 * L + 1) if rows <= W8_MAX_ROWS else 0
+    return {"w8_matmul": w8, "moe_w8_grouped_gemm": 2 * n_moe, "mla_decode_attention": nm,
+            "rmsnorm": 1, "add_rmsnorm": 2 * L, "silu_mul": cfg.first_k_dense + 2 * n_moe,
+            "mla_rope_cache": nm, "mla_out": nm, "moe_route": n_moe, "moe_combine": n_moe,
+            **dict.fromkeys(KDA, nk)}
+
+
 def phase_qwen(card: dict) -> dict:
     """Qwen2-7B W8A8 at full width, seeded random weights, 192 COCO
     captions x 3 paraphrases x 16 new tokens."""
@@ -3517,6 +3685,69 @@ def phase_dsv2(card: dict) -> dict:
     torch.cuda.empty_cache()
     return {"launches": step, "rows": rows, "init_s": init_s, "tok_s": tok_s, "ms_per_query": ms_q,
             "peak_gib": peak, "fused_held_steps": held}
+
+
+def phase_kimi(card: dict) -> dict:
+    """Kimi-Linear-48B-A3B as the tvc-kimi-linear-48b-w8.fresh96 cell
+    builds it (KimiLinearConfig.kimi_linear_48b(), w8, seeded random
+    weights drawn on the card a part at a time), decoding 96 COCO
+    paraphrase prompts x 5 samples (decode batch 480): the launches of its
+    second decode step, reset as the step opens and read as the next one
+    opens, with the step under set_sync_debug_mode("error"), against
+    kimi_step_launches; then the paraphrase decode's tok/s and the peak
+    memory (the f32 KDA state of 480 rows beside 46 GiB of weights). The
+    model is freed."""
+    import gc
+
+    import torch
+
+    from tvc_torch.models.decoding import PARAPHRASE_PREFIX, PARAPHRASE_PROMPT
+    from tvc_torch.models.kimi_linear import KimiLinearConfig, KimiLinearModel
+    from tvc_torch.pipeline import PipelineConfig
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg = KimiLinearConfig.kimi_linear_48b()
+    model = KimiLinearModel(cfg, seed=0, max_new_tokens=MAX_NEW)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    log(f"[kimi] model: {cfg.model_name} w8, {cfg.num_layers} x {cfg.hidden_size} ({len(cfg.kda_layers)} KDA, "
+        f"{len(cfg.mla_layers)} latent), {cfg.n_routed_experts} routed experts (top {cfg.num_experts_per_tok}) + "
+        f"{cfg.n_shared_experts} shared, seeded random weights, init {init_s:.2f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    V = PipelineConfig().num_text_variants
+    texts = coco_captions(KIMI_PROMPTS)
+    rows = KIMI_PROMPTS * V
+    inp = model.prepare([PARAPHRASE_PROMPT.format(text=x) for x in texts], V, None, PARAPHRASE_PREFIX)
+    step = step_launches("[kimi]", model, inp)
+    want = kimi_step_launches(cfg, rows)
+    log(f"[kimi] launches in decode step 1 at {rows} rows (prefix {inp.P} tokens, prompt {inp.plen} slots), no "
+        f"host synchronisation: {step}; expected {want}")
+    _check_path_counts(step, "kimi", "one decode step")
+    if any(step[k] != n for k, n in want.items()):
+        raise AssertionError(f"[kimi] launch counts {step}, expected {want}")
+
+    times = []
+    for i in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.generate_paraphrases_batch(texts, V, seed=i)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    t_med = statistics.median(times)
+    tok_s = rows * MAX_NEW / t_med
+    ms_q = 1e3 * t_med / KIMI_PROMPTS
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[kimi] paraphrase decode {KIMI_PROMPTS} x {V} x {MAX_NEW} new tokens (batch {rows}): calls "
+        f"{[round(x, 4) for x in times]} s, median {t_med:.4f} s: {tok_s:.1f} tok/s, {ms_q:.3f} ms/query; peak "
+        f"memory {peak:.2f} GiB on {card['smi']}")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": step, "rows": rows, "init_s": init_s, "tok_s": tok_s, "ms_per_query": ms_q,
+            "peak_gib": peak}
 
 
 # ---------------------------------------------------------------------------
@@ -4769,6 +5000,8 @@ def main() -> int:
     del bf16["detector"], int8["detector"]  # their models and banks
     with phase("dsv2"):
         dsv2 = phase_dsv2(card)
+    with phase("kimi"):
+        kimi = phase_kimi(card)
     with phase("mha"):
         mha = phase_mha(card)
     with phase("retrieval"):
@@ -4781,7 +5014,7 @@ def main() -> int:
     kres["bank_topk"]["shapes"].append(large["shape"])
     with phase("mesh"):
         mesh = phase_mesh(card)
-    paths = {"bf16": bf16, "int8": int8, "qwen": qwen, "pipeline": pipeline, "dsv2": dsv2, "mha": mha,
+    paths = {"bf16": bf16, "int8": int8, "qwen": qwen, "pipeline": pipeline, "dsv2": dsv2, "kimi": kimi, "mha": mha,
              "retrieval": retrieval,
              **tiny, **{k: v for k, v in attack.items() if k in PATH_KERNELS}, "sd": sd,
              **{k: v for k, v in weights.items() if k in PATH_KERNELS},
@@ -4810,6 +5043,8 @@ def main() -> int:
         f"GiB on {card['smi']}")
     log(f"DeepSeek-V2-Lite w8 paraphrase decode (batch {dsv2['rows']}): {dsv2['tok_s']:.1f} tok/s, "
         f"{dsv2['ms_per_query']:.3f} ms/query, peak {dsv2['peak_gib']:.2f} GiB on {card['smi']}")
+    log(f"Kimi-Linear-48B-A3B w8 paraphrase decode (batch {kimi['rows']}): {kimi['tok_s']:.1f} tok/s, "
+        f"{kimi['ms_per_query']:.3f} ms/query, peak {kimi['peak_gib']:.2f} GiB on {card['smi']}")
     log(f"ViT-B/32 vision images/s at B={B_MHA}: " + ", ".join(f"{k} {v:.1f}" for k, v in mha["images_per_s"].items())
         + f"; ViT-L/14 with fused_mha at B={B_MHA_L14}: {mha['l14_images_per_s']:.1f} on {card['smi']}")
     full = attack["attack"]

@@ -66,7 +66,7 @@ def _old_rope(x, cos, sin):
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
 
 
-def _old_qwen_layers(self, stacked, x, positions, mask, caches, cache_index, ctx=0, step=None):
+def _old_qwen_layers(self, stacked, x, positions, mask, caches, cache_index, ctx=0, step=None, lengths=None):
     """QwenModel's layer loop before the fused kernels (each residual add
     done in the layer)."""
     c = self.config
@@ -157,7 +157,7 @@ def _old_ds_moe(self, L, x, step):
     return (routed + shared.float()).to(dt).reshape(B, T, H)
 
 
-def _old_ds_layers(self, layers, x, positions, mask, cache, cache_index, ctx=0, step=None):
+def _old_ds_layers(self, layers, x, positions, mask, cache, cache_index, ctx=0, step=None, lengths=None):
     """DeepseekV2Model's layer loop before the fused kernels: the norms,
     the rope, the latent norm, the absorbed scales, the routing and the
     combine as the plain expressions they replaced."""

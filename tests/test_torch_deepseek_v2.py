@@ -128,8 +128,8 @@ def test_routed_top_k_sets_match_reference(tiny):
     cfg, m, part = tiny
     got, route = [], ds.moe_route
 
-    def spy(logits, x, k, counts=None):
-        out = route(logits, x, k, counts)
+    def spy(logits, x, k, counts=None, *scoring):
+        out = route(logits, x, k, counts, *scoring)
         if x.shape[0] > 1:  # the prefill's, not the step's
             got.append(out[1])
         return out

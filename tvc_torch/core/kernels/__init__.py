@@ -41,6 +41,14 @@ from tvc_torch.core.kernels.dsv2_fused_kernel import (
     moe_route,
     moe_route_reference,
 )
+from tvc_torch.core.kernels.kda_kernel import (
+    kda_gated_norm,
+    kda_gated_norm_reference,
+    kda_prepare,
+    kda_prepare_reference,
+    kda_recurrent,
+    kda_recurrent_reference,
+)
 from tvc_torch.core.kernels.mla_kernel import mla_decode_attention, mla_decode_reference
 from tvc_torch.core.kernels.moe_kernel import moe_w8_grouped_gemm, moe_w8_grouped_reference
 from tvc_torch.core.kernels.quantized_layer_kernel import (
@@ -85,6 +93,9 @@ KERNELS = (
     mla_out,
     moe_route,
     moe_combine,
+    kda_prepare,
+    kda_recurrent,
+    kda_gated_norm,
 )
 
 

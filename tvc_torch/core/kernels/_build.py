@@ -86,9 +86,9 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "tvc_moe_w8_grouped": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     },
     "mla_decode": {
-        # q_lat, q_pe, cache (one layer's [B, S, 576]), mask, out, B, S,
-        # q_lat's row and head strides, scale, stream
-        "tvc_mla_decode": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+        # q_lat, q_pe, cache (one layer's [B, S, 576]), mask, out, B, heads,
+        # S, q_lat's row and head strides, scale, stream
+        "tvc_mla_decode": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     },
     "dsv2_fused": {
         # qa, cos, sin, suk, kv_norm (f32), cache (the layer's), qn, qpe, B,
@@ -97,10 +97,22 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         # o, suv (f32), out, B, nh, v, stream
         "tvc_mla_out": [_P, _P, _P, _I, _I, _I, _P],
         # logits (f32), x, ldx, counts (or null), ticket, ws (int32), topv
-        # (f32), xs, N, E, k, H, ws words, stream
-        "tvc_moe_route": [_P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_longlong, _P],
+        # (f32), xs, bias (f32 or null), N, E, k, H, sigmoid, renorm, ws
+        # words, stream
+        "tvc_moe_route": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_longlong, _P],
         # yd, pos (int32), topv (f32), shared, out, N, k, H, scale, stream
         "tvc_moe_combine": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
+    },
+    "kda": {
+        # y, ldy, f, ldf, conv_w, a_log, dt_bias (f32), conv_state, lengths
+        # (int64 or null), out, beta (f32), B, T, heads, d, K, b_col,
+        # q_scale, stream
+        "tvc_kda_prepare": [_P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
+        # qkvg, beta (f32), state (f32), lengths (int64 or null), out, B, T,
+        # heads, stream
+        "tvc_kda_recurrent": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+        # o, gate, ldg, w (f32), out, rows, heads, d, eps, stream
+        "tvc_kda_gated_norm": [_P, _P, _I, _P, _P, ctypes.c_longlong, _I, _I, _F, _P],
     },
     "decode_fused": {
         # x, y (or null), scale (f32), h_out (or null), out, rows, W, ldx,

@@ -5,7 +5,8 @@ package has no DeepSeek-V2).
                    suk [nh, nope], kv_norm [r], eps, cache [L, B, S, r + rope], layer, cache_index)
         -> (qn [nh, B, nope], q_pe [B, nh, rope])
     mla_out(o [nh, B, v], suv [nh, v]) -> [B, 1, nh v]
-    moe_route(logits [N, E] f32, x [N, H], k, counts [E] int32 or None)
+    moe_route(logits [N, E] f32, x [N, H], k, counts [E] int32 or None,
+              scoring="softmax", bias [E] f32 or None, renorm=False)
         -> (topv [N, k] f32, topi [N, k], pos [N, k] int32, xs [N k, H], offsets [E + 1] int32)
     moe_combine(yd [N k, H], pos [N, k], topv [N, k], shared [N, H], scale) -> [N, H]
 
@@ -17,8 +18,12 @@ of the latent cache in place, and q_nope times W_UK's scales rounded to
 the model's dtype, returned as the ``[nh, B, nope]`` view the first
 absorbed product reads. ``mla_out`` scales the second absorbed product's
 output by W_UV's scales and lays it out for the o GEMM. ``moe_route`` is
-the router after its GEMM: the f32 softmax over the experts, the top k
-(weights and ids in ``torch.topk``'s order), the counts added into
+the router after its GEMM: the experts chosen by the f32 softmax over them
+(DeepSeek-V2) or by ``sigmoid(logit) + bias`` (``scoring="sigmoid"``, the
+correction bias of Kimi-Linear's router), the top k in ``torch.topk``'s
+order of that choice, their weights the chosen softmax values or the
+unbiased sigmoids, divided by their sum (taken in slot order) + 1e-20
+where ``renorm``; the counts added into
 ``counts`` (a fresh zero row when None), the offsets (their cumulative
 sum), each row-expert pair's position in the rows sorted by expert (a
 stable sort: by expert, then by row) and the rows ``xs`` in that order,
@@ -26,7 +31,7 @@ which the grouped expert GEMM takes. ``moe_combine`` sums each row's
 expert outputs, read at their positions, weighted by ``topv * scale``, in
 f32 and adds the shared experts' output before the one rounding.
 
-For CUDA tensors (bf16, the router's logits f32; E <= 64, k <= 32; the
+For CUDA tensors (bf16, the router's logits f32; E <= 256, k <= 32; the
 hidden width and v multiples of 8) each wrapper launches
 ``tvc_torch/csrc/dsv2_fused.cu`` (``moe_route`` twice: the routing, then
 the gather) or raises; for CPU tensors it computes the plain version
@@ -49,7 +54,8 @@ from tvc_torch.core.kernels import _build
 from tvc_torch.core.kernels.decode_fused_kernel import _torch_lanes, apply_rope, rmsnorm_reference
 
 ROUTE_ROWS = 16  # rows a block of the routing pass (csrc/dsv2_fused.cu, kRouteRows)
-MAX_EXPERTS, MAX_TOPK = 64, 32
+MAX_EXPERTS, MAX_TOPK = 256, 32
+SCORINGS = ("softmax", "sigmoid")
 
 
 def rope_interleaved(x: Tensor, cos: Tensor, sin: Tensor) -> Tensor:
@@ -81,11 +87,29 @@ def mla_out_reference(o: Tensor, suv: Tensor) -> Tensor:
     return (o.float() * suv[:, None, :]).to(o.dtype).transpose(0, 1).reshape(B, 1, nh * dv)
 
 
-def moe_route_reference(logits: Tensor, x: Tensor, k: int,
-                        counts: Optional[Tensor] = None) -> Tuple[Tensor, Tensor, Tensor, Tensor, Tensor]:
+def _slot_sum(w: Tensor) -> Tensor:
+    """``w [N, k]`` summed over k in slot order, ``[N, 1]``."""
+    s = w[:, :1]
+    for j in range(1, w.shape[1]):
+        s = s + w[:, j : j + 1]
+    return s
+
+
+def moe_route_reference(logits: Tensor, x: Tensor, k: int, counts: Optional[Tensor] = None,
+                        scoring: str = "softmax", bias: Optional[Tensor] = None,
+                        renorm: bool = False) -> Tuple[Tensor, Tensor, Tensor, Tensor, Tensor]:
     """Plain PyTorch version of :func:`moe_route`."""
     N, E = logits.shape
-    topv, topi = torch.topk(torch.softmax(logits, dim=-1), k, dim=-1)
+    if scoring == "softmax":
+        scores = choice = torch.softmax(logits, dim=-1)
+    else:
+        scores = torch.sigmoid(logits)
+        choice = scores if bias is None else scores + bias
+    topv, topi = torch.topk(choice, k, dim=-1)
+    if choice is not scores:
+        topv = scores.gather(1, topi)
+    if renorm:
+        topv = topv / (_slot_sum(topv) + 1e-20)
     ids = topi.reshape(-1)
     if counts is None:
         counts = torch.zeros(E, dtype=torch.int32, device=x.device)
@@ -203,15 +227,19 @@ def _ticket(dev: torch.device, stream: int) -> Tensor:
     return t
 
 
-def moe_route(logits: Tensor, x: Tensor, k: int,
-              counts: Optional[Tensor] = None) -> Tuple[Tensor, Tensor, Tensor, Tensor, Tensor]:
+def moe_route(logits: Tensor, x: Tensor, k: int, counts: Optional[Tensor] = None, scoring: str = "softmax",
+              bias: Optional[Tensor] = None, renorm: bool = False) -> Tuple[Tensor, Tensor, Tensor, Tensor, Tensor]:
     """The routing of ``x [N, H]`` from the router's f32 ``logits [N, E]``:
     ``(topv, topi, pos, xs, offsets)``; ``counts`` (int32 ``[E]``, or None
-    for a fresh zero row) gets this call's count of each expert added. Two
-    launches, for any N."""
+    for a fresh zero row) gets this call's count of each expert added.
+    ``scoring`` "softmax" or "sigmoid" (with the correction ``bias`` [E]
+    in the choice); ``renorm``: the weights over their sum. Two launches,
+    for any N."""
     k = int(k)
+    if scoring not in SCORINGS or (bias is not None and scoring != "sigmoid"):
+        raise ValueError(f"scoring must be one of {SCORINGS} (a bias with sigmoid only), got {scoring!r}")
     if x.device.type == "cpu":
-        return moe_route_reference(logits, x, k, counts)
+        return moe_route_reference(logits, x, k, counts, scoring, bias, renorm)
     _on_card("moe_route", x)
     N, E = logits.shape
     H = x.shape[-1]
@@ -225,6 +253,8 @@ def moe_route(logits: Tensor, x: Tensor, k: int,
     if counts is not None and (counts.dtype != torch.int32 or tuple(counts.shape) != (E,)
                                or not counts.is_contiguous() or counts.device != x.device):
         raise ValueError(f"counts must be a contiguous int32 [{E}] tensor on {x.device}")
+    if bias is not None:
+        bias = _f32(bias, (E,), x.device, "bias")
     blocks = -(-N // ROUTE_ROWS)
     nk = N * k
     words = 3 * nk + 2 * E + 1 + 2 * blocks * E
@@ -235,7 +265,8 @@ def moe_route(logits: Tensor, x: Tensor, k: int,
     _build.check(
         _build.load("dsv2_fused").tvc_moe_route(
             logits.data_ptr(), x.data_ptr(), ldx, None if counts is None else counts.data_ptr(),
-            _ticket(x.device, stream).data_ptr(), ws.data_ptr(), topv.data_ptr(), xs.data_ptr(), N, E, k, H, words,
+            _ticket(x.device, stream).data_ptr(), ws.data_ptr(), topv.data_ptr(), xs.data_ptr(),
+            None if bias is None else bias.data_ptr(), N, E, k, H, int(scoring == "sigmoid"), int(bool(renorm)), words,
             stream,
         ),
         "tvc_moe_route",

@@ -9,8 +9,9 @@ over layer ``layer`` of the latent cache (each row the normed latent c,
 then the roped key k_pe shared by the heads): logits
 ``(q_lat . c + q_pe . k_pe) * scale + mask`` in f32, an f32 softmax over
 the slots, and the weighted sum of the latents. For CUDA tensors (bf16, 16
-heads, the published widths; q_lat may be strided, as the transpose of the
-absorbed product's output is) the wrapper launches
+heads as DeepSeek-V2-Lite or 32 as Kimi-Linear's latent layers, the
+published widths; q_lat may be strided, as the transpose of the absorbed
+product's output is) the wrapper launches
 ``tvc_torch/csrc/mla_decode.cu`` once (each latent row read once for all
 heads, an online softmax whose weights are rounded to bf16 before the
 product); for CPU tensors it computes :func:`mla_decode_reference`.
@@ -26,7 +27,7 @@ from torch import Tensor
 
 from tvc_torch.core.kernels import _build
 
-MLA_HEADS, MLA_LATENT, MLA_ROPE = 16, 512, 64  # the kernel's widths (DeepSeek-V2-Lite)
+MLA_HEADS, MLA_LATENT, MLA_ROPE = (16, 32), 512, 64  # the kernel's head counts and widths
 
 
 def mla_decode_reference(q_lat: Tensor, q_pe: Tensor, cache: Tensor, mask: Tensor, layer: int,
@@ -43,8 +44,10 @@ def mla_decode_reference(q_lat: Tensor, q_pe: Tensor, cache: Tensor, mask: Tenso
 
 
 def _check_mla(q_lat: Tensor, q_pe: Tensor, cache: Tensor, mask: Tensor, layer: int) -> None:
-    H, C, R = MLA_HEADS, MLA_LATENT, MLA_ROPE
-    B = q_lat.shape[0] if q_lat.ndim == 3 else -1
+    C, R = MLA_LATENT, MLA_ROPE
+    B, H = tuple(q_lat.shape[:2]) if q_lat.ndim == 3 else (-1, -1)
+    if H not in MLA_HEADS:
+        raise ValueError(f"the latent attention kernel takes {MLA_HEADS} heads, got q_lat {tuple(q_lat.shape)}")
     for name, t, shape in (("q_lat", q_lat, (B, H, C)), ("q_pe", q_pe, (B, H, R))):
         if t.dtype != torch.bfloat16 or tuple(t.shape) != shape or t.device != cache.device:
             raise ValueError(f"{name} must be a bf16 {list(shape)} tensor on {cache.device}, got "
@@ -74,12 +77,13 @@ def mla_decode_attention(q_lat: Tensor, q_pe: Tensor, cache: Tensor, mask: Tenso
     if q_lat.device.type != "cuda":
         raise ValueError(f"unsupported device {q_lat.device}")
     _check_mla(q_lat, q_pe, cache, mask, layer)
-    B, S = q_lat.shape[0], cache.shape[2]
-    out = torch.empty((B, MLA_HEADS, MLA_LATENT), dtype=q_lat.dtype, device=q_lat.device)
+    B, H, S = q_lat.shape[0], q_lat.shape[1], cache.shape[2]
+    out = torch.empty((B, H, MLA_LATENT), dtype=q_lat.dtype, device=q_lat.device)
     _build.check(
         _build.load("mla_decode").tvc_mla_decode(
             q_lat.data_ptr(), q_pe.data_ptr(), cache[layer].data_ptr(), mask.data_ptr(), out.data_ptr(),
-            B, S, q_lat.stride(0), q_lat.stride(1), float(scale), torch.cuda.current_stream(q_lat.device).cuda_stream,
+            B, H, S, q_lat.stride(0), q_lat.stride(1), float(scale),
+            torch.cuda.current_stream(q_lat.device).cuda_stream,
         ),
         "tvc_mla_decode",
     )

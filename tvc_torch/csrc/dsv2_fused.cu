@@ -31,7 +31,10 @@
 //  * mla_out_kernel: o [nh, B, v] (the second absorbed product) times the
 //    W_UV scales [nh, v] in f32, rounded to bf16, written as [B, nh v].
 //  * moe_route_kernel: a warp a row of the router's f32 logits [N, E]
-//    (E <= 64). The softmax of PyTorch's softmax_warp_forward (the row's max
+//    (E <= 256), scored by a softmax or (Kimi-Linear, DeepSeek-V3) by
+//    sigmoid(logit) + a correction bias, the weights then the unbiased
+//    sigmoids, renormalised over the k (their sum in slot order, + 1e-20)
+//    where asked. The softmax of PyTorch's softmax_warp_forward (the row's max
 //    and sum by xor butterflies over min(np2(E), 32) lanes, lane l holding
 //    elements l, l + 32; expf, IEEE division); the top k as torch.topk
 //    returns them: the elements of rank < k (rank: the values above, then
@@ -63,7 +66,8 @@ namespace {
 using bf16 = __nv_bfloat16;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kRouteRows = 16;  // rows a block of the routing pass: a warp a row
-constexpr int kMaxExperts = 64, kMaxTopK = 32, kSortSlots = 32;
+constexpr int kMaxExperts = 256, kMaxTopK = 32, kSortSlots = 32;
+constexpr int kLaneExperts = kMaxExperts / 32;  // experts a lane holds
 
 __device__ __forceinline__ float f32(bf16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ bf16 to_bf16(float v) { return __float2bfloat16_rn(v); }
@@ -202,12 +206,16 @@ __host__ __device__ inline long long route_words(int N, int E, int k) {
   return 3LL * N * k + (E + 1) + E + 2 * blocks * E;
 }
 
+// torch.sigmoid's float arithmetic: 1 / (1 + exp(-x))
+__device__ __forceinline__ float sigmoid_f(float x) { return __fdiv_rn(1.f, __fadd_rn(1.f, expf(-x))); }
+
 __global__ void __launch_bounds__(kRouteRows * 32)
-    moe_route_kernel(const float* __restrict__ logits, int N, int E, int k, int* __restrict__ ids,
-                     int* __restrict__ rank, int* __restrict__ offsets, int* __restrict__ starts,
-                     int* __restrict__ hist, int* __restrict__ base, int* __restrict__ counts,
-                     unsigned int* __restrict__ ticket, float* __restrict__ topv) {
+    moe_route_kernel(const float* __restrict__ logits, const float* __restrict__ bias, int N, int E, int k,
+                     int sigmoid, int renorm, int* __restrict__ ids, int* __restrict__ rank, int* __restrict__ offsets,
+                     int* __restrict__ starts, int* __restrict__ hist, int* __restrict__ base,
+                     int* __restrict__ counts, unsigned int* __restrict__ ticket, float* __restrict__ topv) {
   __shared__ float s_p[kRouteRows][kMaxExperts];
+  __shared__ float s_w[kRouteRows][kMaxTopK];
   __shared__ float s_rkey[kRouteRows][kMaxTopK];
   __shared__ int s_rval[kRouteRows][kMaxTopK];
   __shared__ float s_key[kRouteRows][kSortSlots];
@@ -226,44 +234,54 @@ __global__ void __launch_bounds__(kRouteRows * 32)
     while (np2 < E) np2 <<= 1;
     const int width = np2 < 32 ? np2 : 32, iters = np2 / width;
     const float* lr = logits + (size_t)row * E;
-    float el[2];
+    if (sigmoid) {  // the choice: sigmoid(logit) + the correction bias
+      for (int e = lane; e < E; e += 32) {
+        const float sc = sigmoid_f(lr[e]);
+        s_p[warp][e] = bias ? __fadd_rn(sc, bias[e]) : sc;
+      }
+    } else {
+      float el[kLaneExperts];
 #pragma unroll
-    for (int it = 0; it < 2; ++it) {
-      const int e = lane + it * width;
-      el[it] = it < iters && lane < width && e < E ? lr[e] : -INFINITY;
-    }
-    float mx = el[0];
-    for (int it = 0; it < iters; ++it) mx = mx < el[it] ? el[it] : mx;
-    for (int off = width / 2; off > 0; off >>= 1) {
-      const float o = __shfl_xor_sync(kFull, mx, off);
-      mx = mx < o ? o : mx;
-    }
-    float sum = 0.f;
-    for (int it = 0; it < iters; ++it) {
-      el[it] = expf(__fsub_rn(el[it], mx));
-      sum = __fadd_rn(sum, el[it]);
-    }
-    for (int off = width / 2; off > 0; off >>= 1) sum = __fadd_rn(sum, __shfl_xor_sync(kFull, sum, off));
-    for (int it = 0; it < iters; ++it) {
-      const int e = lane + it * width;
-      if (lane < width && e < E) s_p[warp][e] = __fdiv_rn(el[it], sum);
+      for (int it = 0; it < kLaneExperts; ++it) {
+        const int e = lane + it * width;
+        el[it] = it < iters && lane < width && e < E ? lr[e] : -INFINITY;
+      }
+      float mx = el[0];
+#pragma unroll
+      for (int it = 0; it < kLaneExperts; ++it)
+        if (it < iters) mx = mx < el[it] ? el[it] : mx;
+      for (int off = width / 2; off > 0; off >>= 1) {
+        const float o = __shfl_xor_sync(kFull, mx, off);
+        mx = mx < o ? o : mx;
+      }
+      float sum = 0.f;
+#pragma unroll
+      for (int it = 0; it < kLaneExperts; ++it) {
+        if (it < iters) {
+          el[it] = expf(__fsub_rn(el[it], mx));
+          sum = __fadd_rn(sum, el[it]);
+        }
+      }
+      for (int off = width / 2; off > 0; off >>= 1) sum = __fadd_rn(sum, __shfl_xor_sync(kFull, sum, off));
+#pragma unroll
+      for (int it = 0; it < kLaneExperts; ++it) {
+        const int e = lane + it * width;
+        if (it < iters && lane < width && e < E) s_p[warp][e] = __fdiv_rn(el[it], sum);
+      }
     }
     __syncwarp();
 
     // the top k in rank order
-    for (int it = 0; it < iters; ++it) {
-      const int e = lane + it * width;
-      if (lane < width && e < E) {
-        const float v = s_p[warp][e];
-        int rk = 0;
-        for (int j = 0; j < E; ++j) {
-          const float u = s_p[warp][j];
-          rk += (u > v) || (u == v && j < e);
-        }
-        if (rk < k) {
-          s_rkey[warp][rk] = v;
-          s_rval[warp][rk] = e;
-        }
+    for (int e = lane; e < E; e += 32) {
+      const float v = s_p[warp][e];
+      int rk = 0;
+      for (int j = 0; j < E; ++j) {
+        const float u = s_p[warp][j];
+        rk += (u > v) || (u == v && j < e);
+      }
+      if (rk < k) {
+        s_rkey[warp][rk] = v;
+        s_rval[warp][rk] = e;
       }
     }
     s_key[warp][lane] = 0.f;
@@ -318,9 +336,21 @@ __global__ void __launch_bounds__(kRouteRows * 32)
     for (unsigned stride = kSortSlots / 2; stride > 0; stride /= 2) swap_step(stride, false);
     __syncwarp();
     if (lane < k) {
-      topv[(size_t)row * k + lane] = K[lane];
+      // the weight: the chosen value itself, or (sigmoid) the expert's
+      // unbiased score
+      s_w[warp][lane] = sigmoid ? sigmoid_f(lr[Vv[lane]]) : K[lane];
       ids[(size_t)row * k + lane] = Vv[lane];
       s_ids[warp * k + lane] = Vv[lane];
+    }
+    __syncwarp();
+    if (lane < k) {
+      float w = s_w[warp][lane];
+      if (renorm) {  // over the k weights summed in slot order, + 1e-20
+        float den = s_w[warp][0];
+        for (int j = 1; j < k; ++j) den = __fadd_rn(den, s_w[warp][j]);
+        w = __fdiv_rn(w, __fadd_rn(den, 1e-20f));
+      }
+      topv[(size_t)row * k + lane] = w;
     }
   }
   __syncthreads();
@@ -346,8 +376,8 @@ __global__ void __launch_bounds__(kRouteRows * 32)
   if (!s_last) return;
   __threadfence();
 
-  // the last block: every block's start within each expert (8 groups of
-  // blocks, 64 experts), the experts' totals
+  // the last block: every block's start within each expert (2 groups of
+  // blocks, 256 experts), the experts' totals
   constexpr int kGroups = kRouteRows * 32 / kMaxExperts;
   const int nb = gridDim.x, e = threadIdx.x % kMaxExperts, grp = threadIdx.x / kMaxExperts;
   const int chunk = (nb + kGroups - 1) / kGroups;
@@ -375,29 +405,36 @@ __global__ void __launch_bounds__(kRouteRows * 32)
     }
   }
   // the experts' starts (this call's pairs), the counters and the offsets
-  // (their cumulative sum, as F.pad(cumsum(counts)) forms it): warp 0, two
-  // experts a lane
+  // (their cumulative sum, as F.pad(cumsum(counts)) forms it): warp 0,
+  // kLaneExperts neighbouring experts a lane
   if (warp == 0) {
-    const int e0 = 2 * lane, e1 = e0 + 1;
-    int t0 = 0, t1 = 0, c0 = 0, c1 = 0;
-    if (e0 < E) {
-      t0 = s_total[e0];
-      c0 = counts ? counts[e0] + t0 : t0;
-      if (counts) counts[e0] = c0;
+    int tl[kLaneExperts], cl[kLaneExperts], st = 0, sc = 0;
+#pragma unroll
+    for (int q = 0; q < kLaneExperts; ++q) {
+      const int e = kLaneExperts * lane + q;
+      tl[q] = cl[q] = 0;
+      if (e < E) {
+        tl[q] = s_total[e];
+        cl[q] = counts ? counts[e] + tl[q] : tl[q];
+        if (counts) counts[e] = cl[q];
+      }
+      st += tl[q];
+      sc += cl[q];
     }
-    if (e1 < E) {
-      t1 = s_total[e1];
-      c1 = counts ? counts[e1] + t1 : t1;
-      if (counts) counts[e1] = c1;
-    }
-    int st = t0 + t1, sc = c0 + c1;
     for (int off = 1; off < 32; off <<= 1) {
       const int a = __shfl_up_sync(kFull, st, off), c = __shfl_up_sync(kFull, sc, off);
       if (lane >= off) st += a, sc += c;
     }
-    const int xt = st - t0 - t1, xc = sc - c0 - c1;
-    if (e0 < E) starts[e0] = xt, offsets[e0] = xc;
-    if (e1 < E) starts[e1] = xt + t0, offsets[e1] = xc + c0;
+    int xt = st, xc = sc;
+#pragma unroll
+    for (int q = 0; q < kLaneExperts; ++q) xt -= tl[q], xc -= cl[q];
+#pragma unroll
+    for (int q = 0; q < kLaneExperts; ++q) {
+      const int e = kLaneExperts * lane + q;
+      if (e < E) starts[e] = xt, offsets[e] = xc;
+      xt += tl[q];
+      xc += cl[q];
+    }
     if (lane == 31) offsets[E] = sc;
     if (lane == 0) *ticket = 0u;
   }
@@ -506,16 +543,20 @@ extern "C" int tvc_mla_out(const void* o, const void* suv, void* out, int B, int
   return (int)cudaGetLastError();
 }
 
-// logits f32 [N, E] (E <= 64), x bf16 [N, H] (row stride ldx; H and ldx
+// logits f32 [N, E] (E <= 256), x bf16 [N, H] (row stride ldx; H and ldx
 // multiples of 8, x and xs 16 bytes aligned): topv f32 [N,
 // k] and, in ws (int32, ws_words of them, route_words' layout), the ids [N,
 // k] in torch.topk's order, the positions [N, k] of each pair in the
 // expert-sorted rows, the offsets [E + 1]; xs bf16 [N k, H] the rows in that
-// order. counts (int32 [E] or null) += this call's count of each expert, the
+// order. The experts are chosen by softmax(logits) (sigmoid 0) or by
+// sigmoid(logits) + bias (bias f32 [E] or null; the weights then the
+// unbiased sigmoids); renorm: the k weights divided by their sum + 1e-20.
+// counts (int32 [E] or null) += this call's count of each expert, the
 // offsets then its cumulative sum. ticket: an unsigned int in device memory,
 // 0 between calls. Two launches.
 extern "C" int tvc_moe_route(const void* logits, const void* x, int ldx, void* counts, void* ticket, void* ws,
-                             void* topv, void* xs, int N, int E, int k, int H, long long ws_words, void* stream) {
+                             void* topv, void* xs, const void* bias, int N, int E, int k, int H, int sigmoid,
+                             int renorm, long long ws_words, void* stream) {
   if (E < 1 || E > kMaxExperts || k < 1 || k > kMaxTopK || k > E || H < 8 || H % 8 || ldx < H || ldx % 8 ||
       !aligned16(x) || !aligned16(xs))
     return (int)cudaErrorInvalidValue;
@@ -526,8 +567,9 @@ extern "C" int tvc_moe_route(const void* logits, const void* x, int ldx, void* c
   int *ids = w, *rank = w + (size_t)N * k, *pos = w + 2 * (size_t)N * k, *offsets = w + 3 * (size_t)N * k;
   int *starts = offsets + E + 1, *hist = starts + E, *base = hist + (size_t)blocks * E;
   cudaStream_t s = (cudaStream_t)stream;
-  moe_route_kernel<<<blocks, kRouteRows * 32, 0, s>>>((const float*)logits, N, E, k, ids, rank, offsets, starts, hist,
-                                                      base, (int*)counts, (unsigned int*)ticket, (float*)topv);
+  moe_route_kernel<<<blocks, kRouteRows * 32, 0, s>>>((const float*)logits, (const float*)bias, N, E, k, sigmoid,
+                                                      renorm, ids, rank, offsets, starts, hist, base, (int*)counts,
+                                                      (unsigned int*)ticket, (float*)topv);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   moe_scatter_kernel<<<N, row_threads(H), 0, s>>>((const bf16*)x, ldx, ids, rank, starts, base, pos, (bf16*)xs, E, k,

@@ -4,7 +4,8 @@
 //
 // Replaces no TPU kernel: the JAX package has no latent attention. Every
 // position keeps one cache row of 576 values: the normed 512-wide latent
-// c_s and the 64-wide roped key k_pe_s, shared by all 16 query heads. With
+// c_s and the 64-wide roped key k_pe_s, shared by all 16 query heads (32 in
+// Kimi-Linear's latent layers, whose k_pe is unroped). With
 // the up-projections absorbed into the query (q_lat_h = W_UK,h^T q_nope_h,
 // outside this kernel) and into the output (W_UV,h, outside), for each
 // sequence b and head h:
@@ -17,23 +18,24 @@
 // operations a byte, so bytes bound it (960 rows, S = 64: 71 MB a layer,
 // ~21 us at 3.35 TB/s).
 //
-// Design. A block of 4 warps takes one sequence and reads each latent row
-// once for all 16 heads:
+// Design. A block of 4 warps a group of 16 heads (4 at 16 heads, 8 at 32)
+// takes one sequence and reads each latent row once for all its heads:
 //  * the cache rows stream through a 2-stage shared-memory ring of 32-row
 //    tiles by 16-byte cp.async (rows padded by 16 bytes for ldmatrix; rows
 //    past S zero-filled), the next tile in flight while this one is used;
 //    the 16 query rows [q_lat | q_pe] come with the first tile.
-//  * logits on the tensor cores, mma.sync.m16n8k16: the 16 heads are M,
-//    8 cache rows a warp are N, the 576-wide row is K (36 steps); scaled
+//  * logits on the tensor cores, mma.sync.m16n8k16: a group's 16 heads are
+//    M, 8 cache rows a warp are N, the 576-wide row is K (36 steps); scaled
 //    with __fmul_rn, the mask added with __fadd_rn.
 //  * an online softmax in f32 (one warp a head row, a lane a slot): the
 //    running max and sum per head, each tile's weights exp(s - m) rounded
 //    to bf16, the sum taken of the rounded weights, and the accumulators
 //    rescaled by exp(m_old - m_new).
-//  * P.C on the tensor cores: the weights [16 x 32] are A, the tile's
-//    first 512 columns are B (ldmatrix.trans), each warp 128 of the 512
-//    output columns in 64 f32 registers a thread; divided by the sum and
-//    rounded to bf16 at the end.
+//  * P.C on the tensor cores: a group's weights [16 x 32] are A, the
+//    tile's first 512 columns are B (ldmatrix.trans), each warp of the
+//    group 128 of the 512 output columns in 64 f32 registers a thread;
+//    divided by the sum and rounded to bf16 at the end.
+// Each head's arithmetic is the same at 16 and at 32 heads.
 // mma.sync and not wgmma: the products have 16 rows, a quarter of
 // wgmma's 64. S is at most the cache length the wrapper checks.
 
@@ -46,15 +48,21 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kHeads = 16, kLat = 512, kRope = 64, kRowW = kLat + kRope;  // 576
-constexpr int kTile = 32, kStages = 2, kThreads = 128;
+constexpr int kLat = 512, kRope = 64, kRowW = kLat + kRope;  // 576
+constexpr int kTile = 32, kStages = 2;
 constexpr int kRow = kRowW + 8;       // bf16 a padded shared row holds (1,168 bytes)
 constexpr int kPStride = kTile + 8;   // bf16 a weight row holds
-constexpr int kQBytes = kHeads * kRow * 2;
 constexpr int kTileBytes = kTile * kRow * 2;
-constexpr int kLogitBytes = kHeads * kTile * 4;
-constexpr int kPBytes = kHeads * kPStride * 2;
-constexpr int kSmem = kQBytes + kStages * kTileBytes + kLogitBytes + kPBytes + 3 * kHeads * 4;
+
+// the block's layout at kHeads heads: 4 warps a group of 16
+template <int kHeads>
+struct Mla {
+  static constexpr int kThreads = 128 * (kHeads / 16);
+  static constexpr int kQBytes = kHeads * kRow * 2;
+  static constexpr int kLogitBytes = kHeads * kTile * 4;
+  static constexpr int kPBytes = kHeads * kPStride * 2;
+  static constexpr int kSmem = kQBytes + kStages * kTileBytes + kLogitBytes + kPBytes + 3 * kHeads * 4;
+};
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -103,13 +111,20 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-__global__ void __launch_bounds__(kThreads) mla_decode_kernel(const bf16* __restrict__ q_lat,
-                                                              const bf16* __restrict__ q_pe,
-                                                              const bf16* __restrict__ cache,
-                                                              const float* __restrict__ mask, bf16* __restrict__ out,
-                                                              int S, int q_sb, int q_sh, float scale) {
+template <int kHeads>
+__global__ void __launch_bounds__(Mla<kHeads>::kThreads) mla_decode_kernel(const bf16* __restrict__ q_lat,
+                                                                           const bf16* __restrict__ q_pe,
+                                                                           const bf16* __restrict__ cache,
+                                                                           const float* __restrict__ mask,
+                                                                           bf16* __restrict__ out, int S, int q_sb,
+                                                                           int q_sh, float scale) {
+  constexpr int kThreads = Mla<kHeads>::kThreads, kQBytes = Mla<kHeads>::kQBytes;
+  constexpr int kLogitBytes = Mla<kHeads>::kLogitBytes, kPBytes = Mla<kHeads>::kPBytes;
+  constexpr int kWarps = kThreads / 32;
   const int b = blockIdx.x;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tid = threadIdx.x, lane = tid & 31;
+  // the warp's group of 16 heads (its rows of every product) and its place in the group
+  const int grp = (tid >> 5) >> 2, warp = (tid >> 5) & 3, hg = 16 * grp;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* q = reinterpret_cast<bf16*>(smem);                                 // [16][kRow]
   bf16* ring = reinterpret_cast<bf16*>(smem + kQBytes);                    // [kStages][kTile][kRow]
@@ -158,18 +173,18 @@ __global__ void __launch_bounds__(kThreads) mla_decode_kernel(const bf16* __rest
     __syncthreads();  // tile t (and q) landed
     const bf16* tile = ring + (t % kStages) * kTile * kRow;
 
-    // logits of this warp's 8 rows of the tile for the 16 heads
+    // logits of this warp's 8 rows of the tile for its group's 16 heads
     float d[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll 4
     for (int kk = 0; kk < kRowW; kk += 16) {
       uint32_t a[4], bb[2];
-      ldmatrix_x4(a, smem_u32(q + (lane & 15) * kRow + kk + (lane >> 4) * 8));
+      ldmatrix_x4(a, smem_u32(q + (hg + (lane & 15)) * kRow + kk + (lane >> 4) * 8));
       ldmatrix_x2(bb, smem_u32(tile + (warp * 8 + (lane & 7)) * kRow + kk + ((lane >> 3) & 1) * 8));
       mma_16816(d, a, bb[0], bb[1]);
     }
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      const int h = g + (j >> 1) * 8, col = warp * 8 + (lane & 3) * 2 + (j & 1);
+      const int h = hg + g + (j >> 1) * 8, col = warp * 8 + (lane & 3) * 2 + (j & 1);
       const int s = t * kTile + col;
       logits[h * kTile + col] = s < S ? __fadd_rn(__fmul_rn(d[j], scale), __ldg(mask + (size_t)b * S + s)) : -INFINITY;
     }
@@ -177,8 +192,8 @@ __global__ void __launch_bounds__(kThreads) mla_decode_kernel(const bf16* __rest
 
     // online softmax: one warp a head row, a lane a slot of the tile
 #pragma unroll
-    for (int rr = 0; rr < kHeads / 4; ++rr) {
-      const int h = warp * (kHeads / 4) + rr;
+    for (int rr = 0; rr < kHeads / kWarps; ++rr) {
+      const int h = (tid >> 5) * (kHeads / kWarps) + rr;
       const float v = logits[h * kTile + lane];
       const float m_old = run_max[h];
       const float m_new = fmaxf(m_old, warp_max(v));
@@ -195,7 +210,7 @@ __global__ void __launch_bounds__(kThreads) mla_decode_kernel(const bf16* __rest
     __syncthreads();
 
     // acc = acc * rescale + P . C[:, :512], this warp's 128 columns
-    const float r0 = rescale[g], r1 = rescale[g + 8];
+    const float r0 = rescale[hg + g], r1 = rescale[hg + g + 8];
 #pragma unroll
     for (int j = 0; j < 16; ++j) {
       acc[j][0] *= r0;
@@ -206,7 +221,7 @@ __global__ void __launch_bounds__(kThreads) mla_decode_kernel(const bf16* __rest
 #pragma unroll
     for (int ks = 0; ks < kTile; ks += 16) {
       uint32_t a[4];
-      ldmatrix_x4(a, smem_u32(p + (lane & 15) * kPStride + ks + (lane >> 4) * 8));
+      ldmatrix_x4(a, smem_u32(p + (hg + (lane & 15)) * kPStride + ks + (lane >> 4) * 8));
 #pragma unroll
       for (int jj = 0; jj < 8; ++jj) {
         uint32_t bb[4];
@@ -218,9 +233,9 @@ __global__ void __launch_bounds__(kThreads) mla_decode_kernel(const bf16* __rest
     __syncthreads();  // the ring slot and the logits are reused
   }
 
-  const float inv0 = 1.f / run_sum[g], inv1 = 1.f / run_sum[g + 8];
-  bf16* o0 = out + ((size_t)b * kHeads + g) * kLat;
-  bf16* o1 = out + ((size_t)b * kHeads + g + 8) * kLat;
+  const float inv0 = 1.f / run_sum[hg + g], inv1 = 1.f / run_sum[hg + g + 8];
+  bf16* o0 = out + ((size_t)b * kHeads + hg + g) * kLat;
+  bf16* o1 = out + ((size_t)b * kHeads + hg + g + 8) * kLat;
 #pragma unroll
   for (int j = 0; j < 16; ++j) {
     const int col = warp * 128 + j * 8 + (lane & 3) * 2;
@@ -229,25 +244,32 @@ __global__ void __launch_bounds__(kThreads) mla_decode_kernel(const bf16* __rest
   }
 }
 
-}  // namespace
-
-// out bf16 [B, 16, 512] = latent attention of q_lat bf16 [B, 16, 512] (its
-// rows q_sb and its heads q_sh values apart, multiples of 8, the latents
-// unit-stride) and q_pe bf16 [B, 16, 64] over cache bf16 [B, S, 576] (one
-// layer's rows: c then k_pe) with the additive f32 mask [B, S] and the
-// logit scale.
-extern "C" int tvc_mla_decode(const void* q_lat, const void* q_pe, const void* cache, const void* mask, void* out,
-                              int B, int S, int q_sb, int q_sh, float scale, void* stream) {
-  if (S < 1 || q_sb % 8 || q_sh % 8) return (int)cudaErrorInvalidValue;
-  if (B < 1) return (int)cudaGetLastError();
+template <int kHeads>
+int launch(const void* q_lat, const void* q_pe, const void* cache, const void* mask, void* out, int B, int S, int q_sb,
+           int q_sh, float scale, cudaStream_t stream) {
   static bool attr = false;
   if (!attr) {
-    const cudaError_t err =
-        cudaFuncSetAttribute(mla_decode_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+    const cudaError_t err = cudaFuncSetAttribute(mla_decode_kernel<kHeads>,
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize, Mla<kHeads>::kSmem);
     if (err != cudaSuccess) return (int)err;
     attr = true;
   }
-  mla_decode_kernel<<<B, kThreads, kSmem, (cudaStream_t)stream>>>(
+  mla_decode_kernel<kHeads><<<B, Mla<kHeads>::kThreads, Mla<kHeads>::kSmem, stream>>>(
       (const bf16*)q_lat, (const bf16*)q_pe, (const bf16*)cache, (const float*)mask, (bf16*)out, S, q_sb, q_sh, scale);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// out bf16 [B, H, 512] = latent attention of q_lat bf16 [B, H, 512] (its
+// rows q_sb and its heads q_sh values apart, multiples of 8, the latents
+// unit-stride) and q_pe bf16 [B, H, 64] over cache bf16 [B, S, 576] (one
+// layer's rows: c then k_pe) with the additive f32 mask [B, S] and the
+// logit scale; H 16 or 32.
+extern "C" int tvc_mla_decode(const void* q_lat, const void* q_pe, const void* cache, const void* mask, void* out,
+                              int B, int H, int S, int q_sb, int q_sh, float scale, void* stream) {
+  if (S < 1 || q_sb % 8 || q_sh % 8 || (H != 16 && H != 32)) return (int)cudaErrorInvalidValue;
+  if (B < 1) return (int)cudaGetLastError();
+  return H == 16 ? launch<16>(q_lat, q_pe, cache, mask, out, B, S, q_sb, q_sh, scale, (cudaStream_t)stream)
+                 : launch<32>(q_lat, q_pe, cache, mask, out, B, S, q_sb, q_sh, scale, (cudaStream_t)stream);
 }

@@ -14,17 +14,23 @@ these methods:
 * ``_decode_state()`` -> ``(non_layer, stacked)``: the weights the decode
   reads; ``_mm(x3, leaf)``: ``x [..., K]`` @ a weight leaf, an int8 leaf
   through the model's own kernel where :func:`takes_kernel` says so;
-* ``_new_cache(B, S)``: a zeroed cache of B rows and S slots;
-  ``_put_prefix(cache, pre, P)``: the batch-1 prefix cache ``pre`` into
-  every row's slots ``[0, P)``; ``_tile_cache(cache, n)``: each row
-  repeated ``n`` times, in place of the row;
+* ``_new_cache(B, S)``: a zeroed cache of B rows and S slots (any
+  structure the model's layers read: tensors, or a tuple of them such as
+  a latent cache beside a recurrent state); ``_put_prefix(cache, pre, P)``:
+  the batch-1 prefix cache ``pre`` into every row's slots ``[0, P)`` (a
+  state: into every row); ``_tile_cache(cache, n)``: each row repeated
+  ``n`` times, in place of the row;
 * ``_run_layers(stacked, x, positions, mask, cache, cache_index, ctx=0,
-  step=None)``: every layer on ``x [B, T, H]``, writing slots
+  step=None, lengths=None)``: every layer on ``x [B, T, H]``, writing slots
   ``cache_index .. cache_index + T`` (mask ``[B, 1, T, S]`` for a block,
   ``[B, S]`` for one step; ``ctx`` cached slots ahead of the block;
-  ``step`` the decode step, None in the prefill); returns ``(h, y)``, the
-  residual stream and the last layer's branch output not yet added to it
-  (None where it is), so that the add goes into the final norm's launch.
+  ``step`` the decode step, None in the prefill; ``lengths`` [B] each
+  row's real tokens of a right-padded block, None where all T are: an
+  attention layer has them in its mask, a recurrent one must stop at
+  them, so that a pad neither decays nor updates its state); returns
+  ``(h, y)``, the residual stream and the last layer's branch output not
+  yet added to it (None where it is), so that the add goes into the final
+  norm's launch.
 
 The hooks both models share are written here once, for a model to
 override where it differs (Qwen2's tied head, ``tvc_torch.parallel.tp``'s
@@ -266,7 +272,8 @@ class CausalDecoder:
             prefill_mask = torch.zeros(keep.shape, device=dev).masked_fill(~keep, float("-inf"))[:, None]
             positions = (P + t_idx)[None].expand(B, T)
             x = self._final_norm(non_layer, *self._run_layers(
-                stacked, self._embed(non_layer, inp.tokens), positions, prefill_mask, cache, P, ctx=P))
+                stacked, self._embed(non_layer, inp.tokens), positions, prefill_mask, cache, P, ctx=P,
+                lengths=lengths - P))
             x = x[torch.arange(B, device=dev), lengths - P - 1][:, None]
             next_logits = head(x)[:, 0]
 

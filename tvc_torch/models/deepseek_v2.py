@@ -117,6 +117,13 @@ class DeepseekV2Config:
     rope_mscale: float = 0.707
     rope_mscale_all_dim: float = 0.707
     rms_eps: float = 1e-6
+    #: the router's scoring: "softmax" (DeepSeek-V2) or "sigmoid" (with a
+    #: correction bias in the choice of the experts, not in their weights)
+    scoring_func: str = "softmax"
+    #: the chosen experts' weights divided by their sum
+    norm_topk_prob: bool = False
+    #: False: the latent attention's rope dimensions are not rotated (NoPE)
+    use_rope: bool = True
     max_seq_len: int = 512
     dtype: Any = torch.bfloat16
     model_name: str = "deepseek-ai/DeepSeek-V2-Lite"
@@ -214,48 +221,61 @@ def part_shapes(cfg: DeepseekV2Config, part: str) -> Shapes:
         return [("ln_f.scale", (H,), "ln", 0.1)]
     if part == "lm_head":
         return [("lm_head.kernel", (H, c.vocab_size), "w", H ** -0.5)]
-    i = int(part.split("_")[1])
-    b = part
-    r, nh = c.kv_lora_rank, c.num_heads
-    out: Shapes = [
+    return mla_shapes(c, part) + ffn_shapes(c, part, int(part.split("_")[1]))
+
+
+def mla_shapes(c: DeepseekV2Config, b: str) -> Shapes:
+    """A latent-attention layer's norm and attention, under prefix ``b``."""
+    H, r, nh = c.hidden_size, c.kv_lora_rank, c.num_heads
+    return [
         (f"{b}.ln_attn.scale", (H,), "ln", 0.1),
         (f"{b}.attn.q.kernel", (H, nh * c.q_head_dim), "w", H ** -0.5),
         (f"{b}.attn.kv_a.kernel", (H, c.latent_width), "w", H ** -0.5),
         (f"{b}.attn.kv_norm.scale", (r,), "ln", 0.1),
         (f"{b}.attn.kv_b.kernel", (r, nh * (c.qk_nope_head_dim + c.v_head_dim)), "w", r ** -0.5),
         (f"{b}.attn.o.kernel", (nh * c.v_head_dim, H), "w", (nh * c.v_head_dim) ** -0.5),
-        (f"{b}.ln_mlp.scale", (H,), "ln", 0.1),
     ]
+
+
+def ffn_shapes(c: DeepseekV2Config, b: str, i: int) -> Shapes:
+    """Layer ``i``'s FFN norm and FFN: the dense MLP in the first
+    ``first_k_dense`` layers, the experts after them (the router's
+    correction bias where the scoring is sigmoid)."""
+    H = c.hidden_size
+    out: Shapes = [(f"{b}.ln_mlp.scale", (H,), "ln", 0.1)]
     if i < c.first_k_dense:
         I = c.intermediate_size
-        out += [(f"{b}.mlp.gate_up.kernel", (H, 2 * I), "w", H ** -0.5),
-                (f"{b}.mlp.down.kernel", (I, H), "w", I ** -0.5)]
-    else:
-        E, Ie, Is = c.n_routed_experts, c.moe_intermediate_size, c.moe_intermediate_size * c.n_shared_experts
-        out += [(f"{b}.moe.router.kernel", (H, E), "w", H ** -0.5),
-                (f"{b}.moe.experts.gate_up.kernel", (E, H, 2 * Ie), "w", H ** -0.5),
-                (f"{b}.moe.experts.down.kernel", (E, Ie, H), "w", Ie ** -0.5),
-                (f"{b}.moe.shared.gate_up.kernel", (H, 2 * Is), "w", H ** -0.5),
-                (f"{b}.moe.shared.down.kernel", (Is, H), "w", Is ** -0.5)]
-    return out
+        return out + [(f"{b}.mlp.gate_up.kernel", (H, 2 * I), "w", H ** -0.5),
+                      (f"{b}.mlp.down.kernel", (I, H), "w", I ** -0.5)]
+    E, Ie, Is = c.n_routed_experts, c.moe_intermediate_size, c.moe_intermediate_size * c.n_shared_experts
+    out.append((f"{b}.moe.router.kernel", (H, E), "w", H ** -0.5))
+    if c.scoring_func == "sigmoid":
+        out.append((f"{b}.moe.router.bias", (E,), "w", 0.1))
+    return out + [(f"{b}.moe.experts.gate_up.kernel", (E, H, 2 * Ie), "w", H ** -0.5),
+                  (f"{b}.moe.experts.down.kernel", (E, Ie, H), "w", Ie ** -0.5),
+                  (f"{b}.moe.shared.gate_up.kernel", (H, 2 * Is), "w", H ** -0.5),
+                  (f"{b}.moe.shared.down.kernel", (Is, H), "w", Is ** -0.5)]
 
 
-def draw_part(cfg: DeepseekV2Config, part: str, gen: torch.Generator, device) -> Dict[str, Tensor]:
-    """One part's seeded random parameters, f32, flat names."""
+def draw_part(cfg: DeepseekV2Config, part: str, gen: torch.Generator, device,
+              shapes: Callable[[Any, str], Shapes] = part_shapes) -> Dict[str, Tensor]:
+    """One part's seeded random parameters, f32, flat names (kinds ``w``
+    and ``ln`` as :func:`part_shapes` gives them)."""
     out = {}
-    for name, shape, kind, std in part_shapes(cfg, part):
+    for name, shape, kind, std in shapes(cfg, part):
         t = torch.randn(shape, generator=gen, device=device) * std
         out[name] = t + 1.0 if kind == "ln" else t
     return out
 
 
-def _quantize_leaf(name: str, x):
+def _quantize_leaf(name: str, x, f32_matrices: Tuple[str, ...] = ("router.kernel",)):
     """Every matrix but the router to w8 (int8 per output channel, per
     expert too); the router to f32 (its logits are f32 products of the
-    weights as given); vectors to f32."""
+    weights as given); vectors to f32. ``f32_matrices``: the name endings
+    of the matrices kept in f32."""
     if _is_q(x) or not torch.is_tensor(x):
         return x
-    if x.ndim >= 2 and not name.endswith("router.kernel"):
+    if x.ndim >= 2 and not name.endswith(f32_matrices):
         w_q, scale = quantize_linear(x)
         return {"int8": w_q, "scale": scale}
     return x.float()
@@ -272,6 +292,12 @@ class DeepseekV2Model(CausalDecoder):
     unless given ``device="cpu"``."""
 
     SPANS = ("dsv2.prepare", "dsv2.prefill", "dsv2.decode_step", "dsv2.readback")
+    #: the weights' parts, their shapes and draws, and the matrices kept in
+    #: f32: a model of other layers on the same paths overrides these
+    part_names = staticmethod(part_names)
+    part_shapes = staticmethod(part_shapes)
+    draw_part = staticmethod(draw_part)
+    F32_MATRICES: Tuple[str, ...] = ("router.kernel",)
 
     def __init__(
         self,
@@ -294,21 +320,21 @@ class DeepseekV2Model(CausalDecoder):
         self.max_new_tokens = max_new_tokens
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(int(seed))
-            source = lambda part: draw_part(c, part, gen, self.device)  # noqa: E731
+            source = lambda part: self.draw_part(c, part, gen, self.device, self.part_shapes)  # noqa: E731
         elif callable(params):
             source = params
         else:
             flat = _flatten(params)
-            source = lambda part: {n: flat[n] for n, *_ in part_shapes(c, part)}  # noqa: E731
+            source = lambda part: {n: flat[n] for n, *_ in self.part_shapes(c, part)}  # noqa: E731
         tree: Dict[str, Any] = {}
-        for part in part_names(c):
+        for part in self.part_names(c):
             got = _flatten(source(part))
-            want = {n: s for n, s, *_ in part_shapes(c, part)}
+            want = {n: s for n, s, *_ in self.part_shapes(c, part)}
             if set(got) != set(want):
                 raise ValueError(f"part {part}: missing {sorted(set(want) - set(got))}, "
                                  f"unexpected {sorted(set(got) - set(want))}")
             for name, leaf in got.items():
-                leaf = _quantize_leaf(name, _to(leaf, self.device))
+                leaf = _quantize_leaf(name, _to(leaf, self.device), self.F32_MATRICES)
                 shape = tuple(leaf["int8"].shape) if _is_q(leaf) else tuple(leaf.shape)
                 if shape != want[name]:
                     raise ValueError(f"{name}: shape {shape}, expected {want[name]}")
@@ -333,38 +359,45 @@ class DeepseekV2Model(CausalDecoder):
         their scales [nh, nope] / [nh, v] in f32. Built once."""
         if self._state is not None:
             return self._state
-        c, p, dt = self.config, self.params, self.config.dtype
-        nh, dn, dv, r = c.num_heads, c.qk_nope_head_dim, c.v_head_dim, c.kv_lora_rank
+        c, p = self.config, self.params
         layers = []
         for i in range(c.num_layers):
             lp = p[f"layer_{i}"]
-            a = lp["attn"]
-            q, kva, kvb = a["q"]["kernel"], a["kv_a"]["kernel"], a["kv_b"]["kernel"]
-            wb = kvb["int8"].view(r, nh, dn + dv)
-            sb = kvb["scale"].view(nh, dn + dv)
-            L = {
-                "ln_attn": lp["ln_attn"]["scale"], "ln_mlp": lp["ln_mlp"]["scale"],
-                "kv_norm": a["kv_norm"]["scale"],
-                "wqa": {"int8": torch.cat([q["int8"], kva["int8"]], dim=1).contiguous(),
-                        "scale": torch.cat([q["scale"], kva["scale"]]).contiguous()},
-                "wkb": kvb,
-                "wuk": wb[:, :, :dn].permute(1, 2, 0).to(dt).contiguous(),  # [nh, nope, r]
-                "suk": sb[:, :dn].contiguous(),
-                "wuv": wb[:, :, dn:].permute(1, 0, 2).to(dt).contiguous(),  # [nh, r, v]
-                "suv": sb[:, dn:].contiguous(),
-                "wo": a["o"]["kernel"],
-            }
-            if "mlp" in lp:
-                L.update(wgu=lp["mlp"]["gate_up"]["kernel"], wd=lp["mlp"]["down"]["kernel"])
-            else:
-                m = lp["moe"]
-                L.update(router=m["router"]["kernel"], egu=m["experts"]["gate_up"]["kernel"],
-                         ed=m["experts"]["down"]["kernel"], sgu=m["shared"]["gate_up"]["kernel"],
-                         sd=m["shared"]["down"]["kernel"], moe_index=i - c.first_k_dense)
-            layers.append(L)
+            layers.append({"ln_attn": lp["ln_attn"]["scale"], **self._mla_state(lp["attn"]), **self._ffn_state(lp, i)})
         non_layer = {k: v for k, v in p.items() if not k.startswith("layer_")}
         self._state = (non_layer, layers)
         return self._state
+
+    def _mla_state(self, a: Dict) -> Dict:
+        """A latent-attention layer's decode weights from its ``attn`` tree."""
+        c, dt = self.config, self.config.dtype
+        nh, dn, dv, r = c.num_heads, c.qk_nope_head_dim, c.v_head_dim, c.kv_lora_rank
+        q, kva, kvb = a["q"]["kernel"], a["kv_a"]["kernel"], a["kv_b"]["kernel"]
+        wb = kvb["int8"].view(r, nh, dn + dv)
+        sb = kvb["scale"].view(nh, dn + dv)
+        return {
+            "kv_norm": a["kv_norm"]["scale"],
+            "wqa": {"int8": torch.cat([q["int8"], kva["int8"]], dim=1).contiguous(),
+                    "scale": torch.cat([q["scale"], kva["scale"]]).contiguous()},
+            "wkb": kvb,
+            "wuk": wb[:, :, :dn].permute(1, 2, 0).to(dt).contiguous(),  # [nh, nope, r]
+            "suk": sb[:, :dn].contiguous(),
+            "wuv": wb[:, :, dn:].permute(1, 0, 2).to(dt).contiguous(),  # [nh, r, v]
+            "suv": sb[:, dn:].contiguous(),
+            "wo": a["o"]["kernel"],
+        }
+
+    def _ffn_state(self, lp: Dict, i: int) -> Dict:
+        """Layer ``i``'s FFN norm and FFN decode weights: the dense MLP's,
+        or the router (its correction bias, where it has one) and experts."""
+        out = {"ln_mlp": lp["ln_mlp"]["scale"]}
+        if "mlp" in lp:
+            return {**out, "wgu": lp["mlp"]["gate_up"]["kernel"], "wd": lp["mlp"]["down"]["kernel"]}
+        m = lp["moe"]
+        return {**out, "router": m["router"]["kernel"], "router_bias": m["router"].get("bias"),
+                "egu": m["experts"]["gate_up"]["kernel"], "ed": m["experts"]["down"]["kernel"],
+                "sgu": m["shared"]["gate_up"]["kernel"], "sd": m["shared"]["down"]["kernel"],
+                "moe_index": i - self.config.first_k_dense}
 
     # -- the decode math ----------------------------------------------------------------
     def _mm(self, x3: Tensor, leaf) -> Tensor:
@@ -435,7 +468,8 @@ class DeepseekV2Model(CausalDecoder):
         N = B * T
         xf = x.reshape(N, H)
         counts = None if step is None else self._counts[step, L["moe_index"]]
-        topv, _, pos, xs, offsets = moe_route(xf.float() @ L["router"], xf, c.num_experts_per_tok, counts)
+        topv, _, pos, xs, offsets = moe_route(xf.float() @ L["router"], xf, c.num_experts_per_tok, counts,
+                                              c.scoring_func, L["router_bias"], c.norm_topk_prob)
         gu = moe_w8_grouped_gemm(xs, L["egu"]["int8"], L["egu"]["scale"], offsets)
         yd = moe_w8_grouped_gemm(silu_mul(gu, c.moe_intermediate_size), L["ed"]["int8"], L["ed"]["scale"], offsets)
         sgu = self._mm(xf, L["sgu"])
@@ -443,28 +477,44 @@ class DeepseekV2Model(CausalDecoder):
         return moe_combine(yd, pos, topv, shared, c.routed_scaling_factor).reshape(B, T, H)
 
     def _layer(self, L: Dict, l: int, h: Tensor, y: Optional[Tensor], cos, sin, mask, cache, cache_index, ctx,
-               step) -> Tuple[Tensor, Tensor]:
+               step, lengths=None) -> Tuple[Tensor, Tensor]:
         """One layer on the residual stream ``h`` and the previous layer's
         FFN output ``y`` not yet added to it (None before the first);
-        returns ``(h, y)`` of this layer, its FFN output not added."""
+        returns ``(h, y)`` of this layer, its FFN output not added. The
+        rows' ``lengths`` are the mask's to apply."""
         eps = self.config.rms_eps
         if y is None:
             x = rmsnorm(h, L["ln_attn"], eps)
         else:
             h, x = add_rmsnorm(h, y, L["ln_attn"], eps)
         h, x = add_rmsnorm(h, self._attention(L, l, x, cos, sin, mask, cache, cache_index, ctx), L["ln_mlp"], eps)
+        return h, self._ffn(L, x, step)
+
+    def _ffn(self, L: Dict, x: Tensor, step: Optional[int]) -> Tensor:
+        """The FFN of a normed ``x``: the dense MLP or the experts."""
         if "wgu" in L:
             gu = self._mm(x, L["wgu"])
-            return h, self._mm(silu_mul(gu, gu.shape[-1] // 2), L["wd"])
-        return h, self._moe(L, x, step)
+            return self._mm(silu_mul(gu, gu.shape[-1] // 2), L["wd"])
+        return self._moe(L, x, step)
 
-    def _run_layers(self, layers, x, positions, mask, cache, cache_index, ctx=0, step=None):
+    def _rope_tables(self, positions: Tensor) -> Tuple[Tensor, Tensor]:
+        """cos / sin ``[B, T, 1, rope / 2]`` at ``positions``: YaRN's, or
+        where the configuration has no rope (NoPE) cos 1 and sin 0, which
+        leave the rope dimensions as they are (``x * 1 - y * 0 == x``)."""
+        c = self.config
+        if c.use_rope:
+            return yarn_tables(positions, c, self._inv_freq)
+        ones = torch.ones((*positions.shape, 1, c.qk_rope_head_dim // 2), device=positions.device)
+        return ones, torch.zeros_like(ones)
+
+    def _run_layers(self, layers, x, positions, mask, cache, cache_index, ctx=0, step=None, lengths=None):
         """Every layer: mask [B, 1, T, S] (prefill) or [B, S] (decode step
-        ``step``). Returns ``(h, y)`` (``CausalDecoder``)."""
-        cos, sin = yarn_tables(positions, self.config, self._inv_freq)
+        ``step``), each prefill row's real ``lengths`` (``_layer``'s).
+        Returns ``(h, y)`` (``CausalDecoder``)."""
+        cos, sin = self._rope_tables(positions)
         y = None
         for l, L in enumerate(layers):
-            x, y = self._layer(L, l, x, y, cos, sin, mask, cache, cache_index, ctx, step)
+            x, y = self._layer(L, l, x, y, cos, sin, mask, cache, cache_index, ctx, step, lengths)
         return x, y
 
     # -- the routing counters ------------------------------------------------------------

@@ -657,9 +657,10 @@ class QwenModel(CausalDecoder):
         gu = self._mm(x, stacked["wgu"], l)
         return h, self._mm(silu_mul(gu, c.intermediate_size), stacked["wd"], l)
 
-    def _run_layers(self, stacked, x, positions, mask, caches, cache_index, ctx=0, step=None):
+    def _run_layers(self, stacked, x, positions, mask, caches, cache_index, ctx=0, step=None, lengths=None):
         """Every layer: mask [B, 1, T, S] (prefill) or [B, S] (one step);
-        ``step`` is not read. Returns ``(h, y)`` (``CausalDecoder``)."""
+        ``step`` and ``lengths`` (the mask's) are not read. Returns ``(h,
+        y)`` (``CausalDecoder``)."""
         c = self.config
         cos, sin = rope_tables(positions, c.hidden_size // c.num_heads, c.rope_theta)
         y = None

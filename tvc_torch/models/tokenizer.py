@@ -336,6 +336,9 @@ QWEN2_VOCAB = 151936
 
 #: DeepSeek-V2's vocabulary and its BOS / EOS ids
 DEEPSEEK_V2_VOCAB, DEEPSEEK_V2_BOS, DEEPSEEK_V2_EOS = 102400, 100000, 100001
+#: Kimi-Linear's vocabulary and the BOS / EOS ids the port gives it, above
+#: the bundled Qwen2 BPE's range
+KIMI_LINEAR_VOCAB, KIMI_LINEAR_BOS, KIMI_LINEAR_EOS = 163840, 163584, 163585
 
 
 class CutQwenBPETokenizer(QwenBPETokenizer):
@@ -346,12 +349,17 @@ class CutQwenBPETokenizer(QwenBPETokenizer):
     the repository does not hold; ``without_bos`` tokenizes without the BOS
     (a prompt's suffix after a shared prefix)."""
 
+    #: ids at or above CUT dropped (None: the BPE kept whole); BOS and EOS
+    CUT, BOS, EOS = DEEPSEEK_V2_BOS, DEEPSEEK_V2_BOS, DEEPSEEK_V2_EOS
+    BOS_TEXT, EOS_TEXT = "<\uff5cbegin\u2581of\u2581sentence\uff5c>", "<\uff5cend\u2581of\u2581sentence\uff5c>"
+
     def __init__(self, path: str, context_length: int = 512):
         super().__init__(path, context_length)
-        cut, bos, eos = DEEPSEEK_V2_BOS, DEEPSEEK_V2_BOS, DEEPSEEK_V2_EOS
-        self.bpe_ranks = {p: r for p, r in self.bpe_ranks.items() if self.encoder.get(p[0] + p[1], cut) < cut}
-        self.encoder = {t: i for t, i in self.encoder.items() if i < cut}
-        self.added = {bos: "<\uff5cbegin\u2581of\u2581sentence\uff5c>", eos: "<\uff5cend\u2581of\u2581sentence\uff5c>"}
+        cut, bos, eos = self.CUT, self.BOS, self.EOS
+        if cut is not None:
+            self.bpe_ranks = {p: r for p, r in self.bpe_ranks.items() if self.encoder.get(p[0] + p[1], cut) < cut}
+            self.encoder = {t: i for t, i in self.encoder.items() if i < cut}
+        self.added = {bos: self.BOS_TEXT, eos: self.EOS_TEXT}
         self.special_ids = {bos, eos}
         self._added_ids = {}
         self._added_split = re.compile("((?!))")  # nothing is split out
@@ -377,6 +385,16 @@ class CutQwenBPETokenizer(QwenBPETokenizer):
         return self._rows(texts, False)
 
 
+class KimiQwenBPETokenizer(CutQwenBPETokenizer):
+    """The Qwen2 byte-level BPE kept whole (its regular vocabulary, ids
+    below 151,643), no added tokens split out, BOS 163,584 opening every
+    text and EOS 163,585: it stands in for Kimi-Linear's own tokenizer
+    (vocabulary 163,840), whose files the repository does not hold."""
+
+    CUT, BOS, EOS = None, KIMI_LINEAR_BOS, KIMI_LINEAR_EOS
+    BOS_TEXT, EOS_TEXT = "[BOS]", "[EOS]"
+
+
 def get_tokenizer(
     vocab_size: int = 49408,
     context_length: int = 77,
@@ -387,8 +405,9 @@ def get_tokenizer(
     (``merges_path`` or ``$TVC_QWEN_TOKENIZER``, a directory or a
     ``merges.txt`` in one, then the bundled assets); for DeepSeek-V2's
     vocab 102400 the Qwen2 BPE cut to it (``CutQwenBPETokenizer``, from
-    ``merges_path`` or the bundled assets); the hash tokenizer
-    otherwise."""
+    ``merges_path`` or the bundled assets); for Kimi-Linear's vocab 163840
+    the Qwen2 BPE whole with BOS / EOS above it (``KimiQwenBPETokenizer``);
+    the hash tokenizer otherwise."""
     if vocab_size == 49408:
         merges_path = merges_path or os.environ.get("TVC_CLIP_BPE")
         if merges_path and os.path.exists(merges_path):
@@ -412,11 +431,12 @@ def get_tokenizer(
                 p = p.parent
             if (p / "vocab.json").exists():
                 return QwenBPETokenizer(str(p), context_length)
-    if vocab_size == DEEPSEEK_V2_VOCAB:
+    if vocab_size in (DEEPSEEK_V2_VOCAB, KIMI_LINEAR_VOCAB):
+        kind = CutQwenBPETokenizer if vocab_size == DEEPSEEK_V2_VOCAB else KimiQwenBPETokenizer
         for cand in (merges_path, ASSET_DIR / "qwen_tokenizer"):
             p = Path(cand) if cand else None
             if p is not None and p.is_file():
                 p = p.parent
             if p is not None and (p / "vocab.json").exists():
-                return CutQwenBPETokenizer(str(p), context_length)
+                return kind(str(p), context_length)
     return HashTokenizer(vocab_size, context_length)

@@ -335,7 +335,7 @@ class TPQwenModel(QwenModel):
         head = lambda x: tp_logits(x, non_layer, self.config, self.mesh)  # noqa: E731
         return head if allowed is None else lambda x: head(x)[..., allowed]
 
-    def _run_layers(self, layers, x, positions, mask, caches, cache_index, ctx=0, step=None):
+    def _run_layers(self, layers, x, positions, mask, caches, cache_index, ctx=0, step=None, lengths=None):
         """Every layer through :func:`tp_block` (mask as ``QwenModel``'s);
         returns ``(h, None)``: each residual add is the layer's."""
         c = self.config
