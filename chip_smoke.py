@@ -1061,16 +1061,74 @@ def phase_w8_kernels(dev) -> dict:
 # weights by O(1).
 DSV2_ROWS, DSV2_TOPK, DSV2_EXPERTS = 960, 6, 64
 DSV2_BUSIEST = 650  # rows of the busiest expert of a layer-step in the cell (expert_load.moe ~7.25)
+MOE_PREFIX = 16  # about the tokens of the paraphrase prompts' shared prefix, prefilled once at batch 1
+
+
+def moe_spread(case: str):
+    """Rows an expert (numpy int64) of a grouped-GEMM case, from the seed 0:
+    DeepSeek-V2's decode step as the cell routes it (5,760 rows over 64
+    experts: DSV2_BUSIEST in one, two empty, the rest even; ``dsv2_step``),
+    a rougher decode spread (empty experts, one with 1,000 more;
+    ``dsv2_decode``) and a prefill (18,432 rows, two empty); Kimi-Linear's
+    decode (3,840 rows over 256 experts: empty experts, one-row experts, one
+    of 240 rows) and prefill (18,432 rows); and each model's prefill of the
+    shared paraphrase prefix (``*_prefix``: MOE_PREFIX tokens, each to its
+    top-k distinct experts, most experts empty)."""
+    rng = np.random.default_rng(0)
+    if case.endswith("_prefix"):
+        E, k = (DSV2_EXPERTS, DSV2_TOPK) if case == "dsv2_prefix" else (256, 8)
+        counts = np.zeros(E, np.int64)
+        for _ in range(MOE_PREFIX):
+            counts[rng.choice(E, k, replace=False)] += 1
+        return counts
+    if case == "dsv2_step":
+        M = DSV2_ROWS * DSV2_TOPK
+        counts = np.zeros(DSV2_EXPERTS, np.int64)
+        counts[0] = DSV2_BUSIEST
+        rest = [e for e in range(1, DSV2_EXPERTS) if e not in (17, 40)]
+        counts[rest] = np.random.default_rng(21).multinomial(M - DSV2_BUSIEST, np.full(len(rest), 1 / len(rest)))
+    elif case == "dsv2_decode":
+        counts = rng.multinomial(4760, rng.dirichlet(np.full(64, 0.5)))
+        counts[[3, 17]] = 0
+        counts[40] += 1000
+    elif case == "dsv2_prefill":
+        counts = rng.multinomial(18432, rng.dirichlet(np.full(64, 2.0)))
+        counts[[5, 60]] = 0
+    elif case == "kimi_decode":
+        counts = rng.multinomial(3840 - 240 - 8, rng.dirichlet(np.full(256, 0.7)))
+        counts[[7, 77, 177]] = 0
+        counts[[1, 2, 100, 200, 255]] = 1
+        counts[3] = 240
+        counts[0] += 3840 - int(counts.sum())
+    else:  # kimi_prefill
+        counts = rng.multinomial(18432, rng.dirichlet(np.full(256, 1.0)))
+        counts[[9, 99]] = 0
+    return counts
+
+
+#: the grouped GEMM's shapes the kernel phase times: (spread, tag, E, K, N);
+#: between them they run every row tile moe_plan picks
+MOE_CASES = (
+    ("dsv2_step", "dsv2 decode gate|up", 64, 2048, 2816), ("dsv2_step", "dsv2 decode down", 64, 1408, 2048),
+    ("dsv2_prefill", "dsv2 prefill gate|up", 64, 2048, 2816),
+    ("dsv2_prefix", "dsv2 prefix prefill gate|up", 64, 2048, 2816),
+    ("kimi_decode", "kimi decode gate|up", 256, 2304, 2048), ("kimi_decode", "kimi decode down", 256, 1024, 2304),
+    ("kimi_prefill", "kimi prefill gate|up", 256, 2304, 2048),
+    ("kimi_prefix", "kimi prefix prefill gate|up", 256, 2304, 2048),
+)
 
 
 def phase_dsv2_kernels(dev) -> dict:
     """DeepSeek-V2-Lite's two kernels at the tvc-dsv2-lite-w8.fresh decode
     step's shapes, each held against its plain version on the same card
     inputs, two calls bit-equal, timed beside the bound from
-    perfbench/work_moe.py's counts: the grouped w8 expert GEMM, gate|up (K
-    2,048, N 2,816) and down (K 1,408, N 2,048), over 5,760 rows (960
-    decode rows x 6 experts) split unevenly over 64 experts (one with
-    DSV2_BUSIEST rows, two with none, the rest drawn evenly); the latent
+    perfbench/work_moe.py's counts: the grouped w8 expert GEMM (MOE_CASES:
+    DeepSeek-V2-Lite's gate|up, K 2,048, N 2,816, and down, K 1,408, N
+    2,048, over 5,760 decode rows as ``moe_spread("dsv2_step")`` splits
+    them, and gate|up over a prefill's 18,432 and over the shared prefix's
+    96; Kimi-Linear's gate|up, K 2,304, N 2,048, and down, K 1,024, N
+    2,304, over 3,840 decode rows and 256 experts, and gate|up over a
+    prefill's 18,432 and over the shared prefix's 128); the latent
     decode attention at B 960, S 64 over layer 26 of a 27-layer cache, 12
     slots masked."""
     import torch
@@ -1083,6 +1141,7 @@ def phase_dsv2_kernels(dev) -> dict:
         moe_w8_grouped_reference,
         quantize_linear,
     )
+    from tvc_torch.core.kernels.moe_kernel import moe_plan
     from tvc_torch.models.deepseek_v2 import DeepseekV2Config
 
     bf = torch.bfloat16
@@ -1107,17 +1166,15 @@ def phase_dsv2_kernels(dev) -> dict:
         log(f"kernel {name} {shape}: kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} bound_ms={bms:.5f} ({by}) "
             f"kernel at {100 * bms / k_ms:.1f}% of the bound, max_abs_err={abs_err:.3e} scaled_err={rel_err:.3e}")
 
-    E, M = DSV2_EXPERTS, DSV2_ROWS * DSV2_TOPK
-    counts = np.zeros(E, np.int64)
-    counts[0] = DSV2_BUSIEST
-    rest = [e for e in range(1, E) if e not in (17, 40)]
-    counts[rest] = np.random.default_rng(21).multinomial(M - DSV2_BUSIEST, np.full(len(rest), 1 / len(rest)))
-    offsets = torch.tensor(np.concatenate([[0], np.cumsum(counts)]), dtype=torch.int32, device=dev)
-    busy = int((counts > 0).sum())
-    for tag, K, N in (("gate|up", 2048, 2816), ("down", 1408, 2048)):
+    for case, tag, E, K, N in MOE_CASES:
+        counts = moe_spread(case)
+        M, busy = int(counts.sum()), int((counts > 0).sum())
+        offsets = torch.tensor(np.concatenate([[0], np.cumsum(counts)]), dtype=torch.int32, device=dev)
         x = t(M, K).to(bf)
         w_q, scale = quantize_linear(t(E, K, N) / math.sqrt(K))
-        hold("moe_w8_grouped_gemm", f"{tag} M={M} K={K} N={N} E={E} (rows {DSV2_BUSIEST} to 0 an expert)",
+        plan = moe_plan(M, E, N, K)
+        hold("moe_w8_grouped_gemm", f"{tag} M={M} K={K} N={N} E={E} (rows {int(counts.max())} to "
+             f"{int(counts.min())} an expert; plan swap{plan.rows}, {plan.stages} stages)",
              lambda: moe_w8_grouped_gemm(x, w_q, scale, offsets),
              lambda: moe_w8_grouped_reference(x, w_q, scale, offsets), W8_TOL, *work_moe.expert_gemm(M, K, N, busy))
         del x, w_q, scale

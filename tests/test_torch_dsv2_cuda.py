@@ -1,5 +1,6 @@
 """DeepSeek-V2's kernels and decode on the card: the grouped w8 expert GEMM
-and the latent decode attention against their plain versions at the
+(at DeepSeek-V2-Lite's and Kimi-Linear's decode and prefill shapes) and
+the latent decode attention against their plain versions at the
 published widths with uneven offsets (the attention also on a strided
 q_lat); the fused decode-layer glue (``dsv2_fused_kernel``: the q|kv_a
 epilogue, the output scales, the routing with ties placed as torch.topk
@@ -26,7 +27,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import DSV2_FUSED
+from chip_smoke import DSV2_FUSED, moe_spread
 from tvc_torch.core.kernels import (
     launch_counts,
     mla_decode_attention,
@@ -36,8 +37,10 @@ from tvc_torch.core.kernels import (
     reset_launch_counts,
 )
 from tvc_torch.core.kernels import dsv2_fused_kernel as dk
+from tvc_torch.core.kernels.moe_kernel import moe_plan
 from tvc_torch.models import deepseek_v2 as ds
 from tvc_torch.models.decoding import PARAPHRASE_PREFIX, PARAPHRASE_PROMPT
+from tvc_torch.utils import tracing
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 import reference_deepseek_v2 as ref  # noqa: E402
@@ -66,26 +69,37 @@ def _offsets(counts, dev):
     return torch.tensor(np.concatenate([[0], np.cumsum(counts)]), dtype=torch.int32, device=dev)
 
 
-@pytest.mark.parametrize("K,N", [(2048, 2816), (1408, 2048)], ids=["gate_up", "down"])
-def test_grouped_gemm_matches_plain_at_published_widths(dev, K, N):
-    """5,760 rows over 64 experts, unevenly (empty experts, one with 1,000
-    rows, tails of every length), against the per-expert plain version.
-    Both sum in f32 in other orders and round to bf16 once: one bf16 step
-    (2^-8 of the value) apart, or, where the sum nearly cancels, the f32
-    sums' own reordering error (~K 2^-24 sum|x w s|, ~1e-5 here)."""
-    rng = np.random.default_rng(0)
-    counts = rng.multinomial(4760, rng.dirichlet(np.full(64, 0.5)))
-    counts[[3, 17]] = 0
-    counts[40] += 1000
+@pytest.mark.parametrize("case,E,K,N", [
+    ("dsv2_decode", 64, 2048, 2816), ("dsv2_decode", 64, 1408, 2048),
+    ("dsv2_prefill", 64, 2048, 2816), ("dsv2_prefill", 64, 1408, 2048),
+    ("dsv2_prefix", 64, 2048, 2816), ("dsv2_prefix", 64, 1408, 2048),
+    ("kimi_decode", 256, 2304, 2048), ("kimi_decode", 256, 1024, 2304),
+    ("kimi_prefill", 256, 2304, 2048), ("kimi_prefill", 256, 1024, 2304),
+    ("kimi_prefix", 256, 2304, 2048), ("kimi_prefix", 256, 1024, 2304),
+], ids=["dsv2-gate_up", "dsv2-down", "dsv2-prefill-gate_up", "dsv2-prefill-down",
+        "dsv2-prefix-gate_up", "dsv2-prefix-down",
+        "kimi-gate_up", "kimi-down", "kimi-prefill-gate_up", "kimi-prefill-down",
+        "kimi-prefix-gate_up", "kimi-prefix-down"])
+def test_grouped_gemm_matches_plain_at_published_widths(dev, case, E, K, N):
+    """Both configurations' decode, prefill and shared-prefix prefill
+    spreads (``chip_smoke.moe_spread``; between them every row tile the
+    plan picks) against the per-expert plain version, one launch counted
+    under the plan's ``moe.gemm_plan.*`` counter. Both sum in f32 in other
+    orders and round to bf16 once: one bf16 step (2^-8 of the value) apart,
+    or, where the sum nearly cancels, the f32 sums' own reordering error
+    (~K 2^-24 sum|x w s|, ~1e-5 here)."""
+    counts = moe_spread(case)
     M = int(counts.sum())
     g = torch.Generator(device=dev).manual_seed(1)
     x = torch.randn((M, K), generator=g, device=dev).to(torch.bfloat16)
-    w = torch.randint(-127, 128, (64, K, N), generator=g, device=dev, dtype=torch.int8)
-    s = torch.rand((64, N), generator=g, device=dev) * 1e-3
+    w = torch.randint(-127, 128, (E, K, N), generator=g, device=dev, dtype=torch.int8)
+    s = torch.rand((E, N), generator=g, device=dev) * 1e-3
     off = _offsets(counts, dev)
-    before = moe_w8_grouped_gemm.launches
+    counter = moe_plan(M, E, N, K).counter
+    before, planned = moe_w8_grouped_gemm.launches, tracing.counters().get(counter, 0)
     got = moe_w8_grouped_gemm(x, w, s, off)
     assert moe_w8_grouped_gemm.launches == before + 1
+    assert tracing.counters().get(counter, 0) == planned + 1
     want = moe_w8_grouped_reference(x, w, s, off)
     torch.testing.assert_close(got.float(), want.float(), rtol=2 ** -7, atol=3e-5)
     assert torch.equal(got, moe_w8_grouped_gemm(x, w, s, off))  # a fixed order: the same bits

@@ -82,8 +82,8 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     },
     "moe_w8": {
         # x (bf16), w (int8 [E, K, N]), scale (f32 [E, N]), offsets (int32
-        # [E + 1]), out (bf16), M, E, N, K, stream
-        "tvc_moe_w8_grouped": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+        # [E + 1]), out (bf16), M, E, N, K, row tile, ring stages, stream
+        "tvc_moe_w8_grouped": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     },
     "mla_decode": {
         # q_lat, q_pe, cache (one layer's [B, S, 576]), mask, out, B, heads,
