@@ -25,6 +25,15 @@ Phases (each raises on failure; the script then exits non-zero):
      over 256 experts and its 32-head latent attention at the
      tvc-kimi-linear-48b-w8.fresh96 cell's shapes (480 decode rows, a
      prefill of 96, the prefix at batch 1), bounds from perfbench/work_kda.py;
+     Nemotron-H's own kernels at the tvc-nemotron3-nano-30b-w8.fresh128
+     cell's shapes (640 decode rows, a prefill of 128 with real lengths,
+     the prefix at batch 1; 64 heads of 64, a 64 x 128 f32 state, 8
+     groups): ssm_prepare, ssm_recurrent and ssm_gated_norm against their
+     plain versions, relu2 at the routed and shared experts' widths and
+     qkv_cache at 16 query heads a KV head bit-equal to theirs, its sigmoid
+     routing over 128 experts bit-equal and its decode attention at 16
+     query heads a KV head (the tail kernel), bounds from
+     perfbench/work_ssm.py;
   4. slice: ViT-B/32 bf16 with the fused layers and seeded random weights,
      a 131,072 x 512 bank, an AdversarialDetector behind a ServingRuntime:
      warmup, requests through submit() and HTTP, then detect_batch at
@@ -116,6 +125,9 @@ Phases (each raises on failure; the script then exits non-zero):
   kimi: Kimi-Linear-48B-A3B at its published shape (w8, seeded random
      weights) decoding 96 COCO paraphrase prompts x 5 samples (decode
      batch 480), as dsv2;
+  nemotron: NVIDIA-Nemotron-3-Nano-30B-A3B at its published shape (w8,
+     seeded random weights) decoding 128 COCO paraphrase prompts x 5
+     samples (decode batch 640), as dsv2;
   mha: CLIPModel(CLIPConfig.vit_b32(fused_attention=True)) through
      inference_module.encode_image at B=256 (one fused_mha launch a vision
      layer, held against the einsum module on the same parameters), the
@@ -600,6 +612,10 @@ def phase_kernels() -> dict:
     for name in ("moe_route", "mla_decode_attention"):  # beside DeepSeek-V2's shapes
         results[name]["shapes"] += kimi.pop(name)["shapes"]
     results.update(kimi)
+    nemotron = phase_nemotron_kernels(dev)
+    for name in ("moe_route", "decode_gqa_attention_stacked"):  # beside DeepSeek-V2's and Qwen2's shapes
+        results[name]["shapes"] += nemotron.pop(name)["shapes"]
+    results.update(nemotron)
     results.update(phase_mha_topk_kernels(dev))
     for name, shapes in phase_f1_shapes(dev).items():
         results[name]["shapes"] += shapes
@@ -615,6 +631,136 @@ def phase_kernels() -> dict:
 # bf16 to 1e-2 (one bf16 ulp), the int8 layers to LAYER_TOL, the W8A8
 # GEMM and the top-k exactly (small-integer top-k operands: exact scores).
 F1_F32_TOL = 2e-5
+
+
+# Nemotron-H's kernels against their plain versions, each tolerance the card
+# test's (tests/test_torch_nemotron_cuda.py): ssm_prepare's window
+# bit-equal, its steps within f32 rounding and x | B | C within one bf16
+# step; ssm_recurrent's state within SSM_STATE_TOL of values of scale ~0.3
+# and its bf16 output within one bf16 step (SSM_BF16_TOL relative);
+# ssm_gated_norm within one bf16 step; relu2 and qkv_cache bit-equal. A
+# dropped decay, a head reading another group or a missed pad moves them
+# by O(0.1). The routing at 128 experts bit-equal; the decode attention at
+# 16 query heads a KV head (the tail kernel) DECODE_TOL's.
+NEMOTRON_ROWS, NEMOTRON_PROMPTS, NEMOTRON_SUFFIX, NEMOTRON_PREFIX = 640, 128, 24, 14
+SSM_STATE_TOL, SSM_BF16_TOL = 1e-5, 2 ** -7
+
+
+def phase_nemotron_kernels(dev) -> dict:
+    """Nemotron-H's own kernels at the tvc-nemotron3-nano-30b-w8.fresh128
+    cell's shapes, each held against its plain version on the same card
+    inputs and timed beside the bound from perfbench/work_ssm.py (bytes, or
+    the f32 products at 67 TF/s: the larger): ssm_prepare and ssm_recurrent
+    at a decode step (640 rows, one token), the prompts' suffixes (128 rows
+    of up to 24 tokens, real lengths 1..24) and the shared prefix (one row
+    of 14), 64 heads of 64, a 64 x 128 f32 state and 8 groups;
+    ssm_gated_norm at 640 and 128 x 24 rows; relu2 over the routed experts'
+    3,840 x 1,856 and the shared expert's 640 x 3,712; qkv_cache at 640
+    rows, 2 KV heads of 128 and 32 query heads; the sigmoid routing with the
+    correction bias and renormalisation at 128 experts, top 6, hidden 2,688
+    (640 rows and a prefill's 3,072), every output bit-equal; the decode
+    attention over the stacked cache at 640 rows, 2 KV heads of 16 query
+    heads, D 128, S 64."""
+    import torch
+
+    from perfbench import work_ssm
+    from tvc_torch.core.kernels import decode_fused_kernel as fk
+    from tvc_torch.core.kernels import dsv2_fused_kernel as dk
+    from tvc_torch.core.kernels import ssm_kernel as sk
+    from tvc_torch.core.kernels.decode_attention_kernel import decode_gqa_attention_stacked, decode_gqa_reference
+    from tvc_torch.models.nemotron_h import NemotronHConfig
+
+    c = NemotronHConfig.nemotron3_nano_30b()
+    nh, P, N, G, K = c.mamba_heads, c.mamba_head_dim, c.ssm_state, c.ssm_groups, c.conv_size
+    I, C = c.ssm_width, c.conv_channels
+    bf = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(27)
+    t = lambda *shape: torch.randn(shape, generator=gen, device=dev)  # noqa: E731
+    out = {n: {"shapes": []} for n in (*NEMOTRON, "moe_route", "decode_gqa_attention_stacked")}
+
+    for tag, (B, T, ragged) in {"decode": (NEMOTRON_ROWS, 1, False),
+                                "suffix": (NEMOTRON_PROMPTS, NEMOTRON_SUFFIX, True),
+                                "prefix": (1, NEMOTRON_PREFIX, False)}.items():
+        y = t(B, T, c.ssm_in_width)
+        y[..., I + C :] -= 2.0
+        y = y.to(bf)
+        conv_w, conv_b, dt_bias = 0.5 * t(C, K), 0.1 * t(C), 0.5 * t(nh)
+        a_log, d = torch.log(1 + 15 * torch.rand(nh, generator=gen, device=dev)), 1 + 0.1 * t(nh)
+        window, state = t(B, K - 1, C).to(bf), 0.1 * t(B, nh, P, N)
+        lengths = torch.randint(1, T + 1, (B,), generator=gen, device=dev) if ragged else None
+        shape = f"{tag}: rows={B} T={T}{' real lengths 1..' + str(T) if ragged else ''} heads {nh} of {P}, N {N}"
+        n = int(lengths.sum()) if ragged else B * T
+        w_k, w_p = window.clone(), window.clone()
+        got = sk.ssm_prepare(y, conv_w, conv_b, dt_bias, w_k, lengths, I, I + C)
+        want = sk.ssm_prepare_reference(y, conv_w, conv_b, dt_bias, w_p, lengths, I, I + C)
+        torch.cuda.synchronize()
+        if not torch.equal(w_k, w_p):
+            raise AssertionError(f"ssm_prepare {shape}: the window differs from the plain version")
+        err = max(close("ssm_prepare", shape + " (x | B | C)", got[0], want[0], SSM_BF16_TOL, 1e-6),
+                  close("ssm_prepare", shape + " (dt)", got[1], want[1], 1e-6, 1e-7))
+        w_t = window.clone()
+        record_kernel(out, "ssm_prepare", shape,
+                      lambda: sk.ssm_prepare(y, conv_w, conv_b, dt_bias, w_t, lengths, I, I + C),
+                      lambda: sk.ssm_prepare_reference(y, conv_w, conv_b, dt_bias, w_t, lengths, I, I + C),
+                      work_ssm.prepare(B, T, C, nh, K, n), err)
+        xbc, dt = want
+        s_k, s_p = state.clone(), state.clone()
+        o_k = sk.ssm_recurrent(xbc, dt, a_log, d, s_k, lengths, G, bf)
+        o_p = sk.ssm_recurrent_reference(xbc, dt, a_log, d, s_p, lengths, G, bf)
+        torch.cuda.synchronize()
+        err = max(close("ssm_recurrent", shape + " (y)", o_k, o_p, SSM_BF16_TOL, 1e-5),
+                  close("ssm_recurrent", shape + " (state)", s_k, s_p, 0.0, SSM_STATE_TOL))
+        if ragged and o_k[torch.arange(T, device=dev)[None] >= lengths[:, None]].any():
+            raise AssertionError(f"ssm_recurrent {shape}: a pad's output is not zero")
+        s_t = state.clone()
+        record_kernel(out, "ssm_recurrent", shape, lambda: sk.ssm_recurrent(xbc, dt, a_log, d, s_t, lengths, G, bf),
+                      lambda: sk.ssm_recurrent_reference(xbc, dt, a_log, d, s_t, lengths, G, bf),
+                      work_ssm.recurrent(B, T, nh, P, N, G, n), err)
+        if tag != "prefix":
+            o, w = t(B, T, I).to(bf), 1 + 0.1 * t(I)
+            err = close("ssm_gated_norm", shape, sk.ssm_gated_norm(o, y, w, G, c.rms_eps),
+                        sk.ssm_gated_norm_reference(o, y, w, G, c.rms_eps), SSM_BF16_TOL, 1e-6)
+            record_kernel(out, "ssm_gated_norm", shape, lambda: sk.ssm_gated_norm(o, y, w, G, c.rms_eps),
+                          lambda: sk.ssm_gated_norm_reference(o, y, w, G, c.rms_eps), work_ssm.gated_norm(B, T, I), err)
+        del y, window, state, xbc, dt, s_k, s_p, s_t, o_k, o_p
+    k = c.num_experts_per_tok
+    for rows, width, tag in ((NEMOTRON_ROWS * k, c.moe_intermediate_size, "routed experts"),
+                             (NEMOTRON_ROWS, c.shared_intermediate_size, "shared expert")):
+        u = t(rows, width).to(bf)
+        hold_bit_equal(out, "relu2", f"{tag}: {rows} x {width} bf16", lambda: fk.relu2(u),
+                       lambda: fk.relu2_reference(u), work_ssm.relu2(rows * width)[1])
+    B, L, kv, D, S = NEMOTRON_ROWS, len(c.blocks("*")), c.num_kv_heads, c.head_dim, 64
+    qkv = t(B, 1, (c.num_heads + 2 * kv) * D).to(bf)
+    ck, cv = t(L, B, kv, S, D).to(bf), t(L, B, kv, S, D).to(bf)
+    hold_bit_equal(out, "qkv_cache", f"rows={B} heads {c.num_heads} / {kv} of {D}, block {L - 1} of {L}, slot 40 of "
+                   f"{S} bf16", lambda: fk.qkv_cache(qkv, ck, cv, L - 1, 40),
+                   lambda: fk.qkv_cache_reference(qkv, ck.clone(), cv.clone(), L - 1, 40),
+                   2 * 2 * B * (c.num_heads + 2 * kv) * D)
+    R = c.num_heads // kv
+    q = t(B, kv, R, D).to(bf)
+    mask = torch.zeros((B, S), device=dev)
+    mask[:, 48:60] = float("-inf")
+    got = decode_gqa_attention_stacked(q, ck, cv, mask, L - 1)
+    want = decode_gqa_reference(q, ck[L - 1], cv[L - 1], mask)
+    again = decode_gqa_attention_stacked(q, ck, cv, mask, L - 1)
+    torch.cuda.synchronize()
+    abs_err, rel_err = _layer_error(got, want)
+    if not (rel_err <= DECODE_TOL and torch.equal(got, again)):
+        raise AssertionError(f"decode_gqa_attention_stacked at R {R} disagrees with its plain version or itself: "
+                             f"{abs_err:.3e} abs, {rel_err:.3e} scaled (tol {DECODE_TOL})")
+    shape = f"Nemotron-H block {L - 1} of {L} B={B} KV={kv} R={R} S={S} D={D}"
+    record_kernel(out, "decode_gqa_attention_stacked", shape,
+                  lambda: decode_gqa_attention_stacked(q, ck, cv, mask, L - 1),
+                  lambda: decode_gqa_reference(q, ck[L - 1], cv[L - 1], mask),
+                  work_ssm.gqa_decode(B, S, kv, R, D), abs_err)
+    H, E = c.hidden_size, c.n_routed_experts
+    for n in (NEMOTRON_ROWS, NEMOTRON_PROMPTS * NEMOTRON_SUFFIX):
+        lg, x, bias = 2 * t(n, E), t(n, H).to(bf), 0.1 * t(E)
+        hold_bit_equal(out, "moe_route", f"rows={n} experts {E} top {k} hidden {H} sigmoid, bias, renormalised bf16",
+                       lambda: dk.moe_route(lg, x, k, None, "sigmoid", bias, True),
+                       lambda: dk.moe_route_reference(lg, x, k, None, "sigmoid", bias, True),
+                       4 * n * E + 4 * E + 2 * n * H + 2 * n * k * H + 16 * n * k)
+    return out
 
 
 def phase_f1_shapes(dev) -> dict:
@@ -1071,12 +1217,14 @@ def moe_spread(case: str):
     a rougher decode spread (empty experts, one with 1,000 more;
     ``dsv2_decode``) and a prefill (18,432 rows, two empty); Kimi-Linear's
     decode (3,840 rows over 256 experts: empty experts, one-row experts, one
-    of 240 rows) and prefill (18,432 rows); and each model's prefill of the
-    shared paraphrase prefix (``*_prefix``: MOE_PREFIX tokens, each to its
+    of 240 rows) and prefill (18,432 rows); Nemotron-H's decode (3,840 rows
+    over 128 experts: empty experts, one-row experts, one of 120 rows) and
+    prefill (18,432 rows); and each model's prefill of the shared
+    paraphrase prefix (``*_prefix``: MOE_PREFIX tokens, each to its
     top-k distinct experts, most experts empty)."""
     rng = np.random.default_rng(0)
     if case.endswith("_prefix"):
-        E, k = (DSV2_EXPERTS, DSV2_TOPK) if case == "dsv2_prefix" else (256, 8)
+        E, k = {"dsv2_prefix": (DSV2_EXPERTS, DSV2_TOPK), "nemotron_prefix": (128, 6)}.get(case, (256, 8))
         counts = np.zeros(E, np.int64)
         for _ in range(MOE_PREFIX):
             counts[rng.choice(E, k, replace=False)] += 1
@@ -1100,8 +1248,17 @@ def moe_spread(case: str):
         counts[[1, 2, 100, 200, 255]] = 1
         counts[3] = 240
         counts[0] += 3840 - int(counts.sum())
-    else:  # kimi_prefill
+    elif case == "kimi_prefill":
         counts = rng.multinomial(18432, rng.dirichlet(np.full(256, 1.0)))
+        counts[[9, 99]] = 0
+    elif case == "nemotron_decode":
+        counts = rng.multinomial(3840 - 120, rng.dirichlet(np.full(128, 1.0)))
+        counts[[5, 50]] = 0
+        counts[[1, 127]] = 1
+        counts[2] = 120
+        counts[0] += 3840 - int(counts.sum())
+    else:  # nemotron_prefill
+        counts = rng.multinomial(18432, rng.dirichlet(np.full(128, 1.0)))
         counts[[9, 99]] = 0
     return counts
 
@@ -1115,6 +1272,10 @@ MOE_CASES = (
     ("kimi_decode", "kimi decode gate|up", 256, 2304, 2048), ("kimi_decode", "kimi decode down", 256, 1024, 2304),
     ("kimi_prefill", "kimi prefill gate|up", 256, 2304, 2048),
     ("kimi_prefix", "kimi prefix prefill gate|up", 256, 2304, 2048),
+    ("nemotron_decode", "nemotron decode up", 128, 2688, 1856),
+    ("nemotron_decode", "nemotron decode down", 128, 1856, 2688),
+    ("nemotron_prefill", "nemotron prefill up", 128, 2688, 1856),
+    ("nemotron_prefix", "nemotron prefix prefill up", 128, 2688, 1856),
 )
 
 
@@ -1189,6 +1350,31 @@ def phase_dsv2_kernels(dev) -> dict:
          lambda: mla_decode_reference(q_lat, q_pe, cache, mask, L - 1, sm), DECODE_TOL, *work_moe.mla_decode(B, S))
     del q_lat, q_pe, cache
     return out
+
+
+def record_kernel(out: dict, name: str, shape: str, run_k, run_p, ops_bytes, err: float) -> None:
+    """A kernel and its plain version timed, beside the bound of ``ops_bytes``
+    (``(operations, bytes)`` from ``perfbench``'s work models: bytes at 3.35
+    TB/s or the operations at their peak, the larger), into ``out[name]``."""
+    from perfbench import work
+
+    k_ms, p_ms = time_ms(run_k), time_ms(run_p, iters=5, warmup=1)
+    bms, by = bound_ms_of(ops_bytes[1], work.peak_seconds(ops_bytes[0]))
+    out[name]["shapes"].append({"shape": shape, "ms": k_ms, "plain_ms": p_ms, "bound_ms": bms, "bound_by": by,
+                                "max_abs_err": err})
+    log(f"kernel {name} {shape}: kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} bound_ms={bms:.5f} ({by}) "
+        f"kernel at {100 * bms / k_ms:.1f}% of the bound, max_abs_err={err:.3e}")
+
+
+def close(name: str, shape: str, got, want, rtol: float, atol: float) -> float:
+    """``got`` within ``atol + rtol |want|`` of ``want`` everywhere, or raise;
+    returns the largest absolute difference."""
+    diff = (got.float() - want.float()).abs()
+    bad = diff > atol + rtol * want.float().abs()
+    if bad.any():
+        raise AssertionError(f"{name} {shape}: {int(bad.sum())} elements beyond rtol {rtol} atol {atol}, max |d| "
+                             f"{float(diff.max()):.3e}")
+    return float(diff.max())
 
 
 def hold_bit_equal(out: dict, name: str, shape: str, run_k, run_p, nbytes: float) -> None:
@@ -1372,21 +1558,6 @@ def phase_kda_kernels(dev) -> dict:
     t = lambda *shape: torch.randn(shape, generator=gen, device=dev)  # noqa: E731
     out = {n: {"shapes": []} for n in (*KDA, "moe_route", "mla_decode_attention")}
 
-    def record(name, shape, run_k, run_p, ops_bytes, err):
-        k_ms, p_ms = time_ms(run_k), time_ms(run_p, iters=5, warmup=1)
-        bms, by = bound_ms_of(ops_bytes[1], work.peak_seconds(ops_bytes[0]))
-        out[name]["shapes"].append({"shape": shape, "ms": k_ms, "plain_ms": p_ms, "bound_ms": bms, "bound_by": by,
-                                    "max_abs_err": err})
-        log(f"kernel {name} {shape}: kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} bound_ms={bms:.5f} ({by}) "
-            f"kernel at {100 * bms / k_ms:.1f}% of the bound, max_abs_err={err:.3e}")
-
-    def close(name, shape, got, want, rtol, atol):
-        bad = (got.float() - want.float()).abs() > atol + rtol * want.float().abs()
-        if bad.any():
-            raise AssertionError(f"{name} {shape}: {int(bad.sum())} elements beyond rtol {rtol} atol {atol}, max |d| "
-                                 f"{float((got.float() - want.float()).abs().max()):.3e}")
-        return float((got.float() - want.float()).abs().max())
-
     for tag, (B, T, ragged) in {"decode": (KIMI_ROWS, 1, False), "suffix": (KIMI_PROMPTS, KIMI_SUFFIX, True),
                                 "prefix": (1, KIMI_PREFIX, False)}.items():
         y = t(B, T, b_col + nh).to(bf)
@@ -1405,9 +1576,10 @@ def phase_kda_kernels(dev) -> dict:
             raise AssertionError(f"kda_prepare {shape}: the window or beta differs from the plain version")
         err = close("kda_prepare", shape, got[0], want[0], *KDA_PREP_TOL)
         w_t = window.clone()
-        record("kda_prepare", shape, lambda: kk.kda_prepare(y, f, conv_w, a_log, dt_bias, w_t, lengths, nh, b_col),
-               lambda: kk.kda_prepare_reference(y, f, conv_w, a_log, dt_bias, w_t, lengths, nh, b_col),
-               work_kda.prepare(B, T, nh, 3 * HD, K, n), err)
+        record_kernel(out, "kda_prepare", shape,
+                      lambda: kk.kda_prepare(y, f, conv_w, a_log, dt_bias, w_t, lengths, nh, b_col),
+                      lambda: kk.kda_prepare_reference(y, f, conv_w, a_log, dt_bias, w_t, lengths, nh, b_col),
+                      work_kda.prepare(B, T, nh, 3 * HD, K, n), err)
         qkvg, beta = want
         s_k, s_p = state.clone(), state.clone()
         o_k = kk.kda_recurrent(qkvg, beta, s_k, lengths, bf)
@@ -1418,16 +1590,17 @@ def phase_kda_kernels(dev) -> dict:
         if ragged and o_k[torch.arange(T, device=dev)[None] >= lengths[:, None]].any():
             raise AssertionError(f"kda_recurrent {shape}: a pad's output is not zero")
         s_t = state.clone()
-        record("kda_recurrent", shape, lambda: kk.kda_recurrent(qkvg, beta, s_t, lengths, bf),
-               lambda: kk.kda_recurrent_reference(qkvg, beta, s_t, lengths, bf), work_kda.recurrent(B, T, nh, d, n),
-               err)
+        record_kernel(out, "kda_recurrent", shape, lambda: kk.kda_recurrent(qkvg, beta, s_t, lengths, bf),
+                      lambda: kk.kda_recurrent_reference(qkvg, beta, s_t, lengths, bf),
+                      work_kda.recurrent(B, T, nh, d, n), err)
         if tag != "prefix":
             o, fg, w = t(B, T, nh, d).to(bf), t(B, T, 2 * HD).to(bf), 1 + 0.1 * t(d)
             gate = fg[..., HD:]
             err = close("kda_gated_norm", shape, kk.kda_gated_norm(o, gate, w, c.rms_eps),
                         kk.kda_gated_norm_reference(o, gate, w, c.rms_eps), KDA_BF16_TOL, 1e-6)
-            record("kda_gated_norm", shape, lambda: kk.kda_gated_norm(o, gate, w, c.rms_eps),
-                   lambda: kk.kda_gated_norm_reference(o, gate, w, c.rms_eps), work_kda.gated_norm(B, T, nh, d), err)
+            record_kernel(out, "kda_gated_norm", shape, lambda: kk.kda_gated_norm(o, gate, w, c.rms_eps),
+                          lambda: kk.kda_gated_norm_reference(o, gate, w, c.rms_eps), work_kda.gated_norm(B, T, nh, d),
+                          err)
         del y, f, window, state, qkvg, beta, s_k, s_p, s_t, o_k, o_p
     E, k = c.n_routed_experts, c.num_experts_per_tok
     for N in (KIMI_ROWS, KIMI_PROMPTS * KIMI_SUFFIX):
@@ -1726,6 +1899,12 @@ KERNEL_SOURCES = {
     "kda_prepare": ("tvc_torch/csrc/kda.cu", None),
     "kda_recurrent": ("tvc_torch/csrc/kda.cu", None),
     "kda_gated_norm": ("tvc_torch/csrc/kda.cu", None),
+    # no TPU kernel: the JAX package runs no state-space layer
+    "ssm_prepare": ("tvc_torch/csrc/ssm.cu", None),
+    "ssm_recurrent": ("tvc_torch/csrc/ssm.cu", None),
+    "ssm_gated_norm": ("tvc_torch/csrc/ssm.cu", None),
+    "relu2": ("tvc_torch/csrc/decode_fused.cu", None),
+    "qkv_cache": ("tvc_torch/csrc/decode_fused.cu", None),
     "rmsnorm": ("tvc_torch/csrc/decode_fused.cu", None),
     "add_rmsnorm": ("tvc_torch/csrc/decode_fused.cu", None),
     "qkv_rope_cache": ("tvc_torch/csrc/decode_fused.cu", None),
@@ -1737,6 +1916,9 @@ DECODE_FUSED = ("rmsnorm", "add_rmsnorm", "qkv_rope_cache", "silu_mul")
 DSV2_FUSED = ("mla_rope_cache", "mla_out", "moe_route", "moe_combine")
 #: Kimi-Linear's own: Kimi Delta Attention's preparation, recurrence and gated norm
 KDA = ("kda_prepare", "kda_recurrent", "kda_gated_norm")
+#: Nemotron-H's own: the Mamba-2 blocks' kernels, the non-gated experts' and the no-rotary attention's
+SSM = ("ssm_prepare", "ssm_recurrent", "ssm_gated_norm")
+NEMOTRON = (*SSM, "relu2", "qkv_cache")
 #: the kernels each path launches; it launches no other
 PATH_KERNELS = {
     "bf16": ("fused_consistency_scores", "fused_attention_layer", "fused_mlp_layer"),
@@ -1749,6 +1931,8 @@ PATH_KERNELS = {
              *DSV2_FUSED),
     "kimi": ("w8_matmul", "moe_w8_grouped_gemm", "mla_decode_attention", "rmsnorm", "add_rmsnorm", "silu_mul",
              *DSV2_FUSED, *KDA),
+    "nemotron": ("w8_matmul", "moe_w8_grouped_gemm", "decode_gqa_attention", "decode_gqa_attention_stacked",
+                 "rmsnorm", "add_rmsnorm", "moe_route", "moe_combine", *NEMOTRON),
     "mha": ("fused_mha",),
     "retrieval": ("fused_consistency_scores", "fused_attention_layer", "fused_mlp_layer", "bank_topk"),
     "tiny int8": ("fused_consistency_scores", "fused_attention_layer_i8", "fused_mlp_layer_i8"),
@@ -3248,6 +3432,28 @@ def kimi_step_launches(cfg, rows: int) -> dict:
             **dict.fromkeys(KDA, nk)}
 
 
+def nemotron_step_launches(cfg, rows: int) -> dict:
+    """Launches of one NemotronHModel decode step at ``rows`` rows, read
+    off its _run_layers, _ssm, _gqa, DeepSeek-V2's _moe and the head: in
+    each Mamba-2 block its W_in and W_out GEMMs and its three kernels
+    (ssm_prepare, ssm_recurrent, ssm_gated_norm); in each attention block
+    its q|k|v and W_o GEMMs, the cache write (qkv_cache) and one decode
+    attention (the stacked wrapper launches the flat kernel); in each MoE
+    block the routing, the two grouped expert GEMMs, the shared expert's
+    two GEMMs, the squared ReLU of the routed and of the shared expert and
+    the combine; the untied head. A w8 GEMM launches its kernel only at
+    most W8_MAX_ROWS rows (a larger block dequantizes, then matmuls). The
+    norms: the first block's (rmsnorm), every other block's after its
+    residual add and the final one (add_rmsnorm)."""
+    from tvc_torch.models.deepseek_v2 import W8_MAX_ROWS
+
+    nm, na, ne = (len(cfg.blocks(kind)) for kind in "M*E")
+    w8 = (2 * (nm + na + ne) + 1) if rows <= W8_MAX_ROWS else 0
+    return {"w8_matmul": w8, "moe_w8_grouped_gemm": 2 * ne, "decode_gqa_attention": na,
+            "decode_gqa_attention_stacked": na, "rmsnorm": 1, "add_rmsnorm": cfg.num_layers, "moe_route": ne,
+            "moe_combine": ne, "relu2": 2 * ne, "qkv_cache": na, **dict.fromkeys(SSM, nm)}
+
+
 def phase_qwen(card: dict) -> dict:
     """Qwen2-7B W8A8 at full width, seeded random weights, 192 COCO
     captions x 3 paraphrases x 16 new tokens."""
@@ -3798,6 +4004,69 @@ def phase_kimi(card: dict) -> dict:
     ms_q = 1e3 * t_med / KIMI_PROMPTS
     peak = torch.cuda.max_memory_allocated() / 2**30
     log(f"[kimi] paraphrase decode {KIMI_PROMPTS} x {V} x {MAX_NEW} new tokens (batch {rows}): calls "
+        f"{[round(x, 4) for x in times]} s, median {t_med:.4f} s: {tok_s:.1f} tok/s, {ms_q:.3f} ms/query; peak "
+        f"memory {peak:.2f} GiB on {card['smi']}")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": step, "rows": rows, "init_s": init_s, "tok_s": tok_s, "ms_per_query": ms_q,
+            "peak_gib": peak}
+
+
+def phase_nemotron(card: dict) -> dict:
+    """NVIDIA-Nemotron-3-Nano-30B-A3B as the
+    tvc-nemotron3-nano-30b-w8.fresh128 cell builds it
+    (NemotronHConfig.nemotron3_nano_30b(), w8, seeded random weights drawn
+    on the card a part at a time), decoding 128 COCO paraphrase prompts x 5
+    samples (decode batch 640): the launches of its second decode step,
+    reset as the step opens and read as the next one opens, with the step
+    under set_sync_debug_mode("error"), against nemotron_step_launches; then
+    the paraphrase decode's tok/s and the peak memory (the f32 Mamba-2
+    state of 640 rows beside 30 GiB of weights). The model is freed."""
+    import gc
+
+    import torch
+
+    from tvc_torch.models.decoding import PARAPHRASE_PREFIX, PARAPHRASE_PROMPT
+    from tvc_torch.models.nemotron_h import NemotronHConfig, NemotronHModel
+    from tvc_torch.pipeline import PipelineConfig
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg = NemotronHConfig.nemotron3_nano_30b()
+    model = NemotronHModel(cfg, seed=0, max_new_tokens=MAX_NEW)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    log(f"[nemotron] model: {cfg.model_name} w8, {cfg.num_layers} blocks x {cfg.hidden_size} "
+        f"({len(cfg.blocks('M'))} Mamba-2, {len(cfg.blocks('*'))} attention, {cfg.n_moe_layers} MoE), "
+        f"{cfg.n_routed_experts} routed experts (top {cfg.num_experts_per_tok}) + {cfg.n_shared_experts} shared, "
+        f"seeded random weights, init {init_s:.2f} s, {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    V = PipelineConfig().num_text_variants
+    texts = coco_captions(NEMOTRON_PROMPTS)
+    rows = NEMOTRON_PROMPTS * V
+    inp = model.prepare([PARAPHRASE_PROMPT.format(text=x) for x in texts], V, None, PARAPHRASE_PREFIX)
+    step = step_launches("[nemotron]", model, inp)
+    want = nemotron_step_launches(cfg, rows)
+    log(f"[nemotron] launches in decode step 1 at {rows} rows (prefix {inp.P} tokens, prompt {inp.plen} slots), "
+        f"no host synchronisation: {step}; expected {want}")
+    _check_path_counts(step, "nemotron", "one decode step")
+    if any(step[k] != n for k, n in want.items()):
+        raise AssertionError(f"[nemotron] launch counts {step}, expected {want}")
+
+    times = []
+    for i in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.generate_paraphrases_batch(texts, V, seed=i)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    t_med = statistics.median(times)
+    tok_s = rows * MAX_NEW / t_med
+    ms_q = 1e3 * t_med / NEMOTRON_PROMPTS
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[nemotron] paraphrase decode {NEMOTRON_PROMPTS} x {V} x {MAX_NEW} new tokens (batch {rows}): calls "
         f"{[round(x, 4) for x in times]} s, median {t_med:.4f} s: {tok_s:.1f} tok/s, {ms_q:.3f} ms/query; peak "
         f"memory {peak:.2f} GiB on {card['smi']}")
     del model
@@ -5059,6 +5328,8 @@ def main() -> int:
         dsv2 = phase_dsv2(card)
     with phase("kimi"):
         kimi = phase_kimi(card)
+    with phase("nemotron"):
+        nemotron = phase_nemotron(card)
     with phase("mha"):
         mha = phase_mha(card)
     with phase("retrieval"):
@@ -5071,8 +5342,8 @@ def main() -> int:
     kres["bank_topk"]["shapes"].append(large["shape"])
     with phase("mesh"):
         mesh = phase_mesh(card)
-    paths = {"bf16": bf16, "int8": int8, "qwen": qwen, "pipeline": pipeline, "dsv2": dsv2, "kimi": kimi, "mha": mha,
-             "retrieval": retrieval,
+    paths = {"bf16": bf16, "int8": int8, "qwen": qwen, "pipeline": pipeline, "dsv2": dsv2, "kimi": kimi,
+             "nemotron": nemotron, "mha": mha, "retrieval": retrieval,
              **tiny, **{k: v for k, v in attack.items() if k in PATH_KERNELS}, "sd": sd,
              **{k: v for k, v in weights.items() if k in PATH_KERNELS},
              **{k: v for k, v in harness.items() if k in PATH_KERNELS},
@@ -5102,6 +5373,8 @@ def main() -> int:
         f"{dsv2['ms_per_query']:.3f} ms/query, peak {dsv2['peak_gib']:.2f} GiB on {card['smi']}")
     log(f"Kimi-Linear-48B-A3B w8 paraphrase decode (batch {kimi['rows']}): {kimi['tok_s']:.1f} tok/s, "
         f"{kimi['ms_per_query']:.3f} ms/query, peak {kimi['peak_gib']:.2f} GiB on {card['smi']}")
+    log(f"Nemotron-3-Nano-30B-A3B w8 paraphrase decode (batch {nemotron['rows']}): {nemotron['tok_s']:.1f} tok/s, "
+        f"{nemotron['ms_per_query']:.3f} ms/query, peak {nemotron['peak_gib']:.2f} GiB on {card['smi']}")
     log(f"ViT-B/32 vision images/s at B={B_MHA}: " + ", ".join(f"{k} {v:.1f}" for k, v in mha["images_per_s"].items())
         + f"; ViT-L/14 with fused_mha at B={B_MHA_L14}: {mha['l14_images_per_s']:.1f} on {card['smi']}")
     full = attack["attack"]

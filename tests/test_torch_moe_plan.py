@@ -85,12 +85,14 @@ def test_ring_fills_the_shared_memory_a_row_tile_leaves(rows):
 @pytest.mark.parametrize("case,E,rows", [
     ("dsv2_step", 64, 128), ("dsv2_decode", 64, 128), ("dsv2_prefill", 64, 128), ("dsv2_prefix", 64, 16),
     ("kimi_decode", 256, 32), ("kimi_prefill", 256, 128), ("kimi_prefix", 256, 16),
+    ("nemotron_decode", 128, 128), ("nemotron_prefill", 128, 128), ("nemotron_prefix", 128, 16),
 ])
 def test_each_held_spread_takes_the_tile_its_cell_counts(case, E, rows):
     """The spreads ``chip_smoke`` times and the card tests hold take the
     tile the cells' ``moe.gemm_plan.*`` counters show for that call: the
-    decodes ``swap32`` (Kimi-Linear) and ``swap128`` (DeepSeek-V2-Lite), the
-    suffix prefills ``swap128``, the shared prefix's prefill ``swap16``."""
+    decodes ``swap32`` (Kimi-Linear) and ``swap128`` (DeepSeek-V2-Lite, and
+    Nemotron-H's 30 rows an expert), the suffix prefills ``swap128``, the
+    shared prefix's prefill ``swap16``."""
     counts = moe_spread(case)
     assert len(counts) == E and counts.min() >= 0
     assert moe_plan(int(counts.sum()), E, 2048, 2304).rows == rows

@@ -24,8 +24,12 @@ from tvc_torch.core.kernels.decode_attention_kernel import (
 from tvc_torch.core.kernels.decode_fused_kernel import (
     add_rmsnorm,
     add_rmsnorm_reference,
+    qkv_cache,
+    qkv_cache_reference,
     qkv_rope_cache,
     qkv_rope_cache_reference,
+    relu2,
+    relu2_reference,
     rmsnorm,
     rmsnorm_reference,
     silu_mul,
@@ -57,6 +61,14 @@ from tvc_torch.core.kernels.quantized_layer_kernel import (
     fused_mlp_layer_i8,
     mlp_layer_i8_reference,
     quantize_linear,
+)
+from tvc_torch.core.kernels.ssm_kernel import (
+    ssm_gated_norm,
+    ssm_gated_norm_reference,
+    ssm_prepare,
+    ssm_prepare_reference,
+    ssm_recurrent,
+    ssm_recurrent_reference,
 )
 from tvc_torch.core.kernels.topk_kernel import bank_topk, bank_topk_reference
 from tvc_torch.core.kernels.w8_matmul_kernel import (
@@ -96,6 +108,11 @@ KERNELS = (
     kda_prepare,
     kda_recurrent,
     kda_gated_norm,
+    qkv_cache,
+    relu2,
+    ssm_prepare,
+    ssm_recurrent,
+    ssm_gated_norm,
 )
 
 

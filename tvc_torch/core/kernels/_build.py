@@ -114,6 +114,17 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         # o, gate, ldg, w (f32), out, rows, heads, d, eps, stream
         "tvc_kda_gated_norm": [_P, _P, _I, _P, _P, ctypes.c_longlong, _I, _I, _F, _P],
     },
+    "ssm": {
+        # y, ldy, xbc_col, dt_col, conv_w, conv_b, dt_bias (f32),
+        # conv_state, lengths (int64 or null), xbc, dt (f32), B, T, C,
+        # heads, K, stream
+        "tvc_ssm_prepare": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+        # xbc, dt, a_log, d (f32), state (f32), lengths (int64 or null),
+        # out, B, T, heads, groups, stream
+        "tvc_ssm_recurrent": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+        # y, z, ldz, w (f32), out, rows, groups, group size, eps, stream
+        "tvc_ssm_gated_norm": [_P, _P, _I, _P, _P, ctypes.c_longlong, _I, _I, _F, _P],
+    },
     "decode_fused": {
         # x, y (or null), scale (f32), h_out (or null), out, rows, W, ldx,
         # eps, factor (1 / W), lanes a row, is_f32, stream
@@ -121,8 +132,12 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         # qkv, bias (f32), cos, sin (f32), ck, cv (the layer's), q, B, nh,
         # kv, D, S, slot, is_f32, stream
         "tvc_qkv_rope_cache": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+        # qkv, ck, cv (the layer's), q, B, nh, kv, D, S, slot, is_f32, stream
+        "tvc_qkv_cache": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
         # gu, out, rows, I, is_f32, stream
         "tvc_silu_mul": [_P, _P, _I, _I, _I, _P],
+        # u, out, n, is_f32, stream
+        "tvc_relu2": [_P, _P, ctypes.c_longlong, _I, _P],
     },
     "mha": {
         # q, k, v, out, ld, B, T, H, D, is_bf16, causal, scale, stream

@@ -5,7 +5,10 @@ JAX package leaves them to XLA).
     add_rmsnorm(h, y [..., W], scale [W], eps) -> (h + y, rmsnorm(h + y))
     qkv_rope_cache(qkv [B, 1, (nh + 2 kv) D], bias, cos, sin [B, 1, 1, D / 2],
                    ck, cv [L, B, kv, S, D], layer, cache_index) -> q [B, kv, nh / kv, D]
+    qkv_cache(qkv [B, 1, (nh + 2 kv) D], ck, cv [L, B, kv, S, D], layer, cache_index)
+        -> q [B, kv, nh / kv, D]
     silu_mul(gu [..., 2 I], I) -> [..., I]
+    relu2(u [...]) -> [...]
 
 ``rmsnorm`` is the decoders' RMSNorm: f32 statistics, ``x * rsqrt(mean(x^2)
 + eps) * scale`` in f32, rounded to x's dtype; the kernel sums the squares
@@ -18,8 +21,11 @@ epilogue of one decode step's q|k|v GEMM: the bias, the half-split rotary
 embedding of q and k (``apply_rope``, f32 products), k and v written into
 slot ``cache_index`` of layer ``layer`` of the KV-major caches in place,
 and q returned as the contiguous ``[B, kv, R, D]`` tensor the decode
-attention reads. ``silu_mul`` is the SiLU-gated product of an MLP, SiLU
-rounded to gu's dtype, then the product.
+attention reads; ``qkv_cache`` is the same epilogue for attention with
+no bias and no rotary embedding (Nemotron-H's): the cache write and q, the
+values as they are. ``silu_mul`` is the SiLU-gated product of an MLP, SiLU
+rounded to gu's dtype, then the product; ``relu2`` the squared ReLU of a
+non-gated one, ``F.relu(u).square()``.
 
 For CUDA tensors (bf16 or f32) each wrapper launches one kernel of
 ``tvc_torch/csrc/decode_fused.cu`` or raises; for CPU tensors it computes
@@ -78,9 +84,26 @@ def qkv_rope_cache_reference(qkv: Tensor, bias: Tensor, cos: Tensor, sin: Tensor
     return q.reshape(B, kv, nq // (kv * D), D).contiguous()
 
 
+def qkv_cache_reference(qkv: Tensor, ck: Tensor, cv: Tensor, layer: int, cache_index: int) -> Tensor:
+    """Plain PyTorch version of :func:`qkv_cache`."""
+    _, B, kv, _, D = ck.shape
+    qkv = qkv.reshape(B, 1, -1)
+    nq = qkv.shape[-1] - 2 * kv * D
+    k = qkv[..., nq : nq + kv * D].reshape(B, 1, kv, D)
+    v = qkv[..., nq + kv * D :].reshape(B, 1, kv, D)
+    ck[layer, :, :, cache_index : cache_index + 1] = k.transpose(1, 2)
+    cv[layer, :, :, cache_index : cache_index + 1] = v.transpose(1, 2)
+    return qkv[..., :nq].reshape(B, kv, nq // (kv * D), D).contiguous()
+
+
 def silu_mul_reference(gu: Tensor, I: int) -> Tensor:
     """Plain PyTorch version of :func:`silu_mul`."""
     return (F.silu(gu[..., :I]) * gu[..., I:]).to(gu.dtype)
+
+
+def relu2_reference(u: Tensor) -> Tensor:
+    """Plain PyTorch version of :func:`relu2`."""
+    return F.relu(u).square()
 
 
 def _stream(t: Tensor) -> int:
@@ -195,14 +218,9 @@ def add_rmsnorm(h: Tensor, y: Tensor, scale: Tensor, eps: float) -> Tuple[Tensor
 add_rmsnorm.launches = 0
 
 
-def qkv_rope_cache(qkv: Tensor, bias: Tensor, cos: Tensor, sin: Tensor, ck: Tensor, cv: Tensor, layer: int,
-                   cache_index: int) -> Tensor:
-    """One decode step's q|k|v epilogue over layer ``layer`` of the stacked
-    caches ``[L, B, kv, S, D]``: bias, rotary embedding, cache write; returns
-    q ``[B, kv, nh / kv, D]``."""
-    layer, cache_index = int(layer), int(cache_index)
-    if qkv.device.type == "cpu":
-        return qkv_rope_cache_reference(qkv, bias, cos, sin, ck, cv, layer, cache_index)
+def _qkv_shapes(qkv: Tensor, ck: Tensor, cv: Tensor, layer: int, cache_index: int):
+    """``(B, nh, kv, D, S, W)`` of a q|k|v epilogue's operands on the card,
+    checked."""
     _on_card(qkv, ck, cv)
     L, B, kv, S, D = ck.shape if ck.ndim == 5 else (0,) * 5
     W = qkv.shape[-1]
@@ -214,6 +232,18 @@ def qkv_rope_cache(qkv: Tensor, bias: Tensor, cos: Tensor, sin: Tensor, ck: Tens
     if qkv.numel() != B * W or W % D or nh < kv or nh % kv:
         raise ValueError(f"qkv must hold {B} rows of (nh + 2 x {kv}) x {D} values, nh a multiple of {kv}; got "
                          f"{tuple(qkv.shape)}")
+    return B, nh, kv, D, S, W
+
+
+def qkv_rope_cache(qkv: Tensor, bias: Tensor, cos: Tensor, sin: Tensor, ck: Tensor, cv: Tensor, layer: int,
+                   cache_index: int) -> Tensor:
+    """One decode step's q|k|v epilogue over layer ``layer`` of the stacked
+    caches ``[L, B, kv, S, D]``: bias, rotary embedding, cache write; returns
+    q ``[B, kv, nh / kv, D]``."""
+    layer, cache_index = int(layer), int(cache_index)
+    if qkv.device.type == "cpu":
+        return qkv_rope_cache_reference(qkv, bias, cos, sin, ck, cv, layer, cache_index)
+    B, nh, kv, D, S, W = _qkv_shapes(qkv, ck, cv, layer, cache_index)
     half = D // 2
     tables = [t.float().contiguous() for t in (cos, sin)]
     if any(t.numel() != B * half or t.device != qkv.device for t in tables):
@@ -234,6 +264,30 @@ def qkv_rope_cache(qkv: Tensor, bias: Tensor, cos: Tensor, sin: Tensor, ck: Tens
 
 
 qkv_rope_cache.launches = 0
+
+
+def qkv_cache(qkv: Tensor, ck: Tensor, cv: Tensor, layer: int, cache_index: int) -> Tensor:
+    """One decode step's q|k|v epilogue without bias or rotary embedding:
+    k and v into slot ``cache_index`` of layer ``layer`` of the stacked
+    caches ``[L, B, kv, S, D]``; returns q ``[B, kv, nh / kv, D]``."""
+    layer, cache_index = int(layer), int(cache_index)
+    if qkv.device.type == "cpu":
+        return qkv_cache_reference(qkv, ck, cv, layer, cache_index)
+    B, nh, kv, D, S, _ = _qkv_shapes(qkv, ck, cv, layer, cache_index)
+    qkv = qkv.contiguous()
+    q = torch.empty((B, kv, nh // kv, D), dtype=qkv.dtype, device=qkv.device)
+    _build.check(
+        _build.load("decode_fused").tvc_qkv_cache(
+            qkv.data_ptr(), ck[layer].data_ptr(), cv[layer].data_ptr(), q.data_ptr(), B, nh, kv, D, S, cache_index,
+            int(qkv.dtype == torch.float32), _stream(qkv),
+        ),
+        "tvc_qkv_cache",
+    )
+    qkv_cache.launches += 1
+    return q
+
+
+qkv_cache.launches = 0
 
 
 def silu_mul(gu: Tensor, I: int) -> Tensor:
@@ -257,3 +311,22 @@ def silu_mul(gu: Tensor, I: int) -> Tensor:
 
 
 silu_mul.launches = 0
+
+
+def relu2(u: Tensor) -> Tensor:
+    """``relu(u)^2`` in u's dtype; one launch."""
+    if u.device.type == "cpu":
+        return relu2_reference(u)
+    _on_card(u)
+    u = u.contiguous()
+    out = torch.empty_like(u)
+    _build.check(
+        _build.load("decode_fused").tvc_relu2(u.data_ptr(), out.data_ptr(), u.numel(), int(u.dtype == torch.float32),
+                                              _stream(u)),
+        "tvc_relu2",
+    )
+    relu2.launches += 1
+    return out
+
+
+relu2.launches = 0

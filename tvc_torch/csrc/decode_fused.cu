@@ -1,7 +1,9 @@
 // The elementwise steps of a decoder layer, fused, for Hopper (sm_90a):
 // the residual add with the RMSNorm after it, the q|k|v bias with the
-// rotary embedding and the KV-cache write, and the SiLU-gated product of
-// the MLP. Qwen2 and DeepSeek-V2 decode through them.
+// rotary embedding and the KV-cache write (or the cache write alone, for
+// attention without rotary embedding), the SiLU-gated product of the MLP
+// and the squared ReLU of a non-gated one. Qwen2, DeepSeek-V2 and
+// Nemotron-H decode through them.
 //
 // Replaces no TPU kernel: the JAX package leaves these steps to XLA, which
 // fuses them into its own loops. Run as PyTorch operators, each step is
@@ -30,10 +32,13 @@
 //    then for q and k heads the half-split rotation in f32 with each
 //    product and sum rounded on its own (no contraction into an FMA, so
 //    the bits are apply_rope's); q heads to q [B, nh D], k and v heads to
-//    slot `slot` of the layer's KV-major caches [B, kv, S, D].
+//    slot `slot` of the layer's KV-major caches [B, kv, S, D]. ROPE false
+//    (qkv_cache): no bias and no rotation, the values copied as they are.
 //  * silu_mul_kernel<T, V>: out[r, c] = T(T(silu(g)) * u) with g, u =
 //    gu[r, c], gu[r, I + c]; silu(g) = g / (1 + exp(-g)) in f32 (IEEE
 //    division, the accurate expf), rounded as F.silu then the product.
+//  * relu2_kernel<T, V>: out = T(r * r), r = relu(u): F.relu(u).square()'s
+//    bits (the product of two T values formed in f32 and rounded once).
 // No kernel reduces across blocks or uses atomics: two calls return the
 // same bits.
 
@@ -230,10 +235,10 @@ cudaError_t launch_rmsnorm(const void* x, const void* y, const float* scale, voi
 }
 
 // ---------------------------------------------------------------------------
-// q|k|v bias, rotary embedding, KV-cache write
+// q|k|v bias, rotary embedding, KV-cache write (ROPE false: the write alone)
 // ---------------------------------------------------------------------------
 
-template <typename T, int P>
+template <typename T, int P, bool ROPE>
 __global__ void qkv_rope_cache_kernel(const T* __restrict__ qkv, const float* __restrict__ bias,
                                       const float* __restrict__ cos_t, const float* __restrict__ sin_t,
                                       T* __restrict__ ck, T* __restrict__ cv, T* __restrict__ q, int nh, int kv,
@@ -241,27 +246,31 @@ __global__ void qkv_rope_cache_kernel(const T* __restrict__ qkv, const float* __
   const int b = blockIdx.x;
   const int half = D / 2, per_head = half / P, heads = nh + 2 * kv;
   const T* row = qkv + (size_t)b * heads * D;
-  const float* cr = cos_t + (size_t)b * half;
-  const float* sr = sin_t + (size_t)b * half;
+  const float* cr = ROPE ? cos_t + (size_t)b * half : nullptr;
+  const float* sr = ROPE ? sin_t + (size_t)b * half : nullptr;
   for (int it = threadIdx.x; it < heads * per_head; it += blockDim.x) {
     const int h = it / per_head, j = (it % per_head) * P;
     const int o = h * D + j;
     float a1[P], a2[P];
     load_n<T, P>(row + o, a1);
     load_n<T, P>(row + o + half, a2);
+    if constexpr (ROPE) {
 #pragma unroll
-    for (int p = 0; p < P; ++p) {
-      a1[p] = round_to<T>(__fadd_rn(a1[p], round_to<T>(bias[o + p])));
-      a2[p] = round_to<T>(__fadd_rn(a2[p], round_to<T>(bias[o + half + p])));
+      for (int p = 0; p < P; ++p) {
+        a1[p] = round_to<T>(__fadd_rn(a1[p], round_to<T>(bias[o + p])));
+        a2[p] = round_to<T>(__fadd_rn(a2[p], round_to<T>(bias[o + half + p])));
+      }
     }
     T* dst;
     if (h < nh + kv) {  // q or k: x1 cos - x2 sin | x2 cos + x1 sin
+      if constexpr (ROPE) {
 #pragma unroll
-      for (int p = 0; p < P; ++p) {
-        const float c = cr[j + p], s = sr[j + p];
-        const float r1 = __fsub_rn(__fmul_rn(a1[p], c), __fmul_rn(a2[p], s));
-        const float r2 = __fadd_rn(__fmul_rn(a2[p], c), __fmul_rn(a1[p], s));
-        a1[p] = r1, a2[p] = r2;
+        for (int p = 0; p < P; ++p) {
+          const float c = cr[j + p], s = sr[j + p];
+          const float r1 = __fsub_rn(__fmul_rn(a1[p], c), __fmul_rn(a2[p], s));
+          const float r2 = __fadd_rn(__fmul_rn(a2[p], c), __fmul_rn(a1[p], s));
+          a1[p] = r1, a2[p] = r2;
+        }
       }
       dst = h < nh ? q + ((size_t)b * nh + h) * D : ck + (((size_t)b * kv + (h - nh)) * S + slot) * D;
     } else {
@@ -272,7 +281,7 @@ __global__ void qkv_rope_cache_kernel(const T* __restrict__ qkv, const float* __
   }
 }
 
-template <typename T>
+template <typename T, bool ROPE>
 cudaError_t launch_qkv(const void* qkv, const float* bias, const float* cos_t, const float* sin_t, void* ck, void* cv,
                        void* q, int B, int nh, int kv, int D, int S, int slot, bool vec, cudaStream_t s) {
   constexpr int P = 16 / sizeof(T);
@@ -280,11 +289,11 @@ cudaError_t launch_qkv(const void* qkv, const float* bias, const float* cos_t, c
   int threads = ((nh + 2 * kv) * per_head + 31) / 32 * 32;
   threads = threads > 256 ? 256 : threads;
   if (vec)
-    qkv_rope_cache_kernel<T, P><<<B, threads, 0, s>>>((const T*)qkv, bias, cos_t, sin_t, (T*)ck, (T*)cv, (T*)q, nh,
-                                                      kv, D, S, slot);
+    qkv_rope_cache_kernel<T, P, ROPE><<<B, threads, 0, s>>>((const T*)qkv, bias, cos_t, sin_t, (T*)ck, (T*)cv, (T*)q,
+                                                            nh, kv, D, S, slot);
   else
-    qkv_rope_cache_kernel<T, 1><<<B, threads, 0, s>>>((const T*)qkv, bias, cos_t, sin_t, (T*)ck, (T*)cv, (T*)q, nh,
-                                                      kv, D, S, slot);
+    qkv_rope_cache_kernel<T, 1, ROPE><<<B, threads, 0, s>>>((const T*)qkv, bias, cos_t, sin_t, (T*)ck, (T*)cv, (T*)q,
+                                                            nh, kv, D, S, slot);
   return cudaGetLastError();
 }
 
@@ -321,6 +330,39 @@ cudaError_t launch_silu(const void* gu, void* out, int rows, int I, bool vec, cu
     silu_mul_kernel<T, V><<<(int)blocks, 256, 0, s>>>((const T*)gu, (T*)out, rows, I);
   else
     silu_mul_kernel<T, 1><<<(int)blocks, 256, 0, s>>>((const T*)gu, (T*)out, rows, I);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// squared ReLU
+// ---------------------------------------------------------------------------
+
+template <typename T, int V>
+__global__ void relu2_kernel(const T* __restrict__ u, T* __restrict__ out, long long n) {
+  const long long chunks = n / V;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < chunks;
+       i += (long long)gridDim.x * blockDim.x) {
+    float a[V];
+    load_n<T, V>(u + i * V, a);
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      const float r = a[j] < 0.f ? 0.f : a[j];  // relu: a NaN stays NaN
+      a[j] = __fmul_rn(r, r);
+    }
+    store_n<T, V>(out + i * V, a);
+  }
+}
+
+template <typename T>
+cudaError_t launch_relu2(const void* u, void* out, long long n, bool vec, cudaStream_t s) {
+  constexpr int V = 16 / sizeof(T);
+  const long long m = vec ? n / V : n;
+  long long blocks = (m + 255) / 256;
+  blocks = blocks > 8192 ? 8192 : (blocks < 1 ? 1 : blocks);
+  if (vec)
+    relu2_kernel<T, V><<<(int)blocks, 256, 0, s>>>((const T*)u, (T*)out, n);
+  else
+    relu2_kernel<T, 1><<<(int)blocks, 256, 0, s>>>((const T*)u, (T*)out, n);
   return cudaGetLastError();
 }
 
@@ -366,8 +408,23 @@ extern "C" int tvc_qkv_rope_cache(const void* qkv, const void* bias, const void*
   const bool vec = (D / 2) % P == 0 && aligned16(qkv) && aligned16(ck) && aligned16(cv) && aligned16(q);
   cudaStream_t s = (cudaStream_t)stream;
   const float *b = (const float*)bias, *c = (const float*)cos_t, *sn = (const float*)sin_t;
-  return (int)(is_f32 ? launch_qkv<float>(qkv, b, c, sn, ck, cv, q, B, nh, kv, D, S, slot, vec, s)
-                      : launch_qkv<bf16>(qkv, b, c, sn, ck, cv, q, B, nh, kv, D, S, slot, vec, s));
+  return (int)(is_f32 ? launch_qkv<float, true>(qkv, b, c, sn, ck, cv, q, B, nh, kv, D, S, slot, vec, s)
+                      : launch_qkv<bf16, true>(qkv, b, c, sn, ck, cv, q, B, nh, kv, D, S, slot, vec, s));
+}
+
+// qkv [B, (nh + 2 kv) D] -> q [B, nh D]; k and v into slot `slot` of ck, cv
+// [B, kv, S, D] (one layer of the stacked caches): no bias, no rotation.
+extern "C" int tvc_qkv_cache(const void* qkv, void* ck, void* cv, void* q, int B, int nh, int kv, int D, int S,
+                             int slot, int is_f32, void* stream) {
+  if (nh < 1 || kv < 1 || D < 2 || D % 2 || slot < 0 || slot >= S) return (int)cudaErrorInvalidValue;
+  if (B < 1) return (int)cudaGetLastError();
+  const int P = is_f32 ? 4 : 8;
+  const bool vec = (D / 2) % P == 0 && aligned16(qkv) && aligned16(ck) && aligned16(cv) && aligned16(q);
+  cudaStream_t s = (cudaStream_t)stream;
+  return (int)(is_f32 ? launch_qkv<float, false>(qkv, nullptr, nullptr, nullptr, ck, cv, q, B, nh, kv, D, S, slot, vec,
+                                                 s)
+                      : launch_qkv<bf16, false>(qkv, nullptr, nullptr, nullptr, ck, cv, q, B, nh, kv, D, S, slot, vec,
+                                                s));
 }
 
 // out [rows, I] = silu(gu[:, :I]) * gu[:, I:], gu [rows, 2 I]
@@ -377,4 +434,13 @@ extern "C" int tvc_silu_mul(const void* gu, void* out, int rows, int I, int is_f
   const bool vec = I % (is_f32 ? 4 : 8) == 0 && aligned16(gu) && aligned16(out);
   cudaStream_t s = (cudaStream_t)stream;
   return (int)(is_f32 ? launch_silu<float>(gu, out, rows, I, vec, s) : launch_silu<bf16>(gu, out, rows, I, vec, s));
+}
+
+// out [n] = relu(u)^2, u [n]
+extern "C" int tvc_relu2(const void* u, void* out, long long n, int is_f32, void* stream) {
+  if (n < 0) return (int)cudaErrorInvalidValue;
+  if (n == 0) return (int)cudaGetLastError();
+  const bool vec = n % (is_f32 ? 4 : 8) == 0 && aligned16(u) && aligned16(out);
+  cudaStream_t s = (cudaStream_t)stream;
+  return (int)(is_f32 ? launch_relu2<float>(u, out, n, vec, s) : launch_relu2<bf16>(u, out, n, vec, s));
 }

@@ -20,7 +20,9 @@ loop and host side (``decoding.CausalDecoder``).
     are mixtures of experts: ``p = softmax(x W_router)`` in f32, the top
     ``num_experts_per_tok`` by value (not renormalised, times
     ``routed_scaling_factor``), ``y = sum_top p_e E_e(x) + S(x)`` with each
-    expert and the merged shared experts SiLU-gated MLPs.
+    expert and the merged shared experts SiLU-gated MLPs (or, where the
+    configuration's ``expert_act`` is ``relu2``, non-gated ones:
+    ``relu(x W_up)^2 W_down``).
 
 * ``DeepseekV2Model``: seeded random weights, or a given tree, or a
   callable that hands over one part at a time (``"embed"``, ``"layer_i"``,
@@ -72,7 +74,7 @@ import torch
 from torch import Tensor
 
 from tvc_torch._device import disable_tf32, resolve_device
-from tvc_torch.core.kernels.decode_fused_kernel import add_rmsnorm, rmsnorm, silu_mul
+from tvc_torch.core.kernels.decode_fused_kernel import add_rmsnorm, relu2, rmsnorm, silu_mul
 from tvc_torch.core.kernels.dsv2_fused_kernel import (  # noqa: F401  (rope_interleaved: the names this module offers)
     mla_out,
     mla_rope_cache,
@@ -124,6 +126,9 @@ class DeepseekV2Config:
     norm_topk_prob: bool = False
     #: False: the latent attention's rope dimensions are not rotated (NoPE)
     use_rope: bool = True
+    #: the experts' activation: "silu" (SiLU-gated, gate|up then down) or
+    #: "relu2" (non-gated, relu(up)^2 then down)
+    expert_act: str = "silu"
     max_seq_len: int = 512
     dtype: Any = torch.bfloat16
     model_name: str = "deepseek-ai/DeepSeek-V2-Lite"
@@ -393,11 +398,17 @@ class DeepseekV2Model(CausalDecoder):
         out = {"ln_mlp": lp["ln_mlp"]["scale"]}
         if "mlp" in lp:
             return {**out, "wgu": lp["mlp"]["gate_up"]["kernel"], "wd": lp["mlp"]["down"]["kernel"]}
-        m = lp["moe"]
-        return {**out, "router": m["router"]["kernel"], "router_bias": m["router"].get("bias"),
-                "egu": m["experts"]["gate_up"]["kernel"], "ed": m["experts"]["down"]["kernel"],
-                "sgu": m["shared"]["gate_up"]["kernel"], "sd": m["shared"]["down"]["kernel"],
-                "moe_index": i - self.config.first_k_dense}
+        return {**out, **self._moe_state(lp["moe"], i - self.config.first_k_dense)}
+
+    def _moe_state(self, m: Dict, index: int) -> Dict:
+        """An MoE block's decode weights from its ``moe`` tree, the ``index``-th
+        of the model's MoE blocks: the router (and its correction bias, where
+        it has one) and each expert's first matrix, gate|up (SiLU-gated) or
+        up (non-gated: ``expert_act`` relu2), and down."""
+        first = "up" if self.config.expert_act == "relu2" else "gate_up"
+        return {"router": m["router"]["kernel"], "router_bias": m["router"].get("bias"),
+                "egu": m["experts"][first]["kernel"], "ed": m["experts"]["down"]["kernel"],
+                "sgu": m["shared"][first]["kernel"], "sd": m["shared"]["down"]["kernel"], "moe_index": index}
 
     # -- the decode math ----------------------------------------------------------------
     def _mm(self, x3: Tensor, leaf) -> Tensor:
@@ -471,10 +482,16 @@ class DeepseekV2Model(CausalDecoder):
         topv, _, pos, xs, offsets = moe_route(xf.float() @ L["router"], xf, c.num_experts_per_tok, counts,
                                               c.scoring_func, L["router_bias"], c.norm_topk_prob)
         gu = moe_w8_grouped_gemm(xs, L["egu"]["int8"], L["egu"]["scale"], offsets)
-        yd = moe_w8_grouped_gemm(silu_mul(gu, c.moe_intermediate_size), L["ed"]["int8"], L["ed"]["scale"], offsets)
-        sgu = self._mm(xf, L["sgu"])
-        shared = self._mm(silu_mul(sgu, sgu.shape[-1] // 2), L["sd"])
+        yd = moe_w8_grouped_gemm(self._expert_act(gu), L["ed"]["int8"], L["ed"]["scale"], offsets)
+        shared = self._mm(self._expert_act(self._mm(xf, L["sgu"])), L["sd"])
         return moe_combine(yd, pos, topv, shared, c.routed_scaling_factor).reshape(B, T, H)
+
+    def _expert_act(self, gu: Tensor) -> Tensor:
+        """An expert's activation of its first GEMM's output: the SiLU-gated
+        product of gate|up, or the squared ReLU of up (``expert_act``)."""
+        if self.config.expert_act == "relu2":
+            return relu2(gu)
+        return silu_mul(gu, gu.shape[-1] // 2)
 
     def _layer(self, L: Dict, l: int, h: Tensor, y: Optional[Tensor], cos, sin, mask, cache, cache_index, ctx,
                step, lengths=None) -> Tuple[Tensor, Tensor]:

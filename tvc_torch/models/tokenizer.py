@@ -339,6 +339,9 @@ DEEPSEEK_V2_VOCAB, DEEPSEEK_V2_BOS, DEEPSEEK_V2_EOS = 102400, 100000, 100001
 #: Kimi-Linear's vocabulary and the BOS / EOS ids the port gives it, above
 #: the bundled Qwen2 BPE's range
 KIMI_LINEAR_VOCAB, KIMI_LINEAR_BOS, KIMI_LINEAR_EOS = 163840, 163584, 163585
+#: Nemotron-H's vocabulary and the BOS / EOS ids the port gives it, its
+#: last two rows
+NEMOTRON_H_VOCAB, NEMOTRON_H_BOS, NEMOTRON_H_EOS = 131072, 131070, 131071
 
 
 class CutQwenBPETokenizer(QwenBPETokenizer):
@@ -395,6 +398,16 @@ class KimiQwenBPETokenizer(CutQwenBPETokenizer):
     BOS_TEXT, EOS_TEXT = "[BOS]", "[EOS]"
 
 
+class NemotronQwenBPETokenizer(CutQwenBPETokenizer):
+    """The Qwen2 byte-level BPE cut to ids below 131,070, no added tokens
+    split out, BOS 131,070 opening every text and EOS 131,071, the last two
+    of the 131,072 rows: it stands in for Nemotron-H's own tokenizer, whose
+    files the repository does not hold."""
+
+    CUT, BOS, EOS = NEMOTRON_H_BOS, NEMOTRON_H_BOS, NEMOTRON_H_EOS
+    BOS_TEXT, EOS_TEXT = "<s>", "</s>"
+
+
 def get_tokenizer(
     vocab_size: int = 49408,
     context_length: int = 77,
@@ -407,7 +420,8 @@ def get_tokenizer(
     vocab 102400 the Qwen2 BPE cut to it (``CutQwenBPETokenizer``, from
     ``merges_path`` or the bundled assets); for Kimi-Linear's vocab 163840
     the Qwen2 BPE whole with BOS / EOS above it (``KimiQwenBPETokenizer``);
-    the hash tokenizer otherwise."""
+    for Nemotron-H's vocab 131072 the Qwen2 BPE cut below its last two rows
+    (``NemotronQwenBPETokenizer``); the hash tokenizer otherwise."""
     if vocab_size == 49408:
         merges_path = merges_path or os.environ.get("TVC_CLIP_BPE")
         if merges_path and os.path.exists(merges_path):
@@ -431,8 +445,10 @@ def get_tokenizer(
                 p = p.parent
             if (p / "vocab.json").exists():
                 return QwenBPETokenizer(str(p), context_length)
-    if vocab_size in (DEEPSEEK_V2_VOCAB, KIMI_LINEAR_VOCAB):
-        kind = CutQwenBPETokenizer if vocab_size == DEEPSEEK_V2_VOCAB else KimiQwenBPETokenizer
+    cut_kinds = {DEEPSEEK_V2_VOCAB: CutQwenBPETokenizer, KIMI_LINEAR_VOCAB: KimiQwenBPETokenizer,
+                 NEMOTRON_H_VOCAB: NemotronQwenBPETokenizer}
+    if vocab_size in cut_kinds:
+        kind = cut_kinds[vocab_size]
         for cand in (merges_path, ASSET_DIR / "qwen_tokenizer"):
             p = Path(cand) if cand else None
             if p is not None and p.is_file():
